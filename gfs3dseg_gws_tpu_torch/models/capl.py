@@ -1,0 +1,266 @@
+"""GW/CAPL head, eval methods (counterpart of the JAX package's
+models/capl.py; reference model/capl.py:21-433).
+
+  * DGCNN features + self-attention + base learner -> 192-d semantic feature.
+  * Cosine match of the EdgeConv1-3 features against the geometric-word
+    basis, sharpened softmax(10 cos) + hard one-hot word assignment.
+  * Fusion conv -> 128-d point feature; per-class prototypes (main_proto)
+    + background prototype; cosine classifier (x10).
+  * Evaluation: transductively refined base + registered novel prototypes,
+    logits re-weighted by geometric-word multi-hot agreement (x eval_weight).
+
+The training pass (`__call__`, `generate_fake_proto`) comes with the
+training slice.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from gfs3dseg_gws_tpu_torch.models.attention import SelfAttention
+from gfs3dseg_gws_tpu_torch.models.dgcnn import DGCNN, BaseLearner
+from gfs3dseg_gws_tpu_torch.models.layers import (BatchNorm, Conv1x1,
+                                                  LeakyReLU, l2norm,
+                                                  random_init_)
+
+
+class GWCAPL(nn.Module):
+    """Geometric-words CAPL model, built in eval mode.
+
+    Its state dict has the reference's keys, so a reference `.pth` loads
+    with `load_state_dict(strict=True)`. With a `generator`, every weight
+    and BatchNorm statistic is drawn from it (`random_init_`).
+    """
+
+    def __init__(self, classes: int = 13, base_num: int = 7,
+                 num_gw: int = 150, main_dim: int = 128, energy: float = 0.9,
+                 eval_weight: float = 1.0, cosine_scale: float = 10.0,
+                 edgeconv_widths: Sequence[Sequence[int]] = ((64, 64),) * 3,
+                 mlp_widths: Sequence[int] = (512, 256),
+                 base_widths: Sequence[int] = (128, 64),
+                 output_dim: int = 64, k: int = 20, in_features: int = 9,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.classes = classes
+        self.base_num = base_num
+        self.num_gw = num_gw
+        self.energy = energy
+        self.eval_weight = eval_weight
+        self.cosine_scale = cosine_scale
+        self.encoder = DGCNN(in_features, edgeconv_widths, mlp_widths, k=k,
+                             device=device)
+        self.base_learner = BaseLearner(mlp_widths[-1], base_widths,
+                                        device=device)
+        self.att_learner = SelfAttention(mlp_widths[-1], output_dim,
+                                         device=device)
+        semantic = edgeconv_widths[0][-1] + output_dim + base_widths[-1]
+        # input order [cosine_feat, semantic_feat] (reference capl.py:63-65)
+        self.fusion = nn.Sequential(
+            Conv1x1(num_gw + semantic, main_dim, bias=True, device=device),
+            BatchNorm(main_dim, device=device), LeakyReLU())
+        self.main_proto = nn.Parameter(torch.zeros(classes, main_dim,
+                                                   device=device))
+        self.bg_proto = nn.Parameter(torch.zeros(1, main_dim, device=device))
+        if generator is not None:
+            random_init_(self, generator)
+        self.eval()
+
+    # ------------------------------------------------------------------ #
+    # feature extraction
+    # ------------------------------------------------------------------ #
+
+    def get_features(self, x: torch.Tensor, gp: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Reference capl.py:324-362.
+
+        x: (B, N, C_in) point clouds; gp: (num_gw, 192) geometric-word basis.
+        Returns point_feat (B, N, main_dim), semantic_feat (B, N, 192),
+        one_hot_gw (B, N, num_gw).
+        """
+        edge_feats, feat_level2 = self.encoder(x)
+        feat_level3 = self.base_learner(feat_level2)
+        att_feat = self.att_learner(feat_level2)
+        semantic_feat = torch.cat([edge_feats[0], att_feat, feat_level3],
+                                  dim=-1)
+        edge_l2 = l2norm(torch.cat(edge_feats, dim=-1))
+        gp_l2 = l2norm(gp)
+        cos = torch.einsum("bnd,kd->bnk", edge_l2, gp_l2)
+        cosine_feat = torch.softmax(self.cosine_scale * cos, dim=-1)
+        assignment = torch.argmax(cosine_feat, dim=-1)
+        one_hot_gw = nn.functional.one_hot(assignment, self.num_gw).to(
+            cos.dtype)
+        point_feat = self.fusion(torch.cat([cosine_feat, semantic_feat],
+                                           dim=-1))
+        return point_feat, semantic_feat, one_hot_gw
+
+    def get_fg_feat(self, x: torch.Tensor, mask: torch.Tensor,
+                    gp: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Masked foreground features of support shots (capl.py:71-88), as
+        per-shot sums and counts so callers average like the reference.
+
+        x: (S, N, C_in), mask: (S, N) binary. Returns (fg_feat_sums
+        (S, main_dim), fg_counts (S,), fg_gw_hists (S, num_gw)).
+        """
+        point_feat, _, gw = self.get_features(x, gp)
+        m = mask.to(point_feat.dtype)
+        fg_sums = torch.einsum("snc,sn->sc", point_feat, m)
+        fg_cnts = torch.sum(m, dim=-1)
+        gw_hists = torch.einsum("snk,sn->sk", gw, m)
+        return fg_sums, fg_cnts, gw_hists
+
+    # ------------------------------------------------------------------ #
+    # prototype classifier
+    # ------------------------------------------------------------------ #
+
+    def get_pred(self, x: torch.Tensor, proto: torch.Tensor,
+                 use_bg_proto: bool = False) -> torch.Tensor:
+        """Cosine-similarity logits x cosine_scale (reference capl.py:290-322).
+
+        x: (B, N, C); proto: (cls, C), or (..., B, cls, C) with any leading
+        dims (e.g. seeds). Returns (B, N, cls[+1]) or (..., B, N, cls[+1]).
+        """
+        if use_bg_proto:
+            bg = self.bg_proto.expand(*proto.shape[:-2], 1, proto.shape[-1])
+            proto = torch.cat([bg, proto], dim=-2)
+        xn = l2norm(x)
+        pn = l2norm(proto)
+        if proto.dim() == 2:
+            pred = torch.einsum("bnc,kc->bnk", xn, pn)
+        else:
+            pred = torch.einsum("bnc,...bkc->...bnk", xn, pn)
+        return pred * self.cosine_scale
+
+    def post_refine_proto(self, proto: torch.Tensor, point_feat: torch.Tensor,
+                          use_bg_proto: bool = False) -> torch.Tensor:
+        """Transductive prototype refinement, eqn.6 (capl.py:245-287).
+
+        The per-class softmax runs over POINTS (dim 1), not classes; each
+        refined prototype is blended with the learned one by their clamped
+        cosine agreement. proto: (cls, C); point_feat: (B, N, C) ->
+        (B, cls, C).
+        """
+        pred = self.get_pred(point_feat, proto, use_bg_proto)  # (B, N, cls*)
+        pred = torch.softmax(pred, dim=1)                      # over points
+        pred_proto = torch.einsum("bnk,bnc->bkc", pred, point_feat)
+        if use_bg_proto:
+            pred_proto = pred_proto[:, 1:, :]
+        w = torch.sum(l2norm(pred_proto) * l2norm(proto)[None], dim=-1,
+                      keepdim=True)
+        w = w * (w > 0).to(w.dtype)                            # clamp at 0
+        return w * pred_proto + (1.0 - w) * proto[None]
+
+    # ------------------------------------------------------------------ #
+    # geometric-word re-weighting
+    # ------------------------------------------------------------------ #
+
+    def gp_weight(self, gp_coding: torch.Tensor, gw_onehot: torch.Tensor,
+                  th: float, y: Optional[torch.Tensor] = None,
+                  base_num: Optional[int] = None,
+                  mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Reference capl.py:92-142 (test branch).
+
+        gp_coding: (..., cls, num_gw) multi-hot class codings (leading dims,
+        e.g. seeds, allowed); gw_onehot: (B, N, num_gw) hard word assignment;
+        mask: optional (B, N) validity mask (padded rows of a final short
+        batch stay out of the gp_acc means).
+        Returns (weight (..., B, N, cls), gp_acc (...), gp_novel_acc (...)).
+        """
+        # {0,1} products summed in fp32: exact, so `== 1.0` is exact
+        score = torch.einsum("...kw,bnw->...bnk", gp_coding, gw_onehot)
+        weight = torch.where(score == 1.0,
+                             torch.full_like(score, th),
+                             torch.ones_like(score))
+        if y is None:
+            zero = score.new_zeros(score.shape[:-3])
+            return weight, zero, zero
+        n_cls = gp_coding.shape[-2]
+        gt_onehot = nn.functional.one_hot(y.long(), n_cls).to(score.dtype)
+        per_point = torch.sum(gt_onehot * score, dim=-1)        # (..., B, N)
+        w = (torch.ones_like(y, dtype=score.dtype) if mask is None
+             else mask.to(score.dtype))
+        acc = (torch.sum(per_point * w, dim=(-2, -1))
+               / torch.clamp_min(torch.sum(w), 1.0))
+        if base_num is None:
+            base_num = self.base_num
+        novel_mask = (y > base_num - 1).to(score.dtype) * w
+        novel_cnt = torch.sum(novel_mask)
+        novel_acc = torch.where(
+            novel_cnt > 0,
+            torch.sum(per_point * novel_mask, dim=(-2, -1))
+            / torch.clamp_min(novel_cnt, 1.0),
+            torch.zeros_like(acc))
+        return weight, acc, novel_acc
+
+    # ------------------------------------------------------------------ #
+    # evaluation passes
+    # ------------------------------------------------------------------ #
+
+    def _merge(self, refine: torch.Tensor, gened: torch.Tensor
+               ) -> torch.Tensor:
+        """Base rows: refined + registered; novel rows: registered.
+        refine (B, cls, C), gened (..., cls, C) -> (..., B, cls, C)."""
+        base = self.base_num
+        gened = gened.unsqueeze(-3)                          # (..., 1, cls, C)
+        lead = gened.shape[:-3] + refine.shape[:1]
+        return torch.cat([
+            refine[..., :base, :] + gened[..., :base, :],
+            gened[..., base:, :].expand(*lead, refine.shape[1] - base,
+                                        refine.shape[2]),
+        ], dim=-2)
+
+    @staticmethod
+    def _row_mask(x: torch.Tensor, valid: Optional[int]
+                  ) -> Optional[torch.Tensor]:
+        if valid is None:
+            return None
+        rows = torch.arange(x.shape[0], device=x.device) < valid
+        return rows[:, None].expand(x.shape[:2])
+
+    def evaluate(self, x: torch.Tensor, gp: torch.Tensor,
+                 gened_proto: torch.Tensor, base_coding: torch.Tensor,
+                 novel_coding: torch.Tensor, y: Optional[torch.Tensor] = None,
+                 valid: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """GFS evaluation pass (reference capl.py:170-192).
+
+        gened_proto: (cls, main_dim) registered prototypes;
+        base_coding/novel_coding: (n_base, num_gw)/(n_novel, num_gw).
+        Returns (logits (B, N, cls), gp_acc, gp_novel_acc).
+        """
+        point_feat, _, gw_onehot = self.get_features(x, gp)
+        refine = self.post_refine_proto(self.main_proto, point_feat)
+        x_pre = self.get_pred(point_feat, self._merge(refine, gened_proto))
+        gp_coding = torch.cat([base_coding, novel_coding], dim=0)
+        weight, gp_acc, gp_novel_acc = self.gp_weight(
+            gp_coding, gw_onehot, th=self.eval_weight, y=y,
+            mask=self._row_mask(x, valid))
+        return x_pre * weight, gp_acc, gp_novel_acc
+
+    def evaluate_multi(self, x: torch.Tensor, gp: torch.Tensor,
+                       gened_protos: torch.Tensor, base_coding: torch.Tensor,
+                       novel_codings: torch.Tensor,
+                       y: Optional[torch.Tensor] = None,
+                       valid: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Evaluate S registered prototype sets in ONE feature sweep: the
+        encoder does not depend on the seed, so features are computed once
+        and the heads run over an explicit leading seed dimension.
+
+        gened_protos: (S, cls, main_dim); novel_codings: (S, n_novel, num_gw).
+        Returns (logits (S, B, N, cls), gp_acc (S,), gp_novel_acc (S,)).
+        """
+        point_feat, _, gw_onehot = self.get_features(x, gp)
+        refine = self.post_refine_proto(self.main_proto, point_feat)
+        x_pre = self.get_pred(point_feat, self._merge(refine, gened_protos))
+        s = gened_protos.shape[0]
+        gp_coding = torch.cat([base_coding.expand(s, *base_coding.shape),
+                               novel_codings], dim=1)         # (S, cls, K)
+        weight, gp_acc, gp_novel_acc = self.gp_weight(
+            gp_coding, gw_onehot, th=self.eval_weight, y=y,
+            mask=self._row_mask(x, valid))
+        return x_pre * weight, gp_acc, gp_novel_acc

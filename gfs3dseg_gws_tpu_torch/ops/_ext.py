@@ -1,0 +1,127 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+`nvcc` compiles every source in `gfs3dseg_gws_tpu_torch/csrc/` for sm_90a
+into one shared library with a plain C interface, which is loaded with
+ctypes. The build runs on first use (the first CUDA tensor that reaches a
+kernel wrapper), never at import, and lands in `build/torch_kernels/` at the
+root of the checkout, named by a hash of the sources and flags so that an
+edited source never meets a stale library.
+
+Each C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `check()` turns a non-zero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points in csrc/*.cu
+_SIGNATURES = {
+    # x, a_table, b_table, w2, bias2, idx (scratch), out, batch, n, c, w0,
+    # w1, k, neg_slope, stream
+    "gfs_fused_edgeconv_infer": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _F, _P),
+    # q, k, v, out, batch, n, d, inv_temperature, stream
+    "gfs_fused_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+}
+
+
+def _sources():
+    return sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgfs3dseg_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    # compile to a private name, then rename: a concurrent build never sees
+    # a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp, *cu]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
+                           f"\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.gfs_error_string.argtypes = [ctypes.c_int]
+    lib.gfs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        msg = library().gfs_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({code})")
+
+
+def check_tensors(name: str, **tensors) -> None:
+    """Raise unless every tensor is contiguous fp32 on one CUDA device."""
+    devices = set()
+    for arg, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, not CUDA")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, expected float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        devices.add(t.device)
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs span devices {sorted(map(str, devices))}")
+
+
+def current_stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

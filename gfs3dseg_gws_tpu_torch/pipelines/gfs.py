@@ -1,0 +1,440 @@
+"""Generalized few-shot evaluation (counterpart of the eval half of the JAX
+package's pipelines/gfs.py; reference train.py:309-499, 666-731).
+
+`evaluate_gfs` (`train.py --only_evaluate`) does four things:
+  1. collect base-class geometric-word codings over the train split
+     (`collect_base_codings`), unless a saved coding is found;
+  2. register novel prototypes from each support seed
+     (`register_novel_protos`);
+  3. run one static_test sweep that scores every seed's prototype set
+     (`validate_multi`, `GWCAPL.evaluate_multi`);
+  4. reduce to base, novel, mean and harmonic-mean mIoU (`gfs_miou`).
+
+The host data layer (datasets, registry, native C++ loader) is the JAX
+package's numpy-only data layer, shared as it is (`gfs3dseg_gws_tpu_torch.data`).
+"""
+from __future__ import annotations
+
+import logging
+import os
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gfs3dseg_gws_tpu_torch.data import (
+    PretrainBlockDataset,
+    TestingDataset,
+    ValSuppDataset,
+    batch_iterator,
+    make_registry,
+    native_loader,
+)
+from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
+from gfs3dseg_gws_tpu_torch.models.layers import l2norm
+from gfs3dseg_gws_tpu_torch.ops.coding import energy_multihot
+from gfs3dseg_gws_tpu_torch.ops.metrics import gfs_miou
+from gfs3dseg_gws_tpu_torch.parallel.steps import (coding_step, fg_feat_step,
+                                                   gfs_eval_multi_step)
+from gfs3dseg_gws_tpu_torch.utils.checkpoint import (
+    load_basis,
+    load_checkpoint,
+    load_torch_coding,
+    load_torch_gfs_state_dict,
+    state_dict_from_jax,
+)
+from gfs3dseg_gws_tpu_torch.utils.logging import (AverageMeter, IOStream,
+                                                  init_logger)
+
+_log = logging.getLogger(__name__)
+
+
+def resolve_device(name: str) -> torch.device:
+    """torch.device(name); a CUDA device without CUDA raises rather than
+    quietly running on the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {name!r} requested but CUDA is not "
+                           "available (use --device cpu for the plain path)")
+    return device
+
+
+def _env_flag(name: str) -> bool:
+    """Same reading as the JAX package's utils/env.py::env_flag."""
+    return os.environ.get(name, "").strip().lower() not in (
+        "", "0", "false", "no", "off")
+
+
+def _to(device: torch.device, array) -> torch.Tensor:
+    return torch.from_numpy(np.array(array)).to(device)
+
+
+# --------------------------------------------------------------------------- #
+# setup
+# --------------------------------------------------------------------------- #
+
+@dataclass
+class GFSSetup:
+    model: GWCAPL
+    gp: torch.Tensor
+    train_class_names: List[int]
+    test_class_names: List[int]
+    all_learning_order: List[int]
+    all_class_names: List[int]
+    test_learning_order_idx: List[int]
+    val_dataset: TestingDataset
+    supp_datasets: List[ValSuppDataset]
+    train_data_noaug: PretrainBlockDataset
+
+
+def build_setup(model_cfg, data_cfg, train_cfg, basis: np.ndarray,
+                device: torch.device) -> GFSSetup:
+    """Datasets + class orderings exactly as reference train.py:328-415,
+    and an eval-mode GWCAPL on `device` (weights still to be loaded)."""
+    reg_test = make_registry(data_cfg.dataset, data_cfg.cvfold,
+                             data_cfg.testing_data_path)
+    train_class_names = sorted(reg_test.train_classes)
+    test_class_names = sorted(reg_test.test_classes)
+    all_learning_order = train_class_names + test_class_names
+    all_class_names = sorted(all_learning_order)
+    test_learning_order_idx = [all_learning_order.index(c)
+                               for c in test_class_names]
+
+    test_c2s = {c: reg_test.class2scans[c] for c in all_class_names}
+    val_dataset = TestingDataset(
+        data_cfg.testing_data_path, all_class_names, all_learning_order,
+        test_c2s, mode="test", num_point=data_cfg.pc_npts,
+        pc_attribs=data_cfg.pc_attribs)
+
+    reg_train = make_registry(data_cfg.dataset, data_cfg.cvfold,
+                              data_cfg.data_path)
+    supp_datasets = [
+        ValSuppDataset(data_cfg.data_path, data_cfg.dataset,
+                       cvfold=data_cfg.cvfold, k_shot=data_cfg.k_shot,
+                       mode="test", num_point=data_cfg.pc_npts,
+                       pc_attribs=data_cfg.pc_attribs, seed=seed,
+                       learning_order=all_learning_order, registry=reg_train)
+        for seed in data_cfg.support_seeds
+    ]
+    train_c2s = {c: reg_train.class2scans[c] for c in train_class_names}
+    train_data_noaug = PretrainBlockDataset(
+        data_cfg.data_path, train_class_names, train_c2s, mode="train",
+        num_point=data_cfg.pc_npts, pc_attribs=data_cfg.pc_attribs,
+        pc_augm=False)
+
+    model = GWCAPL(
+        classes=len(all_class_names), base_num=len(train_class_names),
+        num_gw=basis.shape[0], main_dim=model_cfg.main_dim,
+        energy=train_cfg.energy, eval_weight=train_cfg.eval_weight,
+        cosine_scale=model_cfg.cosine_scale,
+        edgeconv_widths=model_cfg.edgeconv_widths,
+        mlp_widths=model_cfg.dgcnn_mlp_widths,
+        base_widths=model_cfg.base_widths, output_dim=model_cfg.output_dim,
+        k=model_cfg.dgcnn_k, in_features=model_cfg.pc_in_dim, device=device)
+    return GFSSetup(model, _to(device, basis), train_class_names,
+                    test_class_names, all_learning_order, all_class_names,
+                    test_learning_order_idx, val_dataset, supp_datasets,
+                    train_data_noaug)
+
+
+def load_model_weights(model: GWCAPL, path: str) -> None:
+    """A reference-layout `.pth`, or a JAX-package `.npz` through the
+    converter, into `model` (strict: every key must match)."""
+    if path.endswith(".pth"):
+        sd = load_torch_gfs_state_dict(path)
+    else:
+        flat, _ = load_checkpoint(path)
+        sd = state_dict_from_jax(flat)
+    model.load_state_dict(sd, strict=True)
+
+
+# --------------------------------------------------------------------------- #
+# coding collection / prototype registration
+# --------------------------------------------------------------------------- #
+
+def _coding_batches(dataset, batch_size: int, seed: int):
+    """Ordered full-coverage batches (points, labels, segment, valid) for the
+    coding sweep: the native C++ pool when it is available (the JAX
+    package's choice, so both draw the same blocks), padded final batch
+    either way."""
+    if not _env_flag("GFS3D_NO_NATIVE") and native_loader.is_available():
+        pool = native_loader.NativeBatchPool(
+            dataset.data_path, dataset.block_names, dataset.classes,
+            dataset.num_point, batch_size,
+            label_mode=(native_loader.LABEL_ALL_CLASSES
+                        if dataset.use_all_classes
+                        else native_loader.LABEL_LEARNING_ORDER),
+            augment=False, seed=seed, shuffle=False)
+        try:
+            yield from pool
+        finally:
+            pool.close()
+        return
+    yield from batch_iterator(dataset, batch_size, shuffle=False,
+                              pad_final=True, seed=seed)
+
+
+def collect_base_codings(model, gp: torch.Tensor, dataset, n_base: int,
+                         energy: float, batch_size: int = 16,
+                         seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Reference train.py:156-218: one sweep over the no-augmentation train
+    set. Returns (base_class_coding (n_base, K) multi-hot,
+    bg_class_coding (K,))."""
+    device = gp.device
+    k = gp.shape[0]
+    sums = torch.zeros((n_base, k), dtype=torch.float64, device=device)
+    counts = torch.zeros((n_base,), dtype=torch.float64, device=device)
+    bg_sum = torch.zeros((k,), dtype=torch.float64, device=device)
+    bg_blocks = torch.zeros((), dtype=torch.float64, device=device)
+    for batch in _coding_batches(dataset, batch_size, seed):
+        valid = int(batch[-1])
+        points, labels = batch[0][:valid], batch[1][:valid]
+        s, c, b, nb = coding_step(model, _to(device, points),
+                                  _to(device, labels), gp, n_base)
+        sums += s.double()
+        counts += c.double()
+        bg_sum += b.double()
+        bg_blocks += nb.double()
+    means = (sums / torch.clamp_min(counts[:, None], 1.0)).cpu().numpy()
+    coding = energy_multihot(torch.from_numpy(means).float(), energy)
+    # the reference means a random 2000-subset of the per-block bg features
+    # (train.py:214-215); the bg coding is dead in the reference model (its
+    # only consumer is commented out, capl.py:206), so the deterministic
+    # full mean is kept, as in the JAX package
+    bg_coding = (bg_sum / torch.clamp_min(bg_blocks, 1.0)).cpu().numpy()
+    return coding.numpy().astype(np.float32), bg_coding.astype(np.float32)
+
+
+def register_novel_protos(model, gp: torch.Tensor, supp_dataset,
+                          main_proto: np.ndarray, base_num: int,
+                          novel_class_list: Sequence[int], energy: float
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """Reference train.py:240-305 (get_new_proto_Geo2SemProto).
+
+    Novel prototype = mean over shots of per-shot foreground means (eqn.1);
+    base rows copy main_proto; rows L2-normalised. Novel coding = summed
+    word histograms -> probability -> energy multi-hot. All shots of the
+    seed run as one batch.
+    """
+    device = gp.device
+    k = gp.shape[0]
+    shots = [supp_dataset[i] for i in range(len(supp_dataset))]
+    pcds = np.stack([s[0] for s in shots])                 # (S, N, 9)
+    masks = np.stack([s[1] for s in shots])                # (S, N)
+    classes = [int(s[2]) for s in shots]
+    fg_sums, fg_cnts, gw_hists = (
+        t.cpu().numpy() for t in fg_feat_step(model, _to(device, pcds),
+                                              _to(device, masks), gp))
+
+    feat_acc: Dict[int, List[np.ndarray]] = {c: [] for c in novel_class_list}
+    hist_acc: Dict[int, np.ndarray] = {c: np.zeros(k) for c in novel_class_list}
+    for i, cls in enumerate(classes):
+        feat_acc[cls].append(fg_sums[i] / max(float(fg_cnts[i]), 1e-12))
+        hist_acc[cls] += gw_hists[i]
+
+    gened = np.zeros_like(main_proto)
+    gened[:base_num] = main_proto[:base_num]
+    for c in novel_class_list:
+        gened[c] = np.mean(np.stack(feat_acc[c]), axis=0)
+    gened = l2norm(torch.from_numpy(gened)).numpy()
+
+    novel_codings = []
+    for c in sorted(novel_class_list):
+        h = hist_acc[c] / hist_acc[c].sum()
+        novel_codings.append(
+            energy_multihot(torch.from_numpy(h).float(), energy).numpy())
+    return gened.astype(np.float32), np.stack(novel_codings).astype(np.float32)
+
+
+# --------------------------------------------------------------------------- #
+# the static_test sweep
+# --------------------------------------------------------------------------- #
+
+def eval_batches(val_dataset, batch_size: int):
+    """(points (B,N,C) f32, labels (B,N) learning order, valid) batches of
+    the static_test sweep, the final batch padded by repeating its first
+    block.
+
+    Reads the packed memmap cache (TestingDataset.packed_arrays: one slice
+    plus a label lookup per batch); where the cache cannot be built (e.g. a
+    read-only dataset mount) it falls back to the per-block pickle iterator,
+    which yields the same arrays.
+    """
+    try:
+        arrays = val_dataset.packed_arrays()
+    except (OSError, ValueError) as e:
+        _log.warning("packed eval cache unavailable (%s); falling back to "
+                     "the per-block pickle iterator", e)
+        arrays = None
+    if arrays is None:
+        for batch in batch_iterator(val_dataset, batch_size, shuffle=False,
+                                    pad_final=True):
+            yield batch[0], batch[1], int(batch[-1])
+        return
+    pcd, lbl_mm, lut = arrays
+    for s in range(0, lbl_mm.shape[0], batch_size):
+        points = np.asarray(pcd[s:s + batch_size])
+        labels = lut[np.asarray(lbl_mm[s:s + batch_size])]
+        valid = labels.shape[0]
+        if valid < batch_size:
+            pad = batch_size - valid
+            points = np.concatenate([points, np.repeat(points[:1], pad, 0)])
+            labels = np.concatenate([labels, np.repeat(labels[:1], pad, 0)])
+        yield points, labels, valid
+
+
+def validate_multi(model, gp: torch.Tensor, val_dataset,
+                   gened_protos: np.ndarray, base_coding: np.ndarray,
+                   novel_codings: np.ndarray, all_learning_order,
+                   novel_class_names, num_classes: int, batch_size: int = 16,
+                   scannet: bool = False, logger: Optional[IOStream] = None):
+    """One static_test sweep evaluating S prototype sets at once.
+    Returns a list of S (mean, base, novel, hm, iou_list) tuples.
+
+    The confusion counts and gp accuracies stay on the device until the
+    sweep ends, so no batch waits on a host round trip.
+    """
+    device = gp.device
+    n_seeds = gened_protos.shape[0]
+    protos = _to(device, gened_protos)
+    base = _to(device, base_coding)
+    novel = _to(device, novel_codings)
+    cm = torch.zeros((n_seeds, num_classes, num_classes), dtype=torch.float64,
+                     device=device)
+    accs = []
+    for points, labels, valid in eval_batches(val_dataset, batch_size):
+        c, gp_acc, gp_nacc = gfs_eval_multi_step(
+            model, _to(device, points), _to(device, labels), gp, protos, base,
+            novel, valid, num_classes)
+        cm += c.double()
+        accs.append(torch.stack([gp_acc.mean(), gp_nacc.mean()]))
+    cm = cm.cpu().numpy()
+    if logger:
+        gp_acc_m, gp_nacc_m = AverageMeter(), AverageMeter()
+        for a, na in torch.stack(accs).cpu().tolist():
+            gp_acc_m.update(a)
+            gp_nacc_m.update(na)
+        logger.cprint(f"---------- gp acc: {gp_acc_m.avg:.4f}, "
+                      f"gp_novel_acc: {gp_nacc_m.avg:.4f} ----------")
+    return [gfs_miou(cm[s], all_learning_order, novel_class_names,
+                     scannet=scannet) for s in range(n_seeds)]
+
+
+def _eval_batch_size(train_cfg) -> int:
+    """Evaluation sweep batch: results are batch-invariant (per-block
+    forward + padded confusion masking); 0 = the training batch size."""
+    return train_cfg.eval_batch_size or train_cfg.batch_size
+
+
+def load_base_coding(save_path: str, energy: float,
+                     extra_dirs: Sequence[str] = (),
+                     logger: Optional[IOStream] = None,
+                     prefixes: Sequence[str] = ("",)
+                     ) -> Optional[np.ndarray]:
+    """Locate a saved base-class coding artifact (the JAX package's
+    `.npz`, or the reference's `base_class_gp_coding_energy={e}.pth`,
+    train.py:466-467).
+
+    The search is directory-major: `extra_dirs` (e.g. the checkpoint's
+    directory) come before `save_path`; within a directory `.npz` wins over
+    `.pth`; `prefixes` are tried in order (("hm_", "") for best-hm
+    checkpoints, reference train.py:582-584). None if nothing is found.
+    """
+    dirs = []
+    for d in list(extra_dirs) + [save_path]:
+        if d and d not in dirs:
+            dirs.append(d)
+    for d in dirs:
+        for pref in prefixes:
+            for ext in (".npz", ".pth"):
+                path = os.path.join(
+                    d, f"{pref}base_class_gp_coding_energy={energy}{ext}")
+                if not os.path.exists(path):
+                    continue
+                if ext == ".npz":
+                    with np.load(path) as z:
+                        coding = z["coding"]
+                else:
+                    coding = load_torch_coding(path)
+                if logger:
+                    logger.cprint(
+                        f"---- loading base_class_coding from {path} ----")
+                return np.asarray(coding, np.float32)
+    return None
+
+
+# --------------------------------------------------------------------------- #
+# entry point: --only_evaluate
+# --------------------------------------------------------------------------- #
+
+def evaluate_gfs(model_cfg, data_cfg, train_cfg,
+                 logger: Optional[IOStream] = None) -> Dict:
+    """--only_evaluate: the 4 metrics averaged over the support seeds
+    (reference train.py:459-499), on `train_cfg.device`.
+
+    Returns the averaged metrics (`mean_iou`, `base_iou`, `novel_iou`,
+    `hm_iou`, `per_class`) and what produced them: `per_seed` (S x 4),
+    `base_coding`, `gened_protos`, `novel_codings`, plus `n_blocks` and
+    `sweep_seconds` of the static_test sweep.
+    """
+    device = resolve_device(train_cfg.device)
+    basis = load_basis(train_cfg.basis_path)
+    setup = build_setup(model_cfg, data_cfg, train_cfg, basis, device)
+    logger = logger or init_logger(train_cfg.save_path, phase="test")
+    load_model_weights(setup.model, train_cfg.model_checkpoint_path)
+
+    n_base = len(setup.train_class_names)
+    ckpt_name = os.path.basename(train_cfg.model_checkpoint_path)
+    prefixes = ("hm_", "") if ckpt_name.startswith("train_hm_") else ("",)
+    base_coding = load_base_coding(
+        train_cfg.save_path, train_cfg.energy,
+        extra_dirs=[os.path.dirname(train_cfg.model_checkpoint_path)],
+        logger=logger, prefixes=prefixes)
+    if base_coding is None:
+        logger.cprint(f"---- recompute base_class_coding, "
+                      f"energy={train_cfg.energy} ----")
+        base_coding, _ = collect_base_codings(
+            setup.model, setup.gp, setup.train_data_noaug, n_base,
+            train_cfg.energy, train_cfg.batch_size)
+        os.makedirs(train_cfg.save_path, exist_ok=True)
+        np.savez(os.path.join(
+            train_cfg.save_path,
+            f"base_class_gp_coding_energy={train_cfg.energy}.npz"),
+            coding=base_coding)
+
+    scannet = len(setup.all_learning_order) > 13
+    main_proto = setup.model.main_proto.detach().cpu().numpy()
+    # register every support seed, then score all prototype sets in one
+    # sweep: the features do not depend on the seed
+    geneds, novel_codings = [], []
+    for supp in setup.supp_datasets:
+        gened, novel_coding = register_novel_protos(
+            setup.model, setup.gp, supp, main_proto, n_base,
+            setup.test_learning_order_idx, train_cfg.energy)
+        geneds.append(gened)
+        novel_codings.append(novel_coding)
+    geneds, novel_codings = np.stack(geneds), np.stack(novel_codings)
+
+    t0 = time.perf_counter()
+    metrics = validate_multi(
+        setup.model, setup.gp, setup.val_dataset, geneds, base_coding,
+        novel_codings, setup.all_learning_order, setup.test_class_names,
+        len(setup.all_class_names), _eval_batch_size(train_cfg), scannet,
+        logger)
+    sweep_seconds = time.perf_counter() - t0
+    per_seed = np.asarray([m[:4] for m in metrics], np.float64)
+    sums = per_seed.mean(axis=0)
+    logger.cprint(
+        f"Eval result: Final mIoU: {sums[0]}, BASE: {sums[1]}, "
+        f"NOVEL: {sums[2]}, hm_mIoU: {sums[3]}")
+    per_class = np.mean(np.stack([m[4] for m in metrics]), axis=0)
+    for i, v in enumerate(per_class):
+        logger.cprint(f"class {i}, iou over multiple runs: {v}")
+    return {"mean_iou": sums[0], "base_iou": sums[1], "novel_iou": sums[2],
+            "hm_iou": sums[3], "per_class": per_class, "per_seed": per_seed,
+            "base_coding": base_coding, "gened_protos": geneds,
+            "novel_codings": novel_codings,
+            "n_blocks": len(setup.val_dataset),
+            "sweep_seconds": sweep_seconds}

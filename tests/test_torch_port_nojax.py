@@ -1,0 +1,39 @@
+"""The port must import and start on a host without JAX (the GPU host has
+none): every module of gfs3dseg_gws_tpu_torch imports, and the CLI answers
+--help, in a subprocess where importing jax or flax fails."""
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import gfs3dseg_gws_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print("imported", len(names))
+from gfs3dseg_gws_tpu_torch.cli import train_cli
+try:
+    train_cli.main(["--help"])
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert not any(m == "jax" or m.startswith(("jax.", "flax"))
+               for m, v in sys.modules.items() if v is not None)
+print("ok")
+"""
+
+
+def test_port_imports_and_starts_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "--only_evaluate" in res.stdout and "--device" in res.stdout
+    assert res.stdout.rstrip().endswith("ok")
+    n = int(res.stdout.split("imported ")[1].split()[0])
+    assert n >= 20
