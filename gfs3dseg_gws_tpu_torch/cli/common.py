@@ -48,7 +48,8 @@ def add_pc_args(p: argparse.ArgumentParser):
     p.add_argument("--pc_augm_jitter", type=int, default=1)
 
 
-def add_model_args(p: argparse.ArgumentParser):
+def add_model_args(p: argparse.ArgumentParser,
+                   attention_action: str = "store_false"):
     p.add_argument("--dgcnn_k", type=int, default=20,
                    help="Number of nearest neighbors in Edgeconv")
     p.add_argument("--edgeconv_widths", default="[[64,64], [64,64], "
@@ -59,22 +60,30 @@ def add_model_args(p: argparse.ArgumentParser):
                    help="BaseLearner widths")
     p.add_argument("--output_dim", type=int, default=64,
                    help="attention learner output dim")
-    # the GFS CLI's polarity (reference train.py:807-808): attention is ON
-    # unless flagged
-    p.add_argument("--use_attention", action="store_false",
-                   help="use attention learner (default True)")
+    # the reference CLIs disagree on the polarity: the GFS CLI stores false
+    # (attention ON unless flagged, train.py:807-808), the pretrain and
+    # baseline CLI stores true (OFF unless flagged, pretrain/main.py:79)
+    p.add_argument("--use_attention", action=attention_action,
+                   help="use attention learner (default "
+                        f"{attention_action == 'store_false'})")
 
 
-def add_tpu_compat_args(p: argparse.ArgumentParser):
-    """Flags of the JAX CLI that steer only the TPU (batch transfer,
-    dispatch chaining, device mesh, Pallas on/off). They are accepted so
-    that its launch commands run unchanged, and have no effect here."""
+def add_dispatch_args(p: argparse.ArgumentParser):
+    """Flags of the JAX CLIs that steer only the TPU (batch transfer,
+    dispatch chaining, Pallas on/off). They are accepted so that its launch
+    commands run unchanged, and have no effect here. Returns the group."""
     g = p.add_argument_group("accepted for compatibility with the JAX CLI "
                              "(no effect in the port)")
     g.add_argument("--h2d", choices=("auto", "exact", "packed"),
                    default="auto")
     g.add_argument("--steps_per_dispatch", type=int, default=1)
     g.add_argument("--no_pallas", action="store_true")
+    return g
+
+
+def add_tpu_compat_args(p: argparse.ArgumentParser):
+    """`add_dispatch_args` plus the device-mesh flags of the GFS CLI."""
+    g = add_dispatch_args(p)
     g.add_argument("--mesh", type=str, default="data",
                    choices=["data", "dxp"], dest="mesh_shape")
     g.add_argument("--mesh_sp", type=int, default=2)
@@ -99,7 +108,8 @@ def data_config_from_args(args) -> DataConfig:
         cvfold=args.cvfold,
         data_path=args.data_path,
         testing_data_path=args.testing_data_path,
-        total_classes=args.total_classes,
+        # the pretrain CLI has no --total_classes
+        total_classes=getattr(args, "total_classes", 13),
         k_shot=args.k_shot,
         pc_npts=args.pc_npts,
         pc_attribs=args.pc_attribs,

@@ -44,6 +44,22 @@
 //
 // Ragged N is masked here, not by the caller: key rows past N are never
 // inserted, and queries past N are computed on zeros and never stored.
+//
+// K3: knn_kernel<CP, true> is the training path's kNN with neighbour
+// statistics, replacing the TPU kernel gfs3dseg_gws_tpu/ops/knn.py::
+// knn_with_stats (its Pallas body `_knn_stats_kernel`). After the same
+// top-k it writes idx and then, for every (query i, neighbour j) pair of
+// its tile, adds 1 to cnt[j] and the row b[i, :] to scb[j, :]:
+//
+//   cnt[j]    = |{(i, r) : idx[i, r] == j}|          (in-degree, exact)
+//   scb[j, :] = sum over those (i, r) of b[i, :]     (transposed b-scatter)
+//
+// The block's two warps walk its pairs, one pair per warp at a time, the
+// lanes over the channels, so each float atomicAdd instruction of a warp
+// hits one row of scb in consecutive words. The order of the additions
+// varies from run to run, and so do the last bits of scb; cnt holds small
+// integers and is exact. At k = 20 and Cb = 64 the scatter is 1,280
+// float atomics per query, against the kNN's 2,048 x C distance FMAs.
 #include "common.cuh"
 
 namespace {
@@ -60,11 +76,16 @@ constexpr size_t kMlpSmem =
     (static_cast<size_t>(kMaxW) * kRows + kMaxW * kMaxW + kMaxW) *
     sizeof(float);
 
-template <int CP>  // input width padded with zeros to a multiple of 4
+// CP: input width padded with zeros to a multiple of 4; kStats: also
+// scatter the neighbour statistics of btab (B, N, cb) into cnt (B, N) and
+// scb (B, N, cb), which the caller has zeroed (K3)
+template <int CP, bool kStats>
 __global__ void __launch_bounds__(kTileQ)
 knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
-           int k) {
+           int k, const float* __restrict__ btab, float* __restrict__ cnt,
+           float* __restrict__ scb, int cb) {
   __shared__ __align__(16) float keys_s[kTileK][CP];
+  __shared__ int nbr_s[kStats ? kTileQ : 1][kMaxK];
   __shared__ float kk_s[kTileK];
   // this tile's candidates of each query ([slot][query]: no bank conflicts)
   __shared__ float cand_d[kTileK][kTileQ];
@@ -158,11 +179,32 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
       }
     }
   }
-  if (!active) return;
-  int* row = idx + (static_cast<size_t>(batch) * n + qi) * k;
+  if (active) {
+    int* row = idx + (static_cast<size_t>(batch) * n + qi) * k;
 #pragma unroll
-  for (int t = 0; t < kMaxK; ++t)
-    if (t < k) row[t] = best_i[t];
+    for (int t = 0; t < kMaxK; ++t) {
+      if (t < k) {
+        row[t] = best_i[t];
+        if constexpr (kStats) nbr_s[tid][t] = best_i[t];
+      }
+    }
+  }
+  if constexpr (kStats) {
+    __syncthreads();
+    const int lane = tid % 32, warp = tid / 32;
+    const int q0 = blockIdx.x * kTileQ;
+    const int pairs = min(kTileQ, n - q0) * k;
+    const float* b_b = btab + static_cast<size_t>(batch) * n * cb;
+    float* scb_b = scb + static_cast<size_t>(batch) * n * cb;
+    for (int pr = warp; pr < pairs; pr += kTileQ / 32) {
+      const int q = pr / k;
+      const int j = nbr_s[q][pr - q * k];
+      const float* brow = b_b + static_cast<size_t>(q0 + q) * cb;
+      float* srow = scb_b + static_cast<size_t>(j) * cb;
+      for (int ch = lane; ch < cb; ch += 32) atomicAdd(srow + ch, brow[ch]);
+      if (lane == 0) atomicAdd(cnt + static_cast<size_t>(batch) * n + j, 1.f);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kMlpThreads)
@@ -281,9 +323,11 @@ GFS_EXPORT int gfs_fused_edgeconv_infer(const void* x, const void* a_table,
   const auto* xf = static_cast<const float*>(x);
   auto* ix = static_cast<int*>(idx);
   if (c <= 16)
-    knn_kernel<16><<<grid, kTileQ, 0, s>>>(xf, ix, n, c, k);
+    knn_kernel<16, false><<<grid, kTileQ, 0, s>>>(xf, ix, n, c, k, nullptr,
+                                                  nullptr, nullptr, 0);
   else
-    knn_kernel<64><<<grid, kTileQ, 0, s>>>(xf, ix, n, c, k);
+    knn_kernel<64, false><<<grid, kTileQ, 0, s>>>(xf, ix, n, c, k, nullptr,
+                                                  nullptr, nullptr, 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(edge_mlp_kernel,
@@ -295,5 +339,30 @@ GFS_EXPORT int gfs_fused_edgeconv_infer(const void* x, const void* a_table,
       static_cast<const float*>(b_table), static_cast<const float*>(w2),
       static_cast<const float*>(bias2), static_cast<float*>(out), n, w0, w1,
       k, neg_slope);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3. x (B, N, C) and btab (B, N, Cb) fp32, idx (B, N, k) int32, cnt (B, N)
+// and scb (B, N, Cb) fp32 zeroed by the caller: contiguous, on one device.
+// Returns a cudaError_t.
+GFS_EXPORT int gfs_knn_with_stats(const void* x, const void* btab, void* idx,
+                                  void* cnt, void* scb, int batch, int n,
+                                  int c, int cb, int k, void* stream) {
+  if (batch < 1 || batch > 65535 || n < 1 || c < 1 || c > kMaxC || cb < 1 ||
+      cb > kMaxW || k < 1 || k > kMaxK || k > n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kTileQ - 1) / kTileQ, batch);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* bf = static_cast<const float*>(btab);
+  auto* ix = static_cast<int*>(idx);
+  auto* cf = static_cast<float*>(cnt);
+  auto* sf = static_cast<float*>(scb);
+  if (c <= 16)
+    knn_kernel<16, true><<<grid, kTileQ, 0, s>>>(xf, ix, n, c, k, bf, cf, sf,
+                                                 cb);
+  else
+    knn_kernel<64, true><<<grid, kTileQ, 0, s>>>(xf, ix, n, c, k, bf, cf, sf,
+                                                 cb);
   return static_cast<int>(cudaGetLastError());
 }

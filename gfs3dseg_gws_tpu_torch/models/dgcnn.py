@@ -1,5 +1,5 @@
-"""DGCNN backbone, eval mode (counterpart of the JAX package's
-models/dgcnn.py; reference model/dgcnn.py:83-152).
+"""DGCNN backbone (counterpart of the JAX package's models/dgcnn.py;
+reference model/dgcnn.py:83-152).
 
 The first 1x1 conv of an EdgeConv block acts on concat([x_j - x_i, x_i]);
 that linear map splits into two per-POINT matmuls plus a gather-add,
@@ -9,6 +9,12 @@ block of two widths (the model's), both BatchNorms are folded into the
 neighbour table a, the centre table b, W2' and bias2 exactly as the JAX
 package folds them (its dgcnn.py:99-105), and the rest of the block - kNN,
 gather, layer 2, max - is the fused kernel K1 (ops/fused_edgeconv.py).
+
+In training (module.training) such a block computes the unscaled tables
+a = x @ Wd and b = x @ (Wc - Wd), builds the kNN graph with its neighbour
+statistics (K3, ops/knn.py::knn_with_stats) and runs the fused training
+block (K4, ops/fused_edgeconv_train.py), whose batch statistics feed both
+BatchNorms' running averages (JAX dgcnn.py:107-125).
 """
 from __future__ import annotations
 
@@ -21,7 +27,9 @@ from gfs3dseg_gws_tpu_torch.models.layers import (Conv1x1, BatchNorm,
                                                   conv_bn_stack, leaky_relu)
 from gfs3dseg_gws_tpu_torch.ops.edgeconv import gather_neighbors
 from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import fused_edgeconv_infer
-from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices
+from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv_train import (
+    fused_edgeconv_train)
+from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices, knn_with_stats
 
 
 class EdgeConvBlock(nn.Module):
@@ -45,6 +53,19 @@ class EdgeConvBlock(nn.Module):
         kernel = self.layer[0].kernel                       # (2C, w0)
         wd, wc = kernel[:c], kernel[c:]
         bn1 = self.layer[1]
+        if len(self.widths) == 2 and self.training:
+            conv2, bn2 = self.layer[3], self.layer[4]
+            a_tab = x @ wd
+            b_tab = x @ (wc - wd)
+            idx, cnt, scb = knn_with_stats(x.detach().contiguous(),
+                                           b_tab.detach(), self.k)
+            out, mu1, var1, mu2, var2 = fused_edgeconv_train(
+                a_tab, b_tab, bn1.weight, bn1.bias, conv2.kernel,
+                bn2.weight, bn2.bias, idx, cnt, scb)
+            n_stats = idx.numel()          # statistics over (B, N, K)
+            bn1.record_batch_stats(mu1, var1, n_stats)
+            bn2.record_batch_stats(mu2, var2, n_stats)
+            return out
         if len(self.widths) == 2:
             s1, t1 = bn1.affine()
             a_table = (x @ wd) * s1
@@ -54,7 +75,8 @@ class EdgeConvBlock(nn.Module):
             w2f = conv2.kernel * s2[None, :]
             return fused_edgeconv_infer(x.contiguous(), a_table, b_table,
                                         w2f.contiguous(), t2, self.k)
-        # blocks of other depths: the plain composition (JAX dgcnn.py:126-134)
+        # blocks of other depths: the plain composition (JAX dgcnn.py:126-134),
+        # in training with batch statistics over (B, N, K)
         idx = knn_indices(x, self.k)                        # (B, N, K)
         h = gather_neighbors(x @ wd, idx) + (x @ (wc - wd))[:, :, None, :]
         h = leaky_relu(bn1(h))

@@ -1,4 +1,4 @@
-"""Shared eval-mode building blocks (counterpart of the JAX package's
+"""Shared building blocks (counterpart of the JAX package's
 models/layers.py).
 
 Tensors are channel-last, (..., C), as in the JAX package. A reference 1x1
@@ -7,8 +7,10 @@ axis; its weight keeps the reference torch shape ((out, in, 1, 1) for the
 EdgeConv Conv2d layers, (out, in, 1) for the Conv1d ones) so that reference
 `.pth` files load with `load_state_dict(strict=True)`.
 
-Only evaluation is ported: BatchNorm normalises with its running statistics
-(eps 1e-5, torch semantics) and refuses to run in training mode.
+BatchNorm has torch semantics (eps 1e-5, momentum 0.1): in training it
+normalises with the biased batch variance and moves the running variance
+towards the UNBIASED one (x n/(n-1)), as the JAX package's BatchNorm and
+ManualBN do; in eval mode it uses the running statistics.
 """
 from __future__ import annotations
 
@@ -58,8 +60,12 @@ class Conv1x1(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the trailing channel axis, with the
-    parameter and buffer names of torch's BatchNorm1d/2d."""
+    """BatchNorm over the trailing channel axis, with the parameter and
+    buffer names of torch's BatchNorm1d/2d. In training the statistics
+    reduce over every other axis (for an edge tensor (B, N, K, C) that is
+    B*N*K elements per channel)."""
+
+    momentum = 0.1     # weight of the batch in the running averages
 
     def __init__(self, features: int, eps: float = 1e-5,
                  device: Optional[torch.device] = None):
@@ -80,13 +86,30 @@ class BatchNorm(nn.Module):
         s = self.weight * torch.rsqrt(self.running_var + self.eps)
         return s, self.bias - self.running_mean * s
 
+    @torch.no_grad()
+    def record_batch_stats(self, mean: torch.Tensor, var: torch.Tensor,
+                           n: int) -> None:
+        """Fold batch statistics (biased `var` over `n` elements per
+        channel) into the running averages: the train-mode side effect of
+        forward, for callers that normalise outside the module (the fused
+        training EdgeConv). JAX: ManualBN.record_batch_stats."""
+        m = self.momentum
+        self.running_mean.mul_(1 - m).add_(m * mean.detach())
+        self.running_var.mul_(1 - m).add_(
+            (m * n / max(n - 1, 1)) * var.detach())
+        self.num_batches_tracked.add_(1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "the port has eval-mode BatchNorm only (training is the next "
-                "slice, ROADMAP queue 1 §6); call .eval()")
-        inv = torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * (inv * self.weight) + self.bias
+        if not self.training:
+            inv = torch.rsqrt(self.running_var + self.eps)
+            return (x - self.running_mean) * (inv * self.weight) + self.bias
+        axes = tuple(range(x.dim() - 1))
+        mean = torch.mean(x, axes)
+        # E[x^2] - E[x]^2, clamped: the JAX package's formula
+        var = torch.clamp_min(torch.mean(x * x, axes) - mean * mean, 0.0)
+        self.record_batch_stats(mean, var, x.numel() // x.shape[-1])
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
 
 
 class LeakyReLU(nn.Module):
@@ -94,6 +117,44 @@ class LeakyReLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return leaky_relu(x)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout whose mask comes from `generator` (a generator on
+    x's device). Its stream is not flax's: tests compare at rate 0."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """Parameter-free slot in the reference Sequentials; active in training
+    only. The caller passes the generator (see `dropout`)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(x, self.rate, generator) if self.training else x
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: Optional[int] = None) -> torch.Tensor:
+    """Mean CE over points; logits (..., C), labels (...,) int. Matches
+    torch nn.CrossEntropyLoss(ignore_index=...) (JAX: layers.cross_entropy)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = labels.long()
+    if ignore_index is None:
+        return -torch.gather(logp, -1, labels[..., None]).mean()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    v = valid.to(nll.dtype)
+    return torch.sum(nll * v) / torch.clamp_min(torch.sum(v), 1.0)
 
 
 def conv_bn_stack(in_features: int, widths, conv2d: bool = False,
@@ -106,6 +167,31 @@ def conv_bn_stack(in_features: int, widths, conv2d: bool = False,
         layers += [Conv1x1(fin, w, conv2d=conv2d, device=device),
                    BatchNorm(w, device=device), LeakyReLU()]
     return nn.Sequential(*layers)
+
+
+@torch.no_grad()
+def train_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX package's initialisers, drawn from `generator` (a CPU
+    generator): LeCun-normal conv kernels (flax lecun_normal: a normal
+    truncated at 2 sigma, rescaled to variance 1/fan_in), zero biases,
+    BatchNorm scale 1 and shift 0, running mean 0 and variance 1."""
+    for mod in module.modules():
+        if isinstance(mod, Conv1x1):
+            fan_in = mod.weight.shape[1]
+            std = math.sqrt(1.0 / fan_in) / .87962566103423978
+            w = torch.empty(mod.weight.shape)
+            torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                        generator=generator)
+            mod.weight.copy_(w)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, BatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+            mod.num_batches_tracked.zero_()
+    return module
 
 
 @torch.no_grad()

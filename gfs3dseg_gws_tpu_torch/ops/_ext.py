@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-`nvcc` compiles every source in `gfs3dseg_gws_tpu_torch/csrc/` for sm_90a
-into one shared library with a plain C interface, which is loaded with
-ctypes. The build runs on first use (the first CUDA tensor that reaches a
-kernel wrapper), never at import, and lands in `build/torch_kernels/` at the
-root of the checkout, named by a hash of the sources and flags so that an
-edited source never meets a stale library.
+`nvcc` compiles every source in `gfs3dseg_gws_tpu_torch/csrc/` for sm_90a,
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, which is loaded with ctypes.
+The build runs on first use (the first CUDA tensor that reaches a kernel
+wrapper), never at import, and lands in `build/torch_kernels/` at the root
+of the checkout, named by a hash of the sources and flags so that an edited
+source never meets a stale library.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check()` turns a non-zero code into an exception.
@@ -26,7 +27,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +40,14 @@ _SIGNATURES = {
                                  _I, _I, _F, _P),
     # q, k, v, out, batch, n, d, inv_temperature, stream
     "gfs_fused_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, btab, idx, cnt, scb, batch, n, c, cb, k, stream
+    "gfs_knn_with_stats": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # a, b, idx, s1, t1, w2, snbr, zmax, zmin, kmax, kmin, part, batch, n,
+    # c, w1, k, neg_slope, stream
+    "gfs_edgeconv_train_fwd": (_P,) * 12 + (_I,) * 5 + (_F, _P),
+    # a, b, idx, p1, w2, gsel, ksel, pk, scat, psum, part, batch, n, c, w1,
+    # k, neg_slope, stream
+    "gfs_edgeconv_train_bwd": (_P,) * 11 + (_I,) * 5 + (_F, _P),
 }
 
 
@@ -74,19 +83,36 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    # compile to a private name, then rename: a concurrent build never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp, *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    # build in a private directory, then rename: a concurrent build never
+    # sees a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            if src.suffix != ".cu":
+                continue
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", str(src),
+                   "-o", obj]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        # wait for every compiler before reporting any failure
+        outputs = [proc.communicate()[0] for _, proc in procs]
+        for (cmd, proc), output in zip(procs, outputs):
+            _check_nvcc(cmd, output, proc.returncode)
+        lib = os.path.join(tmp, so.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        _check_nvcc(cmd, res.stdout + res.stderr, res.returncode)
+        os.replace(lib, so)
     return so
+
+
+def _check_nvcc(cmd, output: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{output}")
 
 
 @functools.cache

@@ -44,6 +44,19 @@ def iou_from_confusion(cm: np.ndarray, safe: bool = False) -> np.ndarray:
         return tp / denom
 
 
+def overall_accuracy_and_miou(cm: np.ndarray,
+                              skip_class0_in_miou: bool = True
+                              ) -> Tuple[float, float, np.ndarray]:
+    """Pre-training metric (reference pretrain/runs/pre_train.py:51-83):
+    overall accuracy + mean IoU over classes 1..C-1 (class 0 is the
+    background); a class never seen scores 0."""
+    cm = np.asarray(cm, dtype=np.float64)
+    oa = float(np.trace(cm) / cm.sum())
+    iou = iou_from_confusion(cm, safe=True)
+    miou = float(np.mean(iou[1:] if skip_class0_in_miou else iou))
+    return oa, miou, iou
+
+
 def gfs_miou(
     cm_learning_order: np.ndarray,
     all_learning_order: Sequence[int],

@@ -1,16 +1,51 @@
-"""Single-device eval steps (counterpart of the JAX package's
-parallel/steps.py eval factories, steps.py:534-577 and 745-808).
+"""Single-device train and eval steps (counterpart of the JAX package's
+parallel/steps.py: the pretrain step, steps.py:655-692, and the eval
+factories, steps.py:534-577, 727-742 and 745-808).
 
-Plain functions under `torch.inference_mode`; each returns device tensors
-and never synchronises, so a sweep can queue batches back to back.
+Plain functions; each returns device tensors and never synchronises, so a
+loop can queue steps back to back and read the results later. The JAX
+package's multi-step `lax.scan` dispatch and packed host-to-device batches
+are TPU workarounds and have no counterpart here.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from gfs3dseg_gws_tpu_torch.models.layers import cross_entropy
 from gfs3dseg_gws_tpu_torch.ops.metrics import confusion_matrix
+
+
+def pretrain_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
+                  labels: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  sched=None) -> torch.Tensor:
+    """One supervised segmentation step (reference pre_train.py:144-159):
+    train-mode forward, mean cross-entropy, backward, optimizer step, then
+    the per-step LR schedule. `generator` draws the dropout masks. Returns
+    the loss as a device tensor (the caller reads it when it likes)."""
+    model.train()
+    loss = cross_entropy(model(points, generator), labels)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    if sched is not None:
+        sched.step()
+    return loss.detach()
+
+
+@torch.inference_mode()
+def eval_logits_step(model, points: torch.Tensor, labels: torch.Tensor,
+                     valid: int, num_classes: int) -> torch.Tensor:
+    """Segmentor eval of one batch: logits -> argmax -> confusion counts
+    (C, C), leaving out rows at or past `valid` (the padding of a final
+    short batch). The model runs in eval mode."""
+    model.eval()
+    pred = torch.argmax(model(points), dim=-1)
+    rows = torch.arange(points.shape[0], device=points.device) < valid
+    return confusion_matrix(pred, labels, num_classes,
+                            rows[:, None].expand(labels.shape))
 
 
 @torch.inference_mode()

@@ -176,6 +176,35 @@ def _coding_batches(dataset, batch_size: int, seed: int):
                               pad_final=True, seed=seed)
 
 
+def train_batches(dataset, batch_size: int, seed: int, epoch: int):
+    """Shuffled training batches (points, labels, segment) over a block
+    dataset, the final short batch dropped, as the JAX package's
+    pipelines/gfs.py::train_batches draws them: the native C++ pool
+    (threaded parsing, sampling and augmentation) when it is available,
+    else the Python iterator; so the same seed and epoch give the same
+    batches. GFS3D_NO_NATIVE=1 turns the native pool off."""
+    if not _env_flag("GFS3D_NO_NATIVE") and native_loader.is_available():
+        pool = native_loader.NativeBatchPool(
+            dataset.data_path, dataset.block_names, dataset.classes,
+            dataset.num_point, batch_size,
+            label_mode=(native_loader.LABEL_ALL_CLASSES
+                        if dataset.use_all_classes
+                        else native_loader.LABEL_LEARNING_ORDER),
+            augment=dataset.pc_augm, aug_config=dataset.pc_augm_config,
+            seed=seed * 10_007 + epoch, shuffle=True)
+        try:
+            for pts, lbl, seg, valid in pool:
+                if valid < batch_size:
+                    continue
+                yield pts, lbl, seg
+        finally:
+            pool.close()
+        return
+    for batch in batch_iterator(dataset, batch_size, shuffle=True,
+                                drop_last=True, seed=seed, epoch=epoch):
+        yield batch[0], batch[1], batch[2]
+
+
 def collect_base_codings(model, gp: torch.Tensor, dataset, n_base: int,
                          energy: float, batch_size: int = 16,
                          seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:

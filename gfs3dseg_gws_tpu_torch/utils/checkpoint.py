@@ -1,19 +1,27 @@
-"""Checkpoint loading for the eval path, and the JAX-weight converter.
+"""Checkpoint I/O and the JAX-weight converters.
 
 The port's modules carry the reference PyTorch state-dict keys
-(`encoder.edge_convs.{i}.layer.{j}`, `fusion.0`, `main_proto`, ...), so a
-reference `.pth` (or one written by the JAX package's
-`save_torch_gfs_checkpoint`) loads with `load_state_dict(strict=True)`.
-The JAX package's native `.npz` checkpoints go through
-`state_dict_from_jax`, which follows the key map of the JAX package's
-`_export_feat_state` / `save_torch_gfs_checkpoint`
-(gfs3dseg_gws_tpu/utils/checkpoint.py:355-422). Nothing here imports jax.
+(`encoder.edge_convs.{i}.layer.{j}`, `fusion.0`, `main_proto`,
+`segmenter.{0,1,3,4,7}`, ...), so a reference `.pth` (or one written by the
+JAX package's `save_torch_gfs_checkpoint`) loads with
+`load_state_dict(strict=True)`. The JAX package's native `.npz` checkpoints
+go through `state_dict_from_jax` / `pretrain_state_dict_from_jax`, which
+follow the key map of the JAX package's `_export_feat_state`,
+`save_torch_gfs_checkpoint` and `convert_torch_segmenter`
+(gfs3dseg_gws_tpu/utils/checkpoint.py:179-196, 355-422).
+
+Pre-training writes both of the JAX package's files: `checkpoint.tar`
+({"params": encoder state dict}, the reference layout that `get_basis.py`
+and `train.py --use_pretrain_weight` read) and `checkpoint.npz` (the flat
+`params/...`, `batch_stats/...` layout of its `save_checkpoint`). Nothing
+here imports jax.
 """
 from __future__ import annotations
 
 import json
+import os
 import pickle
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -106,6 +114,76 @@ def _put_bn(sd: Dict, key: str, p: Mapping, s: Mapping) -> None:
     sd[key + ".num_batches_tracked"] = torch.tensor(0)
 
 
+# one layout entry: (torch key prefix, JAX variable path, kind, has_bias);
+# kind "bn" is a BatchNorm, "conv2d"/"conv1d" a 1x1 conv whose Dense kernel
+# is the leaf at `path` (`path/../bias` its bias)
+_Entry = Tuple[str, str, str, bool]
+
+
+def _encoder_layout(block_depths: Sequence[int], n_mlp: int) -> List[_Entry]:
+    """The DGCNN encoder's key map (JAX DGCNN -> reference DGCNN)."""
+    out: List[_Entry] = []
+    for i, depth in enumerate(block_depths):
+        base, jb = f"encoder.edge_convs.{i}.layer", f"encoder/edgeconv{i}"
+        out += [(f"{base}.0", f"{jb}/layer0_kernel", "conv2d", False),
+                (f"{base}.1", f"{jb}/layer0_bn", "bn", False)]
+        for j in range(1, depth):
+            out += [(f"{base}.{3 * j}", f"{jb}/layer{j}/conv/kernel",
+                     "conv2d", False),
+                    (f"{base}.{3 * j + 1}", f"{jb}/layer{j}/bn", "bn", False)]
+    for j in range(n_mlp):
+        out += [(f"encoder.conv.layer.{3 * j}",
+                 f"encoder/mlp/layer{j}/conv/kernel", "conv1d", False),
+                (f"encoder.conv.layer.{3 * j + 1}", f"encoder/mlp/layer{j}/bn",
+                 "bn", False)]
+    return out
+
+
+_SEGMENTER_LAYOUT: List[_Entry] = [
+    ("segmenter.0", "segmenter/conv0/kernel", "conv1d", False),
+    ("segmenter.1", "segmenter/bn0", "bn", False),
+    ("segmenter.3", "segmenter/conv1/kernel", "conv1d", True),
+    ("segmenter.4", "segmenter/bn1", "bn", False),
+    ("segmenter.7", "segmenter/conv2/kernel", "conv1d", True),
+]
+
+
+def _jax_encoder_depths(enc_p: Mapping) -> Tuple[List[int], int]:
+    depths = []
+    while f"edgeconv{len(depths)}" in enc_p:
+        blk = enc_p[f"edgeconv{len(depths)}"]
+        depths.append(1 + sum(1 for key in blk if key.startswith("layer")
+                              and key[5:].isdigit()))
+    return depths, sum(1 for key in enc_p["mlp"] if key.startswith("layer"))
+
+
+def _get(tree: Mapping, path: str):
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def _put_layout(sd: Dict, layout: Sequence[_Entry], params: Mapping,
+                batch_stats: Mapping) -> None:
+    for key, path, kind, has_bias in layout:
+        if kind == "bn":
+            _put_bn(sd, key, _get(params, path), _get(batch_stats, path))
+        else:
+            bias = (_get(params, path.rsplit("/", 1)[0] + "/bias")
+                    if has_bias else None)
+            _put_conv(sd, key, _get(params, path), conv2d=kind == "conv2d",
+                      bias=bias)
+
+
+def _split_variables(params: Mapping, batch_stats: Optional[Mapping]):
+    if batch_stats is None:
+        tree = params
+        if any("/" in k for k in tree):
+            tree = _unflatten(tree)
+        params, batch_stats = tree["params"], tree["batch_stats"]
+    return params, batch_stats
+
+
 def state_dict_from_jax(params: Mapping,
                         batch_stats: Optional[Mapping] = None
                         ) -> Dict[str, torch.Tensor]:
@@ -117,36 +195,10 @@ def state_dict_from_jax(params: Mapping,
     (as returned by `load_checkpoint`). Leaves may be numpy arrays or
     anything `np.asarray` accepts.
     """
-    if batch_stats is None:
-        tree = params
-        if any("/" in k for k in tree):
-            tree = _unflatten(tree)
-        params, batch_stats = tree["params"], tree["batch_stats"]
-
+    params, batch_stats = _split_variables(params, batch_stats)
     sd: Dict[str, torch.Tensor] = {}
-    enc_p, enc_s = params["encoder"], batch_stats["encoder"]
-    i = 0
-    while f"edgeconv{i}" in enc_p:
-        base = f"encoder.edge_convs.{i}.layer"
-        blk_p, blk_s = enc_p[f"edgeconv{i}"], enc_s[f"edgeconv{i}"]
-        _put_conv(sd, f"{base}.0", blk_p["layer0_kernel"], conv2d=True)
-        _put_bn(sd, f"{base}.1", blk_p["layer0_bn"], blk_s["layer0_bn"])
-        j = 1
-        while f"layer{j}" in blk_p:
-            _put_conv(sd, f"{base}.{3 * j}",
-                      blk_p[f"layer{j}"]["conv"]["kernel"], conv2d=True)
-            _put_bn(sd, f"{base}.{3 * j + 1}", blk_p[f"layer{j}"]["bn"],
-                    blk_s[f"layer{j}"]["bn"])
-            j += 1
-        i += 1
-    j = 0
-    while f"layer{j}" in enc_p["mlp"]:
-        _put_conv(sd, f"encoder.conv.layer.{3 * j}",
-                  enc_p["mlp"][f"layer{j}"]["conv"]["kernel"])
-        _put_bn(sd, f"encoder.conv.layer.{3 * j + 1}",
-                enc_p["mlp"][f"layer{j}"]["bn"],
-                enc_s["mlp"][f"layer{j}"]["bn"])
-        j += 1
+    _put_layout(sd, _encoder_layout(*_jax_encoder_depths(params["encoder"])),
+                params, batch_stats)
 
     bl_p, bl_s = params["base_learner"], batch_stats["base_learner"]
     i = 0
@@ -168,3 +220,61 @@ def state_dict_from_jax(params: Mapping,
     sd["bg_proto"] = torch.from_numpy(np.array(params["bg_proto"],
                                                np.float32))
     return sd
+
+
+def pretrain_state_dict_from_jax(params: Mapping,
+                                 batch_stats: Optional[Mapping] = None
+                                 ) -> Dict[str, torch.Tensor]:
+    """The JAX package's DGCNNSeg variables -> the port's `DGCNNSeg` state
+    dict (same argument forms as `state_dict_from_jax`)."""
+    params, batch_stats = _split_variables(params, batch_stats)
+    sd: Dict[str, torch.Tensor] = {}
+    layout = (_encoder_layout(*_jax_encoder_depths(params["encoder"]))
+              + _SEGMENTER_LAYOUT)
+    _put_layout(sd, layout, params, batch_stats)
+    return sd
+
+
+def _model_layout(model) -> List[_Entry]:
+    enc = model.encoder
+    return (_encoder_layout([len(b.widths) for b in enc.edge_convs],
+                            len(enc.conv.layer) // 3) + _SEGMENTER_LAYOUT)
+
+
+def save_torch_pretrain_checkpoint(model, out_dir: str) -> str:
+    """Write `out_dir/checkpoint.tar` = {"params": encoder state dict} in
+    the reference layout (JAX: save_torch_pretrain_checkpoint). Returns the
+    path."""
+    sd = {k[len("encoder."):]: v.detach().cpu().clone()
+          for k, v in model.state_dict().items() if k.startswith("encoder.")}
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "checkpoint.tar")
+    torch.save({"params": sd}, path)
+    return path
+
+
+def save_pretrain_npz(model, path: str, meta: Optional[Dict] = None) -> None:
+    """Write a `DGCNNSeg` as the JAX package's `checkpoint.npz`: flat
+    `params/...` and `batch_stats/...` arrays plus a JSON `__meta__`, the
+    layout its `save_checkpoint` writes and `restore_into` reads."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    flat: Dict[str, np.ndarray] = {}
+    for key, path_, kind, has_bias in _model_layout(model):
+        if kind == "bn":
+            flat[f"params/{path_}/scale"] = sd[key + ".weight"]
+            flat[f"params/{path_}/bias"] = sd[key + ".bias"]
+            flat[f"batch_stats/{path_}/mean"] = sd[key + ".running_mean"]
+            flat[f"batch_stats/{path_}/var"] = sd[key + ".running_var"]
+            continue
+        w = sd[key + ".weight"]
+        flat[f"params/{path_}"] = np.ascontiguousarray(
+            w.reshape(w.shape[0], w.shape[1]).T)
+        if has_bias:
+            flat[f"params/{path_.rsplit('/', 1)[0]}/bias"] = sd[key + ".bias"]
+    flat["__meta__"] = np.frombuffer(json.dumps(meta or {}).encode(),
+                                     dtype=np.uint8)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    os.replace(tmp, path)

@@ -103,6 +103,24 @@ class TrainConfig:
     device: str = "cuda"           # torch device the pipelines run on
 
 
+@dataclass(frozen=True)
+class PretrainConfig:
+    """Backbone pre-training schedule (reference:
+    pretrain/pretrain_segmentor.sh)."""
+
+    batch_size: int = 16
+    lr: float = 0.001
+    weight_decay: float = 1e-4
+    n_iters: int = 100            # epochs
+    step_size: int = 50
+    gamma: float = 0.5
+    eval_interval: int = 3
+    dropout: float = 0.3
+    seed: int = 321
+    log_dir: str = "log_pretrain"
+    device: str = "cuda"          # torch device the pipeline runs on
+
+
 def parse_widths(text: str) -> Tuple:
     """Parse list-valued CLI flags like '[[64,64], [64, 64], [64, 64]]'
     (reference: train.py:819-821)."""

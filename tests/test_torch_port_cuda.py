@@ -12,10 +12,16 @@ import pytest
 import torch
 
 from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
+from gfs3dseg_gws_tpu_torch.models.dgcnnseg import DGCNNSeg
+from gfs3dseg_gws_tpu_torch.models.layers import cross_entropy
+from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
 from gfs3dseg_gws_tpu_torch.ops.attention_kernel import (attention_plain,
                                                          fused_attention)
 from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (fused_edgeconv_infer,
                                                        fused_edgeconv_plain)
+from gfs3dseg_gws_tpu_torch.ops.knn import (knn_with_stats,
+                                            knn_with_stats_plain,
+                                            neighbor_stats_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -81,6 +87,166 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         fused_attention(a.transpose(1, 2), a.transpose(1, 2),
                         a.transpose(1, 2), 1.0)
+
+
+@pytest.mark.parametrize("b,n,c,k", [
+    (2, 33, 3, 32),        # k at its limit, N just past one tile
+    (2, 100, 9, 5),        # ragged N, the first block's width
+    (3, 300, 64, 20),      # model widths, ragged N
+])
+def test_knn_with_stats_kernel_matches_plain(dev, b, n, c, k):
+    """K3: idx equal to the twin's; cnt exactly the plain count of the
+    kernel's idx; scb within 1e-5 of the largest entry (float atomics)."""
+    r = np.random.default_rng(n + c)
+    x, btab = _randn(r, b, n, c).to(dev), _randn(r, b, n, 64).to(dev)
+    before = knn_with_stats.launches
+    idx, cnt, scb = knn_with_stats(x, btab, k)
+    torch.cuda.synchronize()
+    assert knn_with_stats.launches == before + 1
+    assert torch.equal(idx, knn_with_stats_plain(x, btab, k)[0])
+    ref_cnt, ref_scb = neighbor_stats_plain(idx, btab)
+    assert torch.equal(cnt, ref_cnt)
+    assert (scb - ref_scb).abs().max() <= 1e-5 * ref_scb.abs().max()
+
+
+def _fet_args(r, b, n, c, w1, dev):
+    g2 = 1.0 + 0.2 * r.standard_normal(w1)
+    g2[::3] *= -1.0                       # the min branch
+    return [t.to(dev) for t in (
+        _randn(r, b, n, c), _randn(r, b, n, c),
+        torch.from_numpy((1.0 + 0.2 * r.standard_normal(c)).astype(
+            np.float32)), _randn(r, c, scale=0.2),
+        _randn(r, c, w1, scale=0.3), torch.from_numpy(g2.astype(np.float32)),
+        _randn(r, w1, scale=0.2))]
+
+
+@pytest.mark.parametrize("b,n,c,w1,k", [
+    (2, 33, 8, 8, 32),     # k at its limit
+    (2, 100, 9, 24, 5),    # ragged N, W0 != W1
+    (3, 300, 64, 64, 20),  # model widths, ragged N
+    (1, 130, 64, 40, 20),  # W1 < W0
+])
+def test_fused_edgeconv_train_kernels_match_plain(dev, b, n, c, w1, k):
+    """K4a and K4b against their twins on the same inputs, then the whole
+    Function against the unfused composition: forward, statistics and all
+    seven gradients within 1e-4 (forward) / 1e-3 (gradients) of the
+    reference's largest magnitude."""
+    r = np.random.default_rng(n + c + w1)
+    params = _fet_args(r, b, n, c, w1, dev)
+    x = _randn(r, b, n, 3).to(dev)
+    idx, cnt, scb = knn_with_stats(x, params[1], k)
+    s1, t1 = params[2] * 0.8, params[3] - 0.1
+    got = fet._gsf(params[0], params[1], idx, s1, t1, params[4], 0.2)
+    ref = fet._gsf_plain(params[0], params[1], idx, s1, t1, params[4], 0.2)
+    for g, w in zip(got, ref):
+        assert (g.float() - w.float()).abs().max() <= 1e-4 * max(
+            w.float().abs().max(), 1.0)
+    gsel = _randn(r, b, n, w1).to(dev)
+    p1 = torch.stack([s1, t1, 0.1 * params[3], 1.0 + 0.1 * params[2],
+                      params[2]])
+    pk = torch.stack([params[5], 0.01 * params[6], 0.01 * params[6],
+                      0.1 * params[6], 1.0 + 0.1 * params[5].abs()])
+    bwd = (params[0], params[1], idx, p1, params[4], gsel, got[3], pk, 0.2)
+    for g, w in zip(fet._bwd(*bwd), fet._bwd_plain(*bwd)):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+
+    cot = _randn(r, b, n, w1).to(dev)
+
+    def run(fn, **kw):
+        ins = [p.clone().requires_grad_() for p in params]
+        outs = fn(*ins, idx, **kw)
+        return outs, torch.autograd.grad((outs[0] * cot).sum(), ins)
+
+    before = (fet._gsf.launches, fet._bwd.launches)
+    f_outs, f_grads = run(fet.fused_edgeconv_train, cnt=cnt, scb=scb)
+    assert (fet._gsf.launches, fet._bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    p_outs, p_grads = run(fet.fused_edgeconv_train_plain)
+    for g, w in zip(f_outs, p_outs):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+    for g, w in zip(f_grads, p_grads):
+        assert (g - w).abs().max() <= 1e-3 * w.abs().max()
+
+
+def test_training_wrappers_refuse_what_they_cannot_take(dev):
+    x = torch.zeros((1, 16, 65), device=dev)
+    btab = torch.zeros((1, 16, 8), device=dev)
+    with pytest.raises(ValueError, match="C, Cb <= 64"):
+        knn_with_stats(x, btab, 5)
+    with pytest.raises(ValueError, match="k <= min"):
+        knn_with_stats(x[..., :3].contiguous(), btab, 17)
+    with pytest.raises(TypeError, match="float32"):
+        knn_with_stats(x[..., :3].double(), btab, 5)
+    a = torch.zeros((1, 16, 8), device=dev)
+    w2 = torch.zeros((8, 8), device=dev)
+    vec = torch.zeros(8, device=dev)
+    idx = torch.zeros((1, 16, 5), device=dev, dtype=torch.int64)
+    with pytest.raises(ValueError, match="int32"):
+        fet._gsf(a, a, idx, vec, vec, w2, 0.2)
+    with pytest.raises(ValueError, match="k <= min"):
+        fet._gsf(a, a, torch.zeros((1, 16, 33), device=dev,
+                                   dtype=torch.int32), vec, vec, w2, 0.2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fet._gsf(a.transpose(1, 2).contiguous().transpose(1, 2), a,
+                 idx.int(), vec, vec, w2, 0.2)
+
+
+def test_dgcnnseg_train_step_on_card_agrees_with_cpu(dev, monkeypatch):
+    """One full-width train step (dropout 0): the loss within 1e-4, every
+    gradient's cosine with the CPU's >= 0.999, the running statistics
+    within 1e-4. The CPU takes the card's kNN graphs (K3's indices), so
+    that a near-tie that rounding resolves differently on the two devices
+    cannot move a block's global max feature; at most 0.1% of each graph's
+    rows may differ from the CPU's own graph. Gradients that are zero in
+    exact arithmetic (biases whose shift a train-mode BatchNorm downstream
+    removes) are rounding noise on both devices: such a pair must stay
+    under 1e-5 of the largest gradient norm and is not held to the
+    cosine."""
+    from gfs3dseg_gws_tpu_torch.models import dgcnn
+    from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices
+
+    graphs = []
+
+    def record(x, btab, k):
+        out = knn_with_stats(x, btab, k)
+        graphs.append(out[0].cpu())
+        return out
+
+    def replay(x, btab, k):
+        idx = graphs.pop(0)
+        own = knn_indices(x, k)
+        differ = (idx.sort(-1).values != own.sort(-1).values).any(-1)
+        assert differ.float().mean() <= 1e-3
+        return (idx,) + neighbor_stats_plain(idx, btab)
+
+    cpu = DGCNNSeg(8, dropout=0.0, generator=torch.Generator().manual_seed(0))
+    gpu = DGCNNSeg(8, dropout=0.0, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    r = np.random.default_rng(3)
+    x = _randn(r, 2, 512, 9)
+    y = torch.from_numpy(r.integers(0, 8, (2, 512)))
+    losses = []
+    for model, device, knn in ((gpu, dev, record), (cpu, "cpu", replay)):
+        monkeypatch.setattr(dgcnn, "knn_with_stats", knn)
+        loss = cross_entropy(model(x.to(device)), y.to(device))
+        loss.backward()
+        losses.append(loss.item())
+    assert not graphs
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[1])
+    grads = [(name, pc.grad.double().flatten(),
+              pg.grad.cpu().double().flatten())
+             for (name, pc), (_, pg) in zip(cpu.named_parameters(),
+                                            gpu.named_parameters())]
+    floor = 1e-5 * max(gc.norm().item() for _, gc, _ in grads)
+    for name, gc, gg in grads:
+        if gc.norm() < floor and gg.norm() < floor:
+            continue
+        cos = (gc @ gg / (gc.norm() * gg.norm()).clamp_min(1e-300)).item()
+        assert cos >= 0.999, (name, cos)
+    for (name, bc), (_, bg) in zip(cpu.named_buffers(), gpu.named_buffers()):
+        if name.endswith(("running_mean", "running_var")):
+            assert ((bc - bg.cpu()).abs() <= 1e-4 * bc.abs().clamp_min(
+                1.0)).all(), name
 
 
 def test_model_on_card_agrees_with_cpu(dev):

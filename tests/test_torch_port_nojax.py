@@ -1,6 +1,7 @@
 """The port must import and start on a host without JAX (the GPU host has
-none): every module of gfs3dseg_gws_tpu_torch imports, and the CLI answers
---help, in a subprocess where importing jax or flax fails."""
+none): every module of gfs3dseg_gws_tpu_torch imports (the training slice's
+kernels, model, optimizer, pipeline and CLI among them), and both CLIs
+answer --help, in a subprocess where importing jax or flax fails."""
 import os
 import subprocess
 import sys
@@ -16,11 +17,16 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 print("imported", len(names))
-from gfs3dseg_gws_tpu_torch.cli import train_cli
-try:
-    train_cli.main(["--help"])
-except SystemExit as e:
-    assert e.code == 0, e.code
+for name in ("ops.knn", "ops.fused_edgeconv_train", "models.dgcnnseg",
+             "parallel.optim", "pipelines.pretrain", "cli.pretrain_cli",
+             "utils.observability"):
+    assert "gfs3dseg_gws_tpu_torch." + name in names, name
+from gfs3dseg_gws_tpu_torch.cli import pretrain_cli, train_cli
+for cli in (train_cli, pretrain_cli):
+    try:
+        cli.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0, e.code
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m, v in sys.modules.items() if v is not None)
 print("ok")
@@ -34,6 +40,7 @@ def test_port_imports_and_starts_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     assert "--only_evaluate" in res.stdout and "--device" in res.stdout
+    assert "--pretrain_weight_decay" in res.stdout
     assert res.stdout.rstrip().endswith("ok")
     n = int(res.stdout.split("imported ")[1].split()[0])
     assert n >= 20
