@@ -5,19 +5,24 @@ Generalized few-shot 3D point-cloud segmentation via geometric words
 `gfs3dseg_gws_tpu` stays beside this one as the reference that every ported
 module is tested against.
 
-This package covers the GFS evaluation path (`train.py --only_evaluate`):
+This package covers GFS base-stage training and evaluation (`train.py`,
+with and without `--only_evaluate`) and backbone pre-training
+(`pretrain/main.py --phase pretrain`):
 
+  data/       host data layer: datasets, registries, samplers, synthetic
+              blocks, the native C++ batch loader (ctypes)
   ops/        kernel wrappers (hand-written CUDA for sm_90a, csrc/) and
               their plain-PyTorch versions; kNN, coding, metrics
-  models/     eval-mode DGCNN, self-attention and the GW/CAPL head
-  parallel/   single-device eval steps
-  pipelines/  coding collection, prototype registration, the eval sweep
-  utils/      config, logging, checkpoint loading and the JAX-weight converter
-  cli/        `python -m gfs3dseg_gws_tpu_torch.cli.train_cli --only_evaluate`
+  models/     DGCNN, self-attention, the GW/CAPL head and the segmentors
+  parallel/   single-device train and eval steps, optimizers
+  pipelines/  GFS training and evaluation, pre-training
+  utils/      config, logging, checkpoints and the JAX-weight converters
+  cli/        `python -m gfs3dseg_gws_tpu_torch.cli.train_cli`,
+              `python -m gfs3dseg_gws_tpu_torch.cli.pretrain_cli`
 
-It imports torch and numpy, never jax or flax. The host data layer
-(`data.py`: the JAX package's numpy-only `gfs3dseg_gws_tpu.data`) is
-shared with the JAX package.
+It imports torch and numpy, never jax, flax or any module of the JAX
+package: where it needs one of that package's numpy-only modules (the host
+data layer), it keeps its own copy.
 
 A kernel wrapper decides by the tensor's device alone: a CPU tensor goes to
 the plain version, a CUDA tensor to the kernel (or the wrapper raises).

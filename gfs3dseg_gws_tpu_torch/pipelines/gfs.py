@@ -10,8 +10,8 @@ package's pipelines/gfs.py; reference train.py:309-499, 666-731).
      (`validate_multi`, `GWCAPL.evaluate_multi`);
   4. reduce to base, novel, mean and harmonic-mean mIoU (`gfs_miou`).
 
-The host data layer (datasets, registry, native C++ loader) is the JAX
-package's numpy-only data layer, shared as it is (`gfs3dseg_gws_tpu_torch.data`).
+The host data layer (datasets, registry, native C++ loader) is the port's
+own copy of the JAX package's numpy-only one (`gfs3dseg_gws_tpu_torch.data`).
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ the best encoder by validation mIoU (classes 1..C-1) is written both as
 `train.py --use_pretrain_weight` read it) and as the JAX package's
 `checkpoint.npz`.
 
-Training batches come from the shared host data layer through
+Training batches come from the port's host data layer through
 `pipelines/gfs.py::train_batches`, so the same seed and epoch give the
 JAX package's batches. The model is initialised from a CPU generator
 seeded with `seed` and the dropout masks come from a generator on the

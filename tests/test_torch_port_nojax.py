@@ -1,7 +1,9 @@
 """The port must import and start on a host without JAX (the GPU host has
-none): every module of gfs3dseg_gws_tpu_torch imports (the training slice's
-kernels, model, optimizer, pipeline and CLI among them), and both CLIs
-answer --help, in a subprocess where importing jax or flax fails."""
+none), and without any module of the JAX package: every module of
+gfs3dseg_gws_tpu_torch imports (the training slices' kernels, models,
+optimizers, pipelines and CLIs among them), `chip_smoke` imports, and both
+CLIs answer --help, in a subprocess where importing jax, flax or
+gfs3dseg_gws_tpu (even its numpy-only modules) fails."""
 import os
 import subprocess
 import sys
@@ -12,15 +14,18 @@ PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["gfs3dseg_gws_tpu"] = None
 import gfs3dseg_gws_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 print("imported", len(names))
-for name in ("ops.knn", "ops.fused_edgeconv_train", "models.dgcnnseg",
-             "parallel.optim", "pipelines.pretrain", "cli.pretrain_cli",
-             "utils.observability"):
+for name in ("ops.knn", "ops.fused_edgeconv_train",
+             "models.dgcnnseg", "parallel.optim", "pipelines.pretrain",
+             "cli.pretrain_cli", "utils.observability", "data.datasets",
+             "data.native_loader", "data.synthetic"):
     assert "gfs3dseg_gws_tpu_torch." + name in names, name
+import chip_smoke
 from gfs3dseg_gws_tpu_torch.cli import pretrain_cli, train_cli
 for cli in (train_cli, pretrain_cli):
     try:
@@ -28,6 +33,8 @@ for cli in (train_cli, pretrain_cli):
     except SystemExit as e:
         assert e.code == 0, e.code
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
+               for m, v in sys.modules.items() if v is not None)
+assert not any(m == "gfs3dseg_gws_tpu" or m.startswith("gfs3dseg_gws_tpu.")
                for m, v in sys.modules.items() if v is not None)
 print("ok")
 """

@@ -366,32 +366,79 @@ def test_pretrain_optimizer_steps_match_jax():
 
 @pytest.mark.parametrize("native", [True, False])
 def test_train_batches_match_jax(tmp_path, monkeypatch, native):
-    """The host training loader gives the JAX package's batches, exactly,
-    for the same seed and epoch: through the native pool and through the
-    Python iterator (GFS3D_NO_NATIVE=1), augmentation on."""
-    from gfs3dseg_gws_tpu.data.datasets import PretrainBlockDataset
-    from gfs3dseg_gws_tpu.data.registry import make_registry
+    """The port's host training loader, on its own copy of the data layer,
+    gives the JAX package's batches, exactly, for the same seed and epoch:
+    through the native pool and through the Python iterator
+    (GFS3D_NO_NATIVE=1), augmentation on."""
+    from gfs3dseg_gws_tpu.data import datasets as jax_datasets
+    from gfs3dseg_gws_tpu.data import registry as jax_registry
     from gfs3dseg_gws_tpu.data.synthetic import make_synthetic_blocks
     from gfs3dseg_gws_tpu.pipelines.gfs import (
         train_batches as jax_train_batches)
+    from gfs3dseg_gws_tpu_torch.data import datasets, registry
     from gfs3dseg_gws_tpu_torch.pipelines.gfs import train_batches
 
     monkeypatch.setenv("GFS3D_NO_NATIVE", "0" if native else "1")
     train_dir, _ = make_synthetic_blocks(str(tmp_path), n_train_blocks=20,
                                          n_test_blocks=1,
                                          points_per_block=600, seed=2)
-    reg = make_registry("s3dis", 0, train_dir)
-    classes = reg.train_classes
-    ds = PretrainBlockDataset(train_dir, classes,
-                              {c: reg.class2scans[c] for c in classes},
-                              mode="train", num_point=64, pc_augm=True,
-                              split_ratio=0.1)
+
+    def dataset(reg_mod, ds_mod):
+        reg = reg_mod.make_registry("s3dis", 0, train_dir)
+        classes = reg.train_classes
+        return ds_mod.PretrainBlockDataset(
+            train_dir, classes, {c: reg.class2scans[c] for c in classes},
+            mode="train", num_point=64, pc_augm=True, split_ratio=0.1)
+
+    ds = dataset(registry, datasets)
     got = list(train_batches(ds, 4, seed=7, epoch=1))
-    ref = list(jax_train_batches(ds, 4, seed=7, epoch=1))
+    ref = list(jax_train_batches(dataset(jax_registry, jax_datasets), 4,
+                                 seed=7, epoch=1))
     assert len(got) == len(ref) == len(ds) // 4
     for g, r in zip(got, ref):
         for a, b in zip(g, r):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_data_layer_copy_matches_jax(tmp_path):
+    """The port's copy of the host data layer gives the JAX package's
+    arrays for the same seed: the synthetic blocks on disk, the static
+    test sweep (TestingDataset) and one support seed (ValSuppDataset), each
+    materialised by its own package in its own directory."""
+    from gfs3dseg_gws_tpu import data as jax_data
+    from gfs3dseg_gws_tpu_torch import data as port_data
+
+    dirs = {}
+    for name, mod in (("jax", jax_data), ("port", port_data)):
+        dirs[name] = mod.make_synthetic_blocks(
+            str(tmp_path / name), n_train_blocks=12, n_test_blocks=4,
+            points_per_block=500, seed=5)
+    for split in (0, 1):
+        files = sorted(os.listdir(os.path.join(dirs["jax"][split], "data")))
+        assert files == sorted(os.listdir(
+            os.path.join(dirs["port"][split], "data")))
+        for f in files:
+            np.testing.assert_array_equal(
+                np.load(os.path.join(dirs["jax"][split], "data", f)),
+                np.load(os.path.join(dirs["port"][split], "data", f)))
+
+    def views(mod, train_dir, test_dir):
+        reg_test = mod.registry.make_registry("s3dis", 0, test_dir)
+        order = sorted(reg_test.train_classes) + sorted(reg_test.test_classes)
+        names = sorted(order)
+        test = mod.TestingDataset(
+            test_dir, names, order,
+            {c: reg_test.class2scans[c] for c in names}, num_point=64)
+        supp = mod.ValSuppDataset(train_dir, "s3dis", cvfold=0, k_shot=2,
+                                  num_point=64, seed=10, learning_order=order)
+        return test, supp
+
+    ref, got = views(jax_data, *dirs["jax"]), views(port_data, *dirs["port"])
+    for r_ds, g_ds in zip(ref, got):
+        assert len(r_ds) == len(g_ds) > 0
+        for i in range(len(r_ds)):
+            for a, b in zip(g_ds[i], r_ds[i]):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 # --------------------------------------------------------------------------- #
