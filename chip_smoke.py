@@ -3,14 +3,18 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from gfs3dseg_gws_tpu_torch/csrc, holds each
-against its plain PyTorch version on the card, then drives the port's two
+against its plain PyTorch version on the card, then drives the port's three
 paths at the full width of the S3DIS model on synthetic S3DIS-layout data:
-GFS evaluation (`train_cli --only_evaluate`, random seeded weights) and
+GFS evaluation (`train_cli --only_evaluate`, random seeded weights),
 backbone pre-training (`pretrain_cli --phase pretrain`, two short epochs
-with validation), and checks the card against the CPU on both. Every phase
+with validation) and GFS base-stage training (`train_cli`, two short
+epochs from the pre-trained encoder, validation after each, its checkpoint
+evaluated again), and checks the card against the CPU on each. Every phase
 prints one line of numbers; any failure raises and the script exits
-non-zero. The last line is {"ok": true, "device": {...}}. Needs one CUDA
-device; imports no JAX.
+non-zero. The line before the last lists every kernel with its launches on
+the main paths, error against its plain version, time, plain time, bound
+and library yardstick; the last line is {"ok": true, "device": {...}}.
+Needs one CUDA device; imports no JAX.
 """
 from __future__ import annotations
 
@@ -50,6 +54,40 @@ NOISE_GRAD = 1e-5                 # ... unless both gradients are below this
                                   # share of the largest gradient norm
 GRAPH_TIE = 1e-4                  # ... card graph rows the CPU's own graph
                                   # differs on: near-ties (near_tie_rows)
+ATTN_RATE = 0.1                   # K5: the model's attention dropout
+K5_FWD_TOL, K5_BWD_TOL = 1e-5, 1e-4  # K5a / K5b: max |diff| / max |twin|
+GFS_BLOCKS, GFS_EPOCHS = 320, 2   # GFS training data and epochs
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3
+PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+PROFILE_STEPS = 10                # train steps under torch.profiler
+# kernel groups of the step's profile: the first group whose pattern is in a
+# kernel's name takes it
+KERNEL_GROUPS = (
+    ("K5a attn_train_fwd", ("attn_train_fwd",)),
+    ("K5b attn_train_bwd", ("attn_train_bwd",)),
+    ("K3 knn_kernel", ("knn_kernel",)),
+    ("K4a gsf_kernel", ("gsf_kernel",)),
+    ("K4b bwd_kernel", ("bwd_kernel",)),
+    ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "sm90_xmma", "cutlass", "Kernel2")),
+    ("Adam", ("multi_tensor", "adam", "Adam")),
+    ("reductions", ("reduce", "Reduce")),
+    ("elementwise", ("elementwise", "Elementwise", "vectorized", "unrolled",
+                     "index", "scatter", "gather", "fill", "copy", "Copy")),
+)
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the least time for `flops` fp32 operations (an
+    FMA is two) at the card's fp32 peak outside the tensor cores and for
+    `nbytes` (each input read once, each output written once) at its
+    memory rate; the larger of the two."""
+    t_ops, t_mem = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem
+                                     else "bytes")
+
+
+def size_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def phase(name, **numbers):
@@ -98,10 +136,14 @@ def check_edgeconv(dev, c: int, gen: torch.Generator):
     ms = cuda_ms(lambda: fused_edgeconv_infer(*args, K))
     plain_ms = cuda_ms(lambda: fused_edgeconv_plain(*args, K))
     max_err = diff.max().item()
+    # FMAs: the kNN distances (B N^2 c) and the edge layer (B N K 64 x 64)
+    bound_ms, bound_by = bound(2.0 * (B * N * N * c + B * N * K * 64 * 64),
+                               size_of(*args, got))
     phase(f"K1 fused_edgeconv ({B},{N},{c}->64) k={K}", max_abs_err=max_err,
           rows_within_tol=share, near_tie_rows=len(bad), kernel_ms=ms,
-          plain_ms=plain_ms)
-    return max_err, ms, plain_ms
+          plain_ms=plain_ms, bound_ms=bound_ms)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def check_attention(dev, gen: torch.Generator):
@@ -117,10 +159,16 @@ def check_attention(dev, gen: torch.Generator):
     torch.testing.assert_close(got, ref, **ATTN_TOL)
     ms = cuda_ms(lambda: fused_attention(q, k, v, temp))
     plain_ms = cuda_ms(lambda: attention_plain(q, k, v, temp))
+    # yardstick only: the port never calls it (its default scale is 1/8)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(q, k, v))
     max_err = (got - ref).abs().max().item()
+    bound_ms, bound_by = bound(2.0 * 2 * B * N * N * 64, size_of(q, k, v, got))
     phase(f"K2 fused_attention ({B},{N},64)", max_abs_err=max_err,
-          kernel_ms=ms, plain_ms=plain_ms)
-    return max_err, ms, plain_ms
+          kernel_ms=ms, plain_ms=plain_ms, sdpa_fp32_ms=library_ms,
+          bound_ms=bound_ms)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def rel_err(got, ref) -> float:
@@ -180,11 +228,15 @@ def check_knn_stats(dev, c: int, gen: torch.Generator):
     max_err = (scb - ref_scb).abs().max().item()
     ms = cuda_ms(lambda: knn_with_stats(x, btab, K))
     plain_ms = cuda_ms(lambda: knn_with_stats_plain(x, btab, K))
+    # FMAs: the kNN distances (B N^2 c); the scatter's B N K 64 adds
+    bound_ms, bound_by = bound(2.0 * B * N * N * c + B * N * K * 64,
+                               size_of(x, btab, idx, cnt, scb))
     phase(f"K3 knn_with_stats ({B},{N},{c}) k={K}", sets_agree=share,
           order_agree=order,
           near_tie_rows=len(bad), scb_rel_err=err, max_abs_err=max_err,
-          kernel_ms=ms, plain_ms=plain_ms)
-    return max_err, ms, plain_ms
+          kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def check_fused_train(dev, gen: torch.Generator):
@@ -290,13 +342,101 @@ def check_fused_train(dev, gen: torch.Generator):
         fwd_bwd_ms=cuda_ms(lambda: run(fet.fused_edgeconv_train, cnt=cnt,
                                        scb=scb)),
         fwd_bwd_plain_ms=cuda_ms(lambda: run(fet.fused_edgeconv_train_plain)))
+    # FMAs per edge (B N K of them), 64 x 64 each: K4a z1 and the Gram
+    # matrix, K4b dz1 -> dh1, dW2 and the recomputed z1
+    edges = B * N * K
+    k4a_bound = bound(2.0 * 2 * edges * 64 * 64,
+                      size_of(*gsf_args[:6], *got))
+    k4b_bound = bound(2.0 * 3 * edges * 64 * 64,
+                      size_of(*bwd_args[:8], *got_b))
     phase(f"K4 fused_edgeconv_train ({B},{N},64->64) k={K}",
           forward_rel_err=out_err, k4a_rel_err=k4a_err, slots_agree=slots_ok,
           slot_flips=flips, k4b_rel_err=k4b_err,
           grad_measure="max_abs_ratio" if flips == 0 else "rel_l2",
-          worst_grad=worst, worst_grad_err=grad_errs[worst], **times)
-    return (k4a_abs, times["k4a_ms"], times["k4a_plain_ms"],
-            k4b_abs, times["k4b_ms"], times["k4b_plain_ms"])
+          worst_grad=worst, worst_grad_err=grad_errs[worst],
+          k4a_bound_ms=k4a_bound[0], k4b_bound_ms=k4b_bound[0], **times)
+    return (dict(max_abs_err=k4a_abs, ms=times["k4a_ms"],
+                 plain_ms=times["k4a_plain_ms"], bound_ms=k4a_bound[0],
+                 bound_by=k4a_bound[1], library_ms=None),
+            dict(max_abs_err=k4b_abs, ms=times["k4b_ms"],
+                 plain_ms=times["k4b_plain_ms"], bound_ms=k4b_bound[0],
+                 bound_by=k4b_bound[1], library_ms=None))
+
+
+def check_attention_train(dev, gen: torch.Generator):
+    """K5a/K5b against their plain twins at (B, N, 64), rates ATTN_RATE and
+    0. The twins draw the kernels' dropout mask bit for bit, so out, m, den
+    (K5a) and dq, dk, dv (K5b, on the twin's m, den and Delta) are held to
+    K5_FWD_TOL / K5_BWD_TOL of the twin's largest entry; the keep share must
+    lie within 5 sigma of 1 - rate. Times at ATTN_RATE, the main path's;
+    beside them, as a yardstick only, fp32 scaled_dot_product_attention
+    forward and backward at dropout 0 (the port never calls it)."""
+    from gfs3dseg_gws_tpu_torch.ops import attention_train as atr
+
+    q, k, v, dy = (torch.randn((B, N, 64), generator=gen).to(dev)
+                   for _ in range(4))
+    seed = torch.tensor([SEED + 77], dtype=torch.int32, device=dev)
+    temp = 64 ** 0.5
+    errs = {}
+    for rate in (0.0, ATTN_RATE):
+        got = atr._fwd(q, k, v, seed, temp, rate)
+        ref = atr._fwd_plain(q, k, v, seed, temp, rate)
+        delta = (dy * ref[0]).sum(-1)
+        bwd_args = (q, k, v, seed, ref[1], ref[2], delta, dy, temp, rate)
+        got_b, ref_b = atr._bwd(*bwd_args), atr._bwd_plain(*bwd_args)
+        torch.cuda.synchronize()
+        errs[rate] = dict(
+            fwd=max(rel_err(g, r) for g, r in zip(got, ref)),
+            bwd=max(rel_err(g, r) for g, r in zip(got_b, ref_b)),
+            fwd_abs=(got[0] - ref[0]).abs().max().item(),
+            bwd_abs=max((g - r).abs().max().item()
+                        for g, r in zip(got_b, ref_b)))
+        if errs[rate]["fwd"] > K5_FWD_TOL or errs[rate]["bwd"] > K5_BWD_TOL:
+            raise AssertionError(f"K5 at rate {rate} off its twin: "
+                                 f"{errs[rate]}")
+        del got, ref, got_b, ref_b
+    keep = atr.dropout_keep_mask(seed, B, N, ATTN_RATE)
+    share = keep.double().mean().item()
+    sigma = math.sqrt(ATTN_RATE * (1.0 - ATTN_RATE) / keep.numel())
+    del keep
+    if abs(share - (1.0 - ATTN_RATE)) > 5 * sigma:
+        raise AssertionError(f"K5 keeps {share} of the weights at rate "
+                             f"{ATTN_RATE} (sigma {sigma})")
+
+    out, m, den = atr._fwd(q, k, v, seed, temp, ATTN_RATE)
+    delta = (dy * out).sum(-1)
+    bwd_args = (q, k, v, seed, m, den, delta, dy, temp, ATTN_RATE)
+    dq, dk, dv = atr._bwd(*bwd_args)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    lib_out = sdpa(*leaves)
+    times = dict(
+        k5a_ms=cuda_ms(lambda: atr._fwd(q, k, v, seed, temp, ATTN_RATE)),
+        k5a_plain_ms=cuda_ms(lambda: atr._fwd_plain(q, k, v, seed, temp,
+                                                    ATTN_RATE)),
+        k5b_ms=cuda_ms(lambda: atr._bwd(*bwd_args)),
+        k5b_plain_ms=cuda_ms(lambda: atr._bwd_plain(*bwd_args)),
+        sdpa_fwd_ms=cuda_ms(lambda: sdpa(q, k, v)),
+        sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dy, retain_graph=True)))
+    # FMAs: K5a S and A.V (2 B N^2 D); K5b S, dA, dv, dk, dq (5 B N^2 D)
+    k5a_bound = bound(2.0 * 2 * B * N * N * 64,
+                      size_of(q, k, v, seed, out, m, den))
+    k5b_bound = bound(2.0 * 5 * B * N * N * 64,
+                      size_of(q, k, v, seed, m, den, delta, dy, dq, dk, dv))
+    phase(f"K5 attention_train ({B},{N},64) rate={ATTN_RATE}",
+          k5a_rel_err=errs[ATTN_RATE]["fwd"],
+          k5b_rel_err=errs[ATTN_RATE]["bwd"],
+          k5a_rel_err_rate0=errs[0.0]["fwd"],
+          k5b_rel_err_rate0=errs[0.0]["bwd"], keep_share=share,
+          keep_sigma=sigma, k5a_bound_ms=k5a_bound[0],
+          k5b_bound_ms=k5b_bound[0], **times)
+    return (dict(max_abs_err=errs[ATTN_RATE]["fwd_abs"], ms=times["k5a_ms"],
+                 plain_ms=times["k5a_plain_ms"], bound_ms=k5a_bound[0],
+                 bound_by=k5a_bound[1], library_ms=times["sdpa_fwd_ms"]),
+            dict(max_abs_err=errs[ATTN_RATE]["bwd_abs"], ms=times["k5b_ms"],
+                 plain_ms=times["k5b_plain_ms"], bound_ms=k5b_bound[0],
+                 bound_by=k5b_bound[1], library_ms=times["sdpa_bwd_ms"]))
 
 
 def make_inputs(root: str):
@@ -343,15 +483,19 @@ def pretrain_dataset(root: str, mode: str):
 
 
 def reset_launches():
+    """Set every kernel's launch count to 0; returns a reader of them."""
+    from gfs3dseg_gws_tpu_torch.ops import attention_train as atr
     from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
+    from gfs3dseg_gws_tpu_torch.ops.attention_kernel import fused_attention
     from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import fused_edgeconv_infer
     from gfs3dseg_gws_tpu_torch.ops.knn import knn_with_stats
 
-    for fn in (knn_with_stats, fet._gsf, fet._bwd, fused_edgeconv_infer):
+    fns = {"k1": fused_edgeconv_infer, "k2": fused_attention,
+           "k3": knn_with_stats, "k4a": fet._gsf, "k4b": fet._bwd,
+           "k5a": atr._fwd, "k5b": atr._bwd}
+    for fn in fns.values():
         fn.launches = 0
-    return lambda: {"k3": knn_with_stats.launches, "k4a": fet._gsf.launches,
-                    "k4b": fet._bwd.launches,
-                    "k1": fused_edgeconv_infer.launches}
+    return lambda: {name: fn.launches for name, fn in fns.items()}
 
 
 def check_pretrain(dev, root: str):
@@ -449,11 +593,11 @@ def check_learning(dev, root: str):
                              f"only")
 
 
-def check_train_step_vs_cpu(dev, root: str):
-    """One train step (dropout 0) of the full-width DGCNNSeg from the same
-    weights and batch on the card and on the CPU: the loss within
-    STEP_RTOL, each gradient's cosine with the CPU's >= GRAD_COS, the
-    updated running statistics within STEP_RTOL.
+def compare_train_step(label: str, cpu_model, card_model, dev, run):
+    """One train step (no dropout) of the same weights and batch on the
+    card and on the CPU, `run(model, device)` giving its loss: the loss
+    within STEP_RTOL, each gradient's cosine with the CPU's >= GRAD_COS,
+    the updated running statistics within STEP_RTOL.
 
     On these blocks at random weights the kNN graphs have near-ties that
     rounding resolves either way, and one flipped neighbour can move a
@@ -469,11 +613,8 @@ def check_train_step_vs_cpu(dev, root: str):
     devices: a pair under NOISE_GRAD of the largest gradient norm is
     counted and left out."""
     from gfs3dseg_gws_tpu_torch.models import dgcnn
-    from gfs3dseg_gws_tpu_torch.models.dgcnnseg import DGCNNSeg
-    from gfs3dseg_gws_tpu_torch.models.layers import cross_entropy
     from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices, knn_with_stats,
                                                 neighbor_stats_plain)
-    from gfs3dseg_gws_tpu_torch.pipelines.gfs import train_batches
 
     graphs, differing = [], []
 
@@ -495,22 +636,14 @@ def check_train_step_vs_cpu(dev, root: str):
         differing.append(len(bad))
         return (idx,) + neighbor_stats_plain(idx, btab)
 
-    gen = torch.Generator().manual_seed(SEED + 5)
-    cpu = DGCNNSeg(8, dropout=0.0, generator=gen)
-    card = DGCNNSeg(8, dropout=0.0, device=dev)
-    card.load_state_dict(cpu.state_dict())
-    points, labels, _ = next(train_batches(pretrain_dataset(root, "train"),
-                                           TRAIN_CMP_BLOCKS, seed=SEED,
-                                           epoch=1))
-    pts = torch.from_numpy(np.asarray(points, np.float32))
-    lbl = torch.from_numpy(np.asarray(labels, np.int64))
+    card_model.load_state_dict(cpu_model.state_dict())
     runs = {}
-    for name, model, device, knn in (("card", card, dev, record),
-                                     ("cpu", cpu, "cpu", replay)):
+    for name, model, device, knn in (("card", card_model, dev, record),
+                                     ("cpu", cpu_model, "cpu", replay)):
         dgcnn.knn_with_stats = knn
         try:
             model.train()
-            loss = cross_entropy(model(pts.to(device)), lbl.to(device))
+            loss = run(model, device)
             loss.backward()
         finally:
             dgcnn.knn_with_stats = knn_with_stats
@@ -534,7 +667,7 @@ def check_train_step_vs_cpu(dev, root: str):
             continue
         cos[n] = (g @ gg / (g.norm() * gg.norm()).clamp_min(1e-300)).item()
     worst = min(cos, key=cos.get)
-    phase(f"card_vs_cpu pretrain step ({TRAIN_CMP_BLOCKS} blocks)",
+    phase(f"card_vs_cpu {label} ({TRAIN_CMP_BLOCKS} blocks)",
           cpu_loss=ref["loss"], card_loss=got["loss"], loss_rel_err=loss_err,
           running_stat_err=stat_err, worst_grad=worst,
           worst_grad_cosine=cos[worst], noise_grads=noise,
@@ -543,6 +676,240 @@ def check_train_step_vs_cpu(dev, root: str):
         raise AssertionError("card and CPU train steps disagree")
     if cos[worst] < GRAD_COS:
         raise AssertionError(f"gradient of {worst} off the CPU's")
+
+
+def first_batch(dataset, blocks: int, epoch: int):
+    """The first training batch of `dataset` as CPU tensors (f32, int64)."""
+    from gfs3dseg_gws_tpu_torch.pipelines.gfs import train_batches
+
+    points, labels, _ = next(train_batches(dataset, blocks, seed=SEED,
+                                           epoch=epoch))
+    return (torch.from_numpy(np.asarray(points, np.float32)),
+            torch.from_numpy(np.asarray(labels, np.int64)))
+
+
+def check_train_step_vs_cpu(dev, root: str):
+    """compare_train_step on the full-width DGCNNSeg (dropout 0)."""
+    from gfs3dseg_gws_tpu_torch.models.dgcnnseg import DGCNNSeg
+    from gfs3dseg_gws_tpu_torch.models.layers import cross_entropy
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    pts, lbl = first_batch(pretrain_dataset(root, "train"), TRAIN_CMP_BLOCKS,
+                           1)
+    compare_train_step(
+        "pretrain step", DGCNNSeg(8, dropout=0.0, generator=gen),
+        DGCNNSeg(8, dropout=0.0, device=dev), dev,
+        lambda model, device: cross_entropy(model(pts.to(device)),
+                                            lbl.to(device)))
+
+
+# --------------------------------------------------------------------------- #
+# GFS base-stage training
+# --------------------------------------------------------------------------- #
+
+def gfs_setup(train_dir: str, test_dir: str):
+    """The port's GFS setup on the CPU (datasets and class orders)."""
+    from gfs3dseg_gws_tpu_torch.pipelines import gfs as port_gfs
+    from gfs3dseg_gws_tpu_torch.utils.config import (DataConfig, ModelConfig,
+                                                     TrainConfig)
+
+    return port_gfs.build_setup(
+        ModelConfig(), DataConfig(data_path=train_dir,
+                                  testing_data_path=test_dir, pc_npts=N,
+                                  k_shot=5, pc_augm=True),
+        TrainConfig(batch_size=B, device="cpu"),
+        np.zeros((NUM_GW, 192), np.float32), torch.device("cpu"))
+
+
+def gfs_model(dev, seed: int, attn_dropout: float = ATTN_RATE):
+    """A full-width GWCAPL with the JAX initialisers drawn from `seed`."""
+    from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
+
+    model = GWCAPL(num_gw=NUM_GW, attn_dropout=attn_dropout)
+    return model.train_init(torch.Generator().manual_seed(seed)).to(dev)
+
+
+def check_gfs_train(dev, root: str, test_dir: str, basis_path: str):
+    """The GFS training path on the card through its CLI (no
+    --only_evaluate), at the reference config (S3DIS cvfold 0, N=2048,
+    k=20, batch 16, Adam 0.01 with the encoder at 0.1x, StepLR(50, 0.5),
+    attention dropout 0.1, --pc_augm) from the pre-training phase's
+    checkpoint.tar, GFS_EPOCHS epochs with validation on support seed 0
+    after each; launches checked per step and per forward. Then the newest
+    checkpoint through `train_cli --only_evaluate` (the 5 support seeds)."""
+    import glob
+
+    from gfs3dseg_gws_tpu_torch.cli import train_cli
+    from gfs3dseg_gws_tpu_torch.data import make_synthetic_blocks
+
+    t0 = time.perf_counter()
+    train_dir = make_synthetic_blocks(
+        os.path.join(root, "gfs_train_data"), n_train_blocks=GFS_BLOCKS,
+        n_test_blocks=1, points_per_block=4096, seed=SEED + 2)[0]
+    save = os.path.join(root, "gfs_train")
+    common = ["--dataset", "s3dis", "--cvfold", "0", "--data_path",
+              train_dir, "--testing_data_path", test_dir, "--basis_path",
+              basis_path, "--pc_npts", str(N), "--k_shot", "5",
+              "--batch_size", str(B), "--seed", str(SEED), "--device",
+              dev.type]
+    argv = common + [
+        "--phase", "train", "--save_path", save, "--epochs",
+        str(GFS_EPOCHS), "--base_lr", "0.01", "--pc_augm",
+        "--use_pretrain_weight", "--pretrain_checkpoint_path",
+        os.path.join(root, "pretrain", "log_pretrain_s3dis_S0_LongTail",
+                     "checkpoint.tar")]
+    read = reset_launches()
+    t1 = time.perf_counter()
+    res = train_cli.main(argv, eval_interval=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = read()
+    hist, steps = res["history"], res["step"]
+    setup = gfs_setup(train_dir, test_dir)
+    n_valid = sum(1 for h in hist if "mean_iou" in h)
+    # eval forwards: one coding sweep (epoch 0), and per validation one
+    # forward of the support shots plus the static_test sweep
+    forwards = (math.ceil(len(setup.train_data_noaug) / B)
+                + n_valid * (1 + math.ceil(len(setup.val_dataset) / B)))
+    phase("gfs_train", data_seconds=t1 - t0, wall_seconds=wall, steps=steps,
+          losses=[h["loss"] for h in hist],
+          accuracies=[h["accuracy"] for h in hist],
+          steps_per_s=[h["steps"] / h["seconds"] for h in hist],
+          mean_iou=[h.get("mean_iou") for h in hist],
+          hm_iou=[h.get("hm_iou") for h in hist], eval_forwards=forwards,
+          **{f"{k}_launches": v for k, v in launches.items()})
+    if (len(hist) != GFS_EPOCHS or n_valid != GFS_EPOCHS
+            or not all(math.isfinite(h["loss"]) and math.isfinite(
+                h["mean_iou"]) for h in hist)):
+        raise AssertionError(f"GFS training went wrong: {hist}")
+    if (launches["k5a"] != steps or launches["k5b"] != steps
+            or any(launches[k] != 3 * steps for k in ("k3", "k4a", "k4b"))):
+        raise AssertionError(f"launches {launches} do not match {steps} "
+                             "steps (K5a/K5b 1, K3/K4a/K4b 3 per step)")
+    if launches["k2"] != forwards or launches["k1"] != 3 * forwards:
+        raise AssertionError(f"launches {launches} do not match {forwards} "
+                             "eval forwards (K2 1, K1 3 per forward)")
+
+    ckpts = glob.glob(os.path.join(save, "train_*.npz"))
+    if not ckpts:
+        raise AssertionError("GFS training wrote no checkpoint")
+    ckpt = max(ckpts, key=os.path.getmtime)
+    t1 = time.perf_counter()
+    ev = train_cli.main(common + [
+        "--phase", "test", "--only_evaluate", "--model_checkpoint_path",
+        ckpt, "--save_path", os.path.join(root, "gfs_eval"),
+        "--eval_weight", "1.2", "--energy", "0.9"])
+    mious = [ev[k] for k in ("mean_iou", "base_iou", "novel_iou", "hm_iou")]
+    phase("gfs_train checkpoint through evaluate_gfs",
+          checkpoint=os.path.basename(ckpt), mean_iou=mious[0],
+          base_iou=mious[1], novel_iou=mious[2], hm_iou=mious[3],
+          wall_seconds=time.perf_counter() - t1)
+    if not all(math.isfinite(m) for m in mious):
+        raise AssertionError(f"non-finite mIoU {mious} from {ckpt}")
+    return launches, setup
+
+
+def check_gfs_learning(dev, setup, gp: torch.Tensor):
+    """LEARN_STEPS GFS steps on one fixed batch (the fake classes and the
+    dropout drawn anew each step): the mean loss of the last 5 steps must
+    lie LEARN_DROP below the first step's."""
+    from gfs3dseg_gws_tpu_torch.parallel.optim import make_gfs_optimizer
+    from gfs3dseg_gws_tpu_torch.parallel.steps import gfs_train_step
+
+    pts, lbl = (t.to(dev) for t in first_batch(setup.train_data, B, 0))
+    model = gfs_model(dev, SEED)
+    opt, _ = make_gfs_optimizer(model, 0.01, 100)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    losses = [gfs_train_step(model, opt, pts, lbl, gp, gen)[0].item()
+              for _ in range(LEARN_STEPS)]
+    last = statistics.mean(losses[-5:])
+    phase("gfs learning check (one batch)", steps=LEARN_STEPS,
+          first_loss=losses[0], last5_mean_loss=last,
+          drop=1.0 - last / losses[0])
+    if not last <= (1.0 - LEARN_DROP) * losses[0]:
+        raise AssertionError(f"GFS loss fell from {losses[0]} to {last} "
+                             "only")
+
+
+def profile_groups(fn, steps: int):
+    """ms per step of each KERNEL_GROUPS group (and the rest) from
+    torch.profiler's device times over `steps` calls of `fn`; None where
+    the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    launches = 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        launches += evt.count
+        key = next((name for name, pats in KERNEL_GROUPS
+                    if any(p in evt.key for p in pats)), "other")
+        groups[key] += us / 1e3 / steps
+    if sum(groups.values()) == 0.0:
+        return None, 0
+    return groups, launches / steps
+
+
+def check_gfs_step(dev, setup, gp: torch.Tensor):
+    """gfs_train_step alone on device tensors: the CUDA-event median, the
+    host-clock wall of PROFILE_STEPS steps, and the kernel time by group
+    from torch.profiler (device idle share = 1 - kernels / wall)."""
+    from gfs3dseg_gws_tpu_torch.parallel.optim import make_gfs_optimizer
+    from gfs3dseg_gws_tpu_torch.parallel.steps import gfs_train_step
+
+    pts, lbl = (t.to(dev) for t in first_batch(setup.train_data, B, 1))
+    model = gfs_model(dev, SEED + 1)
+    opt, sched = make_gfs_optimizer(model, 0.01, 100)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def step():
+        return gfs_train_step(model, opt, pts, lbl, gp, gen, sched)
+
+    step_ms = cuda_ms(step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_STEPS):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / PROFILE_STEPS
+    groups, launches = profile_groups(step, PROFILE_STEPS)
+    phase("device step gfs_train_step", batch=B, ms=step_ms,
+          steps_per_s=1000.0 / step_ms, wall_ms=wall_ms)
+    if groups is None:
+        phase("profile gfs_train_step", note="torch.profiler saw no device "
+              "time; CUDA-event times above stand")
+        return
+    kernels = sum(groups.values())
+    phase("profile gfs_train_step", steps=PROFILE_STEPS,
+          kernel_ms_per_step=kernels, wall_ms_per_step=wall_ms,
+          idle_share=1.0 - kernels / wall_ms, launches_per_step=launches,
+          groups_ms=json.dumps({k: round(v, 4) for k, v in groups.items()}))
+
+
+def check_gfs_step_vs_cpu(dev, setup, gp: torch.Tensor):
+    """compare_train_step on the full-width GWCAPL (attention dropout 0, a
+    fixed fake_row)."""
+    pts, lbl = first_batch(setup.train_data, TRAIN_CMP_BLOCKS, 1)
+    fake = torch.zeros(13)
+    fake[[2, 4, 5]] = 1.0
+    gp_cpu = gp.cpu()
+    compare_train_step(
+        "gfs step", gfs_model("cpu", SEED + 6, attn_dropout=0.0),
+        gfs_model(dev, SEED + 7, attn_dropout=0.0), dev,
+        lambda model, device: model(pts.to(device), lbl.to(device),
+                                    gp_cpu.to(device),
+                                    fake_row=fake.to(device))[1])
 
 
 def main() -> int:
@@ -563,8 +930,6 @@ def main() -> int:
 
     from gfs3dseg_gws_tpu_torch.cli import train_cli
     from gfs3dseg_gws_tpu_torch.ops import _ext
-    from gfs3dseg_gws_tpu_torch.ops.attention_kernel import fused_attention
-    from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import fused_edgeconv_infer
     from gfs3dseg_gws_tpu_torch.parallel.steps import gfs_eval_multi_step
     from gfs3dseg_gws_tpu_torch.pipelines import gfs as port_gfs
     from gfs3dseg_gws_tpu_torch.utils.config import (DataConfig, ModelConfig,
@@ -580,11 +945,12 @@ def main() -> int:
     # ---- phases 2-3: each kernel against its plain version
     gen = torch.Generator().manual_seed(SEED)
     check_edgeconv(dev, 9, gen)
-    k1_err, k1_ms, k1_plain_ms = check_edgeconv(dev, 64, gen)
-    k2_err, k2_ms, k2_plain_ms = check_attention(dev, gen)
+    stats = {"k1": check_edgeconv(dev, 64, gen),
+             "k2": check_attention(dev, gen)}
     check_knn_stats(dev, 9, gen)
-    k3_err, k3_ms, k3_plain_ms = check_knn_stats(dev, 64, gen)
-    k4 = check_fused_train(dev, gen)
+    stats["k3"] = check_knn_stats(dev, 64, gen)
+    stats["k4a"], stats["k4b"] = check_fused_train(dev, gen)
+    stats["k5a"], stats["k5b"] = check_attention_train(dev, gen)
 
     with tempfile.TemporaryDirectory(prefix="gfs_chip_smoke_") as root:
         # ---- phase 4: the main path, train_cli --only_evaluate on the card
@@ -600,14 +966,13 @@ def main() -> int:
                 "--pc_npts", str(N), "--k_shot", "5", "--eval_weight", "1.2",
                 "--energy", "0.9", "--batch_size", str(B),
                 "--device", "cuda"]
-        fused_edgeconv_infer.launches = 0
-        fused_attention.launches = 0
+        read = reset_launches()
         t0 = time.perf_counter()
         res = train_cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        k1_launches = fused_edgeconv_infer.launches
-        k2_launches = fused_attention.launches
+        eval_launches = read()
+        k1_launches, k2_launches = eval_launches["k1"], eval_launches["k2"]
 
         model_cfg = ModelConfig()
         data_cfg = DataConfig(data_path=train_dir, testing_data_path=test_dir,
@@ -694,37 +1059,41 @@ def main() -> int:
             raise AssertionError("card and CPU disagree")
 
         # ---- phases 6-8: pre-training, the learning check, card vs CPU
-        launches = check_pretrain(dev, root)
+        check_pretrain(dev, root)
         check_learning(dev, root)
         check_train_step_vs_cpu(dev, root)
 
+        # ---- phases 9-12: GFS training from the pre-trained encoder, the
+        # learning check, the train step alone, card vs CPU
+        train_launches, gfs = check_gfs_train(dev, root, test_dir,
+                                              basis_path)
+        gp = torch.from_numpy(port_gfs.load_basis(basis_path)).to(dev)
+        check_gfs_learning(dev, gfs, gp)
+        check_gfs_step(dev, gfs, gp)
+        check_gfs_step_vs_cpu(dev, gfs, gp)
+
+    # K1/K2 launches from the evaluation path, K3-K5 from GFS training
+    launches = dict(train_launches, k1=k1_launches, k2=k2_launches)
+    kernels = [
+        ("k1", "fused_edgeconv_infer", "fused_edgeconv.cu",
+         "fused_edgeconv.py:94"),
+        ("k2", "fused_attention", "attention.cu", "attention_kernel.py:34"),
+        ("k3", "knn_with_stats", "fused_edgeconv.cu", "knn.py:380"),
+        ("k4a", "fused_edgeconv_train_fwd", "fused_edgeconv_train.cu",
+         "fused_edgeconv_train.py:408"),
+        ("k4b", "fused_edgeconv_train_bwd", "fused_edgeconv_train.cu",
+         "fused_edgeconv_train.py:239"),
+        ("k5a", "attention_train_fwd", "attention_train.cu",
+         "attention_train.py:124"),
+        ("k5b", "attention_train_bwd", "attention_train.cu",
+         "attention_train.py:70"),
+    ]
     print(json.dumps({"kernels": [
-        {"name": "fused_edgeconv_infer", "route": "cuda",
-         "source": "gfs3dseg_gws_tpu_torch/csrc/fused_edgeconv.cu",
-         "replaces": "gfs3dseg_gws_tpu/ops/fused_edgeconv.py:94",
-         "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain_ms},
-        {"name": "fused_attention", "route": "cuda",
-         "source": "gfs3dseg_gws_tpu_torch/csrc/attention.cu",
-         "replaces": "gfs3dseg_gws_tpu/ops/attention_kernel.py:34",
-         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain_ms},
-        {"name": "knn_with_stats", "route": "cuda",
-         "source": "gfs3dseg_gws_tpu_torch/csrc/fused_edgeconv.cu",
-         "replaces": "gfs3dseg_gws_tpu/ops/knn.py:380",
-         "launches": launches["k3"], "max_abs_err": k3_err, "ms": k3_ms,
-         "plain_ms": k3_plain_ms},
-        {"name": "fused_edgeconv_train_fwd", "route": "cuda",
-         "source": "gfs3dseg_gws_tpu_torch/csrc/fused_edgeconv_train.cu",
-         "replaces": "gfs3dseg_gws_tpu/ops/fused_edgeconv_train.py:408",
-         "launches": launches["k4a"], "max_abs_err": k4[0], "ms": k4[1],
-         "plain_ms": k4[2]},
-        {"name": "fused_edgeconv_train_bwd", "route": "cuda",
-         "source": "gfs3dseg_gws_tpu_torch/csrc/fused_edgeconv_train.cu",
-         "replaces": "gfs3dseg_gws_tpu/ops/fused_edgeconv_train.py:239",
-         "launches": launches["k4b"], "max_abs_err": k4[3], "ms": k4[4],
-         "plain_ms": k4[5]},
-    ]}), flush=True)
+        {"name": name, "route": "cuda",
+         "source": f"gfs3dseg_gws_tpu_torch/csrc/{src}",
+         "replaces": f"gfs3dseg_gws_tpu/ops/{tpu}",
+         "launches": launches[key], **stats[key]}
+        for key, name, src, tpu in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,18 @@
-"""GFS evaluate CLI (counterpart of the JAX package's cli/train_cli.py;
-reference train.py:733-831).
+"""GFS train/evaluate CLI (counterpart of the JAX package's
+cli/train_cli.py; reference train.py:733-831).
 
+    python -m gfs3dseg_gws_tpu_torch.cli.train_cli \\
+        --basis_path gw.pkl --data_path ... --testing_data_path ... \\
+        --use_pretrain_weight --pretrain_checkpoint_path checkpoint.tar \\
+        --save_path run --device cuda
     python -m gfs3dseg_gws_tpu_torch.cli.train_cli --only_evaluate \\
-        --phase test --model_checkpoint_path model.pth --basis_path gw.pkl \\
-        --data_path ... --testing_data_path ... --device cuda
+        --phase test --model_checkpoint_path run/train_epoch_....npz \\
+        --basis_path gw.pkl --data_path ... --testing_data_path ... \\
+        --eval_weight 1.2 --device cuda
 
-Same flags as the JAX CLI, plus `--device`. Only evaluation is ported:
-without --only_evaluate it raises NotImplementedError.
+Same flags as the JAX CLI, plus `--device`. Without --only_evaluate it
+trains (`pipelines/gfs.py::train_gfs`), with it it evaluates
+(`evaluate_gfs`).
 """
 from __future__ import annotations
 
@@ -21,13 +27,13 @@ from gfs3dseg_gws_tpu_torch.cli.common import (
     disable_tf32,
     model_config_from_args,
 )
-from gfs3dseg_gws_tpu_torch.utils.config import TrainConfig
+from gfs3dseg_gws_tpu_torch.utils.config import TrainConfig, replace
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="GFS 3D segmentation via Geometric Words "
-                    "(PyTorch/CUDA port, evaluation)")
+                    "(PyTorch/CUDA port)")
     # kept-for-compatibility flags (unused, like the reference's)
     p.add_argument("--train_gpu", default=[0])
     p.add_argument("--ngpus_per_node", type=int, default=1)
@@ -73,7 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None):
+def main(argv=None, **overrides):
+    """Parse `argv` and train or evaluate. `overrides` replace fields of the
+    TrainConfig that the JAX CLI has no flag for (e.g. eval_interval,
+    coding_interval, weight_decay), or `max_steps_per_epoch` of training,
+    for callers in Python."""
     args = build_parser().parse_args(argv)
     if args.energy > 1:
         raise ValueError(f"--energy must be <= 1, got {args.energy}")
@@ -102,16 +112,18 @@ def main(argv=None):
         basis_path=args.basis_path,
         device=args.device,
     )
-    if not args.only_evaluate:
-        raise NotImplementedError(
-            "GFS training is not ported yet (ROADMAP.md queue 1 §6, "
-            "base-stage training); run with --only_evaluate")
+    max_steps = overrides.pop("max_steps_per_epoch", None)
+    train_cfg = replace(train_cfg, **overrides)
 
     from gfs3dseg_gws_tpu_torch.pipelines.gfs import (evaluate_gfs,
-                                                      resolve_device)
+                                                      resolve_device,
+                                                      train_gfs)
 
     resolve_device(args.device)     # fail before any data is touched
-    return evaluate_gfs(model_cfg, data_cfg, train_cfg)
+    if args.only_evaluate:
+        return evaluate_gfs(model_cfg, data_cfg, train_cfg)
+    return train_gfs(model_cfg, data_cfg, train_cfg,
+                     max_steps_per_epoch=max_steps)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,15 @@
-"""GW/CAPL head, eval methods (counterpart of the JAX package's
-models/capl.py; reference model/capl.py:21-433).
+"""GW/CAPL head (counterpart of the JAX package's models/capl.py; reference
+model/capl.py:21-433).
 
   * DGCNN features + self-attention + base learner -> 192-d semantic feature.
   * Cosine match of the EdgeConv1-3 features against the geometric-word
     basis, sharpened softmax(10 cos) + hard one-hot word assignment.
   * Fusion conv -> 128-d point feature; per-class prototypes (main_proto)
     + background prototype; cosine classifier (x10).
+  * Training (`forward`): fake-novel prototypes (CAPL eqn.8) and
+    transductive prototype refinement (eqn.6); loss = 0.5 CE1 + 0.5 CE2.
   * Evaluation: transductively refined base + registered novel prototypes,
     logits re-weighted by geometric-word multi-hot agreement (x eval_weight).
-
-The training pass (`__call__`, `generate_fake_proto`) comes with the
-training slice.
 """
 from __future__ import annotations
 
@@ -22,8 +21,16 @@ from torch import nn
 from gfs3dseg_gws_tpu_torch.models.attention import SelfAttention
 from gfs3dseg_gws_tpu_torch.models.dgcnn import DGCNN, BaseLearner
 from gfs3dseg_gws_tpu_torch.models.layers import (BatchNorm, Conv1x1,
-                                                  LeakyReLU, l2norm,
-                                                  random_init_)
+                                                  LeakyReLU, cross_entropy,
+                                                  l2norm, random_init_,
+                                                  train_init_)
+
+IGNORE_INDEX = 255  # labels the training loss leaves out (reference capl.py)
+
+
+def _one_hot(y: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """jax.nn.one_hot: a label outside [0, n) gives a zero row."""
+    return (y.long()[..., None] == torch.arange(n, device=y.device)).to(dtype)
 
 
 class GWCAPL(nn.Module):
@@ -31,7 +38,8 @@ class GWCAPL(nn.Module):
 
     Its state dict has the reference's keys, so a reference `.pth` loads
     with `load_state_dict(strict=True)`. With a `generator`, every weight
-    and BatchNorm statistic is drawn from it (`random_init_`).
+    and BatchNorm statistic is drawn from it (`random_init_`); a model to be
+    trained takes the JAX package's initialisers instead (`train_init`).
     """
 
     def __init__(self, classes: int = 13, base_num: int = 7,
@@ -41,6 +49,7 @@ class GWCAPL(nn.Module):
                  mlp_widths: Sequence[int] = (512, 256),
                  base_widths: Sequence[int] = (128, 64),
                  output_dim: int = 64, k: int = 20, in_features: int = 9,
+                 attn_dropout: float = 0.1,
                  device: Optional[torch.device] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -55,7 +64,7 @@ class GWCAPL(nn.Module):
         self.base_learner = BaseLearner(mlp_widths[-1], base_widths,
                                         device=device)
         self.att_learner = SelfAttention(mlp_widths[-1], output_dim,
-                                         device=device)
+                                         attn_dropout, device=device)
         semantic = edgeconv_widths[0][-1] + output_dim + base_widths[-1]
         # input order [cosine_feat, semantic_feat] (reference capl.py:63-65)
         self.fusion = nn.Sequential(
@@ -68,25 +77,38 @@ class GWCAPL(nn.Module):
             random_init_(self, generator)
         self.eval()
 
+    @torch.no_grad()
+    def train_init(self, generator: torch.Generator) -> "GWCAPL":
+        """The JAX package's initialisers, drawn from `generator` (a CPU
+        generator): `train_init_` for the convs and BatchNorms, and
+        main_proto and bg_proto standard normal (JAX capl.py:68-72)."""
+        train_init_(self, generator)
+        for proto in (self.main_proto, self.bg_proto):
+            proto.copy_(torch.randn(proto.shape, generator=generator))
+        return self
+
     # ------------------------------------------------------------------ #
     # feature extraction
     # ------------------------------------------------------------------ #
 
-    def get_features(self, x: torch.Tensor, gp: torch.Tensor
+    def get_features(self, x: torch.Tensor, gp: torch.Tensor,
+                     generator: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Reference capl.py:324-362.
 
-        x: (B, N, C_in) point clouds; gp: (num_gw, 192) geometric-word basis.
-        Returns point_feat (B, N, main_dim), semantic_feat (B, N, 192),
-        one_hot_gw (B, N, num_gw).
+        x: (B, N, C_in) point clouds; gp: (num_gw, 192) geometric-word basis
+        (a constant: no gradient reaches it). In training the BatchNorms
+        use batch statistics and `generator` draws the attention's dropout
+        seed. Returns point_feat (B, N, main_dim), semantic_feat
+        (B, N, 192), one_hot_gw (B, N, num_gw).
         """
         edge_feats, feat_level2 = self.encoder(x)
         feat_level3 = self.base_learner(feat_level2)
-        att_feat = self.att_learner(feat_level2)
+        att_feat = self.att_learner(feat_level2, generator)
         semantic_feat = torch.cat([edge_feats[0], att_feat, feat_level3],
                                   dim=-1)
         edge_l2 = l2norm(torch.cat(edge_feats, dim=-1))
-        gp_l2 = l2norm(gp)
+        gp_l2 = l2norm(gp.detach())
         cos = torch.einsum("bnd,kd->bnk", edge_l2, gp_l2)
         cosine_feat = torch.softmax(self.cosine_scale * cos, dim=-1)
         assignment = torch.argmax(cosine_feat, dim=-1)
@@ -152,6 +174,86 @@ class GWCAPL(nn.Module):
                       keepdim=True)
         w = w * (w > 0).to(w.dtype)                            # clamp at 0
         return w * pred_proto + (1.0 - w) * proto[None]
+
+    # ------------------------------------------------------------------ #
+    # fake-novel episode construction (training only)
+    # ------------------------------------------------------------------ #
+
+    def generate_fake_proto(self, feats: torch.Tensor, y: torch.Tensor,
+                            main_proto: torch.Tensor,
+                            generator: Optional[torch.Generator] = None,
+                            fake_row: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """CAPL eqn.8 (reference capl.py:364-411; JAX capl.py:192-247).
+
+        Half of the classes present in `y` (background 0 excluded) become
+        "fake novel": their prototype rows are replaced by the mean of the
+        L2-normalised features of their points; the other rows keep the
+        normalised learned prototype.
+
+        feats: (B2, N, C) features of the second half of the batch; y:
+        (B2, N) labels in {0..base_num}; main_proto: (cls, C). `fake_row`
+        (cls,) {0,1} pins the draw (so that tests can hold both frameworks
+        to one draw); otherwise `n_present // 2` present classes are drawn
+        uniformly with `generator` (on feats' device), without a host
+        round trip: the distribution of JAX's noise-argsort, not its bits.
+        Returns (new_proto (cls, C), fake_row (cls,) in {0., 1.}).
+        """
+        n_cls = main_proto.shape[0]
+        onehot = _one_hot(y, n_cls + 1, feats.dtype)          # (B2, N, cls+1)
+        counts = torch.sum(onehot, dim=(0, 1))
+        present = counts[1:] > 0
+        if fake_row is None:
+            novel_num = torch.sum(present) // 2
+            noise = torch.rand(n_cls, generator=generator,
+                               device=feats.device)
+            score = torch.where(present, noise, torch.full_like(noise, -1.0))
+            rank = torch.argsort(torch.argsort(-score))         # descending
+            fake_row = present & (rank < novel_num)
+        fake_row = fake_row.to(device=feats.device, dtype=feats.dtype)
+        class_sums = torch.einsum("bnk,bnc->kc", onehot, l2norm(feats))
+        class_means = class_sums[1:] / (counts[1:, None] + 1e-12)
+        new_proto = ((1.0 - fake_row[:, None]) * l2norm(main_proto)
+                     + fake_row[:, None] * class_means)
+        return new_proto, fake_row
+
+    # ------------------------------------------------------------------ #
+    # the training pass
+    # ------------------------------------------------------------------ #
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor, gp: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                fake_row: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Base-stage training pass (reference capl.py:194-242; JAX
+        `__call__`), in the module's mode (train: batch statistics).
+
+        x: (B, N, C_in); y: (B, N) labels in {0..base_num}, 255 ignored.
+        The second half of the batch builds the fake-novel prototypes;
+        `generator` draws them and the attention's dropout seed, `fake_row`
+        pins the former. Returns (pred (B, N), loss = 0.5 CE2 + 0.5 CE1).
+        """
+        point_feat, _, _ = self.get_features(x, gp, generator)
+        fake_num = x.shape[0] // 2
+        ori_proto, _ = self.generate_fake_proto(
+            point_feat[fake_num:], y[fake_num:], self.main_proto, generator,
+            fake_row)
+        x_pre_1 = self.get_pred(point_feat, ori_proto, use_bg_proto=True)
+        loss_ce_1 = cross_entropy(x_pre_1, y, ignore_index=IGNORE_INDEX)
+
+        refine = self.post_refine_proto(self.main_proto, point_feat,
+                                        use_bg_proto=True)    # (B, cls, C)
+        base = self.base_num
+        post = torch.cat([
+            refine[:, :base] + ori_proto[None, :base],
+            ori_proto[None, base:].expand(refine.shape[0],
+                                          refine.shape[1] - base,
+                                          refine.shape[2]),
+        ], dim=1)
+        x_pre_2 = self.get_pred(point_feat, post, use_bg_proto=True)
+        loss_ce_2 = cross_entropy(x_pre_2, y, ignore_index=IGNORE_INDEX)
+        return (torch.argmax(x_pre_2, dim=-1),
+                0.5 * loss_ce_2 + 0.5 * loss_ce_1)
 
     # ------------------------------------------------------------------ #
     # geometric-word re-weighting

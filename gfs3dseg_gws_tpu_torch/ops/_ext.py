@@ -48,6 +48,12 @@ _SIGNATURES = {
     # a, b, idx, p1, w2, gsel, ksel, pk, scat, psum, part, batch, n, c, w1,
     # k, neg_slope, stream
     "gfs_edgeconv_train_bwd": (_P,) * 11 + (_I,) * 5 + (_F, _P),
+    # q, k, v, seed, out, m, den, batch, n, d, inv_temperature, thr,
+    # keep_scale, stream
+    "gfs_attention_train_fwd": (_P,) * 7 + (_I, _I, _I, _F, _I, _F, _P),
+    # q, k, v, seed, m, den, delta, dy, dq, dk, dv, batch, n, d,
+    # inv_temperature, thr, keep_scale, stream
+    "gfs_attention_train_bwd": (_P,) * 11 + (_I, _I, _I, _F, _I, _F, _P),
 }
 
 

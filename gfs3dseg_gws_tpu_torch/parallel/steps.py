@@ -1,6 +1,7 @@
 """Single-device train and eval steps (counterpart of the JAX package's
-parallel/steps.py: the pretrain step, steps.py:655-692, and the eval
-factories, steps.py:534-577, 727-742 and 745-808).
+parallel/steps.py: the GFS train step, steps.py:223-264, the pretrain step,
+steps.py:655-692, and the eval factories, steps.py:534-577, 727-742 and
+745-808).
 
 Plain functions; each returns device tensors and never synchronises, so a
 loop can queue steps back to back and read the results later. The JAX
@@ -15,6 +16,27 @@ import torch
 
 from gfs3dseg_gws_tpu_torch.models.layers import cross_entropy
 from gfs3dseg_gws_tpu_torch.ops.metrics import confusion_matrix
+
+
+def gfs_train_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
+                   labels: torch.Tensor, gp: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   sched=None, fake_row: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One GFS base-stage step (reference train.py:616-631): train-mode
+    GWCAPL forward (fake-novel prototypes, 0.5 CE2 + 0.5 CE1), backward,
+    optimizer step, then the per-step LR schedule. `generator` (on the
+    device) draws the fake classes and the attention's dropout seed.
+    Returns (loss, accuracy = mean(pred == labels)) as device tensors."""
+    model.train()
+    pred, loss = model(points, labels, gp, generator, fake_row)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    if sched is not None:
+        sched.step()
+    accuracy = torch.mean((pred == labels).to(torch.float32))
+    return loss.detach(), accuracy
 
 
 def pretrain_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
@@ -61,6 +83,7 @@ def gfs_eval_multi_step(model, points: torch.Tensor, labels: torch.Tensor,
 
     Returns (cm (S, C, C), gp_acc (S,), gp_novel_acc (S,)).
     """
+    model.eval()
     logits, gp_acc, gp_nacc = model.evaluate_multi(
         points, gp, gened_protos, base_coding, novel_codings, labels, valid)
     pred = torch.argmax(logits, dim=-1)                      # (S, B, N)
@@ -87,6 +110,7 @@ def coding_step(model, points: torch.Tensor, labels: torch.Tensor,
     Returns (cls_sums (num_base, K), cls_counts (num_base,),
              bg_mean_sum (K,), bg_block_count ()).
     """
+    model.eval()
     _, _, gw = model.get_features(points, gp)                # (B, N, K)
     onehot = torch.nn.functional.one_hot(labels.long(), num_base + 1).to(
         gw.dtype)
@@ -110,4 +134,5 @@ def fg_feat_step(model, points: torch.Tensor, mask: torch.Tensor,
 
     Returns (fg_sums (S, C), fg_counts (S,), gw_hists (S, K)).
     """
+    model.eval()
     return model.get_fg_feat(points, mask, gp)

@@ -1,5 +1,10 @@
-"""Generalized few-shot evaluation (counterpart of the eval half of the JAX
-package's pipelines/gfs.py; reference train.py:309-499, 666-731).
+"""Generalized few-shot training and evaluation (counterpart of the JAX
+package's pipelines/gfs.py; reference train.py:309-588, 666-731).
+
+`train_gfs` (`train.py`) trains the GW/CAPL model on the base classes:
+every epoch (re)codes the base classes when due, runs the training batches
+through `gfs_train_step`, validates on support seed 0 every
+`eval_interval` epochs and keeps the best checkpoints (`_maybe_save`).
 
 `evaluate_gfs` (`train.py --only_evaluate`) does four things:
   1. collect base-class geometric-word codings over the train split
@@ -36,17 +41,24 @@ from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
 from gfs3dseg_gws_tpu_torch.models.layers import l2norm
 from gfs3dseg_gws_tpu_torch.ops.coding import energy_multihot
 from gfs3dseg_gws_tpu_torch.ops.metrics import gfs_miou
+from gfs3dseg_gws_tpu_torch.parallel.optim import make_gfs_optimizer
 from gfs3dseg_gws_tpu_torch.parallel.steps import (coding_step, fg_feat_step,
-                                                   gfs_eval_multi_step)
+                                                   gfs_eval_multi_step,
+                                                   gfs_train_step)
 from gfs3dseg_gws_tpu_torch.utils.checkpoint import (
     load_basis,
     load_checkpoint,
+    load_pretrained_encoder,
     load_torch_coding,
     load_torch_gfs_state_dict,
+    load_train_state,
+    save_gfs_npz,
+    save_train_state,
     state_dict_from_jax,
 )
 from gfs3dseg_gws_tpu_torch.utils.logging import (AverageMeter, IOStream,
                                                   init_logger)
+from gfs3dseg_gws_tpu_torch.utils.observability import MetricsWriter
 
 _log = logging.getLogger(__name__)
 
@@ -86,6 +98,7 @@ class GFSSetup:
     test_learning_order_idx: List[int]
     val_dataset: TestingDataset
     supp_datasets: List[ValSuppDataset]
+    train_data: PretrainBlockDataset
     train_data_noaug: PretrainBlockDataset
 
 
@@ -119,6 +132,10 @@ def build_setup(model_cfg, data_cfg, train_cfg, basis: np.ndarray,
         for seed in data_cfg.support_seeds
     ]
     train_c2s = {c: reg_train.class2scans[c] for c in train_class_names}
+    train_data = PretrainBlockDataset(
+        data_cfg.data_path, train_class_names, train_c2s, mode="train",
+        num_point=data_cfg.pc_npts, pc_attribs=data_cfg.pc_attribs,
+        pc_augm=data_cfg.pc_augm, pc_augm_config=data_cfg.augment_config)
     train_data_noaug = PretrainBlockDataset(
         data_cfg.data_path, train_class_names, train_c2s, mode="train",
         num_point=data_cfg.pc_npts, pc_attribs=data_cfg.pc_attribs,
@@ -132,17 +149,25 @@ def build_setup(model_cfg, data_cfg, train_cfg, basis: np.ndarray,
         edgeconv_widths=model_cfg.edgeconv_widths,
         mlp_widths=model_cfg.dgcnn_mlp_widths,
         base_widths=model_cfg.base_widths, output_dim=model_cfg.output_dim,
-        k=model_cfg.dgcnn_k, in_features=model_cfg.pc_in_dim, device=device)
+        k=model_cfg.dgcnn_k, in_features=model_cfg.pc_in_dim,
+        attn_dropout=model_cfg.attn_dropout, device=device)
     return GFSSetup(model, _to(device, basis), train_class_names,
                     test_class_names, all_learning_order, all_class_names,
                     test_learning_order_idx, val_dataset, supp_datasets,
-                    train_data_noaug)
+                    train_data, train_data_noaug)
+
+
+def init_model(setup: GFSSetup, seed: int) -> GWCAPL:
+    """setup.model with the JAX package's initialisers drawn from a CPU
+    generator seeded `seed` (JAX: init_variables); the same seed gives the
+    same weights on every device."""
+    return setup.model.train_init(torch.Generator().manual_seed(seed))
 
 
 def load_model_weights(model: GWCAPL, path: str) -> None:
-    """A reference-layout `.pth`, or a JAX-package `.npz` through the
-    converter, into `model` (strict: every key must match)."""
-    if path.endswith(".pth"):
+    """A reference-layout `.pth`/`.tar`, or a JAX-package or port `.npz`
+    through the converter, into `model` (strict: every key must match)."""
+    if path.endswith((".pth", ".tar")):
         sd = load_torch_gfs_state_dict(path)
     else:
         flat, _ = load_checkpoint(path)
@@ -467,3 +492,180 @@ def evaluate_gfs(model_cfg, data_cfg, train_cfg,
             "novel_codings": novel_codings,
             "n_blocks": len(setup.val_dataset),
             "sweep_seconds": sweep_seconds}
+
+
+# --------------------------------------------------------------------------- #
+# entry point: base-stage training
+# --------------------------------------------------------------------------- #
+
+# losses stay on the device this many steps before the host reads them, so
+# reading one never waits for the step just queued (JAX: drain(16))
+LOSS_LAG = 16
+
+
+def _step_seed(seed: int, step: int) -> int:
+    """The device generator's seed for optimizer step `step`: a function of
+    (seed, step) alone (JAX: fold_in(rng, step)), so that a resumed run
+    draws what an uninterrupted one would."""
+    return (seed << 32) + step
+
+
+def train_gfs(model_cfg, data_cfg, train_cfg,
+              logger: Optional[IOStream] = None,
+              max_steps_per_epoch: Optional[int] = None) -> Dict:
+    """Base-stage training (reference train.py:503-588; JAX
+    pipelines/gfs.py::train_gfs) on `train_cfg.device`.
+
+    The model starts from the JAX initialisers (seed `train_cfg.seed`),
+    then, in order: the pre-trained encoder (`use_pretrain_weight`), a warm
+    start from `model_checkpoint_path` at `start_epoch == 0` (weights only,
+    a fresh optimizer), or a resume at `start_epoch > 0` (weights, optimizer
+    moments, schedule and step count from the port's own train state beside
+    the checkpoint). `max_steps_per_epoch` cuts epochs short.
+
+    Returns {"best", "history", "model", "step", "base_coding"}; `history`
+    has one entry per epoch with its mean loss and accuracy, steps and
+    seconds, plus the validation mIoUs where it validated.
+    """
+    device = resolve_device(train_cfg.device)
+    basis = load_basis(train_cfg.basis_path)
+    setup = build_setup(model_cfg, data_cfg, train_cfg, basis, device)
+    logger = logger or init_logger(train_cfg.save_path, phase="train")
+    writer = MetricsWriter(train_cfg.save_path)
+    model = init_model(setup, train_cfg.seed)
+
+    if train_cfg.use_pretrain_weight and train_cfg.pretrain_checkpoint_path:
+        logger.cprint("----- loading pretrain weight of feature extractor ----")
+        model.encoder.load_state_dict(
+            load_pretrained_encoder(train_cfg.pretrain_checkpoint_path),
+            strict=True)
+    if train_cfg.start_epoch == 0 and train_cfg.model_checkpoint_path \
+            and not train_cfg.only_evaluate:
+        logger.cprint("----- warm-starting full model from checkpoint -----")
+        load_model_weights(model, train_cfg.model_checkpoint_path)
+
+    n_base = len(setup.train_class_names)
+    steps_per_epoch = max(len(setup.train_data) // train_cfg.batch_size, 1)
+    opt, sched = make_gfs_optimizer(
+        model, train_cfg.base_lr, steps_per_epoch, train_cfg.step_size,
+        train_cfg.gamma, train_cfg.encoder_lr_scale, train_cfg.weight_decay)
+    step = 0
+    if train_cfg.start_epoch > 0 and train_cfg.model_checkpoint_path:
+        logger.cprint("----- resuming from checkpoint -----")
+        load_model_weights(model, train_cfg.model_checkpoint_path)
+        step = load_train_state(train_cfg.model_checkpoint_path, opt, sched)
+    gen = torch.Generator(device=device)
+
+    scannet = len(setup.all_learning_order) > 13
+    best = {"max_iou": 0.0, "max_iou_100": 0.0, "max_hm": 0.0}
+    history = []
+    base_coding = None
+    for epoch in range(train_cfg.start_epoch, train_cfg.epochs):
+        # always on a run's first epoch, so that a resume off the coding
+        # interval still has a coding (JAX train_gfs does the same)
+        if epoch == train_cfg.start_epoch or \
+                epoch % train_cfg.coding_interval == 0:
+            base_coding, _ = collect_base_codings(
+                model, setup.gp, setup.train_data_noaug, n_base,
+                train_cfg.energy, train_cfg.batch_size)
+
+        loss_m, acc_m = AverageMeter(), AverageMeter()
+        pending: List = []
+
+        def drain(keep: int):
+            while len(pending) > keep:
+                loss, acc = pending.pop(0)
+                loss_m.update(float(loss))
+                acc_m.update(float(acc))
+
+        t0 = time.time()
+        steps = 0
+        for i, batch in enumerate(train_batches(
+                setup.train_data, train_cfg.batch_size, seed=train_cfg.seed,
+                epoch=epoch)):
+            if max_steps_per_epoch and i >= max_steps_per_epoch:
+                break
+            gen.manual_seed(_step_seed(train_cfg.seed, step))
+            pending.append(gfs_train_step(
+                model, opt, _to(device, np.asarray(batch[0], np.float32)),
+                _to(device, np.asarray(batch[1], np.int64)), setup.gp, gen,
+                sched))
+            step += 1
+            steps += 1
+            if steps % train_cfg.print_freq == 0:
+                drain(0)
+                logger.cprint(
+                    f"Epoch: [{epoch + 1}/{train_cfg.epochs}][{steps}/"
+                    f"{steps_per_epoch}] Loss {loss_m.val:.4f} "
+                    f"({loss_m.avg:.4f}) Accuracy {acc_m.val:.4f} "
+                    f"({acc_m.avg:.4f}).")
+            else:
+                drain(LOSS_LAG)
+        drain(0)
+        seconds = time.time() - t0
+        logger.cprint(f"Train result at epoch [{epoch}/{train_cfg.epochs}]: "
+                      f"acc {acc_m.avg:.4f}. ({seconds:.1f}s)")
+        writer.scalar("Train/loss", loss_m.avg, epoch)
+        writer.scalar("Train/accuracy", acc_m.avg, epoch)
+        entry = {"epoch": epoch, "loss": loss_m.avg, "accuracy": acc_m.avg,
+                 "steps": steps, "seconds": seconds}
+        history.append(entry)
+
+        # ---- validation on support seed 0 (reference train.py:518-544)
+        if train_cfg.evaluate and (epoch + 1) % train_cfg.eval_interval == 0:
+            main_proto = model.main_proto.detach().cpu().numpy()
+            gened, novel_coding = register_novel_protos(
+                model, setup.gp, setup.supp_datasets[0], main_proto, n_base,
+                setup.test_learning_order_idx, train_cfg.energy)
+            mean_iou, base_iou, novel_iou, hm, _ = validate_multi(
+                model, setup.gp, setup.val_dataset, gened[None], base_coding,
+                novel_coding[None], setup.all_learning_order,
+                setup.test_class_names, len(setup.all_class_names),
+                _eval_batch_size(train_cfg), scannet, logger)[0]
+            logger.cprint(f"Epoch: {epoch}, Final mIoU: {mean_iou}, BASE: "
+                          f"{base_iou}, NOVEL: {novel_iou}, hm: {hm}")
+            entry.update(mean_iou=mean_iou, base_iou=base_iou,
+                         novel_iou=novel_iou, hm_iou=hm)
+            writer.scalar("Val/mIoU_val", mean_iou, epoch)
+            writer.scalar("Val/base_mIoU", base_iou, epoch)
+            writer.scalar("Val/novel_mIoU", novel_iou, epoch)
+            writer.scalar("Val/hm_mIoU", hm, epoch)
+            _maybe_save(model, opt, sched, step, base_coding, train_cfg,
+                        logger, best, epoch, mean_iou, base_iou, novel_iou,
+                        hm)
+
+    writer.close()
+    return {"best": best, "history": history, "model": model, "step": step,
+            "base_coding": base_coding}
+
+
+def _maybe_save(model, opt, sched, step, base_coding, train_cfg, logger,
+                best, epoch, mean_iou, base_iou, novel_iou, hm) -> None:
+    """Keep the best checkpoints by validation mIoU (before and after epoch
+    100) and by harmonic mean, each with its coding file, under the JAX
+    package's names (reference train.py:546-588)."""
+    meta = {"epoch": epoch, "max_iou": float(mean_iou)}
+
+    def save(name, coding_prefix=""):
+        path = os.path.join(train_cfg.save_path, name)
+        logger.cprint("Saving best checkpoint to: " + path)
+        save_gfs_npz(model, path, meta)
+        save_train_state(path, opt, sched, step)
+        np.savez(os.path.join(
+            train_cfg.save_path,
+            f"{coding_prefix}base_class_gp_coding_energy="
+            f"{train_cfg.energy}.npz"), coding=base_coding)
+
+    if mean_iou > best["max_iou"] and epoch < 100:
+        best["max_iou"] = mean_iou
+        save(f"train_epoch_{epoch}_{mean_iou}_Base_{base_iou}"
+             f"_Novel_{novel_iou}.npz")
+    if mean_iou > best["max_iou_100"] and epoch >= 100:
+        best["max_iou_100"] = mean_iou
+        save(f"train_epoch_{epoch}_{mean_iou}_Base_{base_iou}"
+             f"_Novel_{novel_iou}_hm_{hm}.npz")
+    if hm > best["max_hm"]:
+        best["max_hm"] = hm
+        # the hm checkpoint gets its own coding file (reference train.py:584)
+        save(f"train_hm_epoch_{epoch}_{mean_iou}_Base_{base_iou}"
+             f"_Novel_{novel_iou}_hm_{hm}.npz", coding_prefix="hm_")

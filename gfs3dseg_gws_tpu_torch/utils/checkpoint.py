@@ -13,8 +13,11 @@ follow the key map of the JAX package's `_export_feat_state`,
 Pre-training writes both of the JAX package's files: `checkpoint.tar`
 ({"params": encoder state dict}, the reference layout that `get_basis.py`
 and `train.py --use_pretrain_weight` read) and `checkpoint.npz` (the flat
-`params/...`, `batch_stats/...` layout of its `save_checkpoint`). Nothing
-here imports jax.
+`params/...`, `batch_stats/...` layout of its `save_checkpoint`). GFS
+training writes its `GWCAPL` in that flat layout too (`save_gfs_npz`, read
+by the JAX package's `load_checkpoint` + `restore_into`), and beside it the
+optimizer and step in the port's own format (`save_train_state`), for
+resume. Nothing here imports jax.
 """
 from __future__ import annotations
 
@@ -139,6 +142,27 @@ def _encoder_layout(block_depths: Sequence[int], n_mlp: int) -> List[_Entry]:
     return out
 
 
+def _head_layout(n_base_convs: int, attention: bool = True
+                 ) -> List[_Entry]:
+    """The base learner's and the self-attention's key map."""
+    out: List[_Entry] = []
+    for i in range(n_base_convs):
+        out += [(f"base_learner.convs.{i}.0", f"base_learner/conv{i}/kernel",
+                 "conv1d", True),
+                (f"base_learner.convs.{i}.1", f"base_learner/bn{i}", "bn",
+                 False)]
+    if attention:
+        out += [(f"att_learner.{m}", f"att_learner/{m}/kernel", "conv1d",
+                 False) for m in ("q_map", "k_map", "v_map")]
+    return out
+
+
+_FUSION_LAYOUT: List[_Entry] = [
+    ("fusion.0", "fusion/kernel", "conv1d", True),
+    ("fusion.1", "fusion_bn", "bn", False),
+]
+_PROTOS = ("main_proto", "bg_proto")
+
 _SEGMENTER_LAYOUT: List[_Entry] = [
     ("segmenter.0", "segmenter/conv0/kernel", "conv1d", False),
     ("segmenter.1", "segmenter/bn0", "bn", False),
@@ -197,28 +221,29 @@ def state_dict_from_jax(params: Mapping,
     """
     params, batch_stats = _split_variables(params, batch_stats)
     sd: Dict[str, torch.Tensor] = {}
-    _put_layout(sd, _encoder_layout(*_jax_encoder_depths(params["encoder"])),
-                params, batch_stats)
+    layout = (_encoder_layout(*_jax_encoder_depths(params["encoder"]))
+              + _head_layout(_jax_base_convs(params)) + _FUSION_LAYOUT)
+    _put_layout(sd, layout, params, batch_stats)
+    for name in _PROTOS:
+        sd[name] = torch.from_numpy(np.array(params[name], np.float32))
+    return sd
 
-    bl_p, bl_s = params["base_learner"], batch_stats["base_learner"]
-    i = 0
-    while f"conv{i}" in bl_p:
-        _put_conv(sd, f"base_learner.convs.{i}.0", bl_p[f"conv{i}"]["kernel"],
-                  bias=bl_p[f"conv{i}"]["bias"])
-        _put_bn(sd, f"base_learner.convs.{i}.1", bl_p[f"bn{i}"],
-                bl_s[f"bn{i}"])
-        i += 1
 
-    for name in ("q_map", "k_map", "v_map"):
-        _put_conv(sd, f"att_learner.{name}",
-                  params["att_learner"][name]["kernel"])
-    _put_conv(sd, "fusion.0", params["fusion"]["kernel"],
-              bias=params["fusion"]["bias"])
-    _put_bn(sd, "fusion.1", params["fusion_bn"], batch_stats["fusion_bn"])
-    sd["main_proto"] = torch.from_numpy(np.array(params["main_proto"],
-                                                 np.float32))
-    sd["bg_proto"] = torch.from_numpy(np.array(params["bg_proto"],
-                                               np.float32))
+def _jax_base_convs(params: Mapping) -> int:
+    return sum(1 for key in params["base_learner"] if key.startswith("conv"))
+
+
+def segatt_state_dict_from_jax(params: Mapping,
+                               batch_stats: Optional[Mapping] = None
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX package's DGCNNSegAtt variables -> the port's `DGCNNSegAtt`
+    state dict (reference model/dgcnn.py:155-202 keys; same argument forms
+    as `state_dict_from_jax`)."""
+    params, batch_stats = _split_variables(params, batch_stats)
+    sd: Dict[str, torch.Tensor] = {}
+    layout = (_encoder_layout(*_jax_encoder_depths(params["encoder"]))
+              + _head_layout(_jax_base_convs(params)) + _SEGMENTER_LAYOUT)
+    _put_layout(sd, layout, params, batch_stats)
     return sd
 
 
@@ -235,10 +260,10 @@ def pretrain_state_dict_from_jax(params: Mapping,
     return sd
 
 
-def _model_layout(model) -> List[_Entry]:
+def _model_encoder_layout(model) -> List[_Entry]:
     enc = model.encoder
-    return (_encoder_layout([len(b.widths) for b in enc.edge_convs],
-                            len(enc.conv.layer) // 3) + _SEGMENTER_LAYOUT)
+    return _encoder_layout([len(b.widths) for b in enc.edge_convs],
+                           len(enc.conv.layer) // 3)
 
 
 def save_torch_pretrain_checkpoint(model, out_dir: str) -> str:
@@ -257,9 +282,28 @@ def save_pretrain_npz(model, path: str, meta: Optional[Dict] = None) -> None:
     """Write a `DGCNNSeg` as the JAX package's `checkpoint.npz`: flat
     `params/...` and `batch_stats/...` arrays plus a JSON `__meta__`, the
     layout its `save_checkpoint` writes and `restore_into` reads."""
+    _save_npz(model, _model_encoder_layout(model) + _SEGMENTER_LAYOUT, (),
+              path, meta)
+
+
+def save_gfs_npz(model, path: str, meta: Optional[Dict] = None) -> None:
+    """Write a `GWCAPL` in the JAX package's flat checkpoint layout (the
+    inverse of `state_dict_from_jax`): the JAX package's `load_checkpoint`
+    + `restore_into` read it into its GWCAPL, and so does the port's
+    `load_checkpoint` + `state_dict_from_jax`."""
+    layout = (_model_encoder_layout(model)
+              + _head_layout(len(model.base_learner.convs)) + _FUSION_LAYOUT)
+    _save_npz(model, layout, _PROTOS, path, meta)
+
+
+def _save_npz(model, layout: Sequence[_Entry], extra: Sequence[str],
+              path: str, meta: Optional[Dict]) -> None:
+    """Write `model`'s state dict through `layout` (plus the parameters
+    named in `extra`, kept at the top level) as flat npz arrays."""
     sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
-    flat: Dict[str, np.ndarray] = {}
-    for key, path_, kind, has_bias in _model_layout(model):
+    flat: Dict[str, np.ndarray] = {f"params/{name}": sd[name]
+                                   for name in extra}
+    for key, path_, kind, has_bias in layout:
         if kind == "bn":
             flat[f"params/{path_}/scale"] = sd[key + ".weight"]
             flat[f"params/{path_}/bias"] = sd[key + ".bias"]
@@ -278,3 +322,53 @@ def save_pretrain_npz(model, path: str, meta: Optional[Dict] = None) -> None:
     with open(tmp, "wb") as f:
         np.savez(f, **flat)
     os.replace(tmp, path)
+
+
+# --------------------------------------------------------------------------- #
+# GFS training: the pre-trained encoder in, the optimizer state out
+# --------------------------------------------------------------------------- #
+
+def load_pretrained_encoder(path: str) -> Dict[str, torch.Tensor]:
+    """A pre-trained encoder as a state dict of `DGCNN` keys (no `encoder.`
+    prefix), from the pre-training `checkpoint.npz` (the JAX package's or
+    the port's) or the reference `checkpoint.tar` ({"params": encoder state
+    dict}) (JAX pipelines/gfs.py::_load_encoder_any)."""
+    if path.endswith(".npz"):
+        flat, _ = load_checkpoint(path)
+        tree = _unflatten(flat)
+        params, stats = tree["params"], tree["batch_stats"]
+        sd: Dict[str, torch.Tensor] = {}
+        _put_layout(sd, _encoder_layout(*_jax_encoder_depths(
+            params["encoder"])), params, stats)
+        return {k[len("encoder."):]: v for k, v in sd.items()}
+    return torch_load(path)["params"]
+
+
+def train_state_path(npz_path: str) -> str:
+    """Where `save_train_state` keeps the optimizer next to a checkpoint."""
+    return os.path.splitext(npz_path)[0] + ".train_state.pt"
+
+
+def save_train_state(npz_path: str, opt: torch.optim.Optimizer, sched,
+                     step: int) -> str:
+    """The optimizer's moments, the schedule and the step count, in the
+    port's own format (torch.save) next to `npz_path`, for resume. The JAX
+    package keeps its optax state inside the npz; the two do not read each
+    other's. Returns the path."""
+    path = train_state_path(npz_path)
+    tmp = path + ".tmp"
+    torch.save({"optimizer": opt.state_dict(),
+                "scheduler": sched.state_dict(), "step": int(step)}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_train_state(npz_path: str, opt: torch.optim.Optimizer,
+                     sched) -> int:
+    """Restore what `save_train_state` wrote beside `npz_path` into `opt`
+    and `sched`; returns the step count."""
+    state = torch.load(train_state_path(npz_path), map_location="cpu",
+                       weights_only=True)
+    opt.load_state_dict(state["optimizer"])
+    sched.load_state_dict(state["scheduler"])
+    return int(state["step"])

@@ -14,6 +14,7 @@ import torch
 from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
 from gfs3dseg_gws_tpu_torch.models.dgcnnseg import DGCNNSeg
 from gfs3dseg_gws_tpu_torch.models.layers import cross_entropy
+from gfs3dseg_gws_tpu_torch.ops import attention_train as atr
 from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
 from gfs3dseg_gws_tpu_torch.ops.attention_kernel import (attention_plain,
                                                          fused_attention)
@@ -271,3 +272,121 @@ def test_model_on_card_agrees_with_cpu(dev):
     assert agree >= 0.999, agree
     close = ((got - ref).abs() <= 1e-3).all(-1).float().mean().item()
     assert close >= 0.999, close
+
+
+def _rel(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,d", [(2, 128, 8), (16, 2048, 64), (1, 33, 64)])
+def test_attention_train_kernels_match_plain(dev, b, n, d, rate):
+    """K5a and K5b against their twins on the same inputs (the same mask,
+    bit for bit: out, m, den within 1e-5; dq, dk, dv within 1e-4 of the
+    largest entry), then the Function against the plain twin under
+    autograd."""
+    r = np.random.default_rng(n + d)
+    q, k, v, dy = (_randn(r, b, n, d).to(dev) for _ in range(4))
+    seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+    temp = d ** 0.5
+    before = (atr._fwd.launches, atr._bwd.launches)
+    got = atr._fwd(q, k, v, seed, temp, rate)
+    ref = atr._fwd_plain(q, k, v, seed, temp, rate)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ref):
+        assert _rel(g, w) <= 1e-5
+    delta = (dy * ref[0]).sum(-1)
+    got_b = atr._bwd(q, k, v, seed, ref[1], ref[2], delta, dy, temp, rate)
+    ref_b = atr._bwd_plain(q, k, v, seed, ref[1], ref[2], delta, dy, temp,
+                           rate)
+    torch.cuda.synchronize()
+    assert (atr._fwd.launches, atr._bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    for g, w in zip(got_b, ref_b):
+        assert _rel(g, w) <= 1e-4
+
+    def run(fn):
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*ins, seed, temp, rate)
+        return [out] + list(torch.autograd.grad((out * dy).sum(), ins))
+
+    for g, w in zip(run(atr.attention_train), run(atr.attention_train_plain)):
+        assert _rel(g.detach(), w.detach()) <= 1e-4
+
+
+def test_attention_train_wrappers_refuse_what_they_cannot_take(dev):
+    seed = torch.zeros(1, dtype=torch.int32, device=dev)
+    odd = torch.zeros((1, 16, 6), device=dev)
+    wide = torch.zeros((1, 16, 68), device=dev)
+    a = torch.zeros((1, 16, 8), device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        atr.attention_train(odd, odd, odd, seed, 1.0, 0.1)
+    with pytest.raises(ValueError, match="D <= 64"):
+        atr.attention_train(wide, wide, wide, seed, 1.0, 0.1)
+    with pytest.raises(TypeError, match="float32"):
+        atr.attention_train(a.double(), a.double(), a.double(), seed, 1.0,
+                            0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_ = a.transpose(1, 2).contiguous().transpose(1, 2)
+        atr._fwd(t_, t_, t_, seed, 1.0, 0.1)
+    with pytest.raises(ValueError, match="seed"):
+        atr._fwd(a, a, a, seed.long(), 1.0, 0.1)
+
+
+def test_gwcapl_train_step_on_card_agrees_with_cpu(dev, monkeypatch):
+    """One full-width GFS train step (attention dropout 0, a fixed
+    fake_row) on the card and on the CPU from the same weights: loss within
+    1e-4, every gradient's cosine >= 0.999 (rounding-noise pairs under 1e-5
+    of the largest norm left out), running statistics within 1e-4, with
+    the card's kNN graphs replayed on the CPU (see the DGCNNSeg test)."""
+    from gfs3dseg_gws_tpu_torch.models import dgcnn
+    from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices
+
+    graphs = []
+
+    def record(x, btab, k):
+        out = knn_with_stats(x, btab, k)
+        graphs.append(out[0].cpu())
+        return out
+
+    def replay(x, btab, k):
+        idx = graphs.pop(0)
+        differ = (idx.sort(-1).values
+                  != knn_indices(x, k).sort(-1).values).any(-1)
+        assert differ.float().mean() <= 1e-3
+        return (idx,) + neighbor_stats_plain(idx, btab)
+
+    cpu = GWCAPL(num_gw=150, attn_dropout=0.0).train_init(
+        torch.Generator().manual_seed(1))
+    gpu = GWCAPL(num_gw=150, attn_dropout=0.0, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    r = np.random.default_rng(4)
+    x = _randn(r, 4, 512, 9)
+    y = torch.from_numpy(r.integers(0, 8, (4, 512)))
+    gp = _randn(r, 150, 192)
+    fake = torch.zeros(13)
+    fake[[2, 5, 6]] = 1.0
+    losses = []
+    for model, device, knn in ((gpu, dev, record), (cpu, "cpu", replay)):
+        monkeypatch.setattr(dgcnn, "knn_with_stats", knn)
+        model.train()
+        _, loss = model(x.to(device), y.to(device), gp.to(device),
+                        fake_row=fake.to(device))
+        loss.backward()
+        losses.append(loss.item())
+    assert not graphs
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[1])
+    grads = [(name, pc.grad.double().flatten(),
+              pg.grad.cpu().double().flatten())
+             for (name, pc), (_, pg) in zip(cpu.named_parameters(),
+                                            gpu.named_parameters())]
+    floor = 1e-5 * max(gc.norm().item() for _, gc, _ in grads)
+    for name, gc, gg in grads:
+        if gc.norm() < floor and gg.norm() < floor:
+            continue
+        cos = (gc @ gg / (gc.norm() * gg.norm()).clamp_min(1e-300)).item()
+        assert cos >= 0.999, (name, cos)
+    for (name, bc), (_, bg) in zip(cpu.named_buffers(), gpu.named_buffers()):
+        if name.endswith(("running_mean", "running_var")):
+            assert ((bc - bg.cpu()).abs() <= 1e-4 * bc.abs().clamp_min(
+                1.0)).all(), name

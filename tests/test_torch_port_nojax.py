@@ -20,7 +20,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 print("imported", len(names))
-for name in ("ops.knn", "ops.fused_edgeconv_train",
+for name in ("ops.knn", "ops.fused_edgeconv_train", "ops.attention_train",
              "models.dgcnnseg", "parallel.optim", "pipelines.pretrain",
              "cli.pretrain_cli", "utils.observability", "data.datasets",
              "data.native_loader", "data.synthetic"):
