@@ -595,9 +595,10 @@ def check_learning(dev, root: str):
 
 def compare_train_step(label: str, cpu_model, card_model, dev, run):
     """One train step (no dropout) of the same weights and batch on the
-    card and on the CPU, `run(model, device)` giving its loss: the loss
-    within STEP_RTOL, each gradient's cosine with the CPU's >= GRAD_COS,
-    the updated running statistics within STEP_RTOL.
+    card and on the CPU (the card model takes the CPU model's weights),
+    `run(model, device)` giving its loss: the loss within STEP_RTOL, each
+    gradient's cosine with the CPU's >= GRAD_COS, the updated running
+    statistics within STEP_RTOL.
 
     On these blocks at random weights the kNN graphs have near-ties that
     rounding resolves either way, and one flipped neighbour can move a

@@ -62,6 +62,10 @@ from gfs3dseg_gws_tpu_torch.utils.observability import MetricsWriter
 
 _log = logging.getLogger(__name__)
 
+# training losses stay on the device this many steps before the host reads
+# them, so reading one never waits for the step just queued (JAX: drain(16))
+LOSS_LAG = 16
+
 
 def resolve_device(name: str) -> torch.device:
     """torch.device(name); a CUDA device without CUDA raises rather than
@@ -497,10 +501,6 @@ def evaluate_gfs(model_cfg, data_cfg, train_cfg,
 # --------------------------------------------------------------------------- #
 # entry point: base-stage training
 # --------------------------------------------------------------------------- #
-
-# losses stay on the device this many steps before the host reads them, so
-# reading one never waits for the step just queued (JAX: drain(16))
-LOSS_LAG = 16
 
 
 def _step_seed(seed: int, step: int) -> int:

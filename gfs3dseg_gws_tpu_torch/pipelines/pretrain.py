@@ -30,17 +30,13 @@ from gfs3dseg_gws_tpu_torch.ops.metrics import overall_accuracy_and_miou
 from gfs3dseg_gws_tpu_torch.parallel.optim import make_pretrain_optimizer
 from gfs3dseg_gws_tpu_torch.parallel.steps import (eval_logits_step,
                                                    pretrain_step)
-from gfs3dseg_gws_tpu_torch.pipelines.gfs import (resolve_device,
+from gfs3dseg_gws_tpu_torch.pipelines.gfs import (LOSS_LAG, resolve_device,
                                                   train_batches)
 from gfs3dseg_gws_tpu_torch.utils.checkpoint import (
     save_pretrain_npz, save_torch_pretrain_checkpoint)
 from gfs3dseg_gws_tpu_torch.utils.logging import (AverageMeter, IOStream,
                                                   init_logger)
 from gfs3dseg_gws_tpu_torch.utils.observability import MetricsWriter
-
-# losses stay on the device this many steps before the host reads them, so
-# reading one never waits for the step just queued (JAX: drain(16))
-LOSS_LAG = 16
 
 
 def _to(device, array, dtype) -> torch.Tensor:

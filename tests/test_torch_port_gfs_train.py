@@ -8,6 +8,7 @@ Inputs are drawn with numpy; JAX models use use_pallas=False (the XLA
 path), and JAX's Pallas attention op runs in interpret mode as its own
 tests run it. Tolerances are max |got - ref| / max |ref| unless stated.
 """
+import copy
 import glob
 import os
 import pickle
@@ -507,7 +508,7 @@ def test_train_gfs_checkpoint_is_read_by_jax(gfs_data, two_epochs):
         {"params": jax.device_get(variables["params"]),
          "batch_stats": jax.device_get(variables["batch_stats"])}, flat,
         strict=True)
-    port = two_epochs["model"]
+    port = copy.deepcopy(two_epochs["model"])
     if meta["epoch"] != 1:              # the newest file is not the last
         from gfs3dseg_gws_tpu_torch.pipelines.gfs import load_model_weights
         load_model_weights(port, path)
