@@ -142,8 +142,7 @@ def _encoder_layout(block_depths: Sequence[int], n_mlp: int) -> List[_Entry]:
     return out
 
 
-def _head_layout(n_base_convs: int, attention: bool = True
-                 ) -> List[_Entry]:
+def _head_layout(n_base_convs: int) -> List[_Entry]:
     """The base learner's and the self-attention's key map."""
     out: List[_Entry] = []
     for i in range(n_base_convs):
@@ -151,10 +150,8 @@ def _head_layout(n_base_convs: int, attention: bool = True
                  "conv1d", True),
                 (f"base_learner.convs.{i}.1", f"base_learner/bn{i}", "bn",
                  False)]
-    if attention:
-        out += [(f"att_learner.{m}", f"att_learner/{m}/kernel", "conv1d",
-                 False) for m in ("q_map", "k_map", "v_map")]
-    return out
+    return out + [(f"att_learner.{m}", f"att_learner/{m}/kernel", "conv1d",
+                   False) for m in ("q_map", "k_map", "v_map")]
 
 
 _FUSION_LAYOUT: List[_Entry] = [
