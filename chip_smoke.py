@@ -3,18 +3,21 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from gfs3dseg_gws_tpu_torch/csrc, holds each
-against its plain PyTorch version on the card, then drives the port's three
+against its plain PyTorch version on the card, then drives the port's
 paths at the full width of the S3DIS model on synthetic S3DIS-layout data:
 GFS evaluation (`train_cli --only_evaluate`, random seeded weights),
 backbone pre-training (`pretrain_cli --phase pretrain`, two short epochs
-with validation) and GFS base-stage training (`train_cli`, two short
-epochs from the pre-trained encoder, validation after each, its checkpoint
-evaluated again), and checks the card against the CPU on each. Every phase
-prints one line of numbers; any failure raises and the script exits
-non-zero. The line before the last lists every kernel with its launches on
-the main paths, error against its plain version, time, plain time, bound
-and library yardstick; the last line is {"ok": true, "device": {...}}.
-Needs one CUDA device; imports no JAX.
+with validation), geometric-word extraction (`basis_cli` on the
+pre-training checkpoint) and GFS base-stage training (`train_cli`, two
+short epochs from the pre-trained encoder and that basis, validation after
+each, its checkpoint evaluated again); then the same chain pre-train ->
+basis -> GFS train -> evaluate at the DGCNN semantic-segmentation widths,
+whose third EdgeConv block is one layer deep. It checks the card against
+the CPU on each. Every phase prints one line of numbers; any failure
+raises and the script exits non-zero. The line before the last lists
+every kernel with its launches on the main paths, error against its plain
+version, time, plain time, bound and library yardstick; the last line is
+{"ok": true, "device": {...}}. Needs one CUDA device; imports no JAX.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ MISS_RATIO, MISS_SLACK = 2.0, 1e-3  # card may miss fp64 this much more than
 CMP_BLOCKS = 8                    # blocks compared between card and CPU
 STATS_TOL = 1e-4                  # K3 scb: max |diff| / max |twin|
 FWD_TOL, GRAD_TOL = 1e-4, 1e-3    # K4 forward / gradients, same measure
-PRE_BLOCKS, PRE_EPOCHS = 480, 2   # pre-training data and epochs
+PRE_BLOCKS, PRE_EPOCHS = 240, 2   # pre-training data and epochs
 LEARN_STEPS, LEARN_DROP = 30, 0.10  # one batch: loss must fall >= 10%
 TRAIN_CMP_BLOCKS = 4              # card vs CPU train step: blocks
 STEP_RTOL = 1e-4                  # ... loss and running statistics
@@ -57,14 +60,27 @@ GRAPH_TIE = 1e-4                  # ... card graph rows the CPU's own graph
 ATTN_RATE = 0.1                   # K5: the model's attention dropout
 K5_FWD_TOL, K5_BWD_TOL = 1e-5, 1e-4  # K5a / K5b: max |diff| / max |twin|
 GFS_BLOCKS, GFS_EPOCHS = 320, 2   # GFS training data and epochs
+DEFAULT_WIDTHS = "[[64,64],[64,64],[64,64]]"
+# the DGCNN semantic-segmentation backbone (Wang et al., TOG 2019,
+# DGCNN_semseg conv1-2 / conv3-4 / conv5): a third block one layer deep
+SEMSEG_WIDTHS = "[[64,64],[64,64],[64]]"
+K7_TOL = 1e-5                     # K7, gather gradient: max |diff| / max |ref|
+LLOYD_BLOCKS, LLOYD_ITERS = 32, 20  # lloyd card vs CPU: blocks, iterations
+LLOYD_AGREE = 0.999               # ... per iteration: labels equal on this
+                                  # share of points; centres: max |diff| /
+CENTRE_TOL = 1e-4                 # max |CPU| when all labels agree, else (a
+CENTRE_FLIP_TOL = 1e-2            # flipped point moves its two centres) this
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
-PROFILE_STEPS = 10                # train steps under torch.profiler
+PROFILE_STEPS = 5                 # train steps under torch.profiler
 # kernel groups of the step's profile: the first group whose pattern is in a
 # kernel's name takes it
 KERNEL_GROUPS = (
     ("K5a attn_train_fwd", ("attn_train_fwd",)),
     ("K5b attn_train_bwd", ("attn_train_bwd",)),
+    ("K6 knn_kernel<CP, false>", ("knn_kernel<16, false>",
+                                  "knn_kernel<64, false>")),
+    ("K7 edgeconv_scatter", ("edgeconv_scatter",)),
     ("K3 knn_kernel", ("knn_kernel",)),
     ("K4a gsf_kernel", ("gsf_kernel",)),
     ("K4b bwd_kernel", ("bwd_kernel",)),
@@ -93,6 +109,17 @@ def size_of(*tensors) -> int:
 def phase(name, **numbers):
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in numbers.items()),
           flush=True)
+
+
+PHASE_SECONDS = {}                # host-clock seconds of each step of main
+
+
+def timed(name: str, fn, *args):
+    """fn(*args), its host-clock seconds kept in PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    return out
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -193,6 +220,138 @@ def near_tie_rows(x, bad, label, rtol=TIE_RTOL, by_norm=False):
                                  f"near-tie (d20={d20}, d21={d21})")
 
 
+def graph_agreement(x, idx, ref_idx, label):
+    """A kernel's kNN graph against its twin's: neighbour sets equal on
+    >= EC_ROWS of the rows, every row whose set differs a near-tie at the
+    k-th distance, and the order equal on >= EC_ROWS of the rows. Returns
+    (share of equal sets, share of equal orders, the differing rows)."""
+    row_ok = (idx.sort(-1).values == ref_idx.sort(-1).values).all(-1)
+    share = row_ok.float().mean().item()
+    if share < EC_ROWS:
+        raise AssertionError(f"{label}: only {share:.6f} of neighbour sets "
+                             f"agree")
+    order = (idx == ref_idx).all(-1).float().mean().item()
+    if order < EC_ROWS:
+        raise AssertionError(f"{label}: idx equals the twin's on only "
+                             f"{order:.6f} of rows")
+    bad = (~row_ok).nonzero().tolist()
+    near_tie_rows(x, bad, label)
+    return share, order, bad
+
+
+def check_knn_indices(dev, c: int, gen: torch.Generator):
+    """K6 against knn_indices_plain at (B, N, c), k=20, by the rule of K3
+    (graph_agreement). Its max_abs_err is the largest difference between
+    the plain squared distances of the kernel's neighbours and the twin's,
+    slot by slot (0 where the graphs agree)."""
+    from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices,
+                                                knn_indices_plain,
+                                                pairwise_sq_dists)
+
+    x = torch.randn((B, N, c), generator=gen).to(dev)
+    idx = knn_indices(x, K)
+    ref = knn_indices_plain(x, K)
+    torch.cuda.synchronize()
+    share, order, bad = graph_agreement(x, idx, ref, f"K6 C={c}")
+    d2 = pairwise_sq_dists(x, x)
+    max_err = (d2.gather(-1, idx.long()) - d2.gather(-1, ref.long())
+               ).abs().max().item()
+    del d2
+    ms = cuda_ms(lambda: knn_indices(x, K))
+    plain_ms = cuda_ms(lambda: knn_indices_plain(x, K))
+    # FMAs: the kNN distances (B N^2 c)
+    bound_ms, bound_by = bound(2.0 * B * N * N * c, size_of(x, idx))
+    phase(f"K6 knn_indices ({B},{N},{c}) k={K}", sets_agree=share,
+          order_agree=order, near_tie_rows=len(bad), max_abs_err=max_err,
+          kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def check_scatter(dev, gen: torch.Generator):
+    """K7 against scatter_bwd_plain at g (B, N, K, 64) on the graph K6
+    builds on (B, N, 64) features, within K7_TOL of the largest entry (float
+    atomics); then the gather Function's gradient against autograd through
+    gather_neighbors_plain on the card, likewise. Library: one index_add_
+    of the flattened g into the flattened (B*N, 64) table, which the port
+    never calls."""
+    from gfs3dseg_gws_tpu_torch.ops.edgeconv import (_flat_rows,
+                                                     gather_neighbors,
+                                                     gather_neighbors_plain,
+                                                     scatter_bwd,
+                                                     scatter_bwd_plain)
+    from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices
+
+    x = torch.randn((B, N, 64), generator=gen).to(dev)
+    idx = knn_indices(x, K)
+    g = torch.randn((B, N, K, 64), generator=gen).to(dev)
+    got = scatter_bwd(idx, g)
+    ref = scatter_bwd_plain(idx, g)
+    torch.cuda.synchronize()
+    err = rel_err(got, ref)
+    grads = []
+    for fn in (gather_neighbors, gather_neighbors_plain):
+        leaf = x.clone().requires_grad_()
+        grads.append(torch.autograd.grad(fn(leaf, idx), leaf, g)[0])
+    fn_err = rel_err(*grads)
+    if err > K7_TOL or fn_err > K7_TOL:
+        raise AssertionError(f"K7 off its twin by {err}, the gather "
+                             f"Function's gradient by {fn_err}")
+    max_err = (got - ref).abs().max().item()
+    flat, gflat = _flat_rows(idx, N), g.reshape(-1, 64)
+    table = torch.zeros((B * N, 64), device=dev)
+    ms = cuda_ms(lambda: scatter_bwd(idx, g))
+    plain_ms = cuda_ms(lambda: scatter_bwd_plain(idx, g))
+    library_ms = cuda_ms(lambda: table.index_add_(0, flat, gflat))
+    # B N K 64 adds; g and idx read, dx written
+    bound_ms, bound_by = bound(float(g.numel()), size_of(idx, g, got))
+    phase(f"K7 gather_neighbors backward ({B},{N},{K},64)", rel_err=err,
+          function_grad_rel_err=fn_err, max_abs_err=max_err, kernel_ms=ms,
+          plain_ms=plain_ms, index_add_ms=library_ms, bound_ms=bound_ms)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def check_gather_conv(dev, gen: torch.Generator):
+    """K9 against gather_conv_plain at (B, N, 64 -> 64), k=20, on K6's
+    indices (the same graph for both: within EC_TOL everywhere); then the
+    split EdgeConv (K6 then K9) against K1 at C=9 and C=64, bit for bit."""
+    from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (
+        fused_edgeconv_infer, fused_edgeconv_infer_split, gather_conv,
+        gather_conv_plain)
+    from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    tables = (randn(B, N, 64), randn(B, N, 64), randn(64, 64, scale=0.125),
+              randn(64, scale=0.1))
+    for c in (9, 64):
+        x = randn(B, N, c)
+        split = fused_edgeconv_infer_split(x, *tables, K)
+        fused = fused_edgeconv_infer(x, *tables, K)
+        torch.cuda.synchronize()
+        if not torch.equal(split, fused):
+            raise AssertionError(f"K6 -> K9 differs from K1 at C={c} by "
+                                 f"{(split - fused).abs().max().item()}")
+    idx = knn_indices(x, K)
+    got = gather_conv(idx, *tables)
+    ref = gather_conv_plain(idx, *tables)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=EC_TOL[0], rtol=EC_TOL[1])
+    max_err = (got - ref).abs().max().item()
+    ms = cuda_ms(lambda: gather_conv(idx, *tables))
+    plain_ms = cuda_ms(lambda: gather_conv_plain(idx, *tables))
+    # FMAs: the edge layer (B N K 64 x 64)
+    bound_ms, bound_by = bound(2.0 * B * N * K * 64 * 64,
+                               size_of(idx, *tables, got))
+    phase(f"K9 gather_conv ({B},{N},64->64) k={K}", max_abs_err=max_err,
+          split_equals_k1="bit for bit at C=9 and C=64", kernel_ms=ms,
+          plain_ms=plain_ms, bound_ms=bound_ms)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
 def check_knn_stats(dev, c: int, gen: torch.Generator):
     """K3 against knn_with_stats_plain at (B, N, c), k=20, btab (B, N, 64):
     idx equal to the twin's, order included, on >= EC_ROWS of the rows;
@@ -208,17 +367,7 @@ def check_knn_stats(dev, c: int, gen: torch.Generator):
     idx, cnt, scb = knn_with_stats(x, btab, K)
     ref_idx = knn_with_stats_plain(x, btab, K)[0]
     torch.cuda.synchronize()
-    row_ok = (idx.sort(-1).values == ref_idx.sort(-1).values).all(-1)
-    share = row_ok.float().mean().item()
-    if share < EC_ROWS:
-        raise AssertionError(f"K3 C={c}: only {share:.6f} of neighbour sets "
-                             f"agree")
-    order = (idx == ref_idx).all(-1).float().mean().item()
-    if order < EC_ROWS:
-        raise AssertionError(f"K3 C={c}: idx equals the twin's on only "
-                             f"{order:.6f} of rows")
-    bad = (~row_ok).nonzero().tolist()
-    near_tie_rows(x, bad, f"K3 C={c}")
+    share, order, bad = graph_agreement(x, idx, ref_idx, f"K3 C={c}")
     ref_cnt, ref_scb = neighbor_stats_plain(idx, btab)
     if not torch.equal(cnt, ref_cnt):
         raise AssertionError(f"K3 C={c}: cnt differs from the plain count")
@@ -462,15 +611,21 @@ def make_inputs(root: str):
 
 
 def pretrain_data(root: str) -> str:
+    """Synthetic blocks for pre-training and basis extraction (made once,
+    shared by both chains)."""
     from gfs3dseg_gws_tpu_torch.data import make_synthetic_blocks
 
-    return make_synthetic_blocks(os.path.join(root, "pretrain_data"),
-                                 n_train_blocks=PRE_BLOCKS, n_test_blocks=1,
-                                 points_per_block=4096, seed=SEED + 1)[0]
+    out = os.path.join(root, "pretrain_data")
+    if not os.path.isdir(out):
+        make_synthetic_blocks(out, n_train_blocks=PRE_BLOCKS,
+                              n_test_blocks=1, points_per_block=4096,
+                              seed=SEED + 1)
+    return os.path.join(out, "blocks_bs1.0_s1.0")
 
 
-def pretrain_dataset(root: str, mode: str):
-    """The pre-training split of `pretrain_data` as pretrain() builds it."""
+def pretrain_dataset(root: str, mode: str, split_ratio: float = 0.1):
+    """The pre-training split of `pretrain_data` as pretrain() builds it
+    (split_ratio 0: as extract_basis builds it)."""
     from gfs3dseg_gws_tpu_torch.data import (PretrainBlockDataset,
                                              make_registry)
 
@@ -479,7 +634,8 @@ def pretrain_dataset(root: str, mode: str):
     classes = reg.train_classes
     return PretrainBlockDataset(data_dir, classes,
                                 {c: reg.class2scans[c] for c in classes},
-                                mode=mode, num_point=N, split_ratio=0.1)
+                                mode=mode, num_point=N,
+                                split_ratio=split_ratio)
 
 
 def reset_launches():
@@ -487,23 +643,56 @@ def reset_launches():
     from gfs3dseg_gws_tpu_torch.ops import attention_train as atr
     from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
     from gfs3dseg_gws_tpu_torch.ops.attention_kernel import fused_attention
-    from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import fused_edgeconv_infer
-    from gfs3dseg_gws_tpu_torch.ops.knn import knn_with_stats
+    from gfs3dseg_gws_tpu_torch.ops.edgeconv import scatter_bwd
+    from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (
+        fused_edgeconv_infer, gather_conv)
+    from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices, knn_with_stats
 
     fns = {"k1": fused_edgeconv_infer, "k2": fused_attention,
            "k3": knn_with_stats, "k4a": fet._gsf, "k4b": fet._bwd,
-           "k5a": atr._fwd, "k5b": atr._bwd}
+           "k5a": atr._fwd, "k5b": atr._bwd, "k6": knn_indices,
+           "k7": scatter_bwd, "k9": gather_conv}
     for fn in fns.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in fns.items()}
 
 
-def check_pretrain(dev, root: str):
+def expected_launches(widths: str, steps: int = 0, forwards: int = 0,
+                      attention: bool = False):
+    """Every kernel's launches for `steps` training steps and `forwards`
+    eval forwards of a model with EdgeConv `widths`: per block two layers
+    deep, K1 per forward and K3/K4a/K4b per step; per block of another
+    depth, K6 per forward and per step and K7 per step; with `attention`,
+    K2 per forward and K5a/K5b per step. K9 is on no model path."""
+    import ast
+
+    depths = [len(w) for w in ast.literal_eval(widths)]
+    two = sum(d == 2 for d in depths)
+    other = len(depths) - two
+    att = int(attention)
+    return {"k1": two * forwards, "k2": att * forwards, "k3": two * steps,
+            "k4a": two * steps, "k4b": two * steps, "k5a": att * steps,
+            "k5b": att * steps, "k6": other * (steps + forwards),
+            "k7": other * steps, "k9": 0}
+
+
+def check_launches(label: str, launches, expected) -> None:
+    if launches != expected:
+        raise AssertionError(f"{label}: launches {launches} != expected "
+                             f"{expected}")
+
+
+def check_pretrain(dev, root: str, widths: str = DEFAULT_WIDTHS,
+                   name: str = "pretrain"):
     """The pre-training path on the card through its CLI, at the reference
     config (S3DIS cvfold 0, N=2048, k=20, batch 16, lr 1e-3, wd 1e-4,
-    StepLR(50, 0.5), --pc_augm) for PRE_EPOCHS short epochs with a
-    validation sweep after each; then the written checkpoint.tar in the
-    port's eval DGCNN and the train step's device time."""
+    StepLR(50, 0.5), --pc_augm) and EdgeConv `widths`, for PRE_EPOCHS short
+    epochs with a validation sweep after each: launches per step and per
+    forward, finite losses that fall; then the written checkpoint.tar in
+    the port's eval DGCNN and the train step's device time. Returns the
+    checkpoint.tar's path."""
+    import ast
+
     from gfs3dseg_gws_tpu_torch.cli import pretrain_cli
     from gfs3dseg_gws_tpu_torch.models.dgcnn import DGCNN
     from gfs3dseg_gws_tpu_torch.models.dgcnnseg import DGCNNSeg
@@ -512,13 +701,14 @@ def check_pretrain(dev, root: str):
 
     t0 = time.perf_counter()
     data_dir = pretrain_data(root)
-    save = os.path.join(root, "pretrain")
+    save = os.path.join(root, name)
     argv = ["--phase", "pretrain", "--dataset", "s3dis", "--cvfold", "0",
             "--data_path", data_dir, "--save_path", save,
             "--batch_size", str(B), "--pc_npts", str(N), "--pc_augm",
             "--pretrain_lr", "0.001", "--pretrain_weight_decay", "1e-4",
             "--n_iters", str(PRE_EPOCHS), "--eval_interval", "1",
-            "--seed", str(SEED), "--device", dev.type]
+            "--edgeconv_widths", widths, "--seed", str(SEED),
+            "--device", dev.type]
     read = reset_launches()
     t1 = time.perf_counter()
     res = pretrain_cli.main(argv)
@@ -528,27 +718,29 @@ def check_pretrain(dev, root: str):
     hist = res["history"]
     steps = sum(h["steps"] for h in hist)
     n_valid = sum(1 for h in hist if "miou" in h)
-    phase("pretrain", data_seconds=t1 - t0, wall_seconds=wall, steps=steps,
-          losses=[round(h["loss"], 6) for h in hist],
+    valid_batches = n_valid * math.ceil(len(pretrain_dataset(root, "test"))
+                                        / B)
+    phase(name, widths=widths, data_seconds=t1 - t0, wall_seconds=wall,
+          steps=steps, losses=[round(h["loss"], 6) for h in hist],
           steps_per_s=[h["steps"] / h["seconds"] for h in hist],
           miou=[h.get("miou") for h in hist], best_miou=res["best_iou"],
+          valid_batches=valid_batches,
           **{f"{k}_launches": v for k, v in launches.items()})
     if not all(math.isfinite(h["loss"]) for h in hist) or n_valid == 0:
         raise AssertionError(f"pre-training went wrong: {hist}")
-    if any(launches[k] != 3 * steps for k in ("k3", "k4a", "k4b")):
-        raise AssertionError(f"launches {launches} != 3 x {steps} steps")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"pre-training loss did not fall: {hist}")
+    check_launches(name, launches,
+                   expected_launches(widths, steps, valid_batches))
     log_dir = os.path.join(save, "log_pretrain_s3dis_S0_LongTail")
-    valid_batches = n_valid * math.ceil(len(pretrain_dataset(root, "test"))
-                                        / B)
-    if launches["k1"] != 3 * valid_batches:
-        raise AssertionError(f"K1 launches {launches['k1']} != 3 x "
-                             f"{valid_batches} validation forwards")
-    for name in ("checkpoint.tar", "checkpoint.npz"):
-        if not os.path.exists(os.path.join(log_dir, name)):
-            raise AssertionError(f"pre-training wrote no {name}")
-    enc = DGCNN(device=dev)
-    enc.load_state_dict(torch.load(os.path.join(log_dir, "checkpoint.tar"),
-                                   map_location=dev)["params"], strict=True)
+    for fname in ("checkpoint.tar", "checkpoint.npz"):
+        if not os.path.exists(os.path.join(log_dir, fname)):
+            raise AssertionError(f"pre-training wrote no {fname}")
+    ckpt = os.path.join(log_dir, "checkpoint.tar")
+    ec_widths = ast.literal_eval(widths)
+    enc = DGCNN(edgeconv_widths=ec_widths, device=dev)
+    enc.load_state_dict(torch.load(ckpt, map_location=dev)["params"],
+                        strict=True)
     enc.eval()
     points = torch.randn((2, N, 9), device=dev)
     with torch.inference_mode():
@@ -557,15 +749,121 @@ def check_pretrain(dev, root: str):
         raise AssertionError("checkpoint.tar does not run in the eval DGCNN")
 
     # the train step alone on device tensors
-    model = DGCNNSeg(8, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    model = DGCNNSeg(8, edgeconv_widths=ec_widths,
+                     generator=torch.Generator().manual_seed(SEED)).to(dev)
     opt, sched = make_pretrain_optimizer(model.parameters(), 1e-3, 100)
     drop = torch.Generator(device=dev).manual_seed(SEED)
     pts = torch.randn((B, N, 9), generator=drop, device=dev)
     lbl = torch.randint(0, 8, (B, N), generator=drop, device=dev)
     step_ms = cuda_ms(lambda: pretrain_step(model, opt, pts, lbl, drop, sched))
-    phase("device step pretrain_step", batch=B, ms=step_ms,
-          steps_per_s=1000.0 / step_ms, valid_batches=valid_batches)
-    return launches
+    phase(f"device step pretrain_step ({name})", batch=B, ms=step_ms,
+          steps_per_s=1000.0 / step_ms)
+    groups, per_step = profile_groups(
+        lambda: pretrain_step(model, opt, pts, lbl, drop, sched),
+        PROFILE_STEPS)
+    if groups is not None:
+        phase(f"profile pretrain_step ({name})", steps=PROFILE_STEPS,
+              kernel_ms_per_step=sum(groups.values()),
+              launches_per_step=per_step,
+              groups_ms=json.dumps({k: round(v, 4)
+                                    for k, v in groups.items()}))
+    return ckpt
+
+
+def run_basis(dev, root: str, ckpt: str, widths: str, name: str) -> str:
+    """`basis_cli` on the pre-training blocks and `ckpt` (NUM_GW words) on
+    the card: launches per eval forward (batch 8, as the CLI runs it), the
+    basis (NUM_GW, 192) finite, its kept SVD rank. Returns the basis
+    path."""
+    from gfs3dseg_gws_tpu_torch.cli import basis_cli
+
+    save = os.path.join(root, name)
+    read = reset_launches()
+    t0 = time.perf_counter()
+    basis = basis_cli.main([
+        "--dataset", "s3dis", "--cvfold", "0", "--data_path",
+        pretrain_data(root), "--pretrain_checkpoint_path", ckpt,
+        "--num_cnt", str(NUM_GW), "--save_path", save, "--pc_npts", str(N),
+        "--edgeconv_widths", widths, "--device", dev.type])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read()
+    forwards = math.ceil(len(pretrain_dataset(root, "train", 0.0)) / 8)
+    rank = int(np.linalg.matrix_rank(basis.astype(np.float64)))
+    path = os.path.join(save, f"GlobalKmeans_EdgeConv123_cnt={NUM_GW}_"
+                              "energy=095_SVDReconstruct.pkl")
+    phase(name, widths=widths, wall_seconds=wall, basis_shape=basis.shape,
+          kept_svd_rank=rank, forwards=forwards,
+          **{f"{k}_launches": v for k, v in launches.items()})
+    if (basis.shape != (NUM_GW, 192) or not np.isfinite(basis).all()
+            or not os.path.exists(path)):
+        raise AssertionError(f"{name}: basis {basis.shape} at {path}")
+    check_launches(name, launches, expected_launches(widths, 0, forwards))
+    return path
+
+
+def check_lloyd(dev, root: str, ckpt: str, widths: str):
+    """lloyd on the card against the CPU from the same k-means++ centres
+    (NUM_GW of them) on the same features: the EdgeConv 1-3 features of the
+    encoder in `ckpt` over LLOYD_BLOCKS pre-training blocks.
+
+    LLOYD_ITERS iterations, each from the same centres on both devices
+    (the CPU's centres carried on): labels equal on >= LLOYD_AGREE of the
+    points, centres within CENTRE_TOL of the largest where every label
+    agreed and within CENTRE_FLIP_TOL where some differed (a flipped point
+    moves its two centres). Lloyd is chaotic at near-ties: two free runs,
+    one per device, drift apart from the first flipped point on, so only
+    iterations from shared centres are compared. Prints the seconds of
+    those iterations on each device."""
+    import ast
+
+    from gfs3dseg_gws_tpu_torch.models.dgcnnseg import DGCNNSeg
+    from gfs3dseg_gws_tpu_torch.ops.kmeans import (_assign,
+                                                   kmeans_plus_plus_init,
+                                                   lloyd)
+    from gfs3dseg_gws_tpu_torch.utils.checkpoint import (
+        load_pretrained_encoder)
+
+    model = DGCNNSeg(8, edgeconv_widths=ast.literal_eval(widths), device=dev)
+    model.encoder.load_state_dict(load_pretrained_encoder(ckpt), strict=True)
+    model.eval()
+    pts, _ = first_batch(pretrain_dataset(root, "train", 0.0), LLOYD_BLOCKS,
+                         0)
+    with torch.inference_mode():
+        feats = torch.cat([model(pts[i:i + B].to(dev), return_feat=True)[1]
+                           for i in range(0, LLOYD_BLOCKS, B)])
+    x = feats.reshape(-1, feats.shape[-1]).cpu()
+    xd = x.to(dev)
+    c0 = torch.from_numpy(kmeans_plus_plus_init(
+        np.random.default_rng(SEED), x.numpy(), NUM_GW))
+
+    centres, worst_agree, err_agreed, err_flipped = c0, 1.0, 0.0, 0.0
+    card_s = cpu_s = 0.0
+    for _ in range(LLOYD_ITERS):
+        # the assignment the iteration's update uses, then the update
+        agree = (_assign(xd, centres.to(dev)).cpu()
+                 == _assign(x, centres)).double().mean().item()
+        t0 = time.perf_counter()
+        card_c, _ = lloyd(xd, centres, 1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cpu_c, _ = lloyd(x, centres, 1)
+        card_s, cpu_s = card_s + t1 - t0, cpu_s + time.perf_counter() - t1
+        err = rel_err(card_c.cpu(), cpu_c)
+        worst_agree = min(worst_agree, agree)
+        if agree == 1.0:
+            err_agreed = max(err_agreed, err)
+        else:
+            err_flipped = max(err_flipped, err)
+        centres = cpu_c
+    phase(f"card_vs_cpu lloyd ({x.shape[0]} points, {NUM_GW} centres, "
+          f"{LLOYD_ITERS} iterations)", step_labels_agree_min=worst_agree,
+          step_centre_rel_err_all_agree=err_agreed,
+          step_centre_rel_err_some_flipped=err_flipped, card_seconds=card_s,
+          cpu_seconds=cpu_s)
+    if (worst_agree < LLOYD_AGREE or err_agreed > CENTRE_TOL
+            or err_flipped > CENTRE_FLIP_TOL):
+        raise AssertionError("lloyd on the card and the CPU disagree")
 
 
 def check_learning(dev, root: str):
@@ -605,16 +903,18 @@ def compare_train_step(label: str, cpu_model, card_model, dev, run):
     block's global max feature and with it the loss of all its points: the
     CPU's own fp32 and fp64 steps differ by ~5e-4 in the loss and by 0.98
     in a gradient's cosine. So the CPU takes the card's graphs: each
-    EdgeConv's K3 indices are recorded on the card and replayed on the
-    CPU, after checking that every row where they differ from the CPU's own
-    graph (at most 1 - EC_ROWS of them) is a near-tie at the k-th
-    distance. cnt/scb on the CPU are the plain twin's of that graph. A
-    gradient that is zero in exact arithmetic (a bias whose shift a
-    train-mode BatchNorm downstream removes) is rounding noise on both
-    devices: a pair under NOISE_GRAD of the largest gradient norm is
-    counted and left out."""
+    EdgeConv's K3 (or, in a block that is not two layers deep, K6) indices
+    are recorded on the card and replayed on the CPU, after checking that
+    every row where they differ from the CPU's own graph (at most
+    1 - EC_ROWS of them) is a near-tie at the k-th distance. cnt/scb on
+    the CPU are the plain twin's of that graph. A gradient that is zero in
+    exact arithmetic (a bias whose shift a train-mode BatchNorm downstream
+    removes) is rounding noise on both devices: a pair under NOISE_GRAD of
+    the largest gradient norm is counted and left out."""
     from gfs3dseg_gws_tpu_torch.models import dgcnn
-    from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices, knn_with_stats,
+    from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices,
+                                                knn_indices_plain,
+                                                knn_with_stats,
                                                 neighbor_stats_plain)
 
     graphs, differing = [], []
@@ -624,10 +924,15 @@ def compare_train_step(label: str, cpu_model, card_model, dev, run):
         graphs.append(out[0].cpu())
         return out
 
-    def replay(x, btab, k):
+    def record_idx(x, k):
+        idx = knn_indices(x, k)
+        graphs.append(idx.cpu())
+        return idx
+
+    def replay_idx(x, k):
         idx = graphs.pop(0)
         row_ok = (idx.sort(-1).values
-                  == knn_indices(x, k).sort(-1).values).all(-1)
+                  == knn_indices_plain(x, k).sort(-1).values).all(-1)
         bad = (~row_ok).nonzero().tolist()
         if len(bad) > (1.0 - EC_ROWS) * row_ok.numel():
             raise AssertionError(f"card graph {len(differing)}: {len(bad)} "
@@ -635,25 +940,33 @@ def compare_train_step(label: str, cpu_model, card_model, dev, run):
         near_tie_rows(x, bad, f"card graph {len(differing)}", GRAPH_TIE,
                       by_norm=True)
         differing.append(len(bad))
+        return idx
+
+    def replay(x, btab, k):
+        idx = replay_idx(x, k)
         return (idx,) + neighbor_stats_plain(idx, btab)
 
     card_model.load_state_dict(cpu_model.state_dict())
     runs = {}
-    for name, model, device, knn in (("card", card_model, dev, record),
-                                     ("cpu", cpu_model, "cpu", replay)):
-        dgcnn.knn_with_stats = knn
+    saved = dgcnn.knn_with_stats, dgcnn.knn_indices
+    for name, model, device, knn, knn_idx in (
+            ("card", card_model, dev, record, record_idx),
+            ("cpu", cpu_model, "cpu", replay, replay_idx)):
+        dgcnn.knn_with_stats, dgcnn.knn_indices = knn, knn_idx
         try:
             model.train()
             loss = run(model, device)
             loss.backward()
         finally:
-            dgcnn.knn_with_stats = knn_with_stats
+            dgcnn.knn_with_stats, dgcnn.knn_indices = saved
         runs[name] = dict(
             loss=loss.item(),
             grads={n: p.grad.cpu().double().flatten()
                    for n, p in model.named_parameters()},
             stats={n: b.cpu().double() for n, b in model.named_buffers()
                    if n.endswith(("running_mean", "running_var"))})
+    if graphs:
+        raise AssertionError(f"{len(graphs)} card graphs not replayed")
     ref, got = runs["cpu"], runs["card"]
     loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
     stat_err = max(((v - ref["stats"][n]).abs()
@@ -689,17 +1002,22 @@ def first_batch(dataset, blocks: int, epoch: int):
             torch.from_numpy(np.asarray(labels, np.int64)))
 
 
-def check_train_step_vs_cpu(dev, root: str):
-    """compare_train_step on the full-width DGCNNSeg (dropout 0)."""
+def check_train_step_vs_cpu(dev, root: str, widths: str = DEFAULT_WIDTHS):
+    """compare_train_step on the full-width DGCNNSeg (dropout 0) at
+    EdgeConv `widths`."""
+    import ast
+
     from gfs3dseg_gws_tpu_torch.models.dgcnnseg import DGCNNSeg
     from gfs3dseg_gws_tpu_torch.models.layers import cross_entropy
 
+    ec_widths = ast.literal_eval(widths)
     gen = torch.Generator().manual_seed(SEED + 5)
     pts, lbl = first_batch(pretrain_dataset(root, "train"), TRAIN_CMP_BLOCKS,
                            1)
     compare_train_step(
-        "pretrain step", DGCNNSeg(8, dropout=0.0, generator=gen),
-        DGCNNSeg(8, dropout=0.0, device=dev), dev,
+        f"pretrain step {widths}",
+        DGCNNSeg(8, edgeconv_widths=ec_widths, dropout=0.0, generator=gen),
+        DGCNNSeg(8, edgeconv_widths=ec_widths, dropout=0.0, device=dev), dev,
         lambda model, device: cross_entropy(model(pts.to(device)),
                                             lbl.to(device)))
 
@@ -722,6 +1040,15 @@ def gfs_setup(train_dir: str, test_dir: str):
         np.zeros((NUM_GW, 192), np.float32), torch.device("cpu"))
 
 
+def eval_forwards(setup, coding_sweep: bool) -> int:
+    """Eval forwards of one `train_cli --only_evaluate` run: the coding
+    sweep (if evaluate_gfs ran it: it found no saved coding), one forward
+    per support seed, the static_test sweep."""
+    return (coding_sweep * math.ceil(len(setup.train_data_noaug) / B)
+            + len(setup.supp_datasets)
+            + math.ceil(len(setup.val_dataset) / B))
+
+
 def gfs_model(dev, seed: int, attn_dropout: float = ATTN_RATE):
     """A full-width GWCAPL with the JAX initialisers drawn from `seed`."""
     from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
@@ -730,35 +1057,40 @@ def gfs_model(dev, seed: int, attn_dropout: float = ATTN_RATE):
     return model.train_init(torch.Generator().manual_seed(seed)).to(dev)
 
 
-def check_gfs_train(dev, root: str, test_dir: str, basis_path: str):
+def check_gfs_train(dev, root: str, test_dir: str, basis_path: str,
+                    pretrain_ckpt: str, widths: str = DEFAULT_WIDTHS,
+                    name: str = "gfs_train"):
     """The GFS training path on the card through its CLI (no
     --only_evaluate), at the reference config (S3DIS cvfold 0, N=2048,
     k=20, batch 16, Adam 0.01 with the encoder at 0.1x, StepLR(50, 0.5),
-    attention dropout 0.1, --pc_augm) from the pre-training phase's
-    checkpoint.tar, GFS_EPOCHS epochs with validation on support seed 0
-    after each; launches checked per step and per forward. Then the newest
-    checkpoint through `train_cli --only_evaluate` (the 5 support seeds)."""
+    attention dropout 0.1, --pc_augm) and EdgeConv `widths`, from
+    `pretrain_ckpt` and the basis at `basis_path`, GFS_EPOCHS epochs with
+    validation on support seed 0 after each; launches checked per step and
+    per forward. Then the newest checkpoint through `train_cli
+    --only_evaluate` (the 5 support seeds), its launches checked too.
+    Returns the training run's launches and the setup."""
     import glob
 
     from gfs3dseg_gws_tpu_torch.cli import train_cli
     from gfs3dseg_gws_tpu_torch.data import make_synthetic_blocks
 
     t0 = time.perf_counter()
-    train_dir = make_synthetic_blocks(
-        os.path.join(root, "gfs_train_data"), n_train_blocks=GFS_BLOCKS,
-        n_test_blocks=1, points_per_block=4096, seed=SEED + 2)[0]
-    save = os.path.join(root, "gfs_train")
+    data = os.path.join(root, "gfs_train_data")
+    if not os.path.isdir(data):
+        make_synthetic_blocks(data, n_train_blocks=GFS_BLOCKS,
+                              n_test_blocks=1, points_per_block=4096,
+                              seed=SEED + 2)
+    train_dir = os.path.join(data, "blocks_bs1.0_s1.0")
+    save = os.path.join(root, name)
     common = ["--dataset", "s3dis", "--cvfold", "0", "--data_path",
               train_dir, "--testing_data_path", test_dir, "--basis_path",
               basis_path, "--pc_npts", str(N), "--k_shot", "5",
-              "--batch_size", str(B), "--seed", str(SEED), "--device",
-              dev.type]
+              "--batch_size", str(B), "--edgeconv_widths", widths,
+              "--seed", str(SEED), "--device", dev.type]
     argv = common + [
         "--phase", "train", "--save_path", save, "--epochs",
         str(GFS_EPOCHS), "--base_lr", "0.01", "--pc_augm",
-        "--use_pretrain_weight", "--pretrain_checkpoint_path",
-        os.path.join(root, "pretrain", "log_pretrain_s3dis_S0_LongTail",
-                     "checkpoint.tar")]
+        "--use_pretrain_weight", "--pretrain_checkpoint_path", pretrain_ckpt]
     read = reset_launches()
     t1 = time.perf_counter()
     res = train_cli.main(argv, eval_interval=1)
@@ -772,8 +1104,8 @@ def check_gfs_train(dev, root: str, test_dir: str, basis_path: str):
     # forward of the support shots plus the static_test sweep
     forwards = (math.ceil(len(setup.train_data_noaug) / B)
                 + n_valid * (1 + math.ceil(len(setup.val_dataset) / B)))
-    phase("gfs_train", data_seconds=t1 - t0, wall_seconds=wall, steps=steps,
-          losses=[h["loss"] for h in hist],
+    phase(name, widths=widths, data_seconds=t1 - t0, wall_seconds=wall,
+          steps=steps, losses=[h["loss"] for h in hist],
           accuracies=[h["accuracy"] for h in hist],
           steps_per_s=[h["steps"] / h["seconds"] for h in hist],
           mean_iou=[h.get("mean_iou") for h in hist],
@@ -783,30 +1115,32 @@ def check_gfs_train(dev, root: str, test_dir: str, basis_path: str):
             or not all(math.isfinite(h["loss"]) and math.isfinite(
                 h["mean_iou"]) for h in hist)):
         raise AssertionError(f"GFS training went wrong: {hist}")
-    if (launches["k5a"] != steps or launches["k5b"] != steps
-            or any(launches[k] != 3 * steps for k in ("k3", "k4a", "k4b"))):
-        raise AssertionError(f"launches {launches} do not match {steps} "
-                             "steps (K5a/K5b 1, K3/K4a/K4b 3 per step)")
-    if launches["k2"] != forwards or launches["k1"] != 3 * forwards:
-        raise AssertionError(f"launches {launches} do not match {forwards} "
-                             "eval forwards (K2 1, K1 3 per forward)")
+    check_launches(name, launches,
+                   expected_launches(widths, steps, forwards, True))
 
     ckpts = glob.glob(os.path.join(save, "train_*.npz"))
     if not ckpts:
         raise AssertionError("GFS training wrote no checkpoint")
     ckpt = max(ckpts, key=os.path.getmtime)
+    read = reset_launches()
     t1 = time.perf_counter()
     ev = train_cli.main(common + [
         "--phase", "test", "--only_evaluate", "--model_checkpoint_path",
-        ckpt, "--save_path", os.path.join(root, "gfs_eval"),
+        ckpt, "--save_path", os.path.join(root, name + "_eval"),
         "--eval_weight", "1.2", "--energy", "0.9"])
+    torch.cuda.synchronize()
+    ev_launches = read()
     mious = [ev[k] for k in ("mean_iou", "base_iou", "novel_iou", "hm_iou")]
-    phase("gfs_train checkpoint through evaluate_gfs",
+    phase(f"{name} checkpoint through evaluate_gfs",
           checkpoint=os.path.basename(ckpt), mean_iou=mious[0],
           base_iou=mious[1], novel_iou=mious[2], hm_iou=mious[3],
-          wall_seconds=time.perf_counter() - t1)
+          wall_seconds=time.perf_counter() - t1,
+          coding_sweep=ev["coding_sweep"],
+          **{f"{k}_launches": v for k, v in ev_launches.items()})
     if not all(math.isfinite(m) for m in mious):
         raise AssertionError(f"non-finite mIoU {mious} from {ckpt}")
+    check_launches(f"{name} evaluate", ev_launches, expected_launches(
+        widths, 0, eval_forwards(setup, ev["coding_sweep"]), True))
     return launches, setup
 
 
@@ -906,7 +1240,7 @@ def check_gfs_step_vs_cpu(dev, setup, gp: torch.Tensor):
     fake[[2, 4, 5]] = 1.0
     gp_cpu = gp.cpu()
     compare_train_step(
-        "gfs step", gfs_model("cpu", SEED + 6, attn_dropout=0.0),
+        "gfs_step", gfs_model("cpu", SEED + 6, attn_dropout=0.0),
         gfs_model(dev, SEED + 7, attn_dropout=0.0), dev,
         lambda model, device: model(pts.to(device), lbl.to(device),
                                     gp_cpu.to(device),
@@ -915,6 +1249,7 @@ def check_gfs_step_vs_cpu(dev, setup, gp: torch.Tensor):
 
 def main() -> int:
     # ---- phase 0: the card
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     smi = subprocess.run(
@@ -944,6 +1279,7 @@ def main() -> int:
           library=os.path.relpath(so))
 
     # ---- phases 2-3: each kernel against its plain version
+    t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED)
     check_edgeconv(dev, 9, gen)
     stats = {"k1": check_edgeconv(dev, 64, gen),
@@ -952,10 +1288,15 @@ def main() -> int:
     stats["k3"] = check_knn_stats(dev, 64, gen)
     stats["k4a"], stats["k4b"] = check_fused_train(dev, gen)
     stats["k5a"], stats["k5b"] = check_attention_train(dev, gen)
+    check_knn_indices(dev, 9, gen)
+    stats["k6"] = check_knn_indices(dev, 64, gen)
+    stats["k7"] = check_scatter(dev, gen)
+    stats["k9"] = check_gather_conv(dev, gen)
+    PHASE_SECONDS["kernels"] = time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory(prefix="gfs_chip_smoke_") as root:
         # ---- phase 4: the main path, train_cli --only_evaluate on the card
-        t0 = time.perf_counter()
+        t_eval = t0 = time.perf_counter()
         train_dir, test_dir, basis_path, pth, cpu_model = make_inputs(root)
         phase("data", seconds=time.perf_counter() - t0, train_blocks=N_TRAIN,
               test_blocks=N_TEST)
@@ -973,7 +1314,6 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         eval_launches = read()
-        k1_launches, k2_launches = eval_launches["k1"], eval_launches["k2"]
 
         model_cfg = ModelConfig()
         data_cfg = DataConfig(data_path=train_dir, testing_data_path=test_dir,
@@ -982,23 +1322,19 @@ def main() -> int:
         setup = port_gfs.build_setup(model_cfg, data_cfg, train_cfg,
                                      np.zeros((NUM_GW, 192), np.float32),
                                      torch.device("cpu"))
-        forwards = (math.ceil(len(setup.train_data_noaug) / B)
-                    + len(setup.supp_datasets)
-                    + math.ceil(len(setup.val_dataset) / B))
+        forwards = eval_forwards(setup, res["coding_sweep"])
         mious = [res[k] for k in ("mean_iou", "base_iou", "novel_iou",
                                   "hm_iou")]
         phase("evaluate_gfs", mean_iou=mious[0], base_iou=mious[1],
               novel_iou=mious[2], hm_iou=mious[3], blocks=res["n_blocks"],
               sweep_seconds=res["sweep_seconds"],
               sweep_blocks_per_s=res["n_blocks"] / res["sweep_seconds"],
-              wall_seconds=wall, forwards=forwards, k1_launches=k1_launches,
-              k2_launches=k2_launches)
+              wall_seconds=wall, forwards=forwards,
+              **{f"{k}_launches": v for k, v in eval_launches.items()})
         if not all(math.isfinite(m) for m in mious):
             raise AssertionError(f"non-finite mIoU {mious}")
-        if k2_launches != forwards or k1_launches != 3 * forwards:
-            raise AssertionError(
-                f"launch counts K1={k1_launches} K2={k2_launches} do not "
-                f"match {forwards} forwards (3 and 1 per forward)")
+        check_launches("evaluate_gfs", eval_launches,
+                       expected_launches(DEFAULT_WIDTHS, 0, forwards, True))
 
         # ---- phase 4b: the same sweep again, its memmap cache now built
         gpu_model = type(cpu_model)(num_gw=NUM_GW, device=dev)
@@ -1058,43 +1394,81 @@ def main() -> int:
               max_abs_diff=(card - cpu32).abs().max().item())
         if agree < CPU_AGREE or card_miss > MISS_RATIO * cpu_miss + MISS_SLACK:
             raise AssertionError("card and CPU disagree")
+        PHASE_SECONDS["evaluation"] = time.perf_counter() - t_eval
 
-        # ---- phases 6-8: pre-training, the learning check, card vs CPU
-        check_pretrain(dev, root)
-        check_learning(dev, root)
-        check_train_step_vs_cpu(dev, root)
+        # ---- phases 6-9: pre-training, geometric words from its
+        # checkpoint, the learning check, card vs CPU
+        pre_ckpt = timed("pretrain", check_pretrain, dev, root)
+        gw_path = timed("basis", run_basis, dev, root, pre_ckpt,
+                        DEFAULT_WIDTHS, "basis")
+        timed("learning_check", check_learning, dev, root)
+        timed("card_vs_cpu_pretrain_step", check_train_step_vs_cpu, dev,
+              root)
 
-        # ---- phases 9-12: GFS training from the pre-trained encoder, the
-        # learning check, the train step alone, card vs CPU
-        train_launches, gfs = check_gfs_train(dev, root, test_dir,
-                                              basis_path)
-        gp = torch.from_numpy(port_gfs.load_basis(basis_path)).to(dev)
-        check_gfs_learning(dev, gfs, gp)
-        check_gfs_step(dev, gfs, gp)
-        check_gfs_step_vs_cpu(dev, gfs, gp)
+        # ---- phases 10-13: GFS training from the pre-trained encoder and
+        # its basis, the learning check, the train step alone, card vs CPU
+        train_launches, gfs = timed("gfs_train_and_evaluate", check_gfs_train,
+                                    dev, root, test_dir, gw_path, pre_ckpt)
+        gp = torch.from_numpy(port_gfs.load_basis(gw_path)).to(dev)
+        timed("gfs_learning_check", check_gfs_learning, dev, gfs, gp)
+        timed("gfs_step", check_gfs_step, dev, gfs, gp)
+        timed("card_vs_cpu_gfs_step", check_gfs_step_vs_cpu, dev, gfs, gp)
 
-    # K1/K2 launches from the evaluation path, K3-K5 from GFS training
-    launches = dict(train_launches, k1=k1_launches, k2=k2_launches)
+        # ---- phases 14-18: the DGCNN semantic-segmentation widths, pre-
+        # training -> basis -> GFS training -> evaluation, card vs CPU for
+        # its pre-training step and for Lloyd's iterations
+        t0 = time.perf_counter()
+        seg_ckpt = timed("semseg_pretrain", check_pretrain, dev, root,
+                         SEMSEG_WIDTHS, "semseg_pretrain")
+        timed("semseg_card_vs_cpu_pretrain_step", check_train_step_vs_cpu,
+              dev, root, SEMSEG_WIDTHS)
+        seg_gw = timed("semseg_basis", run_basis, dev, root, seg_ckpt,
+                       SEMSEG_WIDTHS, "semseg_basis")
+        timed("card_vs_cpu_lloyd", check_lloyd, dev, root, seg_ckpt,
+              SEMSEG_WIDTHS)
+        seg_launches, _ = timed("semseg_gfs_train_and_evaluate",
+                                check_gfs_train, dev, root, test_dir, seg_gw,
+                                seg_ckpt, SEMSEG_WIDTHS, "semseg_gfs_train")
+        phase("semseg chain", widths=SEMSEG_WIDTHS,
+              seconds=time.perf_counter() - t0)
+
+    # launches of one main-path run each: K1/K2 in the evaluation
+    # (train_cli --only_evaluate), K3-K5 in GFS training at the default
+    # widths, K6/K7 in GFS training at the semseg widths; K9 is on no path
+    runs = {"eval": ("train_cli --only_evaluate", eval_launches),
+            "train": ("train_cli (default widths)", train_launches),
+            "semseg": (f"train_cli --edgeconv_widths {SEMSEG_WIDTHS}",
+                       seg_launches),
+            "none": ("none (not on a model path, as in JAX)", seg_launches)}
     kernels = [
         ("k1", "fused_edgeconv_infer", "fused_edgeconv.cu",
-         "fused_edgeconv.py:94"),
-        ("k2", "fused_attention", "attention.cu", "attention_kernel.py:34"),
-        ("k3", "knn_with_stats", "fused_edgeconv.cu", "knn.py:380"),
+         "fused_edgeconv.py:94", "eval"),
+        ("k2", "fused_attention", "attention.cu", "attention_kernel.py:34",
+         "eval"),
+        ("k3", "knn_with_stats", "fused_edgeconv.cu", "knn.py:380", "train"),
         ("k4a", "fused_edgeconv_train_fwd", "fused_edgeconv_train.cu",
-         "fused_edgeconv_train.py:408"),
+         "fused_edgeconv_train.py:408", "train"),
         ("k4b", "fused_edgeconv_train_bwd", "fused_edgeconv_train.cu",
-         "fused_edgeconv_train.py:239"),
+         "fused_edgeconv_train.py:239", "train"),
         ("k5a", "attention_train_fwd", "attention_train.cu",
-         "attention_train.py:124"),
+         "attention_train.py:124", "train"),
         ("k5b", "attention_train_bwd", "attention_train.cu",
-         "attention_train.py:70"),
+         "attention_train.py:70", "train"),
+        ("k6", "knn_indices", "fused_edgeconv.cu", "knn.py:401", "semseg"),
+        ("k7", "gather_neighbors_bwd", "edgeconv.cu", "edgeconv.py:98",
+         "semseg"),
+        ("k9", "gather_conv", "fused_edgeconv.cu", "fused_edgeconv.py:222",
+         "none"),
     ]
+    phase("phase seconds", **PHASE_SECONDS)
+    phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"gfs3dseg_gws_tpu_torch/csrc/{src}",
          "replaces": f"gfs3dseg_gws_tpu/ops/{tpu}",
-         "launches": launches[key], **stats[key]}
-        for key, name, src, tpu in kernels]}), flush=True)
+         "launches": runs[run][1][key], "launches_run": runs[run][0],
+         **stats[key]}
+        for key, name, src, tpu, run in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -60,6 +60,15 @@
 // varies from run to run, and so do the last bits of scb; cnt holds small
 // integers and is exact. At k = 20 and Cb = 64 the scatter is 1,280
 // float atomics per query, against the kNN's 2,048 x C distance FMAs.
+//
+// K6 and K9 are K1's two stages, each behind an entry of its own:
+// gfs_knn_indices launches knn_kernel<CP, false> alone and replaces the TPU
+// kernel gfs3dseg_gws_tpu/ops/knn.py::knn_indices (`_knn_pallas`, body
+// `_knn_kernel`); gfs_gather_conv launches edge_mlp_kernel alone on given
+// indices and replaces ops/fused_edgeconv.py::fused_edgeconv_infer_split
+// (body `_gather_conv_kernel`). All three entries share the two launch
+// helpers, so K6 then K9 computes what K1 computes, bit for bit. K6 is
+// bound by its B N^2 C distance FMAs, K9 by its B N k W0 W1 edge-layer FMAs.
 #include "common.cuh"
 
 namespace {
@@ -304,9 +313,42 @@ edge_mlp_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
   }
 }
 
+// knn_kernel<CP, false> over (batch, n, c): idx (B, N, k), nearest first
+cudaError_t launch_knn(const float* x, int* idx, int batch, int n, int c,
+                       int k, cudaStream_t s) {
+  const dim3 grid((n + kTileQ - 1) / kTileQ, batch);
+  if (c <= 16)
+    knn_kernel<16, false><<<grid, kTileQ, 0, s>>>(x, idx, n, c, k, nullptr,
+                                                  nullptr, nullptr, 0);
+  else
+    knn_kernel<64, false><<<grid, kTileQ, 0, s>>>(x, idx, n, c, k, nullptr,
+                                                  nullptr, nullptr, 0);
+  return cudaGetLastError();
+}
+
+// edge_mlp_kernel on given indices: out (B, N, w1)
+cudaError_t launch_edge_mlp(const int* idx, const float* a_table,
+                            const float* b_table, const float* w2,
+                            const float* bias2, float* out, int batch, int n,
+                            int w0, int w1, int k, float neg_slope,
+                            cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      edge_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMlpSmem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kTileQ - 1) / kTileQ, batch);
+  edge_mlp_kernel<<<grid, kMlpThreads, kMlpSmem, s>>>(
+      idx, a_table, b_table, w2, bias2, out, n, w0, w1, k, neg_slope);
+  return cudaGetLastError();
+}
+
+bool bad_sizes(int batch, int n, int k) {
+  return batch < 1 || batch > 65535 || n < 1 || k < 1 || k > kMaxK || k > n;
+}
+
 }  // namespace
 
-// x (B, N, C), a_table and b_table (B, N, W0), w2 (W0, W1), bias2 (W1),
+// K1. x (B, N, C), a_table and b_table (B, N, W0), w2 (W0, W1), bias2 (W1),
 // out (B, N, W1) fp32 and the scratch idx (B, N, k) int32: contiguous, on
 // one device. Returns a cudaError_t.
 GFS_EXPORT int gfs_fused_edgeconv_infer(const void* x, const void* a_table,
@@ -315,31 +357,48 @@ GFS_EXPORT int gfs_fused_edgeconv_infer(const void* x, const void* a_table,
                                         void* out, int batch, int n, int c,
                                         int w0, int w1, int k,
                                         float neg_slope, void* stream) {
-  if (batch < 1 || batch > 65535 || n < 1 || c < 1 || c > kMaxC || w0 < 1 ||
-      w0 > kMaxW || w1 < 1 || w1 > kMaxW || k < 1 || k > kMaxK || k > n)
+  if (bad_sizes(batch, n, k) || c < 1 || c > kMaxC || w0 < 1 || w0 > kMaxW ||
+      w1 < 1 || w1 > kMaxW)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kTileQ - 1) / kTileQ, batch);
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* xf = static_cast<const float*>(x);
   auto* ix = static_cast<int*>(idx);
-  if (c <= 16)
-    knn_kernel<16, false><<<grid, kTileQ, 0, s>>>(xf, ix, n, c, k, nullptr,
-                                                  nullptr, nullptr, 0);
-  else
-    knn_kernel<64, false><<<grid, kTileQ, 0, s>>>(xf, ix, n, c, k, nullptr,
-                                                  nullptr, nullptr, 0);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      launch_knn(static_cast<const float*>(x), ix, batch, n, c, k, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(edge_mlp_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kMlpSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  edge_mlp_kernel<<<grid, kMlpThreads, kMlpSmem, s>>>(
+  return static_cast<int>(launch_edge_mlp(
       ix, static_cast<const float*>(a_table),
       static_cast<const float*>(b_table), static_cast<const float*>(w2),
-      static_cast<const float*>(bias2), static_cast<float*>(out), n, w0, w1,
-      k, neg_slope);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(bias2), static_cast<float*>(out), batch, n,
+      w0, w1, k, neg_slope, s));
+}
+
+// K6: K1's first stage alone. x (B, N, C) fp32, idx (B, N, k) int32:
+// contiguous, on one device. Returns a cudaError_t.
+GFS_EXPORT int gfs_knn_indices(const void* x, void* idx, int batch, int n,
+                               int c, int k, void* stream) {
+  if (bad_sizes(batch, n, k) || c < 1 || c > kMaxC)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_knn(static_cast<const float*>(x),
+                                     static_cast<int*>(idx), batch, n, c, k,
+                                     static_cast<cudaStream_t>(stream)));
+}
+
+// K9: K1's second stage alone on given indices. idx (B, N, k) int32 with
+// entries in [0, N), a_table and b_table (B, N, W0), w2 (W0, W1), bias2
+// (W1), out (B, N, W1) fp32: contiguous, on one device. Returns a
+// cudaError_t.
+GFS_EXPORT int gfs_gather_conv(const void* idx, const void* a_table,
+                               const void* b_table, const void* w2,
+                               const void* bias2, void* out, int batch, int n,
+                               int w0, int w1, int k, float neg_slope,
+                               void* stream) {
+  if (bad_sizes(batch, n, k) || w0 < 1 || w0 > kMaxW || w1 < 1 || w1 > kMaxW)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_edge_mlp(
+      static_cast<const int*>(idx), static_cast<const float*>(a_table),
+      static_cast<const float*>(b_table), static_cast<const float*>(w2),
+      static_cast<const float*>(bias2), static_cast<float*>(out), batch, n,
+      w0, w1, k, neg_slope, static_cast<cudaStream_t>(stream)));
 }
 
 // K3. x (B, N, C) and btab (B, N, Cb) fp32, idx (B, N, k) int32, cnt (B, N)
@@ -348,8 +407,7 @@ GFS_EXPORT int gfs_fused_edgeconv_infer(const void* x, const void* a_table,
 GFS_EXPORT int gfs_knn_with_stats(const void* x, const void* btab, void* idx,
                                   void* cnt, void* scb, int batch, int n,
                                   int c, int cb, int k, void* stream) {
-  if (batch < 1 || batch > 65535 || n < 1 || c < 1 || c > kMaxC || cb < 1 ||
-      cb > kMaxW || k < 1 || k > kMaxK || k > n)
+  if (bad_sizes(batch, n, k) || c < 1 || c > kMaxC || cb < 1 || cb > kMaxW)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kTileQ - 1) / kTileQ, batch);
   const auto s = static_cast<cudaStream_t>(stream);

@@ -15,6 +15,12 @@ a = x @ Wd and b = x @ (Wc - Wd), builds the kNN graph with its neighbour
 statistics (K3, ops/knn.py::knn_with_stats) and runs the fused training
 block (K4, ops/fused_edgeconv_train.py), whose batch statistics feed both
 BatchNorms' running averages (JAX dgcnn.py:107-125).
+
+A block of any other depth (the DGCNN semantic-segmentation backbone's
+third block is one layer deep) builds its graph with K6
+(ops/knn.py::knn_indices) and gathers the neighbour table with
+ops/edgeconv.py::gather_neighbors, whose backward is K7; its layers are
+torch ops on the (B, N, K, W) edge tensor, in eval and in training.
 """
 from __future__ import annotations
 
@@ -75,9 +81,10 @@ class EdgeConvBlock(nn.Module):
             w2f = conv2.kernel * s2[None, :]
             return fused_edgeconv_infer(x.contiguous(), a_table, b_table,
                                         w2f.contiguous(), t2, self.k)
-        # blocks of other depths: the plain composition (JAX dgcnn.py:126-134),
-        # in training with batch statistics over (B, N, K)
-        idx = knn_indices(x, self.k)                        # (B, N, K)
+        # blocks of other depths (JAX dgcnn.py:126-134): the kNN indices
+        # (K6), the gather whose backward is K7, then the layers as torch
+        # ops, in training with batch statistics over (B, N, K)
+        idx = knn_indices(x.detach().contiguous(), self.k)  # (B, N, K)
         h = gather_neighbors(x @ wd, idx) + (x @ (wc - wd))[:, :, None, :]
         h = leaky_relu(bn1(h))
         for j in range(1, len(self.widths)):

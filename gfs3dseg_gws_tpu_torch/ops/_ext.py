@@ -42,6 +42,13 @@ _SIGNATURES = {
     "gfs_fused_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     # x, btab, idx, cnt, scb, batch, n, c, cb, k, stream
     "gfs_knn_with_stats": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, idx, batch, n, c, k, stream
+    "gfs_knn_indices": (_P, _P, _I, _I, _I, _I, _P),
+    # idx, g, dx, batch, n, k, c, stream
+    "gfs_edgeconv_scatter": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # idx, a_table, b_table, w2, bias2, out, batch, n, w0, w1, k,
+    # neg_slope, stream
+    "gfs_gather_conv": (_P,) * 6 + (_I,) * 5 + (_F, _P),
     # a, b, idx, s1, t1, w2, snbr, zmax, zmin, kmax, kmin, part, batch, n,
     # c, w1, k, neg_slope, stream
     "gfs_edgeconv_train_fwd": (_P,) * 12 + (_I,) * 5 + (_F, _P),

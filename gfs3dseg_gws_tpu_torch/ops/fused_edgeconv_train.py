@@ -39,7 +39,7 @@ from typing import Tuple
 import torch
 
 from gfs3dseg_gws_tpu_torch.ops import _ext
-from gfs3dseg_gws_tpu_torch.ops.edgeconv import gather_neighbors
+from gfs3dseg_gws_tpu_torch.ops.edgeconv import gather_neighbors_plain
 from gfs3dseg_gws_tpu_torch.ops.knn import neighbor_stats_plain
 
 EPS = 1e-5  # torch BatchNorm eps
@@ -70,7 +70,7 @@ def fused_edgeconv_train_plain(a, b, gamma1, beta1, w2, gamma2, beta2, idx,
         var = torch.clamp_min(torch.mean(x * x, axes) - mu * mu, 0.0)
         return (x - mu) * (torch.rsqrt(var + EPS) * gamma) + beta, mu, var
 
-    e0 = gather_neighbors(a, idx.long()) + b[:, :, None, :]
+    e0 = gather_neighbors_plain(a, idx) + b[:, :, None, :]
     y1, mu1, var1 = bn(e0, gamma1, beta1)
     z1 = torch.einsum("bnkc,cd->bnkd", _leaky(y1, neg_slope), w2)
     y2, mu2, var2 = bn(z1, gamma2, beta2)
@@ -85,7 +85,7 @@ def fused_edgeconv_train_plain(a, b, gamma1, beta1, w2, gamma2, beta2, idx,
 def _gsf_plain(a, b, idx, s1, t1, w2, neg_slope):
     """Plain twin of K4a. Returns (snbr (B,N,C), zmax, zmin (B,N,W1),
     kmax, kmin (B,N,W1) int32, sumh1 (C,), gram (C,C))."""
-    nbr = gather_neighbors(a, idx.long())                     # (B,N,K,C)
+    nbr = gather_neighbors_plain(a, idx)                      # (B,N,K,C)
     h1 = _leaky((nbr + b[:, :, None, :]) * s1 + t1, neg_slope)
     z1 = torch.einsum("bnkc,cd->bnkd", h1, w2)
     zmax, kmax = torch.max(z1, dim=2)
@@ -144,7 +144,7 @@ def _bwd_plain(a, b, idx, p1, w2, gsel, ksel, pk, neg_slope):
     s1, t1, mu1, inv1, g1s = p1
     g2s, c1, c2, mu2, inv2 = pk
     k = idx.shape[-1]
-    e0 = gather_neighbors(a, idx.long()) + b[:, :, None, :]
+    e0 = gather_neighbors_plain(a, idx) + b[:, :, None, :]
     pre1 = e0 * s1 + t1
     h1 = _leaky(pre1, neg_slope)
     z1 = torch.einsum("bnkc,cd->bnkd", h1, w2)

@@ -1,10 +1,16 @@
 """k-nearest-neighbour graph (counterpart of the JAX package's ops/knn.py).
 
 Score = -squared-L2 distance, top-k of the score with the point itself
-included (reference model/dgcnn.py:17-23). On the eval path the kNN graph is
-built inside the fused EdgeConv kernel (ops/fused_edgeconv.py); the plain
-`knn_indices` serves the kernels' plain twins and EdgeConv blocks that are
-not two layers deep.
+included (reference model/dgcnn.py:17-23). On the eval path of a block two
+layers deep the kNN graph is built inside the fused EdgeConv kernel
+(ops/fused_edgeconv.py).
+
+`knn_indices` (K6) gives the indices alone, for EdgeConv blocks that are not
+two layers deep (models/dgcnn.py) and for the split eval EdgeConv. It
+replaces the JAX package's TPU kernel ops/knn.py::knn_indices (`_knn_pallas`,
+body `_knn_kernel`) with K1's kNN stage launched alone
+(`knn_kernel<CP, false>` in csrc/fused_edgeconv.cu). `knn_indices_plain` is
+its twin; the plain twins of K1 and K3 call the twin, never the kernel.
 
 `knn_with_stats` (K3) is the training path's kNN: it also returns the
 in-degrees and the transposed b-scatter that let the fused training
@@ -31,10 +37,41 @@ def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return xx - 2.0 * xy + yy.transpose(-1, -2)
 
 
-def knn_indices(x: torch.Tensor, k: int) -> torch.Tensor:
-    """x (B, N, C) -> neighbour indices (B, N, k) int64, nearest first."""
+def knn_indices_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain twin of K6: x (B, N, C) -> neighbour indices (B, N, k) int32,
+    nearest first (JAX: _knn_xla)."""
     score = -pairwise_sq_dists(x, x)
-    return torch.topk(score, k, dim=-1).indices
+    return torch.topk(score, k, dim=-1).indices.to(torch.int32)
+
+
+def knn_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Neighbour indices (B, N, k) int32 of x (B, N, C), nearest first, self
+    included.
+
+    A CPU tensor goes to `knn_indices_plain`; a CUDA tensor to K6 (C <= 64,
+    1 <= k <= min(N, 32); anything else raises). Ties at equal distance go
+    to the lower index, as in K1. x should be detached: the graph carries
+    no gradient.
+    """
+    if x.device.type == "cpu":
+        return knn_indices_plain(x, k)
+    name = "knn_indices"
+    _ext.check_tensors(name, x=x)
+    b, n, c = x.shape
+    if c > 64 or not 1 <= k <= min(n, 32):
+        raise ValueError(f"{name}: the kernel takes C <= 64 and "
+                         f"1 <= k <= min(N, 32); got C={c}, k={k}, N={n}")
+    idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
+    lib = _ext.library()
+    with torch.cuda.device(x.device):
+        code = lib.gfs_knn_indices(x.data_ptr(), idx.data_ptr(), b, n, c, k,
+                                   _ext.current_stream(x.device))
+    _ext.check(code, name)
+    knn_indices.launches += 1
+    return idx
+
+
+knn_indices.launches = 0
 
 
 def neighbor_stats_plain(idx: torch.Tensor, btab: torch.Tensor
@@ -58,8 +95,8 @@ def neighbor_stats_plain(idx: torch.Tensor, btab: torch.Tensor
 
 def knn_with_stats_plain(x: torch.Tensor, btab: torch.Tensor, k: int
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain twin of K3: `knn_indices` + `neighbor_stats_plain`."""
-    idx = knn_indices(x, k).to(torch.int32)
+    """Plain twin of K3: `knn_indices_plain` + `neighbor_stats_plain`."""
+    idx = knn_indices_plain(x, k)
     return (idx,) + neighbor_stats_plain(idx, btab)
 
 

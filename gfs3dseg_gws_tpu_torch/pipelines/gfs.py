@@ -435,7 +435,9 @@ def evaluate_gfs(model_cfg, data_cfg, train_cfg,
     Returns the averaged metrics (`mean_iou`, `base_iou`, `novel_iou`,
     `hm_iou`, `per_class`) and what produced them: `per_seed` (S x 4),
     `base_coding`, `gened_protos`, `novel_codings`, plus `n_blocks` and
-    `sweep_seconds` of the static_test sweep.
+    `sweep_seconds` of the static_test sweep and `coding_sweep`: whether
+    the base coding was computed by a sweep over the training blocks (no
+    saved coding was found).
     """
     device = resolve_device(train_cfg.device)
     basis = load_basis(train_cfg.basis_path)
@@ -450,7 +452,8 @@ def evaluate_gfs(model_cfg, data_cfg, train_cfg,
         train_cfg.save_path, train_cfg.energy,
         extra_dirs=[os.path.dirname(train_cfg.model_checkpoint_path)],
         logger=logger, prefixes=prefixes)
-    if base_coding is None:
+    coding_sweep = base_coding is None
+    if coding_sweep:
         logger.cprint(f"---- recompute base_class_coding, "
                       f"energy={train_cfg.energy} ----")
         base_coding, _ = collect_base_codings(
@@ -495,7 +498,7 @@ def evaluate_gfs(model_cfg, data_cfg, train_cfg,
             "base_coding": base_coding, "gened_protos": geneds,
             "novel_codings": novel_codings,
             "n_blocks": len(setup.val_dataset),
-            "sweep_seconds": sweep_seconds}
+            "sweep_seconds": sweep_seconds, "coding_sweep": coding_sweep}
 
 
 # --------------------------------------------------------------------------- #

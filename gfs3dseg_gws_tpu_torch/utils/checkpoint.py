@@ -45,6 +45,14 @@ def load_basis(path: str) -> np.ndarray:
         return np.asarray(pickle.load(f), dtype=np.float32)
 
 
+def save_basis(path: str, basis: np.ndarray) -> None:
+    """Pickle a geometric-word basis as `load_basis` (and the JAX package's)
+    reads it."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(np.asarray(basis), f)
+
+
 def torch_load(path: str):
     """torch.load with weights_only=True.
 

@@ -20,7 +20,14 @@ from gfs3dseg_gws_tpu_torch.ops.attention_kernel import (attention_plain,
                                                          fused_attention)
 from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (fused_edgeconv_infer,
                                                        fused_edgeconv_plain)
-from gfs3dseg_gws_tpu_torch.ops.knn import (knn_with_stats,
+from gfs3dseg_gws_tpu_torch.ops.edgeconv import (gather_neighbors,
+                                                 gather_neighbors_plain,
+                                                 scatter_bwd,
+                                                 scatter_bwd_plain)
+from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (
+    fused_edgeconv_infer_split, gather_conv, gather_conv_plain)
+from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices, knn_indices_plain,
+                                            knn_with_stats,
                                             knn_with_stats_plain,
                                             neighbor_stats_plain)
 
@@ -192,21 +199,31 @@ def test_training_wrappers_refuse_what_they_cannot_take(dev):
                  idx.int(), vec, vec, w2, 0.2)
 
 
-def test_dgcnnseg_train_step_on_card_agrees_with_cpu(dev, monkeypatch):
-    """One full-width train step (dropout 0): the loss within 1e-4, every
-    gradient's cosine with the CPU's >= 0.999, the running statistics
-    within 1e-4. The CPU takes the card's kNN graphs (K3's indices), so
-    that a near-tie that rounding resolves differently on the two devices
-    cannot move a block's global max feature; at most 0.1% of each graph's
-    rows may differ from the CPU's own graph. Gradients that are zero in
-    exact arithmetic (biases whose shift a train-mode BatchNorm downstream
+@pytest.mark.parametrize("widths", [((64, 64),) * 3,
+                                    ((64, 64), (64, 64), (64,))],
+                         ids=["default", "semseg"])
+def test_dgcnnseg_train_step_on_card_agrees_with_cpu(dev, monkeypatch,
+                                                     widths):
+    """One full-width train step (dropout 0), at the default widths and at
+    the DGCNN semantic-segmentation widths (a third block one layer deep:
+    K6, and K7 in the backward): the loss within 1e-4, every gradient's
+    cosine with the CPU's >= 0.999, the running statistics within 1e-4.
+    The CPU takes the card's kNN graphs (K3's and K6's indices), so that a
+    near-tie that rounding resolves differently on the two devices cannot
+    move a block's global max feature; at most 0.1% of each graph's rows
+    may differ from the CPU's own graph. Gradients that are zero in exact
+    arithmetic (biases whose shift a train-mode BatchNorm downstream
     removes) are rounding noise on both devices: such a pair must stay
     under 1e-5 of the largest gradient norm and is not held to the
     cosine."""
     from gfs3dseg_gws_tpu_torch.models import dgcnn
-    from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices
 
     graphs = []
+
+    def own_rows_differ(idx, x, k):
+        own = knn_indices_plain(x, k)
+        differ = (idx.sort(-1).values != own.sort(-1).values).any(-1)
+        assert differ.float().mean() <= 1e-3
 
     def record(x, btab, k):
         out = knn_with_stats(x, btab, k)
@@ -215,24 +232,39 @@ def test_dgcnnseg_train_step_on_card_agrees_with_cpu(dev, monkeypatch):
 
     def replay(x, btab, k):
         idx = graphs.pop(0)
-        own = knn_indices(x, k)
-        differ = (idx.sort(-1).values != own.sort(-1).values).any(-1)
-        assert differ.float().mean() <= 1e-3
+        own_rows_differ(idx, x, k)
         return (idx,) + neighbor_stats_plain(idx, btab)
 
-    cpu = DGCNNSeg(8, dropout=0.0, generator=torch.Generator().manual_seed(0))
-    gpu = DGCNNSeg(8, dropout=0.0, device=dev)
+    def record_idx(x, k):
+        idx = knn_indices(x, k)
+        graphs.append(idx.cpu())
+        return idx
+
+    def replay_idx(x, k):
+        idx = graphs.pop(0)
+        own_rows_differ(idx, x, k)
+        return idx
+
+    cpu = DGCNNSeg(8, edgeconv_widths=widths, dropout=0.0,
+                   generator=torch.Generator().manual_seed(0))
+    gpu = DGCNNSeg(8, edgeconv_widths=widths, dropout=0.0, device=dev)
     gpu.load_state_dict(cpu.state_dict())
     r = np.random.default_rng(3)
     x = _randn(r, 2, 512, 9)
     y = torch.from_numpy(r.integers(0, 8, (2, 512)))
     losses = []
-    for model, device, knn in ((gpu, dev, record), (cpu, "cpu", replay)):
+    before = (knn_indices.launches, scatter_bwd.launches)
+    for model, device, knn, knn_idx in ((gpu, dev, record, record_idx),
+                                        (cpu, "cpu", replay, replay_idx)):
         monkeypatch.setattr(dgcnn, "knn_with_stats", knn)
+        monkeypatch.setattr(dgcnn, "knn_indices", knn_idx)
         loss = cross_entropy(model(x.to(device)), y.to(device))
         loss.backward()
         losses.append(loss.item())
     assert not graphs
+    one_deep = sum(len(w) != 2 for w in widths)
+    assert (knn_indices.launches, scatter_bwd.launches) == (
+        before[0] + one_deep, before[1] + one_deep)
     assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[1])
     grads = [(name, pc.grad.double().flatten(),
               pg.grad.cpu().double().flatten())
@@ -248,6 +280,95 @@ def test_dgcnnseg_train_step_on_card_agrees_with_cpu(dev, monkeypatch):
         if name.endswith(("running_mean", "running_var")):
             assert ((bc - bg.cpu()).abs() <= 1e-4 * bc.abs().clamp_min(
                 1.0)).all(), name
+
+
+@pytest.mark.parametrize("b,n,c,k", [
+    (2, 33, 3, 32),        # k at its limit, N just past one tile
+    (2, 100, 9, 5),        # ragged N, the first block's width
+    (3, 300, 64, 20),      # model widths, ragged N
+])
+def test_knn_indices_kernel_matches_plain(dev, b, n, c, k):
+    """K6: int32 indices equal to the twin's, order included."""
+    r = np.random.default_rng(n + c + 1)
+    x = _randn(r, b, n, c).to(dev)
+    before = knn_indices.launches
+    idx = knn_indices(x, k)
+    torch.cuda.synchronize()
+    assert knn_indices.launches == before + 1
+    assert idx.dtype == torch.int32
+    assert torch.equal(idx, knn_indices_plain(x, k))
+
+
+@pytest.mark.parametrize("b,n,k,c", [(2, 100, 5, 9), (3, 300, 20, 64),
+                                     (1, 64, 32, 40), (2, 50, 7, 100)])
+def test_scatter_kernel_and_gather_function_match_plain(dev, b, n, k, c):
+    """K7 against scatter_bwd_plain on K6's graph, within 1e-5 of the
+    largest entry (float atomics; any C); the gather Function's gradient
+    against autograd through gather_neighbors_plain, likewise."""
+    r = np.random.default_rng(n + k + c)
+    x = _randn(r, b, n, min(c, 64)).to(dev)
+    idx = knn_indices(x, k)
+    g = _randn(r, b, n, k, c).to(dev)
+    before = scatter_bwd.launches
+    got = scatter_bwd(idx, g)
+    torch.cuda.synchronize()
+    assert scatter_bwd.launches == before + 1
+    ref = scatter_bwd_plain(idx, g)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    table = _randn(r, b, n, c).to(dev)
+    grads = []
+    for fn in (gather_neighbors, gather_neighbors_plain):
+        leaf = table.clone().requires_grad_()
+        out = fn(leaf, idx)
+        assert torch.equal(out, gather_neighbors_plain(table, idx))
+        grads.append(torch.autograd.grad(out, leaf, g)[0])
+    assert scatter_bwd.launches == before + 2
+    assert (grads[0] - grads[1]).abs().max() <= 1e-5 * grads[1].abs().max()
+
+
+@pytest.mark.parametrize("b,n,c,w0,w1,k", [
+    (2, 100, 9, 8, 8, 5),
+    (2, 300, 64, 64, 64, 20),
+    (1, 64, 3, 48, 24, 32),
+])
+def test_split_edgeconv_equals_fused_bit_for_bit(dev, b, n, c, w0, w1, k):
+    """K6 then K9 equals K1 bit for bit (the same two device functions);
+    K9 against its twin on K6's indices within 1e-4."""
+    r = np.random.default_rng(n + c + w1)
+    args = [_randn(r, b, n, c).to(dev), _randn(r, b, n, w0).to(dev),
+            _randn(r, b, n, w0).to(dev), _randn(r, w0, w1, scale=0.3).to(dev),
+            _randn(r, w1, scale=0.1).to(dev)]
+    before = (knn_indices.launches, gather_conv.launches)
+    split = fused_edgeconv_infer_split(*args, k)
+    torch.cuda.synchronize()
+    assert (knn_indices.launches, gather_conv.launches) == (before[0] + 1,
+                                                             before[1] + 1)
+    assert torch.equal(split, fused_edgeconv_infer(*args, k))
+    idx = knn_indices(args[0], k)
+    torch.testing.assert_close(gather_conv(idx, *args[1:]),
+                               gather_conv_plain(idx, *args[1:]),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_fourth_slice_wrappers_refuse_what_they_cannot_take(dev):
+    x = torch.zeros((1, 16, 65), device=dev)
+    with pytest.raises(ValueError, match="C <= 64"):
+        knn_indices(x, 5)
+    with pytest.raises(ValueError, match="k <= min"):
+        knn_indices(x[..., :3].contiguous(), 17)
+    with pytest.raises(TypeError, match="float32"):
+        knn_indices(x[..., :3].double(), 5)
+    a = torch.zeros((1, 16, 8), device=dev)
+    w2, bias2 = torch.zeros((8, 8), device=dev), torch.zeros(8, device=dev)
+    idx = torch.zeros((1, 16, 5), device=dev, dtype=torch.int64)
+    with pytest.raises(ValueError, match="int32"):
+        gather_conv(idx, a, a, w2, bias2)
+    with pytest.raises(ValueError, match="int32"):
+        scatter_bwd(idx, torch.zeros((1, 16, 5, 8), device=dev))
+    with pytest.raises(ValueError, match="W0, W1 <= 64"):
+        gather_conv(idx.int(), torch.zeros((1, 16, 72), device=dev),
+                    torch.zeros((1, 16, 72), device=dev),
+                    torch.zeros((72, 8), device=dev), bias2)
 
 
 def test_model_on_card_agrees_with_cpu(dev):
@@ -340,7 +461,6 @@ def test_gwcapl_train_step_on_card_agrees_with_cpu(dev, monkeypatch):
     of the largest norm left out), running statistics within 1e-4, with
     the card's kNN graphs replayed on the CPU (see the DGCNNSeg test)."""
     from gfs3dseg_gws_tpu_torch.models import dgcnn
-    from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices
 
     graphs = []
 
@@ -352,7 +472,7 @@ def test_gwcapl_train_step_on_card_agrees_with_cpu(dev, monkeypatch):
     def replay(x, btab, k):
         idx = graphs.pop(0)
         differ = (idx.sort(-1).values
-                  != knn_indices(x, k).sort(-1).values).any(-1)
+                  != knn_indices_plain(x, k).sort(-1).values).any(-1)
         assert differ.float().mean() <= 1e-3
         return (idx,) + neighbor_stats_plain(idx, btab)
 

@@ -1,9 +1,10 @@
 """The port must import and start on a host without JAX (the GPU host has
 none), and without any module of the JAX package: every module of
 gfs3dseg_gws_tpu_torch imports (the training slices' kernels, models,
-optimizers, pipelines and CLIs among them), `chip_smoke` imports, and both
-CLIs answer --help, in a subprocess where importing jax, flax or
-gfs3dseg_gws_tpu (even its numpy-only modules) fails."""
+optimizers, pipelines and CLIs among them, and geometric-word extraction),
+`chip_smoke` imports, and the three CLIs answer --help, in a subprocess
+where importing jax, flax or gfs3dseg_gws_tpu (even its numpy-only
+modules) fails."""
 import os
 import subprocess
 import sys
@@ -23,11 +24,12 @@ print("imported", len(names))
 for name in ("ops.knn", "ops.fused_edgeconv_train", "ops.attention_train",
              "models.dgcnnseg", "parallel.optim", "pipelines.pretrain",
              "cli.pretrain_cli", "utils.observability", "data.datasets",
-             "data.native_loader", "data.synthetic"):
+             "data.native_loader", "data.synthetic", "ops.edgeconv",
+             "ops.kmeans", "ops.linalg", "pipelines.basis", "cli.basis_cli"):
     assert "gfs3dseg_gws_tpu_torch." + name in names, name
 import chip_smoke
-from gfs3dseg_gws_tpu_torch.cli import pretrain_cli, train_cli
-for cli in (train_cli, pretrain_cli):
+from gfs3dseg_gws_tpu_torch.cli import basis_cli, pretrain_cli, train_cli
+for cli in (train_cli, pretrain_cli, basis_cli):
     try:
         cli.main(["--help"])
     except SystemExit as e:
@@ -48,6 +50,7 @@ def test_port_imports_and_starts_without_jax():
     assert res.returncode == 0, res.stderr[-4000:]
     assert "--only_evaluate" in res.stdout and "--device" in res.stdout
     assert "--pretrain_weight_decay" in res.stdout
+    assert "--num_cnt" in res.stdout
     assert res.stdout.rstrip().endswith("ok")
     n = int(res.stdout.split("imported ")[1].split()[0])
     assert n >= 20

@@ -555,7 +555,7 @@ def test_pretrain_cli_refuses_what_it_cannot_run(monkeypatch, tmp_path, argv,
     assert not any(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("cli", ["pretrain_cli", "train_cli"])
+@pytest.mark.parametrize("cli", ["pretrain_cli", "train_cli", "basis_cli"])
 def test_cli_flags_match_jax(cli):
     """Every flag of the JAX CLI parses in the port's with the same action,
     default, type, choices and destination; the port adds `--device` only
