@@ -3,21 +3,26 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from gfs3dseg_gws_tpu_torch/csrc, holds each
-against its plain PyTorch version on the card, then drives the port's
-paths at the full width of the S3DIS model on synthetic S3DIS-layout data:
-GFS evaluation (`train_cli --only_evaluate`, random seeded weights),
-backbone pre-training (`pretrain_cli --phase pretrain`, two short epochs
-with validation), geometric-word extraction (`basis_cli` on the
-pre-training checkpoint) and GFS base-stage training (`train_cli`, two
-short epochs from the pre-trained encoder and that basis, validation after
-each, its checkpoint evaluated again); then the same chain pre-train ->
-basis -> GFS train -> evaluate at the DGCNN semantic-segmentation widths,
-whose third EdgeConv block is one layer deep. It checks the card against
-the CPU on each. Every phase prints one line of numbers; any failure
-raises and the script exits non-zero. The line before the last lists
-every kernel with its launches on the main paths, error against its plain
-version, time, plain time, bound and library yardstick; the last line is
-{"ok": true, "device": {...}}. Needs one CUDA device; imports no JAX.
+against its plain PyTorch version on the card (at the model's widths; then
+every kernel past them - C = W = 128 with k = 40, k = 80, attention at
+D = 30 and 128 - and K8, the fold-merge kNN, bit for bit against K6), then
+drives the port's paths at the full width of the S3DIS model on synthetic
+S3DIS-layout data: GFS evaluation (`train_cli --only_evaluate`, random
+seeded weights), backbone pre-training (`pretrain_cli --phase pretrain`,
+two short epochs with validation), geometric-word extraction (`basis_cli`
+on the pre-training checkpoint) and GFS base-stage training (`train_cli`,
+two short epochs from the pre-trained encoder and that basis, validation
+after each, its checkpoint evaluated again); then the same chain
+pre-train -> basis -> GFS train -> evaluate at the DGCNN semantic-
+segmentation widths, whose third EdgeConv block is one layer deep, and at
+the DGCNN classification encoder's (four one-layer blocks 64, 64, 128, 256,
+k = 40). It checks the card against the CPU on each. Every phase prints
+one line of numbers; any failure raises and the script exits non-zero. The
+line before the last lists every kernel with its launches on the main
+paths, error against its plain version, time, plain time, bound and
+library yardstick (and, where it has one, the same at its wide shape); the
+last line is {"ok": true, "device": {...}}. Needs one CUDA device; imports
+no JAX.
 """
 from __future__ import annotations
 
@@ -48,9 +53,10 @@ MISS_RATIO, MISS_SLACK = 2.0, 1e-3  # card may miss fp64 this much more than
 CMP_BLOCKS = 8                    # blocks compared between card and CPU
 STATS_TOL = 1e-4                  # K3 scb: max |diff| / max |twin|
 FWD_TOL, GRAD_TOL = 1e-4, 1e-3    # K4 forward / gradients, same measure
-PRE_BLOCKS, PRE_EPOCHS = 240, 2   # pre-training data and epochs
+PRE_BLOCKS, PRE_EPOCHS = 160, 2   # pre-training data and epochs
 LEARN_STEPS, LEARN_DROP = 30, 0.10  # one batch: loss must fall >= 10%
-TRAIN_CMP_BLOCKS = 4              # card vs CPU train step: blocks
+TRAIN_CMP_BLOCKS = 4              # card vs CPU train step: blocks (2 at
+                                  # the classification widths)
 STEP_RTOL = 1e-4                  # ... loss and running statistics
 GRAD_COS = 0.999                  # ... per-parameter gradient cosine
 NOISE_GRAD = 1e-5                 # ... unless both gradients are below this
@@ -59,11 +65,21 @@ GRAPH_TIE = 1e-4                  # ... card graph rows the CPU's own graph
                                   # differs on: near-ties (near_tie_rows)
 ATTN_RATE = 0.1                   # K5: the model's attention dropout
 K5_FWD_TOL, K5_BWD_TOL = 1e-5, 1e-4  # K5a / K5b: max |diff| / max |twin|
-GFS_BLOCKS, GFS_EPOCHS = 320, 2   # GFS training data and epochs
+GFS_BLOCKS, GFS_EPOCHS = 256, 2   # GFS training data and epochs
 DEFAULT_WIDTHS = "[[64,64],[64,64],[64,64]]"
 # the DGCNN semantic-segmentation backbone (Wang et al., TOG 2019,
 # DGCNN_semseg conv1-2 / conv3-4 / conv5): a third block one layer deep
 SEMSEG_WIDTHS = "[[64,64],[64,64],[64]]"
+# the DGCNN classification encoder (same paper, DGCNN_cls: EdgeConv 64, 64,
+# 128, 256, one layer each) with its 2,048-point k = 40
+CLASS_WIDTHS, CLASS_K = "[[64],[64],[128],[256]]", 40
+# the wide kernel checks: every kernel past the fast path's C, W <= 64 and
+# k <= 32 at the classification widths (C = W = 128, k = 40), at k > 64,
+# and the attention at D = 30 (zero-padded to 32) and D = 128 (tiled)
+WIDE_C, WIDE_K, BIG_K, BIG_B = 128, CLASS_K, 80, 4
+WIDE_D = (30, 128)
+WIDE_REPS = 5                     # timing repetitions past the fast path
+K8_FOLDS = (2, 4, 8)              # K8: folds held to K6 (2 and 4 timed)
 K7_TOL = 1e-5                     # K7, gather gradient: max |diff| / max |ref|
 LLOYD_BLOCKS, LLOYD_ITERS = 32, 20  # lloyd card vs CPU: blocks, iterations
 LLOYD_AGREE = 0.999               # ... per iteration: labels equal on this
@@ -78,8 +94,8 @@ PROFILE_STEPS = 5                 # train steps under torch.profiler
 KERNEL_GROUPS = (
     ("K5a attn_train_fwd", ("attn_train_fwd",)),
     ("K5b attn_train_bwd", ("attn_train_bwd",)),
-    ("K6 knn_kernel<CP, false>", ("knn_kernel<16, false>",
-                                  "knn_kernel<64, false>")),
+    ("K8 knn_fold_kernel (the kNN for k > 64)", ("knn_fold_kernel",)),
+    ("K6 knn_kernel<CP, KMAX, false>", ("32, false>", "64, false>")),
     ("K7 edgeconv_scatter", ("edgeconv_scatter",)),
     ("K3 knn_kernel", ("knn_kernel",)),
     ("K4a gsf_kernel", ("gsf_kernel",)),
@@ -139,59 +155,62 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def check_edgeconv(dev, c: int, gen: torch.Generator):
-    """K1 against fused_edgeconv_plain at (B, N, c -> 64), k=20."""
+def check_edgeconv(dev, c: int, gen: torch.Generator, w0: int = 64,
+                   w1: int = 64, k: int = K, b: int = B, reps: int = 20):
+    """K1 against fused_edgeconv_plain at (b, N, c -> w0 -> w1), k."""
     from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (
         fused_edgeconv_infer, fused_edgeconv_plain)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
-    args = (randn(B, N, c), randn(B, N, 64), randn(B, N, 64),
-            randn(64, 64, scale=0.125), randn(64, scale=0.1))
-    got = fused_edgeconv_infer(*args, K)
-    ref = fused_edgeconv_plain(*args, K)
+    args = (randn(b, N, c), randn(b, N, w0), randn(b, N, w0),
+            randn(w0, w1, scale=w0 ** -0.5), randn(w1, scale=0.1))
+    got = fused_edgeconv_infer(*args, k)
+    ref = fused_edgeconv_plain(*args, k)
     torch.cuda.synchronize()
     diff = (got - ref).abs()
     row_ok = (diff <= EC_TOL[0] + EC_TOL[1] * ref.abs()).all(-1)   # (B, N)
     share = row_ok.float().mean().item()
+    label = f"K1 fused_edgeconv ({b},{N},{c}->{w0}->{w1}) k={k}"
     if share < EC_ROWS:
-        raise AssertionError(f"K1 C={c}: only {share:.6f} of rows within "
+        raise AssertionError(f"{label}: only {share:.6f} of rows within "
                              f"tolerance")
     bad = (~row_ok).nonzero().tolist()
-    near_tie_rows(args[0], bad, f"K1 C={c}")
-    ms = cuda_ms(lambda: fused_edgeconv_infer(*args, K))
-    plain_ms = cuda_ms(lambda: fused_edgeconv_plain(*args, K))
+    near_tie_rows(args[0], bad, label, k=k)
+    ms = cuda_ms(lambda: fused_edgeconv_infer(*args, k), reps)
+    plain_ms = cuda_ms(lambda: fused_edgeconv_plain(*args, k), reps)
     max_err = diff.max().item()
-    # FMAs: the kNN distances (B N^2 c) and the edge layer (B N K 64 x 64)
-    bound_ms, bound_by = bound(2.0 * (B * N * N * c + B * N * K * 64 * 64),
+    # FMAs: the kNN distances (b N^2 c) and the edge layer (b N k w0 x w1)
+    bound_ms, bound_by = bound(2.0 * (b * N * N * c + b * N * k * w0 * w1),
                                size_of(*args, got))
-    phase(f"K1 fused_edgeconv ({B},{N},{c}->64) k={K}", max_abs_err=max_err,
+    phase(label, max_abs_err=max_err,
           rows_within_tol=share, near_tie_rows=len(bad), kernel_ms=ms,
           plain_ms=plain_ms, bound_ms=bound_ms)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def check_attention(dev, gen: torch.Generator):
-    """K2 against attention_plain at (B, N, 64)."""
+def check_attention(dev, gen: torch.Generator, d: int = 64, reps: int = 20):
+    """K2 against attention_plain at (B, N, d)."""
     from gfs3dseg_gws_tpu_torch.ops.attention_kernel import (attention_plain,
                                                              fused_attention)
 
-    q, k, v = (torch.randn((B, N, 64), generator=gen).to(dev)
+    q, k, v = (torch.randn((B, N, d), generator=gen).to(dev)
                for _ in range(3))
-    temp = 64 ** 0.5
+    temp = d ** 0.5
     got = fused_attention(q, k, v, temp)
     ref = attention_plain(q, k, v, temp)
     torch.testing.assert_close(got, ref, **ATTN_TOL)
-    ms = cuda_ms(lambda: fused_attention(q, k, v, temp))
-    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, temp))
-    # yardstick only: the port never calls it (its default scale is 1/8)
+    ms = cuda_ms(lambda: fused_attention(q, k, v, temp), reps)
+    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, temp), reps)
+    # yardstick only: the port never calls it (its default scale is
+    # 1/sqrt(d), the same)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(q, k, v))
+    library_ms = cuda_ms(lambda: sdpa(q, k, v), reps)
     max_err = (got - ref).abs().max().item()
-    bound_ms, bound_by = bound(2.0 * 2 * B * N * N * 64, size_of(q, k, v, got))
-    phase(f"K2 fused_attention ({B},{N},64)", max_abs_err=max_err,
+    bound_ms, bound_by = bound(2.0 * 2 * B * N * N * d, size_of(q, k, v, got))
+    phase(f"K2 fused_attention ({B},{N},{d})", max_abs_err=max_err,
           kernel_ms=ms, plain_ms=plain_ms, sdpa_fp32_ms=library_ms,
           bound_ms=bound_ms)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
@@ -203,7 +222,7 @@ def rel_err(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
 
 
-def near_tie_rows(x, bad, label, rtol=TIE_RTOL, by_norm=False):
+def near_tie_rows(x, bad, label, rtol=TIE_RTOL, by_norm=False, k=K):
     """Each (b, i) in `bad` must be a near-tie at the k-th neighbour: the
     k-th and (k+1)-th plain squared distances within `rtol` of the k-th, or
     with `by_norm` of the larger of it and |x_i|^2 (the rounding scale of
@@ -212,7 +231,7 @@ def near_tie_rows(x, bad, label, rtol=TIE_RTOL, by_norm=False):
 
     for b, i in bad:
         d2 = pairwise_sq_dists(x[b, i:i + 1], x[b])[0]
-        d20, d21 = torch.topk(d2, K + 1, largest=False).values[-2:].tolist()
+        d20, d21 = torch.topk(d2, k + 1, largest=False).values[-2:].tolist()
         scale = max(abs(d20), (x[b, i] ** 2).sum().item() if by_norm
                     else 1e-30)
         if abs(d21 - d20) > rtol * scale:
@@ -220,55 +239,77 @@ def near_tie_rows(x, bad, label, rtol=TIE_RTOL, by_norm=False):
                                  f"near-tie (d20={d20}, d21={d21})")
 
 
-def graph_agreement(x, idx, ref_idx, label):
+def graph_agreement(x, idx, ref_idx, label, k=K):
     """A kernel's kNN graph against its twin's: neighbour sets equal on
     >= EC_ROWS of the rows, every row whose set differs a near-tie at the
-    k-th distance, and the order equal on >= EC_ROWS of the rows. Returns
-    (share of equal sets, share of equal orders, the differing rows)."""
+    k-th distance, and the order equal on >= EC_ROWS of the rows (for k up
+    to the fast path's 32; past it, where a longer list meets more
+    near-ties, every row whose order alone differs must hold the same
+    distances slot by slot, within TIE_RTOL of its k-th). Returns (share
+    of equal sets, share of equal orders, the rows whose set differs)."""
     row_ok = (idx.sort(-1).values == ref_idx.sort(-1).values).all(-1)
     share = row_ok.float().mean().item()
     if share < EC_ROWS:
         raise AssertionError(f"{label}: only {share:.6f} of neighbour sets "
                              f"agree")
-    order = (idx == ref_idx).all(-1).float().mean().item()
-    if order < EC_ROWS:
+    same = (idx == ref_idx).all(-1)
+    order = same.float().mean().item()
+    if k <= 32 and order < EC_ROWS:
         raise AssertionError(f"{label}: idx equals the twin's on only "
                              f"{order:.6f} of rows")
+    if k > 32:
+        from gfs3dseg_gws_tpu_torch.ops.knn import pairwise_sq_dists
+
+        for b, i in (row_ok & ~same).nonzero().tolist():
+            d2 = pairwise_sq_dists(x[b, i:i + 1], x[b])[0]
+            got, want = d2[idx[b, i].long()], d2[ref_idx[b, i].long()]
+            if (got - want).abs().max() > TIE_RTOL * want.max():
+                raise AssertionError(f"{label}: row ({b},{i}) is ordered "
+                                     "otherwise than the twin's without a "
+                                     "near-tie")
     bad = (~row_ok).nonzero().tolist()
-    near_tie_rows(x, bad, label)
+    near_tie_rows(x, bad, label, k=k)
     return share, order, bad
 
 
-def check_knn_indices(dev, c: int, gen: torch.Generator):
-    """K6 against knn_indices_plain at (B, N, c), k=20, by the rule of K3
+def check_knn_indices(dev, c: int, gen: torch.Generator, k: int = K,
+                      b: int = B, reps: int = 20):
+    """K6 against knn_indices_plain at (b, N, c), k, by the rule of K3
     (graph_agreement). Its max_abs_err is the largest difference between
     the plain squared distances of the kernel's neighbours and the twin's,
     slot by slot (0 where the graphs agree)."""
     from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices,
-                                                knn_indices_plain,
-                                                pairwise_sq_dists)
+                                                knn_indices_plain)
 
-    x = torch.randn((B, N, c), generator=gen).to(dev)
-    idx = knn_indices(x, K)
-    ref = knn_indices_plain(x, K)
+    x = torch.randn((b, N, c), generator=gen).to(dev)
+    idx = knn_indices(x, k)
+    ref = knn_indices_plain(x, k)
     torch.cuda.synchronize()
-    share, order, bad = graph_agreement(x, idx, ref, f"K6 C={c}")
-    d2 = pairwise_sq_dists(x, x)
-    max_err = (d2.gather(-1, idx.long()) - d2.gather(-1, ref.long())
-               ).abs().max().item()
-    del d2
-    ms = cuda_ms(lambda: knn_indices(x, K))
-    plain_ms = cuda_ms(lambda: knn_indices_plain(x, K))
-    # FMAs: the kNN distances (B N^2 c)
-    bound_ms, bound_by = bound(2.0 * B * N * N * c, size_of(x, idx))
-    phase(f"K6 knn_indices ({B},{N},{c}) k={K}", sets_agree=share,
+    label = f"K6 knn_indices ({b},{N},{c}) k={k}"
+    share, order, bad = graph_agreement(x, idx, ref, label, k)
+    max_err = slot_dist_err(x, idx, ref)
+    ms = cuda_ms(lambda: knn_indices(x, k), reps)
+    plain_ms = cuda_ms(lambda: knn_indices_plain(x, k), reps)
+    # FMAs: the kNN distances (b N^2 c)
+    bound_ms, bound_by = bound(2.0 * b * N * N * c, size_of(x, idx))
+    phase(label, sets_agree=share,
           order_agree=order, near_tie_rows=len(bad), max_abs_err=max_err,
           kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def check_scatter(dev, gen: torch.Generator):
+def slot_dist_err(x, idx, ref) -> float:
+    """The largest difference between the plain squared distances of two
+    kNN graphs' neighbours, slot by slot (0 where they agree)."""
+    from gfs3dseg_gws_tpu_torch.ops.knn import pairwise_sq_dists
+
+    d2 = pairwise_sq_dists(x, x)
+    return (d2.gather(-1, idx.long()) - d2.gather(-1, ref.long())
+            ).abs().max().item()
+
+
+def check_scatter(dev, gen: torch.Generator, c: int = 64, reps: int = 20):
     """K7 against scatter_bwd_plain at g (B, N, K, 64) on the graph K6
     builds on (B, N, 64) features, within K7_TOL of the largest entry (float
     atomics); then the gather Function's gradient against autograd through
@@ -282,9 +323,9 @@ def check_scatter(dev, gen: torch.Generator):
                                                      scatter_bwd_plain)
     from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices
 
-    x = torch.randn((B, N, 64), generator=gen).to(dev)
+    x = torch.randn((B, N, c), generator=gen).to(dev)
     idx = knn_indices(x, K)
-    g = torch.randn((B, N, K, 64), generator=gen).to(dev)
+    g = torch.randn((B, N, K, c), generator=gen).to(dev)
     got = scatter_bwd(idx, g)
     ref = scatter_bwd_plain(idx, g)
     torch.cuda.synchronize()
@@ -298,24 +339,26 @@ def check_scatter(dev, gen: torch.Generator):
         raise AssertionError(f"K7 off its twin by {err}, the gather "
                              f"Function's gradient by {fn_err}")
     max_err = (got - ref).abs().max().item()
-    flat, gflat = _flat_rows(idx, N), g.reshape(-1, 64)
-    table = torch.zeros((B * N, 64), device=dev)
-    ms = cuda_ms(lambda: scatter_bwd(idx, g))
-    plain_ms = cuda_ms(lambda: scatter_bwd_plain(idx, g))
-    library_ms = cuda_ms(lambda: table.index_add_(0, flat, gflat))
-    # B N K 64 adds; g and idx read, dx written
+    flat, gflat = _flat_rows(idx, N), g.reshape(-1, c)
+    table = torch.zeros((B * N, c), device=dev)
+    ms = cuda_ms(lambda: scatter_bwd(idx, g), reps)
+    plain_ms = cuda_ms(lambda: scatter_bwd_plain(idx, g), reps)
+    library_ms = cuda_ms(lambda: table.index_add_(0, flat, gflat), reps)
+    # B N K c adds; g and idx read, dx written
     bound_ms, bound_by = bound(float(g.numel()), size_of(idx, g, got))
-    phase(f"K7 gather_neighbors backward ({B},{N},{K},64)", rel_err=err,
+    phase(f"K7 gather_neighbors backward ({B},{N},{K},{c})", rel_err=err,
           function_grad_rel_err=fn_err, max_abs_err=max_err, kernel_ms=ms,
           plain_ms=plain_ms, index_add_ms=library_ms, bound_ms=bound_ms)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def check_gather_conv(dev, gen: torch.Generator):
-    """K9 against gather_conv_plain at (B, N, 64 -> 64), k=20, on K6's
+def check_gather_conv(dev, gen: torch.Generator, cs=(9, 64), w0: int = 64,
+                      w1: int = 64, k: int = K, b: int = B, reps: int = 20):
+    """K9 against gather_conv_plain at (b, N, w0 -> w1), k, on K6's
     indices (the same graph for both: within EC_TOL everywhere); then the
-    split EdgeConv (K6 then K9) against K1 at C=9 and C=64, bit for bit."""
+    split EdgeConv (K6 then K9) against K1 at each C of `cs`, bit for
+    bit."""
     from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (
         fused_edgeconv_infer, fused_edgeconv_infer_split, gather_conv,
         gather_conv_plain)
@@ -324,36 +367,37 @@ def check_gather_conv(dev, gen: torch.Generator):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
-    tables = (randn(B, N, 64), randn(B, N, 64), randn(64, 64, scale=0.125),
-              randn(64, scale=0.1))
-    for c in (9, 64):
-        x = randn(B, N, c)
-        split = fused_edgeconv_infer_split(x, *tables, K)
-        fused = fused_edgeconv_infer(x, *tables, K)
+    tables = (randn(b, N, w0), randn(b, N, w0),
+              randn(w0, w1, scale=w0 ** -0.5), randn(w1, scale=0.1))
+    for c in cs:
+        x = randn(b, N, c)
+        split = fused_edgeconv_infer_split(x, *tables, k)
+        fused = fused_edgeconv_infer(x, *tables, k)
         torch.cuda.synchronize()
         if not torch.equal(split, fused):
             raise AssertionError(f"K6 -> K9 differs from K1 at C={c} by "
                                  f"{(split - fused).abs().max().item()}")
-    idx = knn_indices(x, K)
+    idx = knn_indices(x, k)
     got = gather_conv(idx, *tables)
     ref = gather_conv_plain(idx, *tables)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, atol=EC_TOL[0], rtol=EC_TOL[1])
     max_err = (got - ref).abs().max().item()
-    ms = cuda_ms(lambda: gather_conv(idx, *tables))
-    plain_ms = cuda_ms(lambda: gather_conv_plain(idx, *tables))
-    # FMAs: the edge layer (B N K 64 x 64)
-    bound_ms, bound_by = bound(2.0 * B * N * K * 64 * 64,
+    ms = cuda_ms(lambda: gather_conv(idx, *tables), reps)
+    plain_ms = cuda_ms(lambda: gather_conv_plain(idx, *tables), reps)
+    # FMAs: the edge layer (b N k w0 x w1)
+    bound_ms, bound_by = bound(2.0 * b * N * k * w0 * w1,
                                size_of(idx, *tables, got))
-    phase(f"K9 gather_conv ({B},{N},64->64) k={K}", max_abs_err=max_err,
-          split_equals_k1="bit for bit at C=9 and C=64", kernel_ms=ms,
+    phase(f"K9 gather_conv ({b},{N},{w0}->{w1}) k={k}", max_abs_err=max_err,
+          split_equals_k1=f"bit for bit at C={cs}", kernel_ms=ms,
           plain_ms=plain_ms, bound_ms=bound_ms)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def check_knn_stats(dev, c: int, gen: torch.Generator):
-    """K3 against knn_with_stats_plain at (B, N, c), k=20, btab (B, N, 64):
+def check_knn_stats(dev, c: int, gen: torch.Generator, k: int = K,
+                    b: int = B, cb: int = 64, reps: int = 20):
+    """K3 against knn_with_stats_plain at (b, N, c), k, btab (b, N, cb):
     idx equal to the twin's, order included, on >= EC_ROWS of the rows;
     each row whose neighbour set differs must be a near-tie at the k-th
     distance. cnt/scb against the plain statistics of the kernel's own idx
@@ -362,25 +406,26 @@ def check_knn_stats(dev, c: int, gen: torch.Generator):
                                                 knn_with_stats_plain,
                                                 neighbor_stats_plain)
 
-    x = torch.randn((B, N, c), generator=gen).to(dev)
-    btab = torch.randn((B, N, 64), generator=gen).to(dev)
-    idx, cnt, scb = knn_with_stats(x, btab, K)
-    ref_idx = knn_with_stats_plain(x, btab, K)[0]
+    x = torch.randn((b, N, c), generator=gen).to(dev)
+    btab = torch.randn((b, N, cb), generator=gen).to(dev)
+    idx, cnt, scb = knn_with_stats(x, btab, k)
+    ref_idx = knn_with_stats_plain(x, btab, k)[0]
     torch.cuda.synchronize()
-    share, order, bad = graph_agreement(x, idx, ref_idx, f"K3 C={c}")
+    label = f"K3 knn_with_stats ({b},{N},{c}) k={k} cb={cb}"
+    share, order, bad = graph_agreement(x, idx, ref_idx, label, k)
     ref_cnt, ref_scb = neighbor_stats_plain(idx, btab)
     if not torch.equal(cnt, ref_cnt):
-        raise AssertionError(f"K3 C={c}: cnt differs from the plain count")
+        raise AssertionError(f"{label}: cnt differs from the plain count")
     err = rel_err(scb, ref_scb)
     if err > STATS_TOL:
-        raise AssertionError(f"K3 C={c}: scb off by {err} (> {STATS_TOL})")
+        raise AssertionError(f"{label}: scb off by {err} (> {STATS_TOL})")
     max_err = (scb - ref_scb).abs().max().item()
-    ms = cuda_ms(lambda: knn_with_stats(x, btab, K))
-    plain_ms = cuda_ms(lambda: knn_with_stats_plain(x, btab, K))
-    # FMAs: the kNN distances (B N^2 c); the scatter's B N K 64 adds
-    bound_ms, bound_by = bound(2.0 * B * N * N * c + B * N * K * 64,
+    ms = cuda_ms(lambda: knn_with_stats(x, btab, k), reps)
+    plain_ms = cuda_ms(lambda: knn_with_stats_plain(x, btab, k), reps)
+    # FMAs: the kNN distances (b N^2 c); the scatter's b N k cb adds
+    bound_ms, bound_by = bound(2.0 * b * N * N * c + b * N * k * cb,
                                size_of(x, btab, idx, cnt, scb))
-    phase(f"K3 knn_with_stats ({B},{N},{c}) k={K}", sets_agree=share,
+    phase(label, sets_agree=share,
           order_agree=order,
           near_tie_rows=len(bad), scb_rel_err=err, max_abs_err=max_err,
           kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
@@ -388,35 +433,40 @@ def check_knn_stats(dev, c: int, gen: torch.Generator):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def check_fused_train(dev, gen: torch.Generator):
-    """K4a/K4b at (B, N, 64 -> 64), k=20, on an idx from the plain kNN.
+def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
+                      w1: int = 64, k: int = K, reps: int = 20,
+                      composite_times: bool = True):
+    """K4a/K4b at (b, N, c -> w1), k, on an idx from the plain kNN.
 
     The autograd Function (the kernels) against the unfused composition:
     forward and its four batch statistics. Then each stage against its
     plain twin on the same inputs: K4a at the forward's bn1 affine (values;
     max/min slots on >= EC_ROWS of the (point, channel) pairs: a slot may
     differ where two neighbours' z1 agree to rounding), K4b on K4a's slots.
-    K4a's max_abs_err takes sum(h1) and the Gram matrix per edge, as the
-    bn2 statistics use them. Then the seven gradients of one random
+    K4a's max_abs_err takes its bn2 sums (sum(h1) and the Gram matrix;
+    past C, W1 = 64 sum z1 and sum z1^2) per edge, as the bn2 statistics
+    use them. Then the seven gradients of one random
     cotangent: max |diff| / max |ref|
     <= GRAD_TOL when every slot agreed; where some differed, the gradient
     goes to another edge there, and the relative L2 error is held instead.
-    One bn2 scale in eight is negative, so the min branch runs."""
+    One bn2 scale in eight is negative, so the min branch runs. With
+    `composite_times`, the whole Function and the unfused composition are
+    timed too."""
     from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
     from gfs3dseg_gws_tpu_torch.ops.knn import knn_with_stats_plain
 
     def randn(*shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
 
-    x, a, b = randn(B, N, 64), randn(B, N, 64), randn(B, N, 64)
-    g1, be1 = randn(64, scale=0.2, shift=1.0), randn(64, scale=0.2)
-    w2 = randn(64, 64, scale=0.125)
-    g2 = randn(64, scale=0.2, shift=1.0) * torch.tensor(
-        [-1.0 if i % 8 == 0 else 1.0 for i in range(64)], device=dev)
-    be2 = randn(64, scale=0.2)
-    idx, cnt, scb = knn_with_stats_plain(x, b, K)
-    cot = randn(B, N, 64)
-    params = [a, b, g1, be1, w2, g2, be2]
+    x, a, bt = randn(b, N, c), randn(b, N, c), randn(b, N, c)
+    g1, be1 = randn(c, scale=0.2, shift=1.0), randn(c, scale=0.2)
+    w2 = randn(c, w1, scale=c ** -0.5)
+    g2 = randn(w1, scale=0.2, shift=1.0) * torch.tensor(
+        [-1.0 if i % 8 == 0 else 1.0 for i in range(w1)], device=dev)
+    be2 = randn(w1, scale=0.2)
+    idx, cnt, scb = knn_with_stats_plain(x, bt, k)
+    cot = randn(b, N, w1)
+    params = [a, bt, g1, be1, w2, g2, be2]
     names = ("a", "b", "gamma1", "beta1", "w2", "gamma2", "beta2")
 
     def run(fn, **kw):
@@ -436,13 +486,13 @@ def check_fused_train(dev, gen: torch.Generator):
     _, mu1, var1, mu2, var2 = f_outs
     inv1 = torch.rsqrt(var1 + 1e-5)
     s1, t1 = g1 * inv1, be1 - mu1 * g1 * inv1
-    gsf_args = (a, b, idx, s1, t1, w2, 0.2)
+    gsf_args = (a, bt, idx, s1, t1, w2, 0.2)
     got, ref = fet._gsf(*gsf_args), fet._gsf_plain(*gsf_args)
     torch.cuda.synchronize()
-    values = [0, 1, 2, 5, 6]                 # snbr, zmax, zmin, sumh1, gram
+    values = [0, 1, 2, 5]              # snbr, zmax, zmin, the bn2 sums
     k4a_err = max(rel_err(got[i], ref[i]) for i in values)
-    # the sums over all B*N*K edges as the glue uses them: per edge
-    per_edge = {5: 1.0 / idx.numel(), 6: 1.0 / idx.numel()}
+    # the sums over all b*N*k edges as the glue uses them: per edge
+    per_edge = {5: 1.0 / idx.numel()}
     k4a_abs = max((got[i] - ref[i]).abs().max().item() * per_edge.get(i, 1.0)
                   for i in values)
     slots_ok = ((got[3] == ref[3]) & (got[4] == ref[4])).float().mean().item()
@@ -453,11 +503,11 @@ def check_fused_train(dev, gen: torch.Generator):
 
     # K4b against its twin on K4a's slots
     inv2 = torch.rsqrt(var2 + 1e-5)
-    gsel = randn(B, N, 64)
+    gsel = randn(b, N, w1)
     p1 = torch.stack([s1, t1, mu1, inv1, g1 * inv1])
-    pk = torch.stack([g2 * inv2, gsel.mean((0, 1)), randn(64, scale=0.01),
+    pk = torch.stack([g2 * inv2, gsel.mean((0, 1)), randn(w1, scale=0.01),
                       mu2, inv2])
-    bwd_args = (a, b, idx, p1, w2, gsel, got[3], pk, 0.2)
+    bwd_args = (a, bt, idx, p1, w2, gsel, got[3], pk, 0.2)
     got_b, ref_b = fet._bwd(*bwd_args), fet._bwd_plain(*bwd_args)
     torch.cuda.synchronize()
     k4b_err = max(rel_err(g, r) for g, r in zip(got_b, ref_b))
@@ -481,24 +531,30 @@ def check_fused_train(dev, gen: torch.Generator):
             fn(*params, idx, **kw)
 
     times = dict(
-        k4a_ms=cuda_ms(lambda: fet._gsf(*gsf_args)),
-        k4a_plain_ms=cuda_ms(lambda: fet._gsf_plain(*gsf_args)),
-        k4b_ms=cuda_ms(lambda: fet._bwd(*bwd_args)),
-        k4b_plain_ms=cuda_ms(lambda: fet._bwd_plain(*bwd_args)),
-        fwd_ms=cuda_ms(lambda: fwd(fet.fused_edgeconv_train, cnt=cnt,
-                                   scb=scb)),
-        fwd_plain_ms=cuda_ms(lambda: fwd(fet.fused_edgeconv_train_plain)),
-        fwd_bwd_ms=cuda_ms(lambda: run(fet.fused_edgeconv_train, cnt=cnt,
+        k4a_ms=cuda_ms(lambda: fet._gsf(*gsf_args), reps),
+        k4a_plain_ms=cuda_ms(lambda: fet._gsf_plain(*gsf_args), reps),
+        k4b_ms=cuda_ms(lambda: fet._bwd(*bwd_args), reps),
+        k4b_plain_ms=cuda_ms(lambda: fet._bwd_plain(*bwd_args), reps))
+    if composite_times:
+        times.update(
+            fwd_ms=cuda_ms(lambda: fwd(fet.fused_edgeconv_train, cnt=cnt,
                                        scb=scb)),
-        fwd_bwd_plain_ms=cuda_ms(lambda: run(fet.fused_edgeconv_train_plain)))
-    # FMAs per edge (B N K of them), 64 x 64 each: K4a z1 and the Gram
-    # matrix, K4b dz1 -> dh1, dW2 and the recomputed z1
-    edges = B * N * K
-    k4a_bound = bound(2.0 * 2 * edges * 64 * 64,
+            fwd_plain_ms=cuda_ms(lambda: fwd(
+                fet.fused_edgeconv_train_plain)),
+            fwd_bwd_ms=cuda_ms(lambda: run(fet.fused_edgeconv_train,
+                                           cnt=cnt, scb=scb)),
+            fwd_bwd_plain_ms=cuda_ms(lambda: run(
+                fet.fused_edgeconv_train_plain)))
+    # FMAs per edge (b N k of them), c x w1 each: K4a z1 and the Gram
+    # matrix (past the fast path: z1 and its square, 2 w1 more), K4b dz1 ->
+    # dh1, dW2 and the recomputed z1
+    edges = b * N * k
+    gram = c * c if max(c, w1) <= 64 else w1
+    k4a_bound = bound(2.0 * edges * (c * w1 + gram),
                       size_of(*gsf_args[:6], *got))
-    k4b_bound = bound(2.0 * 3 * edges * 64 * 64,
+    k4b_bound = bound(2.0 * 3 * edges * c * w1,
                       size_of(*bwd_args[:8], *got_b))
-    phase(f"K4 fused_edgeconv_train ({B},{N},64->64) k={K}",
+    phase(f"K4 fused_edgeconv_train ({b},{N},{c}->{w1}) k={k}",
           forward_rel_err=out_err, k4a_rel_err=k4a_err, slots_agree=slots_ok,
           slot_flips=flips, k4b_rel_err=k4b_err,
           grad_measure="max_abs_ratio" if flips == 0 else "rel_l2",
@@ -512,8 +568,9 @@ def check_fused_train(dev, gen: torch.Generator):
                  bound_by=k4b_bound[1], library_ms=None))
 
 
-def check_attention_train(dev, gen: torch.Generator):
-    """K5a/K5b against their plain twins at (B, N, 64), rates ATTN_RATE and
+def check_attention_train(dev, gen: torch.Generator, d: int = 64,
+                          reps: int = 20):
+    """K5a/K5b against their plain twins at (B, N, d), rates ATTN_RATE and
     0. The twins draw the kernels' dropout mask bit for bit, so out, m, den
     (K5a) and dq, dk, dv (K5b, on the twin's m, den and Delta) are held to
     K5_FWD_TOL / K5_BWD_TOL of the twin's largest entry; the keep share must
@@ -522,10 +579,10 @@ def check_attention_train(dev, gen: torch.Generator):
     forward and backward at dropout 0 (the port never calls it)."""
     from gfs3dseg_gws_tpu_torch.ops import attention_train as atr
 
-    q, k, v, dy = (torch.randn((B, N, 64), generator=gen).to(dev)
+    q, k, v, dy = (torch.randn((B, N, d), generator=gen).to(dev)
                    for _ in range(4))
     seed = torch.tensor([SEED + 77], dtype=torch.int32, device=dev)
-    temp = 64 ** 0.5
+    temp = d ** 0.5
     errs = {}
     for rate in (0.0, ATTN_RATE):
         got = atr._fwd(q, k, v, seed, temp, rate)
@@ -560,20 +617,21 @@ def check_attention_train(dev, gen: torch.Generator):
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     lib_out = sdpa(*leaves)
     times = dict(
-        k5a_ms=cuda_ms(lambda: atr._fwd(q, k, v, seed, temp, ATTN_RATE)),
+        k5a_ms=cuda_ms(lambda: atr._fwd(q, k, v, seed, temp, ATTN_RATE),
+                       reps),
         k5a_plain_ms=cuda_ms(lambda: atr._fwd_plain(q, k, v, seed, temp,
-                                                    ATTN_RATE)),
-        k5b_ms=cuda_ms(lambda: atr._bwd(*bwd_args)),
-        k5b_plain_ms=cuda_ms(lambda: atr._bwd_plain(*bwd_args)),
-        sdpa_fwd_ms=cuda_ms(lambda: sdpa(q, k, v)),
+                                                    ATTN_RATE), reps),
+        k5b_ms=cuda_ms(lambda: atr._bwd(*bwd_args), reps),
+        k5b_plain_ms=cuda_ms(lambda: atr._bwd_plain(*bwd_args), reps),
+        sdpa_fwd_ms=cuda_ms(lambda: sdpa(q, k, v), reps),
         sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, dy, retain_graph=True)))
+            lib_out, leaves, dy, retain_graph=True), reps))
     # FMAs: K5a S and A.V (2 B N^2 D); K5b S, dA, dv, dk, dq (5 B N^2 D)
-    k5a_bound = bound(2.0 * 2 * B * N * N * 64,
+    k5a_bound = bound(2.0 * 2 * B * N * N * d,
                       size_of(q, k, v, seed, out, m, den))
-    k5b_bound = bound(2.0 * 5 * B * N * N * 64,
+    k5b_bound = bound(2.0 * 5 * B * N * N * d,
                       size_of(q, k, v, seed, m, den, delta, dy, dq, dk, dv))
-    phase(f"K5 attention_train ({B},{N},64) rate={ATTN_RATE}",
+    phase(f"K5 attention_train ({B},{N},{d}) rate={ATTN_RATE}",
           k5a_rel_err=errs[ATTN_RATE]["fwd"],
           k5b_rel_err=errs[ATTN_RATE]["bwd"],
           k5a_rel_err_rate0=errs[0.0]["fwd"],
@@ -586,6 +644,95 @@ def check_attention_train(dev, gen: torch.Generator):
             dict(max_abs_err=errs[ATTN_RATE]["bwd_abs"], ms=times["k5b_ms"],
                  plain_ms=times["k5b_plain_ms"], bound_ms=k5b_bound[0],
                  bound_by=k5b_bound[1], library_ms=times["sdpa_bwd_ms"]))
+
+
+def check_knn_fold(dev, c: int, gen: torch.Generator):
+    """K8 (knn_indices_fold) at (B, N, c): at k = K and k = CLASS_K with
+    each of K8_FOLDS, and at a ragged N, its indices equal K6's bit for
+    bit (the same distance code, ties to the lower index); against its
+    twin (the same tournament in torch, on the card) by the rule of K6
+    (graph_agreement). Times: folds 2 and 4 at k = K beside K6 in this
+    call; the twin at folds 4. Bound as K6's: the B N^2 c distance FMAs."""
+    from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices,
+                                                knn_indices_fold,
+                                                knn_indices_fold_plain)
+
+    x = torch.randn((B, N, c), generator=gen).to(dev)
+    ragged = x[:, :N - 37].contiguous()
+    max_err, agree = 0.0, {}
+    for k, folds, pts in ([(k, f, x) for k in (K, CLASS_K)
+                           for f in K8_FOLDS] + [(K, 4, ragged)]):
+        idx = knn_indices_fold(pts, k, folds)
+        k6 = knn_indices(pts, k)
+        torch.cuda.synchronize()
+        label = f"K8 ({B},{pts.shape[1]},{c}) k={k} folds={folds}"
+        if not torch.equal(idx, k6):
+            rows = int((idx != k6).any(-1).sum())
+            raise AssertionError(f"{label}: differs from K6 on {rows} rows")
+        twin = knn_indices_fold_plain(pts, k, folds)
+        share, order, _ = graph_agreement(pts, idx, twin, label, k)
+        agree[f"k{k}_f{folds}_n{pts.shape[1]}"] = (share, order)
+        max_err = max(max_err, slot_dist_err(pts, idx, twin))
+        del idx, k6, twin
+    times = {f"k8_folds{f}_ms": cuda_ms(lambda f=f: knn_indices_fold(x, K, f))
+             for f in (2, 4)}
+    times["k6_ms"] = cuda_ms(lambda: knn_indices(x, K))
+    plain_ms = cuda_ms(lambda: knn_indices_fold_plain(x, K, 4), WIDE_REPS)
+    bound_ms, bound_by = bound(2.0 * B * N * N * c,
+                               size_of(x) + B * N * K * 4)
+    phase(f"K8 knn_indices_fold ({B},{N},{c}) k={K}",
+          equals_k6="bit for bit, folds 2/4/8 at k=20 and 40, ragged N",
+          twin_sets_and_order_agree=json.dumps(agree), max_abs_err=max_err,
+          plain_ms=plain_ms, bound_ms=bound_ms, **times)
+    return dict(max_abs_err=max_err, ms=times["k8_folds4_ms"],
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, folds2_ms=times["k8_folds2_ms"],
+                k6_same_call_ms=times["k6_ms"])
+
+
+def check_wide_kernels(dev, gen: torch.Generator):
+    """Every kernel past the fast path, held to its twin as at the model's
+    widths: K1, K3, K6, K9 and K4 at C = W = WIDE_C, k = WIDE_K; K7 at C =
+    256 (the classification encoder's widest gather); K1, K3, K6 and K4 at
+    k = BIG_K (K8's fold-merge selection for the kNN stage), batch BIG_B,
+    with ragged 64-column tiles; K2 and K5 (rates ATTN_RATE and 0) at each
+    D of WIDE_D. Returns each kernel's numbers at the first of these
+    shapes."""
+    wc, wk = WIDE_C, WIDE_K
+    wide = {
+        "k1": check_edgeconv(dev, wc, gen, wc, wc, wk, reps=WIDE_REPS),
+        "k3": check_knn_stats(dev, wc, gen, wk, cb=wc, reps=WIDE_REPS),
+        "k6": check_knn_indices(dev, wc, gen, wk, reps=WIDE_REPS),
+        "k7": check_scatter(dev, gen, 256, reps=WIDE_REPS),
+        "k9": check_gather_conv(dev, gen, (9, wc), wc, wc, wk,
+                                reps=WIDE_REPS)}
+    wide["k4a"], wide["k4b"] = check_fused_train(
+        dev, gen, c=wc, w1=wc, k=wk, reps=WIDE_REPS, composite_times=False)
+    check_edgeconv(dev, 9, gen, 72, 130, BIG_K, b=BIG_B, reps=WIDE_REPS)
+    check_knn_stats(dev, 64, gen, BIG_K, b=BIG_B, reps=WIDE_REPS)
+    check_knn_indices(dev, 64, gen, BIG_K, b=BIG_B, reps=WIDE_REPS)
+    check_gather_conv(dev, gen, (9,), 72, 130, BIG_K, b=BIG_B,
+                      reps=WIDE_REPS)
+    check_fused_train(dev, gen, b=BIG_B, c=72, w1=130, k=BIG_K,
+                      reps=WIDE_REPS, composite_times=False)
+    for d in WIDE_D:
+        wide["k2"] = check_attention(dev, gen, d, reps=WIDE_REPS)
+        wide["k5a"], wide["k5b"] = check_attention_train(dev, gen, d,
+                                                         reps=WIDE_REPS)
+    shapes = {"k1": f"({B},{N},{wc}->{wc}->{wc}) k={wk}",
+              "k3": f"({B},{N},{wc}) cb={wc} k={wk}",
+              "k6": f"({B},{N},{wc}) k={wk}",
+              "k7": f"({B},{N},{K},256)",
+              "k9": f"({B},{N},{wc}->{wc}) k={wk}",
+              "k4a": f"({B},{N},{wc}->{wc}) k={wk}",
+              "k4b": f"({B},{N},{wc}->{wc}) k={wk}",
+              "k2": f"({B},{N},{WIDE_D[-1]})",
+              "k5a": f"({B},{N},{WIDE_D[-1]}) rate={ATTN_RATE}",
+              "k5b": f"({B},{N},{WIDE_D[-1]}) rate={ATTN_RATE}"}
+    return {key: dict(shape=shapes[key], **{
+        name: val for name, val in st.items()
+        if name in ("max_abs_err", "ms", "plain_ms", "bound_ms")})
+        for key, st in wide.items()}
 
 
 def make_inputs(root: str):
@@ -646,12 +793,14 @@ def reset_launches():
     from gfs3dseg_gws_tpu_torch.ops.edgeconv import scatter_bwd
     from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (
         fused_edgeconv_infer, gather_conv)
-    from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices, knn_with_stats
+    from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices,
+                                                knn_indices_fold,
+                                                knn_with_stats)
 
     fns = {"k1": fused_edgeconv_infer, "k2": fused_attention,
            "k3": knn_with_stats, "k4a": fet._gsf, "k4b": fet._bwd,
            "k5a": atr._fwd, "k5b": atr._bwd, "k6": knn_indices,
-           "k7": scatter_bwd, "k9": gather_conv}
+           "k7": scatter_bwd, "k8": knn_indices_fold, "k9": gather_conv}
     for fn in fns.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in fns.items()}
@@ -663,7 +812,8 @@ def expected_launches(widths: str, steps: int = 0, forwards: int = 0,
     eval forwards of a model with EdgeConv `widths`: per block two layers
     deep, K1 per forward and K3/K4a/K4b per step; per block of another
     depth, K6 per forward and per step and K7 per step; with `attention`,
-    K2 per forward and K5a/K5b per step. K9 is on no model path."""
+    K2 per forward and K5a/K5b per step. K8 and K9 are on no model
+    path."""
     import ast
 
     depths = [len(w) for w in ast.literal_eval(widths)]
@@ -673,7 +823,7 @@ def expected_launches(widths: str, steps: int = 0, forwards: int = 0,
     return {"k1": two * forwards, "k2": att * forwards, "k3": two * steps,
             "k4a": two * steps, "k4b": two * steps, "k5a": att * steps,
             "k5b": att * steps, "k6": other * (steps + forwards),
-            "k7": other * steps, "k9": 0}
+            "k7": other * steps, "k8": 0, "k9": 0}
 
 
 def check_launches(label: str, launches, expected) -> None:
@@ -683,14 +833,14 @@ def check_launches(label: str, launches, expected) -> None:
 
 
 def check_pretrain(dev, root: str, widths: str = DEFAULT_WIDTHS,
-                   name: str = "pretrain"):
+                   name: str = "pretrain", k: int = K, reps: int = 20):
     """The pre-training path on the card through its CLI, at the reference
-    config (S3DIS cvfold 0, N=2048, k=20, batch 16, lr 1e-3, wd 1e-4,
-    StepLR(50, 0.5), --pc_augm) and EdgeConv `widths`, for PRE_EPOCHS short
+    config (S3DIS cvfold 0, N=2048, batch 16, lr 1e-3, wd 1e-4,
+    StepLR(50, 0.5), --pc_augm), EdgeConv `widths` and k, for PRE_EPOCHS short
     epochs with a validation sweep after each: launches per step and per
     forward, finite losses that fall; then the written checkpoint.tar in
-    the port's eval DGCNN and the train step's device time. Returns the
-    checkpoint.tar's path."""
+    the port's eval DGCNN and the train step's device time (median of
+    `reps`). Returns the checkpoint.tar's path."""
     import ast
 
     from gfs3dseg_gws_tpu_torch.cli import pretrain_cli
@@ -707,8 +857,8 @@ def check_pretrain(dev, root: str, widths: str = DEFAULT_WIDTHS,
             "--batch_size", str(B), "--pc_npts", str(N), "--pc_augm",
             "--pretrain_lr", "0.001", "--pretrain_weight_decay", "1e-4",
             "--n_iters", str(PRE_EPOCHS), "--eval_interval", "1",
-            "--edgeconv_widths", widths, "--seed", str(SEED),
-            "--device", dev.type]
+            "--edgeconv_widths", widths, "--dgcnn_k", str(k),
+            "--seed", str(SEED), "--device", dev.type]
     read = reset_launches()
     t1 = time.perf_counter()
     res = pretrain_cli.main(argv)
@@ -738,7 +888,7 @@ def check_pretrain(dev, root: str, widths: str = DEFAULT_WIDTHS,
             raise AssertionError(f"pre-training wrote no {fname}")
     ckpt = os.path.join(log_dir, "checkpoint.tar")
     ec_widths = ast.literal_eval(widths)
-    enc = DGCNN(edgeconv_widths=ec_widths, device=dev)
+    enc = DGCNN(edgeconv_widths=ec_widths, k=k, device=dev)
     enc.load_state_dict(torch.load(ckpt, map_location=dev)["params"],
                         strict=True)
     enc.eval()
@@ -749,13 +899,14 @@ def check_pretrain(dev, root: str, widths: str = DEFAULT_WIDTHS,
         raise AssertionError("checkpoint.tar does not run in the eval DGCNN")
 
     # the train step alone on device tensors
-    model = DGCNNSeg(8, edgeconv_widths=ec_widths,
+    model = DGCNNSeg(8, edgeconv_widths=ec_widths, k=k,
                      generator=torch.Generator().manual_seed(SEED)).to(dev)
     opt, sched = make_pretrain_optimizer(model.parameters(), 1e-3, 100)
     drop = torch.Generator(device=dev).manual_seed(SEED)
     pts = torch.randn((B, N, 9), generator=drop, device=dev)
     lbl = torch.randint(0, 8, (B, N), generator=drop, device=dev)
-    step_ms = cuda_ms(lambda: pretrain_step(model, opt, pts, lbl, drop, sched))
+    step_ms = cuda_ms(lambda: pretrain_step(model, opt, pts, lbl, drop, sched),
+                      reps)
     phase(f"device step pretrain_step ({name})", batch=B, ms=step_ms,
           steps_per_s=1000.0 / step_ms)
     groups, per_step = profile_groups(
@@ -770,11 +921,14 @@ def check_pretrain(dev, root: str, widths: str = DEFAULT_WIDTHS,
     return ckpt
 
 
-def run_basis(dev, root: str, ckpt: str, widths: str, name: str) -> str:
+def run_basis(dev, root: str, ckpt: str, widths: str, name: str,
+              k: int = K) -> str:
     """`basis_cli` on the pre-training blocks and `ckpt` (NUM_GW words) on
     the card: launches per eval forward (batch 8, as the CLI runs it), the
-    basis (NUM_GW, 192) finite, its kept SVD rank. Returns the basis
-    path."""
+    basis (NUM_GW, every EdgeConv output width together: 192 by default)
+    finite, its kept SVD rank above 0. Returns the basis path."""
+    import ast
+
     from gfs3dseg_gws_tpu_torch.cli import basis_cli
 
     save = os.path.join(root, name)
@@ -784,7 +938,8 @@ def run_basis(dev, root: str, ckpt: str, widths: str, name: str) -> str:
         "--dataset", "s3dis", "--cvfold", "0", "--data_path",
         pretrain_data(root), "--pretrain_checkpoint_path", ckpt,
         "--num_cnt", str(NUM_GW), "--save_path", save, "--pc_npts", str(N),
-        "--edgeconv_widths", widths, "--device", dev.type])
+        "--edgeconv_widths", widths, "--dgcnn_k", str(k),
+        "--device", dev.type])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read()
@@ -795,8 +950,9 @@ def run_basis(dev, root: str, ckpt: str, widths: str, name: str) -> str:
     phase(name, widths=widths, wall_seconds=wall, basis_shape=basis.shape,
           kept_svd_rank=rank, forwards=forwards,
           **{f"{k}_launches": v for k, v in launches.items()})
-    if (basis.shape != (NUM_GW, 192) or not np.isfinite(basis).all()
-            or not os.path.exists(path)):
+    words = sum(w[-1] for w in ast.literal_eval(widths))
+    if (basis.shape != (NUM_GW, words) or not np.isfinite(basis).all()
+            or rank == 0 or not os.path.exists(path)):
         raise AssertionError(f"{name}: basis {basis.shape} at {path}")
     check_launches(name, launches, expected_launches(widths, 0, forwards))
     return path
@@ -938,7 +1094,7 @@ def compare_train_step(label: str, cpu_model, card_model, dev, run):
             raise AssertionError(f"card graph {len(differing)}: {len(bad)} "
                                  f"rows differ from the CPU's")
         near_tie_rows(x, bad, f"card graph {len(differing)}", GRAPH_TIE,
-                      by_norm=True)
+                      by_norm=True, k=k)
         differing.append(len(bad))
         return idx
 
@@ -981,7 +1137,7 @@ def compare_train_step(label: str, cpu_model, card_model, dev, run):
             continue
         cos[n] = (g @ gg / (g.norm() * gg.norm()).clamp_min(1e-300)).item()
     worst = min(cos, key=cos.get)
-    phase(f"card_vs_cpu {label} ({TRAIN_CMP_BLOCKS} blocks)",
+    phase(f"card_vs_cpu {label}",
           cpu_loss=ref["loss"], card_loss=got["loss"], loss_rel_err=loss_err,
           running_stat_err=stat_err, worst_grad=worst,
           worst_grad_cosine=cos[worst], noise_grads=noise,
@@ -1002,9 +1158,10 @@ def first_batch(dataset, blocks: int, epoch: int):
             torch.from_numpy(np.asarray(labels, np.int64)))
 
 
-def check_train_step_vs_cpu(dev, root: str, widths: str = DEFAULT_WIDTHS):
+def check_train_step_vs_cpu(dev, root: str, widths: str = DEFAULT_WIDTHS,
+                            k: int = K, blocks: int = TRAIN_CMP_BLOCKS):
     """compare_train_step on the full-width DGCNNSeg (dropout 0) at
-    EdgeConv `widths`."""
+    EdgeConv `widths` and k, on `blocks` blocks."""
     import ast
 
     from gfs3dseg_gws_tpu_torch.models.dgcnnseg import DGCNNSeg
@@ -1012,12 +1169,13 @@ def check_train_step_vs_cpu(dev, root: str, widths: str = DEFAULT_WIDTHS):
 
     ec_widths = ast.literal_eval(widths)
     gen = torch.Generator().manual_seed(SEED + 5)
-    pts, lbl = first_batch(pretrain_dataset(root, "train"), TRAIN_CMP_BLOCKS,
-                           1)
+    pts, lbl = first_batch(pretrain_dataset(root, "train"), blocks, 1)
     compare_train_step(
-        f"pretrain step {widths}",
-        DGCNNSeg(8, edgeconv_widths=ec_widths, dropout=0.0, generator=gen),
-        DGCNNSeg(8, edgeconv_widths=ec_widths, dropout=0.0, device=dev), dev,
+        f"pretrain step {widths} ({blocks} blocks)",
+        DGCNNSeg(8, edgeconv_widths=ec_widths, k=k, dropout=0.0,
+                 generator=gen),
+        DGCNNSeg(8, edgeconv_widths=ec_widths, k=k, dropout=0.0, device=dev),
+        dev,
         lambda model, device: cross_entropy(model(pts.to(device)),
                                             lbl.to(device)))
 
@@ -1059,11 +1217,11 @@ def gfs_model(dev, seed: int, attn_dropout: float = ATTN_RATE):
 
 def check_gfs_train(dev, root: str, test_dir: str, basis_path: str,
                     pretrain_ckpt: str, widths: str = DEFAULT_WIDTHS,
-                    name: str = "gfs_train"):
+                    name: str = "gfs_train", k: int = K):
     """The GFS training path on the card through its CLI (no
     --only_evaluate), at the reference config (S3DIS cvfold 0, N=2048,
-    k=20, batch 16, Adam 0.01 with the encoder at 0.1x, StepLR(50, 0.5),
-    attention dropout 0.1, --pc_augm) and EdgeConv `widths`, from
+    batch 16, Adam 0.01 with the encoder at 0.1x, StepLR(50, 0.5),
+    attention dropout 0.1, --pc_augm), EdgeConv `widths` and k, from
     `pretrain_ckpt` and the basis at `basis_path`, GFS_EPOCHS epochs with
     validation on support seed 0 after each; launches checked per step and
     per forward. Then the newest checkpoint through `train_cli
@@ -1086,7 +1244,7 @@ def check_gfs_train(dev, root: str, test_dir: str, basis_path: str,
               train_dir, "--testing_data_path", test_dir, "--basis_path",
               basis_path, "--pc_npts", str(N), "--k_shot", "5",
               "--batch_size", str(B), "--edgeconv_widths", widths,
-              "--seed", str(SEED), "--device", dev.type]
+              "--dgcnn_k", str(k), "--seed", str(SEED), "--device", dev.type]
     argv = common + [
         "--phase", "train", "--save_path", save, "--epochs",
         str(GFS_EPOCHS), "--base_lr", "0.01", "--pc_augm",
@@ -1115,6 +1273,8 @@ def check_gfs_train(dev, root: str, test_dir: str, basis_path: str,
             or not all(math.isfinite(h["loss"]) and math.isfinite(
                 h["mean_iou"]) for h in hist)):
         raise AssertionError(f"GFS training went wrong: {hist}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"GFS training loss did not fall: {hist}")
     check_launches(name, launches,
                    expected_launches(widths, steps, forwards, True))
 
@@ -1240,7 +1400,8 @@ def check_gfs_step_vs_cpu(dev, setup, gp: torch.Tensor):
     fake[[2, 4, 5]] = 1.0
     gp_cpu = gp.cpu()
     compare_train_step(
-        "gfs_step", gfs_model("cpu", SEED + 6, attn_dropout=0.0),
+        f"gfs_step ({TRAIN_CMP_BLOCKS} blocks)",
+        gfs_model("cpu", SEED + 6, attn_dropout=0.0),
         gfs_model(dev, SEED + 7, attn_dropout=0.0), dev,
         lambda model, device: model(pts.to(device), lbl.to(device),
                                     gp_cpu.to(device),
@@ -1293,6 +1454,9 @@ def main() -> int:
     stats["k7"] = check_scatter(dev, gen)
     stats["k9"] = check_gather_conv(dev, gen)
     PHASE_SECONDS["kernels"] = time.perf_counter() - t0
+    check_knn_fold(dev, 9, gen)
+    stats["k8"] = timed("k8", check_knn_fold, dev, 64, gen)
+    wide = timed("wide_kernels", check_wide_kernels, dev, gen)
 
     with tempfile.TemporaryDirectory(prefix="gfs_chip_smoke_") as root:
         # ---- phase 4: the main path, train_cli --only_evaluate on the card
@@ -1432,14 +1596,35 @@ def main() -> int:
         phase("semseg chain", widths=SEMSEG_WIDTHS,
               seconds=time.perf_counter() - t0)
 
+        # ---- phases 19-22: the DGCNN classification encoder (four
+        # one-layer EdgeConv blocks 64, 64, 128, 256, k = 40): pre-training
+        # -> basis (512-wide words) -> GFS training -> evaluation, card vs
+        # CPU for its pre-training step
+        t0 = time.perf_counter()
+        cls_ckpt = timed("class_pretrain", check_pretrain, dev, root,
+                         CLASS_WIDTHS, "class_pretrain", CLASS_K, WIDE_REPS)
+        timed("class_card_vs_cpu_pretrain_step", check_train_step_vs_cpu,
+              dev, root, CLASS_WIDTHS, CLASS_K, 2)
+        cls_gw = timed("class_basis", run_basis, dev, root, cls_ckpt,
+                       CLASS_WIDTHS, "class_basis", CLASS_K)
+        cls_launches, _ = timed("class_gfs_train_and_evaluate",
+                                check_gfs_train, dev, root, test_dir, cls_gw,
+                                cls_ckpt, CLASS_WIDTHS, "class_gfs_train",
+                                CLASS_K)
+        phase("classification chain", widths=CLASS_WIDTHS, k=CLASS_K,
+              seconds=time.perf_counter() - t0)
+
     # launches of one main-path run each: K1/K2 in the evaluation
     # (train_cli --only_evaluate), K3-K5 in GFS training at the default
-    # widths, K6/K7 in GFS training at the semseg widths; K9 is on no path
+    # widths, K6/K7 in GFS training at the semseg widths; K8 and K9 are on
+    # no path. The classification chain's launches are checked above.
     runs = {"eval": ("train_cli --only_evaluate", eval_launches),
             "train": ("train_cli (default widths)", train_launches),
             "semseg": (f"train_cli --edgeconv_widths {SEMSEG_WIDTHS}",
                        seg_launches),
             "none": ("none (not on a model path, as in JAX)", seg_launches)}
+    phase("class chain launches", **{f"{k}_launches": v
+                                     for k, v in cls_launches.items()})
     kernels = [
         ("k1", "fused_edgeconv_infer", "fused_edgeconv.cu",
          "fused_edgeconv.py:94", "eval"),
@@ -1449,14 +1634,15 @@ def main() -> int:
         ("k4a", "fused_edgeconv_train_fwd", "fused_edgeconv_train.cu",
          "fused_edgeconv_train.py:408", "train"),
         ("k4b", "fused_edgeconv_train_bwd", "fused_edgeconv_train.cu",
-         "fused_edgeconv_train.py:239", "train"),
+         "fused_edgeconv_train.py:408", "train"),
         ("k5a", "attention_train_fwd", "attention_train.cu",
          "attention_train.py:124", "train"),
         ("k5b", "attention_train_bwd", "attention_train.cu",
-         "attention_train.py:70", "train"),
+         "attention_train.py:124", "train"),
         ("k6", "knn_indices", "fused_edgeconv.cu", "knn.py:401", "semseg"),
         ("k7", "gather_neighbors_bwd", "edgeconv.cu", "edgeconv.py:98",
          "semseg"),
+        ("k8", "knn_indices_fold", "knn_fold.cu", "knn.py:193", "none"),
         ("k9", "gather_conv", "fused_edgeconv.cu", "fused_edgeconv.py:222",
          "none"),
     ]
@@ -1467,7 +1653,7 @@ def main() -> int:
          "source": f"gfs3dseg_gws_tpu_torch/csrc/{src}",
          "replaces": f"gfs3dseg_gws_tpu/ops/{tpu}",
          "launches": runs[run][1][key], "launches_run": runs[run][0],
-         **stats[key]}
+         **stats[key], **({"wide": wide[key]} if key in wide else {})}
         for key, name, src, tpu, run in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,13 +25,22 @@
 // floats, so that the lanes of a warp read distinct banks. Ragged N is
 // masked here: keys past N score -inf (weight 0), queries past N are
 // computed on zeros and never stored.
+//
+// Past D = 64 (attention_kernel<true>): blockIdx.z takes the output
+// channels c_out .. c_out + 63 (c_out = 64 z). The scores need all of D, so
+// each key tile streams q and k through q_s and k_s 64 channels at a time,
+// the score accumulators carried across the chunks; every z block computes
+// the same scores in the same order, so the online softmax's weights are
+// identical across them, and each block multiplies them by its own 64
+// columns of v. A D that is not a multiple of 4 is zero-padded by the
+// caller (ops/attention_kernel.py).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kTileQ = 64;    // queries per block
 constexpr int kTileK = 64;    // key/value rows per shared-memory tile
-constexpr int kMaxD = 64;     // widest head (zero padded up to it)
+constexpr int kMaxD = 64;     // head channels per tile (zero padded up to it)
 constexpr int kPad = 68;      // row stride of the padded Q, K and P tiles
 constexpr int kThreads = 128; // 16 query groups x 8 key/channel groups
 constexpr size_t kSmem =
@@ -56,6 +65,49 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ src,
   }
 }
 
+// stage_rows for columns [c0, c0 + 64) (the tiled kernel past kMaxD)
+__device__ __forceinline__ void stage_cols(const float* __restrict__ src,
+                                           float* dst, int stride, int base,
+                                           int n, int d, float scale,
+                                           int c0) {
+  for (int e = threadIdx.x; e < 64 * (kMaxD / 4); e += kThreads) {
+    const int r = e / (kMaxD / 4), c = 4 * (e % (kMaxD / 4));
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (base + r < n && c0 + c < d) {
+      v = gfs::load4(src + static_cast<size_t>(base + r) * d + c0 + c);
+      v.x *= scale;
+      v.y *= scale;
+      v.z *= scale;
+      v.w *= scale;
+    }
+    *reinterpret_cast<float4*>(dst + r * stride + c) = v;
+  }
+}
+
+// s[i][j] += q_s rows qg + 16i . k_s rows cg + 8j over kMaxD channels (the
+// tiled kernel's chunk; the fast path keeps its own copy of this loop)
+__device__ __forceinline__ void score_tile(const float* q_s, const float* k_s,
+                                           int qg, int cg, float (&s)[4][8]) {
+#pragma unroll 2
+  for (int c = 0; c < kMaxD; c += 4) {
+    float4 qf[4], kf[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qf[i] = gfs::load4(q_s + (qg + 16 * i) * kPad + c);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) kf[j] = gfs::load4(k_s + (cg + 8 * j) * kPad + c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = fmaf(qf[i].x, kf[j].x, s[i][j]);
+        s[i][j] = fmaf(qf[i].y, kf[j].y, s[i][j]);
+        s[i][j] = fmaf(qf[i].z, kf[j].z, s[i][j]);
+        s[i][j] = fmaf(qf[i].w, kf[j].w, s[i][j]);
+      }
+  }
+}
+
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int n,
@@ -72,8 +124,9 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q_base = blockIdx.x * kTileQ;
   const int qg = tid / 8, cg = tid % 8;   // 8 lanes per query group
   const size_t off = static_cast<size_t>(batch) * n * d;
+  const int c_out = kWide ? blockIdx.z * kMaxD : 0;
 
-  stage_rows(q + off, q_s, kPad, q_base, n, d, inv_temp);
+  if constexpr (!kWide) stage_rows(q + off, q_s, kPad, q_base, n, d, inv_temp);
 
   float o[4][8];
   float m[4], l[4];
@@ -86,33 +139,51 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   for (int base = 0; base < n; base += kTileK) {
-    __syncthreads();  // every thread is done with the previous tile
-    stage_rows(k + off, k_s, kPad, base, n, d, 1.f);
-    stage_rows(v + off, v_s, kMaxD, base, n, d, 1.f);
-    __syncthreads();
-
     // scores of queries qg + 16i against keys base + cg + 8j
     float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < kMaxD; c += 4) {
-      float4 qf[4], kf[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qf[i] = gfs::load4(q_s + (qg + 16 * i) * kPad + c);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kf[j] = gfs::load4(k_s + (cg + 8 * j) * kPad + c);
+    if constexpr (!kWide) {
+      __syncthreads();  // every thread is done with the previous tile
+      stage_rows(k + off, k_s, kPad, base, n, d, 1.f);
+      stage_rows(v + off, v_s, kMaxD, base, n, d, 1.f);
+      __syncthreads();
+
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[i][j] = fmaf(qf[i].x, kf[j].x, s[i][j]);
-          s[i][j] = fmaf(qf[i].y, kf[j].y, s[i][j]);
-          s[i][j] = fmaf(qf[i].z, kf[j].z, s[i][j]);
-          s[i][j] = fmaf(qf[i].w, kf[j].w, s[i][j]);
-        }
+        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+      for (int c = 0; c < kMaxD; c += 4) {
+        float4 qf[4], kf[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qf[i] = gfs::load4(q_s + (qg + 16 * i) * kPad + c);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          kf[j] = gfs::load4(k_s + (cg + 8 * j) * kPad + c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            s[i][j] = fmaf(qf[i].x, kf[j].x, s[i][j]);
+            s[i][j] = fmaf(qf[i].y, kf[j].y, s[i][j]);
+            s[i][j] = fmaf(qf[i].z, kf[j].z, s[i][j]);
+            s[i][j] = fmaf(qf[i].w, kf[j].w, s[i][j]);
+          }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+      for (int c0 = 0; c0 < d; c0 += kMaxD) {
+        __syncthreads();  // every thread is done with q_s, k_s (and v_s)
+        stage_cols(q + off, q_s, kPad, q_base, n, d, inv_temp, c0);
+        stage_cols(k + off, k_s, kPad, base, n, d, 1.f, c0);
+        __syncthreads();
+        score_tile(q_s, k_s, qg, cg, s);
+      }
+      // read after the barrier that publishes p_s below
+      stage_cols(v + off, v_s, kMaxD, base, n, d, 1.f, c_out);
     }
 
     // online softmax; key base + cg exists (base < n), so m_new is finite
@@ -168,11 +239,11 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qi = q_base + qg + 16 * i;
     if (qi >= n) continue;
-    float* orow = out + off + static_cast<size_t>(qi) * d;
+    float* orow = out + off + static_cast<size_t>(qi) * d + c_out;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = 4 * cg + 32 * h;
-      if (c < d)
+      if (c_out + c < d)
         *reinterpret_cast<float4*>(orow + c) =
             make_float4(o[i][4 * h] / l[i], o[i][4 * h + 1] / l[i],
                         o[i][4 * h + 2] / l[i], o[i][4 * h + 3] / l[i]);
@@ -183,19 +254,21 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace
 
 // q, k, v, out: (B, N, D) contiguous fp32 on one device, 16-byte aligned,
-// D <= 64 and a multiple of 4. Returns a cudaError_t.
+// D a multiple of 4. Returns a cudaError_t.
 GFS_EXPORT int gfs_fused_attention(const void* q, const void* k,
                                    const void* v, void* out, int batch, int n,
                                    int d, float inv_temp, void* stream) {
-  if (batch < 1 || batch > 65535 || n < 1 || d < 4 || d > kMaxD || d % 4)
+  if (batch < 1 || batch > 65535 || n < 1 || d < 4 || d % 4)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = d > kMaxD;
+  const auto kern = wide ? attention_kernel<true> : attention_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kTileQ - 1) / kTileQ, batch);
-  attention_kernel<<<grid, kThreads, kSmem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((n + kTileQ - 1) / kTileQ, batch,
+                  wide ? (d + kMaxD - 1) / kMaxD : 1);
+  kern<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), n, d, inv_temp);
   return static_cast<int>(cudaGetLastError());

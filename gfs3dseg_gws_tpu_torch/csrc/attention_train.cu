@@ -47,6 +47,16 @@
 // so one 16-byte shared-memory load feeds 4-8 FMAs. Ragged N is masked
 // here: keys past N get weight 0, queries past N are computed on zeros and
 // never stored.
+//
+// Past D = 64 (the <true> instantiations), blockIdx.z takes 64 channels
+// c_out .. c_out + 63 of the outputs (out in K5a; dq, dk, dv in K5b), and
+// every product over D (the scores, dA) streams its operands through the
+// same tiles 64 channels at a time in channel order, with the accumulators
+// carried across the chunks: each z block computes the same scores, so the
+// softmax weights, the saved m and den (written by z = 0) and the mask are
+// identical across them. K5b then stages the c_out columns of q, dy and k
+// for its outputs. A D that is not a multiple of 4 is zero-padded by the
+// caller (ops/attention_train.py).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -54,7 +64,7 @@
 namespace {
 
 constexpr int kTile = 64;     // queries and keys per tile
-constexpr int kMaxD = 64;     // widest head (zero padded up to it)
+constexpr int kMaxD = 64;     // head channels per tile (zero padded up to it)
 constexpr int kPad = 68;      // row stride of the [row][channel] tiles
 constexpr int kPadT = 72;     // row stride of the [query][key] tiles of K5b
 constexpr int kThreads = 128; // 16 row groups x 8 column groups
@@ -103,6 +113,25 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ src,
   }
 }
 
+// stage_rows for columns [c0, c0 + 64) (the tiled kernels past kMaxD)
+__device__ __forceinline__ void stage_cols(const float* __restrict__ src,
+                                           float* dst, int stride, int base,
+                                           int n, int d, float scale,
+                                           int c0) {
+  for (int e = threadIdx.x; e < kTile * (kMaxD / 4); e += kThreads) {
+    const int r = e / (kMaxD / 4), c = 4 * (e % (kMaxD / 4));
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (base + r < n && c0 + c < d) {
+      v = gfs::load4(src + static_cast<size_t>(base + r) * d + c0 + c);
+      v.x *= scale;
+      v.y *= scale;
+      v.z *= scale;
+      v.w *= scale;
+    }
+    *reinterpret_cast<float4*>(dst + r * stride + c) = v;
+  }
+}
+
 // s[i][j] = a_s[rows ra + 16i] . b_s[rows rb + 8j] over kMaxD channels
 __device__ __forceinline__ void tile_dot(const float* a_s, const float* b_s,
                                          int ra, int rb, float s[4][8]) {
@@ -129,7 +158,32 @@ __device__ __forceinline__ void tile_dot(const float* a_s, const float* b_s,
   }
 }
 
+// tile_dot without the zeroing: one 64-channel chunk of a product over D
+// (the tiled kernels past kMaxD)
+__device__ __forceinline__ void tile_dot_acc(const float* a_s,
+                                             const float* b_s, int ra, int rb,
+                                             float s[4][8]) {
+#pragma unroll 2
+  for (int c = 0; c < kMaxD; c += 4) {
+    float4 af[4], bf[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) af[i] = gfs::load4(a_s + (ra + 16 * i) * kPad + c);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bf[j] = gfs::load4(b_s + (rb + 8 * j) * kPad + c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = fmaf(af[i].x, bf[j].x, s[i][j]);
+        s[i][j] = fmaf(af[i].y, bf[j].y, s[i][j]);
+        s[i][j] = fmaf(af[i].z, bf[j].z, s[i][j]);
+        s[i][j] = fmaf(af[i].w, bf[j].w, s[i][j]);
+      }
+  }
+}
+
 // three blocks per SM (68.6 KB of shared memory each): at most 170 registers
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads, 3)
 attn_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -150,8 +204,9 @@ attn_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qg = tid / 8, cg = tid % 8;   // 8 lanes per query group
   const size_t off = static_cast<size_t>(batch) * n * d;
   const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
+  const int c_out = kWide ? blockIdx.z * kMaxD : 0;
 
-  stage_rows(q + off, q_s, kPad, q_base, n, d, inv_temp);
+  if constexpr (!kWide) stage_rows(q + off, q_s, kPad, q_base, n, d, inv_temp);
 
   float o[4][8];
   float m[4], l[4];
@@ -166,14 +221,29 @@ attn_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   for (int base = 0; base < n; base += kTile) {
-    __syncthreads();  // every thread is done with the previous tile
-    stage_rows(k + off, k_s, kPad, base, n, d, 1.f);
-    stage_rows(v + off, v_s, kMaxD, base, n, d, 1.f);
-    __syncthreads();
-
     // scores of queries qg + 16i against keys base + cg + 8j
     float s[4][8];
-    tile_dot(q_s, k_s, qg, cg, s);
+    if constexpr (!kWide) {
+      __syncthreads();  // every thread is done with the previous tile
+      stage_rows(k + off, k_s, kPad, base, n, d, 1.f);
+      stage_rows(v + off, v_s, kMaxD, base, n, d, 1.f);
+      __syncthreads();
+      tile_dot(q_s, k_s, qg, cg, s);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+      for (int c0 = 0; c0 < d; c0 += kMaxD) {
+        __syncthreads();  // every thread is done with q_s, k_s (and v_s)
+        stage_cols(q + off, q_s, kPad, q_base, n, d, inv_temp, c0);
+        stage_cols(k + off, k_s, kPad, base, n, d, 1.f, c0);
+        __syncthreads();
+        tile_dot_acc(q_s, k_s, qg, cg, s);
+      }
+      // read after the barrier that publishes p_s below
+      stage_cols(v + off, v_s, kMaxD, base, n, d, 1.f, c_out);
+    }
 
     // online softmax over every key; key base + cg exists (base < n), so
     // m_new is finite. The P.V product below takes the kept weights only.
@@ -235,16 +305,16 @@ attn_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = q_base + qg + 16 * i;
     if (qi >= n) continue;
     const size_t row = static_cast<size_t>(batch) * n + qi;
-    if (cg == 0) {
+    if (cg == 0 && c_out == 0) {
       m_out[row] = m[i];
       den_out[row] = l[i];
     }
     const float f = keep_scale / l[i];
-    float* orow = out + row * d;
+    float* orow = out + row * d + c_out;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = 4 * cg + 32 * h;
-      if (c < d)
+      if (c_out + c < d)
         *reinterpret_cast<float4*>(orow + c) =
             make_float4(o[i][4 * h] * f, o[i][4 * h + 1] * f,
                         o[i][4 * h + 2] * f, o[i][4 * h + 3] * f);
@@ -253,6 +323,7 @@ attn_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // two blocks per SM (107 KB of shared memory each)
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads, 2)
 attn_train_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -282,9 +353,12 @@ attn_train_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int rg = tid / 8, cg = tid % 8;
   const size_t off = static_cast<size_t>(batch) * n * d;
   const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
+  const int c_out = kWide ? blockIdx.z * kMaxD : 0;
 
-  stage_rows(k + off, k_s, kPad, k_base, n, d, 1.f);
-  stage_rows(v + off, v_s, kPad, k_base, n, d, 1.f);
+  if constexpr (!kWide) {
+    stage_rows(k + off, k_s, kPad, k_base, n, d, 1.f);
+    stage_rows(v + off, v_s, kPad, k_base, n, d, 1.f);
+  }
 
   float dk_acc[4][8], dv_acc[4][8];
 #pragma unroll
@@ -295,9 +369,33 @@ attn_train_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_tiles = (n + kTile - 1) / kTile;
   for (int step = 0; step < n_tiles; ++step) {
     const int q_base = ((blockIdx.x + step) % n_tiles) * kTile;
-    __syncthreads();  // every thread is done with the previous query tile
-    stage_rows(q + off, q_s, kPad, q_base, n, d, inv_temp);
-    stage_rows(dy + off, dy_s, kPad, q_base, n, d, 1.f);
+    float s[4][8], da[4][8];
+    if constexpr (kWide) {
+      // S and dA over all of D, then the c_out columns of q, dy and k
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = da[i][j] = 0.f;
+      for (int c0 = 0; c0 < d; c0 += kMaxD) {
+        __syncthreads();  // every thread is done with the tiles
+        stage_cols(q + off, q_s, kPad, q_base, n, d, inv_temp, c0);
+        stage_cols(dy + off, dy_s, kPad, q_base, n, d, 1.f, c0);
+        stage_cols(k + off, k_s, kPad, k_base, n, d, 1.f, c0);
+        stage_cols(v + off, v_s, kPad, k_base, n, d, 1.f, c0);
+        __syncthreads();
+        tile_dot_acc(q_s, k_s, rg, cg, s);
+        tile_dot_acc(dy_s, v_s, rg, cg, da);
+      }
+    }
+    __syncthreads();  // every thread is done with the previous tiles
+    if constexpr (!kWide) {
+      stage_rows(q + off, q_s, kPad, q_base, n, d, inv_temp);
+      stage_rows(dy + off, dy_s, kPad, q_base, n, d, 1.f);
+    } else {
+      stage_cols(q + off, q_s, kPad, q_base, n, d, inv_temp, c_out);
+      stage_cols(dy + off, dy_s, kPad, q_base, n, d, 1.f, c_out);
+      stage_cols(k + off, k_s, kPad, k_base, n, d, 1.f, c_out);
+    }
     if (tid < kTile) {
       const int qi = q_base + tid;
       const size_t row = static_cast<size_t>(batch) * n + qi;
@@ -307,9 +405,10 @@ attn_train_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    float s[4][8], da[4][8];
-    tile_dot(q_s, k_s, rg, cg, s);     // S  = (q / t) k^T
-    tile_dot(dy_s, v_s, rg, cg, da);   // dA = dy v^T
+    if constexpr (!kWide) {
+      tile_dot(q_s, k_s, rg, cg, s);     // S  = (q / t) k^T
+      tile_dot(dy_s, v_s, rg, cg, da);   // dA = dy v^T
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = rg + 16 * i;
@@ -371,11 +470,11 @@ attn_train_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const int qi = q_base + rg + 16 * i;
       if (qi >= n) continue;
-      float* row = dq + off + static_cast<size_t>(qi) * d;
+      float* row = dq + off + static_cast<size_t>(qi) * d + c_out;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int c = 4 * cg + 32 * h;
-        if (c < d)
+        if (c_out + c < d)
 #pragma unroll
           for (int t = 0; t < 4; ++t)
             atomicAdd(row + c + t, g[i][4 * h + t] * inv_temp);
@@ -387,11 +486,11 @@ attn_train_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int u = 0; u < 4; ++u) {
     const int key = k_base + 4 * rg + u;
     if (key >= n) continue;
-    const size_t row = off + static_cast<size_t>(key) * d;
+    const size_t row = off + static_cast<size_t>(key) * d + c_out;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = 4 * cg + 32 * h;
-      if (c >= d) continue;
+      if (c_out + c >= d) continue;
       *reinterpret_cast<float4*>(dk + row + c) =
           make_float4(dk_acc[u][4 * h], dk_acc[u][4 * h + 1],
                       dk_acc[u][4 * h + 2], dk_acc[u][4 * h + 3]);
@@ -403,14 +502,19 @@ attn_train_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 bool bad_shape(int batch, int n, int d, int thr) {
-  return batch < 1 || batch > 65535 || n < 1 || d < 4 || d > kMaxD ||
-         d % 4 || thr < 0 || thr > (1 << 24);
+  return batch < 1 || batch > 65535 || n < 1 || d < 4 || d % 4 || thr < 0 ||
+         thr > (1 << 24);
+}
+
+dim3 grid_of(int n, int batch, int d) {
+  return dim3((n + kTile - 1) / kTile, batch,
+              d > kMaxD ? (d + kMaxD - 1) / kMaxD : 1);
 }
 
 }  // namespace
 
 // q, k, v, out: (B, N, D) contiguous fp32 on one device, 16-byte aligned,
-// D <= 64 and a multiple of 4; seed: one int32 on the device; m, den:
+// D a multiple of 4; seed: one int32 on the device; m, den:
 // (B, N). thr = ceil(rate 2^24), keep_scale = 1 / (1 - rate). Returns a
 // cudaError_t.
 GFS_EXPORT int gfs_attention_train_fwd(const void* q, const void* k,
@@ -421,13 +525,14 @@ GFS_EXPORT int gfs_attention_train_fwd(const void* q, const void* k,
                                        void* stream) {
   if (bad_shape(batch, n, d, thr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto kern = d > kMaxD ? attn_train_fwd_kernel<true>
+                              : attn_train_fwd_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      attn_train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemFwd));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kTile - 1) / kTile, batch);
-  attn_train_fwd_kernel<<<grid, kThreads, kSmemFwd,
-                          static_cast<cudaStream_t>(stream)>>>(
+  kern<<<grid_of(n, batch, d), kThreads, kSmemFwd,
+         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(seed),
       static_cast<float*>(out), static_cast<float*>(m),
@@ -447,13 +552,14 @@ GFS_EXPORT int gfs_attention_train_bwd(const void* q, const void* k,
                                        float keep_scale, void* stream) {
   if (bad_shape(batch, n, d, thr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto kern = d > kMaxD ? attn_train_bwd_kernel<true>
+                              : attn_train_bwd_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      attn_train_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBwd));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kTile - 1) / kTile, batch);
-  attn_train_bwd_kernel<<<grid, kThreads, kSmemBwd,
-                          static_cast<cudaStream_t>(stream)>>>(
+  kern<<<grid_of(n, batch, d), kThreads, kSmemBwd,
+         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(seed),
       static_cast<const float*>(m), static_cast<const float*>(den),

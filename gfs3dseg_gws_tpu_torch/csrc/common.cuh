@@ -16,4 +16,18 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// the kNN kernels' squared distance from |q|^2, |k|^2 and q.k, each summed
+// as one fmaf chain over the channels in order: K1/K3/K6 (knn_kernel) and
+// K8 (knn_fold_kernel) both use it, so their distances agree bit for bit
+__device__ __forceinline__ float sq_dist(float qq, float kk, float dot) {
+  return fmaxf(qq + kk - 2.f * dot, 0.f);
+}
+
+// K8's fold-merge selection (csrc/knn_fold.cu) on x (B, N, C): idx (B, N, k)
+// nearest first; with btab, also K3's neighbour statistics into the zeroed
+// cnt (B, N) and scb (B, N, cb). folds is 2, 4 or 8.
+cudaError_t launch_knn_fold(const float* x, int* idx, int batch, int n, int c,
+                            int k, int folds, const float* btab, float* cnt,
+                            float* scb, int cb, cudaStream_t s);
+
 }  // namespace gfs

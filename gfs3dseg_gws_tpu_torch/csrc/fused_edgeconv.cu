@@ -28,7 +28,8 @@
 //    lane, with four keys scored at once for four independent FMA chains.
 //    Insertion is a fixed compare-and-swap chain that the compiler unrolls
 //    over kMaxK slots, so the list never leaves registers; slots at or past
-//    k hold -inf and are never displaced. A key tile is first scored and
+//    k hold -inf and are never displaced by a key, only by the shift
+//    below it (their contents are never read). A key tile is first scored and
 //    filtered against the threshold without branching, and only the
 //    survivors go through the chain, so a warp pays for its busiest lane's
 //    survivors rather than for every key that any lane would insert.
@@ -61,6 +62,20 @@
 // integers and is exact. At k = 20 and Cb = 64 the scatter is 1,280
 // float atomics per query, against the kNN's 2,048 x C distance FMAs.
 //
+// Widths and neighbour counts. The kernels above are the fast path, for
+// C, W0, W1 <= 64 and k <= 32 (the model's widths). Past those:
+// * C > 64: knn_kernel<0, ...> streams the channels through keys_s in
+//   chunks of 64; the partial dot products wait in cand_d and |k|^2 in kk_s
+//   until the last chunk, and the fmaf chains run over the channels in the
+//   same order, so a distance is the one a single pass would give;
+// * 32 < k <= 64: knn_kernel<CP, 64, ...>, the same chain over 64 slots;
+// * k > 64: K8's fold-merge selection (csrc/knn_fold.cu, four folds), which
+//   holds each query's whole key row in shared memory (N up to ~27,000);
+//   for K3 it adds the statistics itself;
+// * W0 or W1 > 64: edge_mlp_kernel<true> takes 64 output columns per block
+//   (grid z) and walks W0 in chunks of 64 through e_s and w2_s, carrying
+//   the GEMM accumulators across the chunks.
+//
 // K6 and K9 are K1's two stages, each behind an entry of its own:
 // gfs_knn_indices launches knn_kernel<CP, false> alone and replaces the TPU
 // kernel gfs3dseg_gws_tpu/ops/knn.py::knn_indices (`_knn_pallas`, body
@@ -75,9 +90,11 @@ namespace {
 
 constexpr int kTileQ = 64;   // queries per block
 constexpr int kTileK = 64;   // key rows per shared-memory tile (multiple of 4)
-constexpr int kMaxK = 32;    // largest neighbour count
-constexpr int kMaxW = 64;    // widest a/b table (W0) and output (W1)
-constexpr int kMaxC = 64;    // widest input x
+constexpr int kMaxK = 32;    // neighbour slots of the fast path's chain
+constexpr int kWideK = 64;   // ... of its second instantiation
+constexpr int kFolds = 4;    // K8's folds for k > kWideK
+constexpr int kMaxW = 64;    // a/b table (W0) and output (W1) channels per tile
+constexpr int kMaxC = 64;    // input channels held in registers
 constexpr int kChunk = 4;    // neighbours per edge-GEMM step
 constexpr int kRows = kTileQ * kChunk;   // edge rows per step (256)
 constexpr int kMlpThreads = 256;         // 32 query pairs x 8 column groups
@@ -85,16 +102,22 @@ constexpr size_t kMlpSmem =
     (static_cast<size_t>(kMaxW) * kRows + kMaxW * kMaxW + kMaxW) *
     sizeof(float);
 
-// CP: input width padded with zeros to a multiple of 4; kStats: also
-// scatter the neighbour statistics of btab (B, N, cb) into cnt (B, N) and
-// scb (B, N, cb), which the caller has zeroed (K3)
-template <int CP, bool kStats>
+// CP: input width padded with zeros to a multiple of 4, or 0 for C > 64
+// (streamed in chunks of kMaxC); KMAX: slots of the insertion chain (k <=
+// KMAX); kStats: also scatter the neighbour statistics of btab (B, N, cb)
+// into cnt (B, N) and scb (B, N, cb), which the caller has zeroed (K3)
+template <int CP, int KMAX, bool kStats>
 __global__ void __launch_bounds__(kTileQ)
 knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
            int k, const float* __restrict__ btab, float* __restrict__ cnt,
            float* __restrict__ scb, int cb) {
-  __shared__ __align__(16) float keys_s[kTileK][CP];
-  __shared__ int nbr_s[kStats ? kTileQ : 1][kMaxK];
+  constexpr bool kWide = CP == 0;
+  constexpr int QW = kWide ? kMaxC : CP;   // channels held at once
+  // the fast path keeps its lists here for the statistics; the others read
+  // them back from idx
+  constexpr bool kNbrSmem = kStats && KMAX == kMaxK;
+  __shared__ __align__(16) float keys_s[kTileK][QW];
+  __shared__ int nbr_s[kNbrSmem ? kTileQ : 1][KMAX];
   __shared__ float kk_s[kTileK];
   // this tile's candidates of each query ([slot][query]: no bank conflicts)
   __shared__ float cand_d[kTileK][kTileQ];
@@ -106,84 +129,153 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
   const bool active = qi < n;
   const float* xb = x + static_cast<size_t>(batch) * n * c;
 
-  float q[CP];
+  float q[QW];
   float qq = 0.f;
+  if constexpr (kWide) {
+    for (int ch = 0; ch < c; ++ch) {
+      const float v = active ? xb[static_cast<size_t>(qi) * c + ch] : 0.f;
+      qq = fmaf(v, v, qq);
+    }
+  } else {
 #pragma unroll
-  for (int ch = 0; ch < CP; ++ch) {
-    q[ch] = (active && ch < c) ? xb[static_cast<size_t>(qi) * c + ch] : 0.f;
-    qq = fmaf(q[ch], q[ch], qq);
+    for (int ch = 0; ch < CP; ++ch) {
+      q[ch] = (active && ch < c) ? xb[static_cast<size_t>(qi) * c + ch] : 0.f;
+      qq = fmaf(q[ch], q[ch], qq);
+    }
   }
-  float best_d[kMaxK];
-  int best_i[kMaxK];
+  float best_d[KMAX];
+  int best_i[KMAX];
 #pragma unroll
-  for (int t = 0; t < kMaxK; ++t) {
+  for (int t = 0; t < KMAX; ++t) {
     best_d[t] = t < k ? INFINITY : -INFINITY;
     best_i[t] = 0;
   }
   float thr = INFINITY;  // always best_d[k - 1]
 
   for (int base = 0; base < n; base += kTileK) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int e = tid; e < kTileK * CP; e += kTileQ) {
-      const int r = e / CP, ch = e % CP;
-      const int j = base + r;
-      keys_s[r][ch] =
-          (j < n && ch < c) ? xb[static_cast<size_t>(j) * c + ch] : 0.f;
-    }
-    __syncthreads();
-    for (int r = tid; r < kTileK; r += kTileQ) {
-      float s = 0.f;
-#pragma unroll
-      for (int ch = 0; ch < CP; ++ch) s = fmaf(keys_s[r][ch], keys_s[r][ch], s);
-      kk_s[r] = s;
-    }
-    __syncthreads();
-    if (!active) continue;
     const int nk = min(kTileK, n - base);
-    // score the tile and keep, without branching, the keys that beat the
-    // threshold as it stood at the tile's start ...
     int cnt = 0;
-    for (int r = 0; r < nk; r += 4) {
-      float dot[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (!kWide) {
+      __syncthreads();  // every thread is done with the previous tile
+      for (int e = tid; e < kTileK * CP; e += kTileQ) {
+        const int r = e / CP, ch = e % CP;
+        const int j = base + r;
+        keys_s[r][ch] =
+            (j < n && ch < c) ? xb[static_cast<size_t>(j) * c + ch] : 0.f;
+      }
+      __syncthreads();
+      for (int r = tid; r < kTileK; r += kTileQ) {
+        float s = 0.f;
 #pragma unroll
-      for (int ch = 0; ch < CP; ch += 4) {
+        for (int ch = 0; ch < CP; ++ch)
+          s = fmaf(keys_s[r][ch], keys_s[r][ch], s);
+        kk_s[r] = s;
+      }
+      __syncthreads();
+      if (!active) continue;
+      // score the tile and keep, without branching, the keys that beat the
+      // threshold as it stood at the tile's start ...
+      for (int r = 0; r < nk; r += 4) {
+        float dot[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int ch = 0; ch < CP; ch += 4) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float4 kv = gfs::load4(&keys_s[r + u][ch]);
+            dot[u] = fmaf(q[ch], kv.x, dot[u]);
+            dot[u] = fmaf(q[ch + 1], kv.y, dot[u]);
+            dot[u] = fmaf(q[ch + 2], kv.z, dot[u]);
+            dot[u] = fmaf(q[ch + 3], kv.w, dot[u]);
+          }
+        }
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          const float4 kv = gfs::load4(&keys_s[r + u][ch]);
-          dot[u] = fmaf(q[ch], kv.x, dot[u]);
-          dot[u] = fmaf(q[ch + 1], kv.y, dot[u]);
-          dot[u] = fmaf(q[ch + 2], kv.z, dot[u]);
-          dot[u] = fmaf(q[ch + 3], kv.w, dot[u]);
+          const float d = gfs::sq_dist(qq, kk_s[r + u], dot[u]);
+          cand_d[cnt][tid] = d;
+          cand_r[cnt][tid] = static_cast<unsigned char>(r + u);
+          cnt += (r + u < nk && d < thr) ? 1 : 0;
         }
       }
+    } else {
+      // the channels in chunks: partial dots in cand_d[r][tid], partial
+      // |k|^2 in kk_s[r], both carried from chunk to chunk
+      for (int c0 = 0; c0 < c; c0 += kMaxC) {
+        __syncthreads();  // every thread is done with the previous chunk
+        for (int e = tid; e < kTileK * kMaxC; e += kTileQ) {
+          const int r = e / kMaxC, ch = e % kMaxC;
+          const int j = base + r;
+          keys_s[r][ch] = (j < n && c0 + ch < c)
+                              ? xb[static_cast<size_t>(j) * c + c0 + ch]
+                              : 0.f;
+        }
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float d = fmaxf(qq + kk_s[r + u] - 2.f * dot[u], 0.f);
+        for (int ch = 0; ch < kMaxC; ++ch)
+          q[ch] = (active && c0 + ch < c)
+                      ? xb[static_cast<size_t>(qi) * c + c0 + ch]
+                      : 0.f;
+        __syncthreads();
+        {
+          float s = c0 == 0 ? 0.f : kk_s[tid];   // row tid (kTileK == kTileQ)
+#pragma unroll
+          for (int ch = 0; ch < kMaxC; ++ch)
+            s = fmaf(keys_s[tid][ch], keys_s[tid][ch], s);
+          kk_s[tid] = s;
+        }
+        if (!active) continue;
+        for (int r = 0; r < nk; r += 4) {
+          float dot[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) dot[u] = c0 == 0 ? 0.f : cand_d[r + u][tid];
+#pragma unroll
+          for (int ch = 0; ch < kMaxC; ch += 4) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float4 kv = gfs::load4(&keys_s[r + u][ch]);
+              dot[u] = fmaf(q[ch], kv.x, dot[u]);
+              dot[u] = fmaf(q[ch + 1], kv.y, dot[u]);
+              dot[u] = fmaf(q[ch + 2], kv.z, dot[u]);
+              dot[u] = fmaf(q[ch + 3], kv.w, dot[u]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) cand_d[r + u][tid] = dot[u];
+        }
+      }
+      __syncthreads();  // kk_s is complete
+      if (!active) continue;
+      // compact in place (slot cnt <= r is read before it is written)
+      for (int r = 0; r < nk; ++r) {
+        const float d = gfs::sq_dist(qq, kk_s[r], cand_d[r][tid]);
         cand_d[cnt][tid] = d;
-        cand_r[cnt][tid] = static_cast<unsigned char>(r + u);
-        cnt += (r + u < nk && d < thr) ? 1 : 0;
+        cand_r[cnt][tid] = static_cast<unsigned char>(r);
+        cnt += d < thr ? 1 : 0;
       }
     }
     // ... then insert them in key order. A warp runs the insertion chain
     // as often as its busiest lane has candidates, instead of once for
     // every key that any of its 32 lanes would insert.
+    // A key goes after every listed key at its distance (keys come in
+    // index order), and once it takes a slot every later entry moves down
+    // one: the list stays ordered by (distance, index).
     for (int i = 0; i < cnt; ++i) {
       float cd = cand_d[i][tid];
       if (cd < thr) {
         int ci = base + cand_r[i][tid];
+        bool shifting = false;
 #pragma unroll
-        for (int t = 0; t < kMaxK; ++t) {
-          if (cd < best_d[t]) {
+        for (int t = 0; t < KMAX; ++t) {
+          if (shifting || cd < best_d[t]) {
             const float td = best_d[t];
             const int ti = best_i[t];
             best_d[t] = cd;
             best_i[t] = ci;
             cd = td;
             ci = ti;
+            shifting = true;
           }
         }
 #pragma unroll
-        for (int t = 0; t < kMaxK; ++t)
+        for (int t = 0; t < KMAX; ++t)
           if (t == k - 1) thr = best_d[t];
       }
     }
@@ -191,23 +283,28 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
   if (active) {
     int* row = idx + (static_cast<size_t>(batch) * n + qi) * k;
 #pragma unroll
-    for (int t = 0; t < kMaxK; ++t) {
+    for (int t = 0; t < KMAX; ++t) {
       if (t < k) {
         row[t] = best_i[t];
-        if constexpr (kStats) nbr_s[tid][t] = best_i[t];
+        if constexpr (kNbrSmem) nbr_s[tid][t] = best_i[t];
       }
     }
   }
   if constexpr (kStats) {
-    __syncthreads();
+    __syncthreads();  // the block's idx rows (or nbr_s) are complete
     const int lane = tid % 32, warp = tid / 32;
     const int q0 = blockIdx.x * kTileQ;
     const int pairs = min(kTileQ, n - q0) * k;
     const float* b_b = btab + static_cast<size_t>(batch) * n * cb;
     float* scb_b = scb + static_cast<size_t>(batch) * n * cb;
+    const int* idx_b = idx + (static_cast<size_t>(batch) * n + q0) * k;
     for (int pr = warp; pr < pairs; pr += kTileQ / 32) {
       const int q = pr / k;
-      const int j = nbr_s[q][pr - q * k];
+      int j;
+      if constexpr (kNbrSmem)
+        j = nbr_s[q][pr - q * k];
+      else
+        j = idx_b[pr];
       const float* brow = b_b + static_cast<size_t>(q0 + q) * cb;
       float* srow = scb_b + static_cast<size_t>(j) * cb;
       for (int ch = lane; ch < cb; ch += 32) atomicAdd(srow + ch, brow[ch]);
@@ -216,6 +313,28 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
   }
 }
 
+// acc[8][8] += e_s rows 8p .. 8p + 7 times w2_s columns 8cg .. 8cg + 7 over
+// kMaxW channels
+__device__ __forceinline__ void edge_gemm(const float* e_s, const float* w2_s,
+                                          int p, int cg, float (&acc)[8][8]) {
+#pragma unroll 4
+  for (int ch = 0; ch < kMaxW; ++ch) {
+    const float4 a0 = gfs::load4(&e_s[ch * kRows + 8 * p]);
+    const float4 a1 = gfs::load4(&e_s[ch * kRows + 8 * p + 4]);
+    const float4 b0 = gfs::load4(&w2_s[ch * kMaxW + 8 * cg]);
+    const float4 b1 = gfs::load4(&w2_s[ch * kMaxW + 8 * cg + 4]);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// kWide: W0 or W1 above kMaxW; the block takes output columns col0 ..
+// col0 + 63 (col0 = 64 blockIdx.z) and W0 in chunks of kMaxW
+template <bool kWide>
 __global__ void __launch_bounds__(kMlpThreads)
 edge_mlp_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
                 const float* __restrict__ b_table,
@@ -230,16 +349,19 @@ edge_mlp_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
   const int tid = threadIdx.x;
   const int batch = blockIdx.y;
   const int q_base = blockIdx.x * kTileQ;
+  const int col0 = kWide ? blockIdx.z * kMaxW : 0;
   // GEMM tile of this thread: edge rows 8p..8p+7 (queries 2p, 2p+1 times
   // kChunk neighbours) by output channels 8cg..8cg+7
   const int p = tid / 8, cg = tid % 8;
 
-  for (int e = tid; e < kMaxW * kMaxW; e += kMlpThreads) {
-    const int r = e / kMaxW, o = e % kMaxW;
-    w2_s[e] = (r < w0 && o < w1) ? w2[r * w1 + o] : 0.f;
+  if constexpr (!kWide) {
+    for (int e = tid; e < kMaxW * kMaxW; e += kMlpThreads) {
+      const int r = e / kMaxW, o = e % kMaxW;
+      w2_s[e] = (r < w0 && o < w1) ? w2[r * w1 + o] : 0.f;
+    }
   }
   for (int o = tid; o < kMaxW; o += kMlpThreads)
-    bias_s[o] = o < w1 ? bias2[o] : 0.f;
+    bias_s[o] = col0 + o < w1 ? bias2[col0 + o] : 0.f;
 
   // the edge row this thread builds in each step: query r / kChunk,
   // neighbour slot r % kChunk of the step
@@ -259,35 +381,31 @@ edge_mlp_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
     for (int j = 0; j < 8; ++j) mx[i][j] = -INFINITY;
 
   for (int t0 = 0; t0 < k; t0 += kChunk) {
-    __syncthreads();  // previous step's GEMM is done with e_s
-    {
-      const int t = t0 + r_own % kChunk;
-      const bool ok = q_own_ok && t < k;
-      const float* a_row = a_b + static_cast<size_t>(ok ? idx_row[t] : 0) * w0;
-      for (int ch = 0; ch < kMaxW; ++ch)
-        e_s[ch * kRows + r_own] =
-            (ok && ch < w0) ? gfs::leaky(a_row[ch] + b_row[ch], neg_slope)
-                            : 0.f;
-    }
-    __syncthreads();
-
+    const int t = t0 + r_own % kChunk;
+    const bool ok = q_own_ok && t < k;
+    const float* a_row = a_b + static_cast<size_t>(ok ? idx_row[t] : 0) * w0;
     float acc[8][8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int ch = 0; ch < kMaxW; ++ch) {
-      const float4 a0 = gfs::load4(&e_s[ch * kRows + 8 * p]);
-      const float4 a1 = gfs::load4(&e_s[ch * kRows + 8 * p + 4]);
-      const float4 b0 = gfs::load4(&w2_s[ch * kMaxW + 8 * cg]);
-      const float4 b1 = gfs::load4(&w2_s[ch * kMaxW + 8 * cg + 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int c0 = 0; c0 < (kWide ? w0 : 1); c0 += kMaxW) {
+      __syncthreads();  // the previous GEMM is done with e_s (and w2_s)
+      for (int ch = 0; ch < kMaxW; ++ch)
+        e_s[ch * kRows + r_own] =
+            (ok && c0 + ch < w0)
+                ? gfs::leaky(a_row[c0 + ch] + b_row[c0 + ch], neg_slope)
+                : 0.f;
+      if constexpr (kWide) {
+        for (int e = tid; e < kMaxW * kMaxW; e += kMlpThreads) {
+          const int r = e / kMaxW, o = e % kMaxW;
+          w2_s[e] = (c0 + r < w0 && col0 + o < w1)
+                        ? w2[static_cast<size_t>(c0 + r) * w1 + col0 + o]
+                        : 0.f;
+        }
+      }
+      __syncthreads();
+      edge_gemm(e_s, w2_s, p, cg, acc);
     }
     // rows 0-3: query 2p, rows 4-7: query 2p+1; row % kChunk = neighbour
 #pragma unroll
@@ -306,24 +424,56 @@ edge_mlp_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
   for (int i = 0; i < 2; ++i) {
     const int qi = q_base + 2 * p + i;
     if (qi >= n) continue;
-    float* orow = out + (static_cast<size_t>(batch) * n + qi) * w1;
+    float* orow = out + (static_cast<size_t>(batch) * n + qi) * w1 + col0;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      if (8 * cg + j < w1) orow[8 * cg + j] = mx[i][j];
+      if (col0 + 8 * cg + j < w1) orow[8 * cg + j] = mx[i][j];
   }
 }
 
-// knn_kernel<CP, false> over (batch, n, c): idx (B, N, k), nearest first
-cudaError_t launch_knn(const float* x, int* idx, int batch, int n, int c,
-                       int k, cudaStream_t s) {
+template <int CP, int KMAX, bool kStats>
+cudaError_t run_knn(const float* x, int* idx, int batch, int n, int c, int k,
+                    const float* btab, float* cnt, float* scb, int cb,
+                    cudaStream_t s) {
   const dim3 grid((n + kTileQ - 1) / kTileQ, batch);
-  if (c <= 16)
-    knn_kernel<16, false><<<grid, kTileQ, 0, s>>>(x, idx, n, c, k, nullptr,
-                                                  nullptr, nullptr, 0);
-  else
-    knn_kernel<64, false><<<grid, kTileQ, 0, s>>>(x, idx, n, c, k, nullptr,
-                                                  nullptr, nullptr, 0);
+  knn_kernel<CP, KMAX, kStats><<<grid, kTileQ, 0, s>>>(x, idx, n, c, k, btab,
+                                                       cnt, scb, cb);
   return cudaGetLastError();
+}
+
+template <int KMAX, bool kStats>
+cudaError_t run_knn_c(const float* x, int* idx, int batch, int n, int c,
+                      int k, const float* btab, float* cnt, float* scb,
+                      int cb, cudaStream_t s) {
+  if (c <= 16)
+    return run_knn<16, KMAX, kStats>(x, idx, batch, n, c, k, btab, cnt, scb,
+                                     cb, s);
+  if (c <= kMaxC)
+    return run_knn<64, KMAX, kStats>(x, idx, batch, n, c, k, btab, cnt, scb,
+                                     cb, s);
+  return run_knn<0, KMAX, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
+                                  s);
+}
+
+// the kNN stage over (batch, n, c): idx (B, N, k), nearest first; with btab
+// also the neighbour statistics (K3). The variant follows c and k.
+cudaError_t launch_knn(const float* x, int* idx, int batch, int n, int c,
+                       int k, cudaStream_t s, const float* btab = nullptr,
+                       float* cnt = nullptr, float* scb = nullptr,
+                       int cb = 0) {
+  const bool stats = btab != nullptr;
+  if (k <= kMaxK)
+    return stats ? run_knn_c<kMaxK, true>(x, idx, batch, n, c, k, btab, cnt,
+                                          scb, cb, s)
+                 : run_knn_c<kMaxK, false>(x, idx, batch, n, c, k, btab, cnt,
+                                           scb, cb, s);
+  if (k <= kWideK)
+    return stats ? run_knn_c<kWideK, true>(x, idx, batch, n, c, k, btab, cnt,
+                                           scb, cb, s)
+                 : run_knn_c<kWideK, false>(x, idx, batch, n, c, k, btab,
+                                            cnt, scb, cb, s);
+  return gfs::launch_knn_fold(x, idx, batch, n, c, k, kFolds, btab, cnt, scb,
+                              cb, s);
 }
 
 // edge_mlp_kernel on given indices: out (B, N, w1)
@@ -332,18 +482,25 @@ cudaError_t launch_edge_mlp(const int* idx, const float* a_table,
                             const float* bias2, float* out, int batch, int n,
                             int w0, int w1, int k, float neg_slope,
                             cudaStream_t s) {
+  const bool wide = w0 > kMaxW || w1 > kMaxW;
   cudaError_t err = cudaFuncSetAttribute(
-      edge_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wide ? edge_mlp_kernel<true> : edge_mlp_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kMlpSmem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kTileQ - 1) / kTileQ, batch);
-  edge_mlp_kernel<<<grid, kMlpThreads, kMlpSmem, s>>>(
-      idx, a_table, b_table, w2, bias2, out, n, w0, w1, k, neg_slope);
+  const dim3 grid((n + kTileQ - 1) / kTileQ, batch,
+                  wide ? (w1 + kMaxW - 1) / kMaxW : 1);
+  if (wide)
+    edge_mlp_kernel<true><<<grid, kMlpThreads, kMlpSmem, s>>>(
+        idx, a_table, b_table, w2, bias2, out, n, w0, w1, k, neg_slope);
+  else
+    edge_mlp_kernel<false><<<grid, kMlpThreads, kMlpSmem, s>>>(
+        idx, a_table, b_table, w2, bias2, out, n, w0, w1, k, neg_slope);
   return cudaGetLastError();
 }
 
 bool bad_sizes(int batch, int n, int k) {
-  return batch < 1 || batch > 65535 || n < 1 || k < 1 || k > kMaxK || k > n;
+  return batch < 1 || batch > 65535 || n < 1 || k < 1 || k > n;
 }
 
 }  // namespace
@@ -357,8 +514,7 @@ GFS_EXPORT int gfs_fused_edgeconv_infer(const void* x, const void* a_table,
                                         void* out, int batch, int n, int c,
                                         int w0, int w1, int k,
                                         float neg_slope, void* stream) {
-  if (bad_sizes(batch, n, k) || c < 1 || c > kMaxC || w0 < 1 || w0 > kMaxW ||
-      w1 < 1 || w1 > kMaxW)
+  if (bad_sizes(batch, n, k) || c < 1 || w0 < 1 || w1 < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   auto* ix = static_cast<int*>(idx);
@@ -376,7 +532,7 @@ GFS_EXPORT int gfs_fused_edgeconv_infer(const void* x, const void* a_table,
 // contiguous, on one device. Returns a cudaError_t.
 GFS_EXPORT int gfs_knn_indices(const void* x, void* idx, int batch, int n,
                                int c, int k, void* stream) {
-  if (bad_sizes(batch, n, k) || c < 1 || c > kMaxC)
+  if (bad_sizes(batch, n, k) || c < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_knn(static_cast<const float*>(x),
                                      static_cast<int*>(idx), batch, n, c, k,
@@ -392,7 +548,7 @@ GFS_EXPORT int gfs_gather_conv(const void* idx, const void* a_table,
                                const void* bias2, void* out, int batch, int n,
                                int w0, int w1, int k, float neg_slope,
                                void* stream) {
-  if (bad_sizes(batch, n, k) || w0 < 1 || w0 > kMaxW || w1 < 1 || w1 > kMaxW)
+  if (bad_sizes(batch, n, k) || w0 < 1 || w1 < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_edge_mlp(
       static_cast<const int*>(idx), static_cast<const float*>(a_table),
@@ -407,20 +563,10 @@ GFS_EXPORT int gfs_gather_conv(const void* idx, const void* a_table,
 GFS_EXPORT int gfs_knn_with_stats(const void* x, const void* btab, void* idx,
                                   void* cnt, void* scb, int batch, int n,
                                   int c, int cb, int k, void* stream) {
-  if (bad_sizes(batch, n, k) || c < 1 || c > kMaxC || cb < 1 || cb > kMaxW)
+  if (bad_sizes(batch, n, k) || c < 1 || cb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kTileQ - 1) / kTileQ, batch);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* bf = static_cast<const float*>(btab);
-  auto* ix = static_cast<int*>(idx);
-  auto* cf = static_cast<float*>(cnt);
-  auto* sf = static_cast<float*>(scb);
-  if (c <= 16)
-    knn_kernel<16, true><<<grid, kTileQ, 0, s>>>(xf, ix, n, c, k, bf, cf, sf,
-                                                 cb);
-  else
-    knn_kernel<64, true><<<grid, kTileQ, 0, s>>>(xf, ix, n, c, k, bf, cf, sf,
-                                                 cb);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_knn(
+      static_cast<const float*>(x), static_cast<int*>(idx), batch, n, c, k,
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(btab),
+      static_cast<float*>(cnt), static_cast<float*>(scb), cb));
 }

@@ -39,12 +39,17 @@
 // strided by 16, so that the eight lanes of a float4 load phase read eight
 // different bank groups. Rows of edges past k or queries past N are zero
 // in the buffers and left out of every output: ragged N is masked here.
+//
+// Past C, W1 <= 64 (the fast path above), gsf_wide_kernel and
+// bwd_wide_kernel take the same steps with a grid axis over 64-column tiles
+// of W1 (and, in K4b, 64-channel chunks of C) and the C channels in chunks
+// of 64 through the same buffers; see their comments. Any k: a slot takes
+// 16 bits of the packed max/min slots.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxW = 64;     // widest table C and output W1
-constexpr int kMaxK = 32;     // largest neighbour count
+constexpr int kMaxW = 64;     // table C and output W1 channels per tile
 constexpr int kTileQ = 64;    // queries per block
 constexpr int kThreads = 256;
 
@@ -71,6 +76,90 @@ __device__ __forceinline__ float dot4(float4 x, float4 y, float acc) {
   acc = fmaf(x.y, y.y, acc);
   acc = fmaf(x.z, y.z, acc);
   return fmaf(x.w, y.w, acc);
+}
+
+// acc[R][8] += rows R p .. R p + R - 1 of the [channel][row] buffer h_s
+// (row stride `stride`) times columns 8cg .. 8cg + 7 of w_s, over kMaxW
+// channels (K1's register tile: R = 8 in K4a, 4 in K4b). The helpers below
+// serve the tiled kernels past kMaxW; the fast kernels keep their own
+// copies of these loops, so that their compiled code stays as it was.
+template <int R>
+__device__ __forceinline__ void tile_gemm(const float* h_s, int stride,
+                                          const float* w_s, int p, int cg,
+                                          float (&acc)[R][8]) {
+#pragma unroll 4
+  for (int ch = 0; ch < kMaxW; ++ch) {
+    float av[R];
+#pragma unroll
+    for (int i = 0; i < R; i += 4) {
+      const float4 a = gfs::load4(&h_s[ch * stride + R * p + i]);
+      av[i] = a.x;
+      av[i + 1] = a.y;
+      av[i + 2] = a.z;
+      av[i + 3] = a.w;
+    }
+    const float4 b0 = gfs::load4(&w_s[ch * kMaxW + 8 * cg]);
+    const float4 b1 = gfs::load4(&w_s[ch * kMaxW + 8 * cg + 4]);
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// the bn1 sums' reduction of the tiled K4b: sum0/sum1 (8 channels
+// cg + 8j of each of the 32 row groups p) in a fixed order over the groups
+// into out[0 * stride + ch] and out[1 * stride + ch] for the channels
+// ch0 + ch < c; `red` holds 2 x 32 x kMaxW floats
+__device__ __forceinline__ void reduce_bn1_sums(float* red, const float* sum0,
+                                                const float* sum1, int p,
+                                                int cg, int ch0, int c,
+                                                float* out, int stride) {
+  __syncthreads();  // every thread is done with the buffer red reuses
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    red[p * kMaxW + cg + 8 * j] = sum0[j];
+    red[32 * kMaxW + p * kMaxW + cg + 8 * j] = sum1[j];
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * kMaxW) {
+    const int which = threadIdx.x / kMaxW, ch = threadIdx.x % kMaxW;
+    if (ch0 + ch < c) {
+      float s = 0.f;
+      for (int g = 0; g < 32; ++g) s += red[which * 32 * kMaxW + g * kMaxW + ch];
+      out[which * stride + ch] = s;
+    }
+  }
+}
+
+// running max / min over the neighbours of z1 in acc (rows 0-3: query 2p,
+// 4-7: query 2p + 1; row % kFChunk = slot t0 + row % kFChunk) with their
+// slots; slots rise, so a strict comparison keeps the first slot of a tie
+__device__ __forceinline__ void track_extremes(const float (&acc)[8][8],
+                                               int t0, int k,
+                                               float (&zmx)[2][8],
+                                               float (&zmn)[2][8],
+                                               unsigned (&slots)[2][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const unsigned t = t0 + i % kFChunk;
+    if (t < static_cast<unsigned>(k)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float v = acc[i][j];
+        const int qi = i / kFChunk;
+        if (v > zmx[qi][j]) {
+          zmx[qi][j] = v;
+          slots[qi][j] = (slots[qi][j] & ~0xffffu) | t;
+        }
+        if (v < zmn[qi][j]) {
+          zmn[qi][j] = v;
+          slots[qi][j] = (slots[qi][j] & 0xffffu) | (t << 16);
+        }
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------------------------
@@ -118,7 +207,7 @@ gsf_kernel(const float* __restrict__ a, const float* __restrict__ b,
   // step's kFChunk slots, output columns 8cg .. 8cg + 7
   const int p = tid / 8, cg = tid % 8;
   float zmx[2][8], zmn[2][8];
-  int slots[2][8];  // kmax | kmin << 8
+  unsigned slots[2][8];  // kmax | kmin << 16
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -189,11 +278,11 @@ gsf_kernel(const float* __restrict__ a, const float* __restrict__ b,
           const int qi = i / kFChunk;
           if (v > zmx[qi][j]) {
             zmx[qi][j] = v;
-            slots[qi][j] = (slots[qi][j] & ~0xff) | t;
+            slots[qi][j] = (slots[qi][j] & ~0xffffu) | t;
           }
           if (v < zmn[qi][j]) {
             zmn[qi][j] = v;
-            slots[qi][j] = (slots[qi][j] & 0xff) | (t << 8);
+            slots[qi][j] = (slots[qi][j] & 0xffffu) | (t << 16);
           }
         }
       }
@@ -230,8 +319,8 @@ gsf_kernel(const float* __restrict__ a, const float* __restrict__ b,
       if (o < w1) {
         zmax_out[row + o] = zmx[i][j];
         zmin_out[row + o] = zmn[i][j];
-        kmax_out[row + o] = slots[i][j] & 0xff;
-        kmin_out[row + o] = slots[i][j] >> 8;
+        kmax_out[row + o] = slots[i][j] & 0xffffu;
+        kmin_out[row + o] = slots[i][j] >> 16;
       }
     }
   }
@@ -489,17 +578,365 @@ bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-bool bad_shape(int batch, int n, int c, int w1, int k) {
-  return batch < 1 || batch > 65535 || n < 1 || c < 1 || c > kMaxW ||
-         w1 < 1 || w1 > kMaxW || k < 1 || k > kMaxK || k > n;
+// ------------------------------------------------------------------------
+// K4a past kMaxW: blockIdx.z takes the output columns col0 .. col0 + 63
+// (col0 = 64 z); each step walks C in chunks of kMaxW through h_s and w2_s,
+// carrying the z1 accumulators across the chunks. Instead of sum(h1) and the
+// C x C Gram matrix it reduces sum z1 and sum z1^2 per output column (the
+// bn2 statistics directly) into part (blocks, 2 W1). snbr is added by the
+// z = 0 blocks straight into the zeroed output, one thread per (query,
+// channel).
+// ------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads, 1)
+gsf_wide_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                const int* __restrict__ idx, const float* __restrict__ s1,
+                const float* __restrict__ t1, const float* __restrict__ w2,
+                float* __restrict__ snbr, float* __restrict__ zmax_out,
+                float* __restrict__ zmin_out, int* __restrict__ kmax_out,
+                int* __restrict__ kmin_out, float* __restrict__ part, int n,
+                int c, int w1, int k, float slope) {
+  extern __shared__ __align__(16) float smem[];
+  float* h_s = smem;                      // [kMaxW][kFStride]: a chunk of h1
+  float* w2_s = h_s + kMaxW * kFStride;   // [kMaxW][kMaxW]: W2[chunk, cols]
+
+  const int tid = threadIdx.x;
+  const int q_base = blockIdx.x * kTileQ;
+  const size_t boff = static_cast<size_t>(blockIdx.y) * n;
+  const int col0 = blockIdx.z * kMaxW;
+  const bool own_snbr = blockIdx.z == 0;
+
+  // build role: query bq of the tile, channels bc .. bc + 15 of the chunk
+  const int bq = tid / 4, bc = (tid % 4) * 16;
+  const int qb = q_base + bq;
+  const bool qb_ok = qb < n;
+  const float* b_row = b + (boff + (qb_ok ? qb : 0)) * c;
+  const int* idx_row = idx + (boff + (qb_ok ? qb : 0)) * k;
+  const float* a_b = a + boff * c;
+  float* snbr_row = snbr + (boff + (qb_ok ? qb : 0)) * c;
+
+  // GEMM role (K4a's tile)
+  const int p = tid / 8, cg = tid % 8;
+  float zmx[2][8], zmn[2][8], zs[8], zs2[8];
+  unsigned slots[2][8];  // kmax | kmin << 16
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    zs[j] = zs2[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      zmx[i][j] = -INFINITY;
+      zmn[i][j] = INFINITY;
+      slots[i][j] = 0;
+    }
+  }
+
+  for (int t0 = 0; t0 < k; t0 += kFChunk) {
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int c0 = 0; c0 < c; c0 += kMaxW) {
+      __syncthreads();  // the previous GEMM is done with h_s and w2_s
+      for (int e = tid; e < kMaxW * kMaxW; e += kThreads) {
+        const int r = e / kMaxW, o = e % kMaxW;
+        w2_s[e] = (c0 + r < c && col0 + o < w1)
+                      ? w2[static_cast<size_t>(c0 + r) * w1 + col0 + o]
+                      : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kFChunk; ++u) {
+        const int t = t0 + u;
+        const bool ok = qb_ok && t < k;
+        const float* a_row =
+            a_b + static_cast<size_t>(ok ? idx_row[t] : 0) * c;
+        const int r = bq * kFChunk + u;
+#pragma unroll
+        for (int cc = 0; cc < 16; ++cc) {
+          const int ch = c0 + bc + cc;
+          float h = 0.f;
+          if (ok && ch < c) {
+            const float av = a_row[ch];
+            if (own_snbr) snbr_row[ch] += av;
+            h = gfs::leaky(fmaf(av + b_row[ch], s1[ch], t1[ch]), slope);
+          }
+          h_s[(bc + cc) * kFStride + r] = h;
+        }
+      }
+      __syncthreads();
+      tile_gemm<8>(h_s, kFStride, w2_s, p, cg, acc);
+    }
+    track_extremes(acc, t0, k, zmx, zmn, slots);
+    // absent edges have h1 = 0 and so z1 = 0: they add nothing
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        zs[j] += acc[i][j];
+        zs2[j] = fmaf(acc[i][j], acc[i][j], zs2[j]);
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q_base + 2 * p + i;
+    if (qi >= n) continue;
+    const size_t row = (boff + qi) * w1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int o = col0 + 8 * cg + j;
+      if (o < w1) {
+        zmax_out[row + o] = zmx[i][j];
+        zmin_out[row + o] = zmn[i][j];
+        kmax_out[row + o] = slots[i][j] & 0xffffu;
+        kmin_out[row + o] = slots[i][j] >> 16;
+      }
+    }
+  }
+  // block partials [sum z1 (w1) | sum z1^2 (w1)], in a fixed order over the
+  // 32 row groups
+  __syncthreads();
+  float* red = h_s;  // [2][32][kMaxW]
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    red[p * kMaxW + 8 * cg + j] = zs[j];
+    red[32 * kMaxW + p * kMaxW + 8 * cg + j] = zs2[j];
+  }
+  __syncthreads();
+  if (tid < 2 * kMaxW) {
+    const int which = tid / kMaxW, o = tid % kMaxW;
+    if (col0 + o < w1) {
+      float s = 0.f;
+      for (int g = 0; g < 32; ++g) s += red[which * 32 * kMaxW + g * kMaxW + o];
+      part[(static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * 2 * w1 +
+           which * w1 + col0 + o] = s;
+    }
+  }
 }
+
+// ------------------------------------------------------------------------
+// K4b past kMaxW: blockIdx.z = ot + OT ct takes the output columns col0 =
+// 64 ot .. col0 + 63 and the channels ch0 = 64 ct .. ch0 + 63. Each step
+// forms z1 over all of C in chunks (chunk ct last, so that h_s and y_s hold
+// it afterwards) and dz1 for the block's columns, then dW2[chunk ct,
+// columns ot] and the share of dh1 = dz1 W2^T that the block's columns
+// give to chunk ct. dy1 and all that follows from it are linear in dh1, so
+// the OT column tiles' shares add up: scat by float atomics (its yhat1
+// half once, from ot = 0), psum into slice ot of psum (OT, B, N, C) and the
+// bn1 sums into slot ot of part (blocks, C W1 + OT 2 C), which the glue
+// adds.
+// ------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_wide_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                const int* __restrict__ idx, const float* __restrict__ p1,
+                const float* __restrict__ w2, const float* __restrict__ gsel,
+                const int* __restrict__ ksel, const float* __restrict__ pk,
+                float* __restrict__ scat, float* __restrict__ psum,
+                float* __restrict__ part, int n, int c, int w1, int k,
+                float slope) {
+  extern __shared__ __align__(16) float smem[];
+  float* h_s = smem;                       // [kMaxW][kBStride]: h1 chunk
+  float* y_s = h_s + kMaxW * kBStride;     // [kMaxW][kBStride]: yhat1 chunk
+  float* dz_s = y_s + kMaxW * kBStride;    // [kMaxW][kBStride]: dz1 by column
+  // [ch][8cg + j] = W2[c0 + ch][col0 + cg + 8j] for the current chunk
+  float* w2p_s = dz_s + kMaxW * kBStride;
+  // [o][8cg + j] = W2[ch0 + cg + 8j][col0 + o]
+  float* w2tp_s = w2p_s + kMaxW * kMaxW;
+  float* pk_s = w2tp_s + kMaxW * kMaxW;    // [5][kMaxW]: g2s c1 c2 mu2 inv2
+
+  const int tid = threadIdx.x;
+  const int q_base = blockIdx.x * kTileQ;
+  const size_t boff = static_cast<size_t>(blockIdx.y) * n;
+  const int n_ot = (w1 + kMaxW - 1) / kMaxW, n_ct = (c + kMaxW - 1) / kMaxW;
+  const int ot = blockIdx.z % n_ot, ct = blockIdx.z / n_ot;
+  const int col0 = ot * kMaxW, ch0 = ct * kMaxW;
+
+  for (int e = tid; e < kMaxW * kMaxW; e += kThreads) {
+    const int o = e / kMaxW, col = e % kMaxW;
+    const int strided = col / 8 + 8 * (col % 8);
+    w2tp_s[e] = (col0 + o < w1 && ch0 + strided < c)
+                    ? w2[static_cast<size_t>(ch0 + strided) * w1 + col0 + o]
+                    : 0.f;
+  }
+  for (int e = tid; e < 5 * kMaxW; e += kThreads) {
+    const int i = e / kMaxW, o = e % kMaxW;
+    pk_s[e] = col0 + o < w1 ? pk[i * w1 + col0 + o] : 0.f;
+  }
+  const float* s1 = p1;
+  const float* t1 = p1 + c;
+  const float* mu1 = p1 + 2 * c;
+  const float* inv1 = p1 + 3 * c;
+  const float* g1s = p1 + 4 * c;
+  const float* g2s_s = pk_s;
+  const float* c1_s = pk_s + kMaxW;
+  const float* c2_s = pk_s + 2 * kMaxW;
+  const float* mu2_s = pk_s + 3 * kMaxW;
+  const float* inv2_s = pk_s + 4 * kMaxW;
+
+  // build role: query bq of the tile, channels bc .. bc + 15 of a chunk
+  const int bq = tid / 4, bc = (tid % 4) * 16;
+  const int qb = q_base + bq;
+  const bool qb_ok = qb < n;
+  const float* b_row = b + (boff + (qb_ok ? qb : 0)) * c;
+  const int* idx_row = idx + (boff + (qb_ok ? qb : 0)) * k;
+  const float* a_b = a + boff * c;
+
+  // GEMM role (K4b's tile): rows 4p .. 4p + 3, columns / channels cg + 8j
+  const int p = tid / 8, cg = tid % 8;
+  float ps[2][8], sum0[8], sum1[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    ps[0][j] = ps[1][j] = 0.f;
+    sum0[j] = sum1[j] = 0.f;
+  }
+  // dW2 role: channels ch0 + g1 + 16 ii by columns col0 + g2 + 16 jj
+  const int g1 = tid / 16, g2 = tid % 16;
+  float dw2[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dw2[i][j] = 0.f;
+
+  for (int t0 = 0; t0 < k; t0 += kBChunk) {
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int s = 1; s <= n_ct; ++s) {
+      const int c0 = ((ct + s) % n_ct) * kMaxW;
+      __syncthreads();  // the previous step / chunk is done with the buffers
+      for (int e = tid; e < kMaxW * kMaxW; e += kThreads) {
+        const int row = e / kMaxW, col = e % kMaxW;
+        const int strided = col / 8 + 8 * (col % 8);
+        w2p_s[e] = (c0 + row < c && col0 + strided < w1)
+                       ? w2[static_cast<size_t>(c0 + row) * w1 + col0 + strided]
+                       : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBChunk; ++u) {
+        const int t = t0 + u;
+        const bool ok = qb_ok && t < k;
+        const float* a_row =
+            a_b + static_cast<size_t>(ok ? idx_row[t] : 0) * c;
+        const int r = bq * kBChunk + u;
+#pragma unroll
+        for (int cc = 0; cc < 16; ++cc) {
+          const int ch = c0 + bc + cc;
+          float h = 0.f, y = 0.f;
+          if (ok && ch < c) {
+            const float e0 = a_row[ch] + b_row[ch];
+            h = gfs::leaky(fmaf(e0, s1[ch], t1[ch]), slope);
+            y = (e0 - mu1[ch]) * inv1[ch];
+          }
+          h_s[(bc + cc) * kBStride + r] = h;
+          y_s[(bc + cc) * kBStride + r] = y;
+        }
+      }
+      __syncthreads();
+      tile_gemm<4>(h_s, kBStride, w2p_s, p, cg, acc);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = t0 + i % kBChunk;
+      const int q = q_base + 2 * p + i / kBChunk;
+      const bool ok = q < n && t < k;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int o = cg + 8 * j;
+        float dz = 0.f;
+        if (ok && col0 + o < w1) {
+          const size_t qo = (boff + q) * w1 + col0 + o;
+          const float dy2 = ksel[qo] == t ? gsel[qo] : 0.f;
+          dz = g2s_s[o] *
+               (dy2 - c1_s[o] - (acc[i][j] - mu2_s[o]) * inv2_s[o] * c2_s[o]);
+        }
+        dz_s[o * kBStride + 4 * p + i] = dz;
+      }
+    }
+    __syncthreads();
+
+    for (int r = 0; r < kBRows; r += 4) {
+      float4 x[4], y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = gfs::load4(&h_s[(g1 + 16 * i) * kBStride + r]);
+        y[i] = gfs::load4(&dz_s[(g2 + 16 * i) * kBStride + r]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dw2[i][j] = dot4(x[i], y[j], dw2[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    tile_gemm<4>(dz_s, kBStride, w2tp_s, p, cg, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = t0 + i % kBChunk;
+      const int q = q_base + 2 * p + i / kBChunk;
+      if (q >= n || t >= k) continue;
+      const int nbr = idx[(boff + q) * k + t];
+      float* srow = scat + (boff + nbr) * (2 * c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cl = cg + 8 * j, ch = ch0 + cl;
+        if (ch < c) {
+          const int r = 4 * p + i;
+          const float y = y_s[cl * kBStride + r];
+          const float dy =
+              h_s[cl * kBStride + r] >= 0.f ? acc[i][j] : slope * acc[i][j];
+          const float g = g1s[ch] * dy;
+          sum0[j] += dy;
+          sum1[j] = fmaf(dy, y, sum1[j]);
+          ps[i / kBChunk][j] += g;
+          atomicAdd(srow + ch, g);
+          if (ot == 0) atomicAdd(srow + c + ch, y);
+        }
+      }
+    }
+  }
+
+  float* psum_t = psum + static_cast<size_t>(ot) * gridDim.y * n * c;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q = q_base + 2 * p + i;
+    if (q >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int ch = ch0 + cg + 8 * j;
+      if (ch < c) psum_t[(boff + q) * c + ch] = ps[i][j];
+    }
+  }
+  float* prow = part + (static_cast<size_t>(blockIdx.y) * gridDim.x +
+                        blockIdx.x) * (static_cast<size_t>(c) * w1 + 2 * c * n_ot);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ch = ch0 + g1 + 16 * i, o = col0 + g2 + 16 * j;
+      if (ch < c && o < w1) prow[static_cast<size_t>(ch) * w1 + o] = dw2[i][j];
+    }
+  reduce_bn1_sums(h_s, sum0, sum1, p, cg, ch0, c,
+                  prow + static_cast<size_t>(c) * w1 + 2 * c * ot + ch0, c);
+}
+
+bool bad_shape(int batch, int n, int c, int w1, int k) {
+  return batch < 1 || batch > 65535 || n < 1 || c < 1 || w1 < 1 || k < 1 ||
+         k > n || k > 65535;
+}
+
+bool is_wide(int c, int w1) { return c > kMaxW || w1 > kMaxW; }
 
 }  // namespace
 
 // K4a. a, b (B, N, C), s1, t1 (C), w2 (C, W1) fp32 and idx (B, N, k) int32
 // in; snbr (B, N, C), zmax, zmin (B, N, W1) fp32, kmax, kmin (B, N, W1)
 // int32 and part (B * ceil(N / 64), C + C * C) fp32 out: contiguous, on one
-// device. Returns a cudaError_t.
+// device. Past C, W1 <= 64, snbr must be zeroed and part is
+// (B * ceil(N / 64), 2 W1). Returns a cudaError_t.
 GFS_EXPORT int gfs_edgeconv_train_fwd(const void* a, const void* b,
                                       const void* idx, const void* s1,
                                       const void* t1, const void* w2,
@@ -509,12 +946,15 @@ GFS_EXPORT int gfs_edgeconv_train_fwd(const void* a, const void* b,
                                       float slope, void* stream) {
   if (bad_shape(batch, n, c, w1, k))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = is_wide(c, w1);
+  const auto kern = wide ? gsf_wide_kernel : gsf_kernel;
   cudaError_t err = cudaFuncSetAttribute(
-      gsf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kFwdSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kTileQ - 1) / kTileQ, batch);
-  gsf_kernel<<<grid, kThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((n + kTileQ - 1) / kTileQ, batch,
+                  wide ? (w1 + kMaxW - 1) / kMaxW : 1);
+  kern<<<grid, kThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const int*>(idx), static_cast<const float*>(s1),
       static_cast<const float*>(t1), static_cast<const float*>(w2),
@@ -527,7 +967,9 @@ GFS_EXPORT int gfs_edgeconv_train_fwd(const void* a, const void* b,
 // K4b. a, b (B, N, C), p1 (5, C), w2 (C, W1), gsel (B, N, W1), pk (5, W1)
 // fp32 and idx (B, N, k), ksel (B, N, W1) int32 in; scat (B, N, 2C) fp32
 // zeroed by the caller, psum (B, N, C) and part (B * ceil(N / 64),
-// C * W1 + 2C) fp32 out: contiguous, on one device. Returns a cudaError_t.
+// C * W1 + 2C) fp32 out: contiguous, on one device. Past C, W1 <= 64, psum
+// is (OT, B, N, C) and part (B * ceil(N / 64), C * W1 + OT * 2C) with OT =
+// ceil(W1 / 64), to be summed over OT. Returns a cudaError_t.
 GFS_EXPORT int gfs_edgeconv_train_bwd(const void* a, const void* b,
                                       const void* idx, const void* p1,
                                       const void* w2, const void* gsel,
@@ -537,12 +979,16 @@ GFS_EXPORT int gfs_edgeconv_train_bwd(const void* a, const void* b,
                                       float slope, void* stream) {
   if (bad_shape(batch, n, c, w1, k))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = is_wide(c, w1);
+  const auto kern = wide ? bwd_wide_kernel : bwd_kernel;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kBwdSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kTileQ - 1) / kTileQ, batch);
-  bwd_kernel<<<grid, kThreads, kBwdSmem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((n + kTileQ - 1) / kTileQ, batch,
+                  wide ? ((w1 + kMaxW - 1) / kMaxW) * ((c + kMaxW - 1) / kMaxW)
+                       : 1);
+  kern<<<grid, kThreads, kBwdSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const int*>(idx), static_cast<const float*>(p1),
       static_cast<const float*>(w2), static_cast<const float*>(gsel),

@@ -2,8 +2,9 @@
 model/capl.py:21-433).
 
   * DGCNN features + self-attention + base learner -> 192-d semantic feature.
-  * Cosine match of the EdgeConv1-3 features against the geometric-word
-    basis, sharpened softmax(10 cos) + hard one-hot word assignment.
+  * Cosine match of the EdgeConv features (every block) against the
+    geometric-word basis, sharpened softmax(10 cos) + hard one-hot word
+    assignment.
   * Fusion conv -> 128-d point feature; per-class prototypes (main_proto)
     + background prototype; cosine classifier (x10).
   * Training (`forward`): fake-novel prototypes (CAPL eqn.8) and
@@ -96,8 +97,9 @@ class GWCAPL(nn.Module):
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Reference capl.py:324-362.
 
-        x: (B, N, C_in) point clouds; gp: (num_gw, 192) geometric-word basis
-        (a constant: no gradient reaches it). In training the BatchNorms
+        x: (B, N, C_in) point clouds; gp: (num_gw, sum of the EdgeConv
+        output widths, 192 by default) geometric-word basis (a constant: no
+        gradient reaches it). In training the BatchNorms
         use batch statistics and `generator` draws the attention's dropout
         seed. Returns point_feat (B, N, main_dim), semantic_feat
         (B, N, 192), one_hot_gw (B, N, num_gw).

@@ -76,14 +76,20 @@ class DGCNNSeg(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 return_feat: bool = False):
         """pc (B, N, C_in) -> logits (B, N, classes); with `return_feat`
-        also the EdgeConv 1-3 concat (the geometric-word feature space).
-        `generator` draws the dropout mask in training."""
+        also the concat of every EdgeConv block's output (the geometric-word
+        feature space, which GWCAPL matches against the basis: 192 channels
+        at the default widths, 512 at the DGCNN classification widths).
+        `generator` draws the dropout mask in training.
+
+        The JAX package takes EdgeConv 1-3 only (`edge_feats[:3]`, the
+        reference's three blocks); past three blocks its basis would not
+        match its own GWCAPL's feature, so the port takes them all."""
         edge_feats, point_feat = self.encoder(pc)
         global_feat = torch.amax(point_feat, dim=1, keepdim=True)
         feats = edge_feats + [global_feat.expand(-1, pc.shape[1], -1)]
         logits = self.segmenter(torch.cat(feats, dim=-1), generator)
         if return_feat:
-            return logits, torch.cat(edge_feats[:3], dim=-1)
+            return logits, torch.cat(edge_feats, dim=-1)
         return logits
 
 

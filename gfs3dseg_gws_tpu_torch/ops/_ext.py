@@ -44,6 +44,8 @@ _SIGNATURES = {
     "gfs_knn_with_stats": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, idx, batch, n, c, k, stream
     "gfs_knn_indices": (_P, _P, _I, _I, _I, _I, _P),
+    # x, idx, batch, n, c, k, folds, stream
+    "gfs_knn_fold": (_P, _P, _I, _I, _I, _I, _I, _P),
     # idx, g, dx, batch, n, k, c, stream
     "gfs_edgeconv_scatter": (_P, _P, _P, _I, _I, _I, _I, _P),
     # idx, a_table, b_table, w2, bias2, out, batch, n, w0, w1, k,

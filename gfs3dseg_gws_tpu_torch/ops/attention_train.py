@@ -19,6 +19,11 @@ kernel's stream (its in-core random bits cannot be reproduced), nor
 flax's; the tests compare with JAX at rate 0 and check the mask's
 statistics at rate > 0.
 
+The kernels take any head width D (csrc/attention_train.cu tiles it past
+64); a D that is not a multiple of 4 is zero-padded by the stage wrappers
+(`pad_head`, exact: the padded columns add 0 to every score and are sliced
+off the outputs; the temperature is the caller's).
+
 Each device stage has a plain twin (`_fwd_plain`, `_bwd_plain`) that the
 stage wrapper takes for a CPU tensor, so on the CPU the Function runs on the
 twins. `attention_train_plain` is the whole composition under autograd, the
@@ -31,6 +36,7 @@ import math
 import torch
 
 from gfs3dseg_gws_tpu_torch.ops import _ext
+from gfs3dseg_gws_tpu_torch.ops.attention_kernel import pad_head
 
 MASK32 = 0xFFFFFFFF
 _MIX1, _MIX2, _GOLDEN = 0x7FEB352D, 0x846CA68B, 0x9E3779B9
@@ -122,6 +128,8 @@ def _fwd(q, k, v, seed, temperature: float, rate: float):
         return _fwd_plain(q, k, v, seed, temperature, rate)
     name = "attention_train forward (K5a)"
     thr = _check(name, q, k, v, seed, rate)
+    d_true = q.shape[-1]
+    q, k, v = pad_head(q, k, v)
     b, n, d = q.shape
     out = torch.empty_like(q)
     m = torch.empty((b, n), device=q.device)
@@ -135,6 +143,8 @@ def _fwd(q, k, v, seed, temperature: float, rate: float):
             _ext.current_stream(q.device))
     _ext.check(code, name)
     _fwd.launches += 1
+    if d != d_true:
+        out = out[..., :d_true].contiguous()
     return out, m, den
 
 
@@ -177,6 +187,8 @@ def _bwd(q, k, v, seed, m, den, delta, dy, temperature: float, rate: float):
                           rate)
     name = "attention_train backward (K5b)"
     thr = _check(name, q, k, v, seed, rate, dy=dy)
+    d_true = q.shape[-1]
+    q, k, v, dy = pad_head(q, k, v, dy)
     b, n, d = q.shape
     _ext.check_tensors(name, m=m, den=den, delta=delta)
     if m.shape != (b, n) or den.shape != (b, n) or delta.shape != (b, n):
@@ -195,6 +207,8 @@ def _bwd(q, k, v, seed, m, den, delta, dy, temperature: float, rate: float):
             _ext.current_stream(q.device))
     _ext.check(code, name)
     _bwd.launches += 1
+    if d != d_true:
+        dq, dk, dv = (t[..., :d_true].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -208,11 +222,9 @@ def _check(name, q, k, v, seed, rate, **more) -> int:
             t.shape != q.shape for t in more.values()):
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} must all be (B, N, D)")
-    d = q.shape[-1]
-    if d > 64 or d % 4:
-        raise ValueError(f"{name}: the kernel takes D <= 64 and a multiple "
-                         f"of 4, got {d}")
-    if any(t.data_ptr() % 16 for t in (q, k, v, *more.values())):
+    # (a D that is not a multiple of 4 gets padded, aligned copies)
+    if q.shape[-1] % 4 == 0 and any(
+            t.data_ptr() % 16 for t in (q, k, v, *more.values())):
         raise ValueError(f"{name}: q, k, v and dy must be 16-byte aligned")
     if (seed.dtype != torch.int32 or seed.numel() != 1
             or seed.device != q.device):
@@ -252,8 +264,8 @@ def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     seed: the per-step dropout seed, an int or a one-element integer tensor
     (a device tensor keeps the step free of host synchronisation). On the
-    CUDA device the stages run K5a and K5b (D <= 64 and a multiple of 4,
-    contiguous fp32); on the CPU their plain twins.
+    CUDA device the stages run K5a and K5b (any D, contiguous fp32); on
+    the CPU their plain twins.
     """
     keep_threshold(rate)
     if not isinstance(seed, torch.Tensor):

@@ -14,6 +14,9 @@ TPU kernel ops/fused_edgeconv.py::fused_edgeconv_infer_split (body
 `_gather_conv_kernel`). `fused_edgeconv_infer_split` is K6 then K9: the same
 two device functions as K1 launched apart, so on the card it equals
 `fused_edgeconv_infer` bit for bit. As in JAX, no model path calls it.
+
+On the card every entry takes any C, W0, W1 and 1 <= k <= N (the variants
+are chosen by shape in csrc/fused_edgeconv.cu; k > N raises, as in JAX).
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import torch
 
 from gfs3dseg_gws_tpu_torch.ops import _ext
 from gfs3dseg_gws_tpu_torch.ops.edgeconv import gather_neighbors_plain
-from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices, knn_indices_plain
+from gfs3dseg_gws_tpu_torch.ops.knn import (_check_k, knn_indices,
+                                            knn_indices_plain)
 
 
 def fused_edgeconv_plain(x: torch.Tensor, a_table: torch.Tensor,
@@ -54,13 +58,13 @@ def fused_edgeconv_infer(x: torch.Tensor, a_table: torch.Tensor,
     """Fused eval-mode EdgeConv block.
 
     Args:
-      x:        (B, N, C) features the kNN graph is built on (C <= 64).
+      x:        (B, N, C) features the kNN graph is built on.
       a_table:  (B, N, W0) = scale1 * (x @ Wd)                 (neighbour term)
       b_table:  (B, N, W0) = scale1 * (x @ (Wc - Wd)) + shift1 (centre term)
                 where scale1/shift1 are the eval-mode BatchNorm affine.
       w2:       (W0, W1) layer-2 kernel pre-scaled by BatchNorm2's scale.
       bias2:    (W1,) BatchNorm2 shift.
-      k:        neighbours per point, self included (k <= 32 on CUDA).
+      k:        neighbours per point, self included (1 <= k <= N).
     Returns:
       (B, N, W1) max-pooled EdgeConv output, float32.
 
@@ -76,10 +80,7 @@ def fused_edgeconv_infer(x: torch.Tensor, a_table: torch.Tensor,
     b, n, c = x.shape
     w0, w1 = w2.shape
     _check_tables(name, (b, n), a_table, b_table, w2, bias2)
-    if c > 64 or w0 > 64 or w1 > 64 or not 1 <= k <= min(n, 32):
-        raise ValueError(f"{name}: the kernel takes C, W0, W1 <= 64 and "
-                         f"1 <= k <= min(N, 32); got C={c}, W0={w0}, "
-                         f"W1={w1}, k={k}, N={n}")
+    _check_k(name, k, n)
     out = torch.empty((b, n, w1), device=x.device, dtype=torch.float32)
     idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
     lib = _ext.library()
@@ -118,7 +119,7 @@ def gather_conv(idx: torch.Tensor, a_table: torch.Tensor,
       (B, N, W1) float32.
 
     A CPU tensor goes to `gather_conv_plain`; a CUDA tensor to the kernel
-    (W0, W1 <= 64, 1 <= k <= min(N, 32); anything else raises).
+    (any W0, W1; 1 <= k <= N).
     """
     if a_table.device.type == "cpu":
         return gather_conv_plain(idx, a_table, b_table, w2, bias2, neg_slope)
@@ -132,10 +133,7 @@ def gather_conv(idx: torch.Tensor, a_table: torch.Tensor,
             or idx.device != a_table.device):
         raise ValueError(f"{name}: idx must be contiguous int32 on the "
                          f"tables' device, got {idx.dtype} on {idx.device}")
-    if w0 > 64 or w1 > 64 or not 1 <= k <= min(n, 32):
-        raise ValueError(f"{name}: the kernel takes W0, W1 <= 64 and "
-                         f"1 <= k <= min(N, 32); got W0={w0}, W1={w1}, "
-                         f"k={k}, N={n}")
+    _check_k(name, k, n)
     out = torch.empty((b, n, w1), device=idx.device, dtype=torch.float32)
     lib = _ext.library()
     with torch.cuda.device(idx.device):

@@ -18,7 +18,8 @@ kernels in csrc/fused_edgeconv_train.cu, with the same closed-form algebra:
 * K4a (`_gsf`) gathers a[idx] once, forms h1 and z1 = h1 @ W2 per edge and
   reduces sum(h1), the Gram matrix h1^T h1 (the bn2 statistics follow as
   E[z1] = E[h1] W2, E[z1^2] = diag(W2^T E[h1 h1^T] W2)), the running
-  max/min of z1 over k with their slots, and sum_k a[idx];
+  max/min of z1 over k with their slots, and sum_k a[idx]; past C, W1 <=
+  64 it reduces sum z1 and sum z1^2 per column instead of the C x C Gram;
 * bn2 + leaky is monotone per channel, so the block output is the max or
   the min of z1 by the sign of the bn2 scale, selected here in torch;
 * K4b (`_bwd`) re-gathers a[idx] (no (B, N, K, C) residual is stored),
@@ -26,11 +27,13 @@ kernels in csrc/fused_edgeconv_train.cu, with the same closed-form algebra:
   sum_k g1 * dy1 per point, and scatters [g1 * dy1 | yhat1] onto the
   neighbour rows; da and db are assembled here in closed form.
 
-Each device stage has a plain twin (`_gsf_plain`, `_bwd_plain`) that the
-stage wrapper takes for a CPU tensor, so on the CPU the Function runs all
-of its glue on the twins. `fused_edgeconv_train_plain` is the unfused
-composition under autograd (JAX: fused_edgeconv_train_xla), the reference
-both are tested against.
+On the card the stages take any C, W1 and 1 <= k <= N: past C, W1 <= 64
+the kernels tile W1 (and, in K4b, C) over a grid axis, and the partial
+sums of the tiles are added here. Each device stage has a plain twin
+(`_gsf_plain`, `_bwd_plain`) that the stage wrapper takes for a CPU
+tensor, so on the CPU the Function runs all of its glue on the twins.
+`fused_edgeconv_train_plain` is the unfused composition under autograd
+(JAX: fused_edgeconv_train_xla), the reference both are tested against.
 """
 from __future__ import annotations
 
@@ -82,25 +85,49 @@ def fused_edgeconv_train_plain(a, b, gamma1, beta1, w2, gamma2, beta2, idx,
 # K4a: the one gather pass of the forward
 # --------------------------------------------------------------------------- #
 
+def _wide(c: int, w1: int) -> bool:
+    """Whether K4a/K4b take their tiled variants (csrc: is_wide)."""
+    return c > 64 or w1 > 64
+
+
+def _bn2_moments(stats, w2, e):
+    """E[z1] and E[z1^2] over the e edges from K4a's `stats`: [sum h1 (C) |
+    Gram h1^T h1 (C x C)] for C, W1 <= 64, where E[z1] = E[h1] W2 and
+    E[z1^2] = diag(W2^T E[h1 h1^T] W2); past that [sum z1 | sum z1^2]
+    (W1 each)."""
+    c, w1 = w2.shape
+    if _wide(c, w1):
+        return stats[:w1] / e, stats[w1:] / e
+    return ((stats[:c] / e) @ w2,
+            torch.einsum("cd,ce,ed->d", w2, stats[c:].reshape(c, c) / e, w2))
+
+
 def _gsf_plain(a, b, idx, s1, t1, w2, neg_slope):
     """Plain twin of K4a. Returns (snbr (B,N,C), zmax, zmin (B,N,W1),
-    kmax, kmin (B,N,W1) int32, sumh1 (C,), gram (C,C))."""
+    kmax, kmin (B,N,W1) int32, stats): the sums over the B N K edges the
+    bn2 statistics come from, in K4a's layout for these widths
+    (`_bn2_moments`)."""
     nbr = gather_neighbors_plain(a, idx)                      # (B,N,K,C)
     h1 = _leaky((nbr + b[:, :, None, :]) * s1 + t1, neg_slope)
     z1 = torch.einsum("bnkc,cd->bnkd", h1, w2)
     zmax, kmax = torch.max(z1, dim=2)
     zmin, kmin = torch.min(z1, dim=2)
+    if _wide(*w2.shape):
+        stats = torch.cat([z1.sum((0, 1, 2)), (z1 * z1).sum((0, 1, 2))])
+    else:
+        stats = torch.cat([h1.sum((0, 1, 2)),
+                           torch.einsum("bnkc,bnkd->cd", h1, h1).reshape(-1)])
     return (nbr.sum(2), zmax, zmin, kmax.to(torch.int32),
-            kmin.to(torch.int32), h1.sum((0, 1, 2)),
-            torch.einsum("bnkc,bnkd->cd", h1, h1))
+            kmin.to(torch.int32), stats)
 
 
 def _gsf(a, b, idx, s1, t1, w2, neg_slope):
     """K4a on a CUDA tensor, its plain twin on a CPU tensor.
 
-    The Gram matrix and sum(h1) are reduced per block into a
-    (blocks, C + C*C) buffer that is then summed here: a fixed order, so
-    the forward statistics are the same from run to run."""
+    The Gram matrix and sum(h1) (past C, W1 <= 64: sum z1 and sum z1^2) are
+    reduced per block into a buffer of partials that is then summed here:
+    a fixed order, so the forward statistics are the same from run to
+    run."""
     if a.device.type == "cpu":
         return _gsf_plain(a, b, idx, s1, t1, w2, neg_slope)
     name = "fused_edgeconv_train forward (K4a)"
@@ -110,12 +137,14 @@ def _gsf(a, b, idx, s1, t1, w2, neg_slope):
     k = idx.shape[-1]
     _check_shapes(name, a, b, idx, w2)
     tiles = (n + 63) // 64
-    snbr = torch.empty_like(a)
+    wide = _wide(c, w1)
+    snbr = torch.zeros_like(a) if wide else torch.empty_like(a)
     zmax = torch.empty((bsz, n, w1), device=a.device)
     zmin = torch.empty_like(zmax)
     kmax = torch.empty((bsz, n, w1), device=a.device, dtype=torch.int32)
     kmin = torch.empty_like(kmax)
-    part = torch.empty((bsz * tiles, c + c * c), device=a.device)
+    part = torch.empty((bsz * tiles, 2 * w1 if wide else c + c * c),
+                       device=a.device)
     lib = _ext.library()
     with torch.cuda.device(a.device):
         code = lib.gfs_edgeconv_train_fwd(
@@ -126,8 +155,7 @@ def _gsf(a, b, idx, s1, t1, w2, neg_slope):
             _ext.current_stream(a.device))
     _ext.check(code, name)
     _gsf.launches += 1
-    tot = part.sum(0)
-    return snbr, zmax, zmin, kmax, kmin, tot[:c], tot[c:].reshape(c, c)
+    return snbr, zmax, zmin, kmax, kmin, part.sum(0)
 
 
 _gsf.launches = 0
@@ -182,9 +210,12 @@ def _bwd(a, b, idx, p1, w2, gsel, ksel, pk, neg_slope):
         raise ValueError(f"{name}: gsel/ksel must be (B, N, W1), ksel "
                          "contiguous int32")
     tiles = (n + 63) // 64
+    # past C, W1 <= 64 each of the OT column tiles leaves its own psum and
+    # bn1 sums, added below
+    n_ot = -(-w1 // 64) if _wide(c, w1) else 1
     scat = torch.zeros((bsz, n, 2 * c), device=a.device)
-    psum = torch.empty_like(a)
-    part = torch.empty((bsz * tiles, c * w1 + 2 * c), device=a.device)
+    psum = torch.empty((n_ot, bsz, n, c), device=a.device)
+    part = torch.empty((bsz * tiles, c * w1 + n_ot * 2 * c), device=a.device)
     lib = _ext.library()
     with torch.cuda.device(a.device):
         code = lib.gfs_edgeconv_train_bwd(
@@ -195,8 +226,9 @@ def _bwd(a, b, idx, p1, w2, gsel, ksel, pk, neg_slope):
     _ext.check(code, name)
     _bwd.launches += 1
     tot = part.sum(0)
-    return (scat, psum, tot[:c * w1].reshape(c, w1),
-            tot[c * w1:].reshape(2, c))
+    sums = tot[c * w1:].reshape(n_ot, 2, c)
+    return (scat, psum[0] if n_ot == 1 else psum.sum(0),
+            tot[:c * w1].reshape(c, w1), sums[0] if n_ot == 1 else sums.sum(0))
 
 
 _bwd.launches = 0
@@ -213,10 +245,11 @@ def _check_shapes(name, a, b, idx, w2):
             f"{name}: shapes a {tuple(a.shape)}, b {tuple(b.shape)}, w2 "
             f"{tuple(w2.shape)}, idx {tuple(idx.shape)} {idx.dtype} do not "
             "agree (idx: contiguous int32 on the tables' device)")
-    if c > 64 or w1 > 64 or not 1 <= k <= min(n, 32):
-        raise ValueError(f"{name}: the kernel takes C, W1 <= 64 and "
-                         f"1 <= k <= min(N, 32); got C={c}, W1={w1}, k={k}, "
-                         f"N={n}")
+    if not 1 <= k <= n:
+        raise ValueError(f"{name}: k must lie in [1, N]; got k={k}, N={n}")
+    if k > 65535:
+        raise ValueError(f"{name}: the kernels keep a neighbour's slot in 16 "
+                         f"bits (k <= 65535); got k={k}")
 
 
 # --------------------------------------------------------------------------- #
@@ -243,10 +276,9 @@ class _FusedEdgeConvTrain(torch.autograd.Function):
         var1 = torch.clamp_min(sum_e02 / e - mu1 * mu1, 0.0)
         s1, t1, _ = _affines(gamma1, beta1, mu1, var1)
 
-        snbr, zmax, zmin, kmax, kmin, sumh1, gram = _gsf(
+        snbr, zmax, zmin, kmax, kmin, stats = _gsf(
             a, b, idx, s1.contiguous(), t1.contiguous(), w2, neg_slope)
-        mu2 = (sumh1 / e) @ w2
-        ez2 = torch.einsum("cd,ce,ed->d", w2, gram / e, w2)
+        mu2, ez2 = _bn2_moments(stats, w2, e)
         var2 = torch.clamp_min(ez2 - mu2 * mu2, 0.0)
         s2a, t2, _ = _affines(gamma2, beta2, mu2, var2)
 
@@ -306,8 +338,8 @@ def fused_edgeconv_train(a, b, gamma1, beta1, w2, gamma2, beta2, idx,
       (out (B, N, W1), mu1, var1, mu2, var2); the batch statistics are for
       the running averages and carry no gradient.
 
-    On the CUDA device the stages run K4a and K4b (C, W1 <= 64, k <= 32);
-    on the CPU their plain twins. Ties in the max over k send the gradient
+    On the CUDA device the stages run K4a and K4b (any C and W1,
+    1 <= k <= N); on the CPU their plain twins. Ties in the max over k send the gradient
     to the first slot.
     """
     if cnt is None or scb is None:

@@ -17,7 +17,18 @@ in-degrees and the transposed b-scatter that let the fused training
 EdgeConv (ops/fused_edgeconv_train.py) compute its first BatchNorm's batch
 statistics before any gather. It replaces the JAX package's TPU kernel
 ops/knn.py::knn_with_stats (`_knn_stats_kernel`) with the CUDA kernel
-`knn_kernel<CP, true>` in csrc/fused_edgeconv.cu.
+`knn_kernel<CP, KMAX, true>` in csrc/fused_edgeconv.cu.
+
+Both take any C and any 1 <= k <= N on the card, by variant: the channels
+in registers for C <= 64 and streamed in chunks past it; the register
+insertion chain for k <= 32 and k <= 64; K8's fold-merge selection for
+k > 64 (N up to ~27,000, the key row of a query in shared memory).
+
+`knn_indices_fold` (K8) computes what K6 computes by the fold-merge
+tournament of the JAX package's TPU kernel ops/knn.py::_knn_pallas_fold
+(body `_knn_fold_kernel`), in csrc/knn_fold.cu; its plain twin
+`knn_indices_fold_plain` runs the same tournament in torch. As in JAX, no
+model path calls it.
 """
 from __future__ import annotations
 
@@ -48,19 +59,17 @@ def knn_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     """Neighbour indices (B, N, k) int32 of x (B, N, C), nearest first, self
     included.
 
-    A CPU tensor goes to `knn_indices_plain`; a CUDA tensor to K6 (C <= 64,
-    1 <= k <= min(N, 32); anything else raises). Ties at equal distance go
-    to the lower index, as in K1. x should be detached: the graph carries
-    no gradient.
+    A CPU tensor goes to `knn_indices_plain`; a CUDA tensor to K6 (any C,
+    1 <= k <= N; k > N raises, as in JAX). Ties at equal distance go to the
+    lower index, as in K1. x should be detached: the graph carries no
+    gradient.
     """
     if x.device.type == "cpu":
         return knn_indices_plain(x, k)
     name = "knn_indices"
     _ext.check_tensors(name, x=x)
     b, n, c = x.shape
-    if c > 64 or not 1 <= k <= min(n, 32):
-        raise ValueError(f"{name}: the kernel takes C <= 64 and "
-                         f"1 <= k <= min(N, 32); got C={c}, k={k}, N={n}")
+    _check_k(name, k, n)
     idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
     lib = _ext.library()
     with torch.cuda.device(x.device):
@@ -72,6 +81,75 @@ def knn_indices(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 knn_indices.launches = 0
+
+
+def _check_k(name: str, k: int, n: int) -> None:
+    if not 1 <= k <= n:
+        raise ValueError(f"{name}: k must lie in [1, N]; got k={k}, N={n}")
+
+
+_NO_KEY = torch.iinfo(torch.int64).max
+
+
+def knn_indices_fold_plain(x: torch.Tensor, k: int, folds: int = 4
+                           ) -> torch.Tensor:
+    """Plain twin of K8: the fold-merge tournament in torch. Keys are
+    (distance bits << 32) | index (the squared distances of
+    `pairwise_sq_dists`, clamped at 0), padded to folds x ceil(N / folds)
+    with int64 max; every column is sorted across the folds, then k rounds
+    each pop the minimum of fold 0 and shift its column up by one fold.
+    x (B, N, C) -> (B, N, k) int32, nearest first."""
+    if folds not in (2, 4, 8):
+        raise ValueError(f"folds must be 2, 4 or 8, got {folds}")
+    bsz, n, _ = x.shape
+    _check_k("knn_indices_fold_plain", k, n)
+    d2 = torch.clamp_min(pairwise_sq_dists(x, x), 0.0).float()
+    bits = d2.contiguous().view(torch.int32).long() & 0x7FFFFFFF
+    keys = (bits << 32) | torch.arange(n, device=x.device)
+    w = -(-n // folds)
+    keys = torch.cat([keys, keys.new_full((bsz, n, folds * w - n), _NO_KEY)],
+                     -1)
+    cols = keys.reshape(bsz, n, folds, w).sort(dim=2).values
+    out = []
+    for _ in range(k):
+        best, col = cols[:, :, 0, :].min(dim=-1)               # (B, N)
+        out.append(best & 0xFFFFFFFF)
+        at = col[:, :, None, None].expand(bsz, n, folds, 1)
+        column = cols.gather(3, at)                            # (B, N, F, 1)
+        shifted = torch.cat([column[:, :, 1:],
+                             torch.full_like(column[:, :, :1], _NO_KEY)], 2)
+        cols = cols.scatter(3, at, shifted)
+    return torch.stack(out, -1).to(torch.int32)
+
+
+def knn_indices_fold(x: torch.Tensor, k: int, folds: int = 4) -> torch.Tensor:
+    """K8: `knn_indices` by fold-merge selection (JAX: _knn_pallas_fold),
+    (B, N, C) -> (B, N, k) int32, nearest first, folds 2, 4 or 8.
+
+    A CPU tensor goes to `knn_indices_fold_plain`; a CUDA tensor to the
+    kernel at any N (ragged N needs no gate), any C and 1 <= k <= N (N up
+    to ~27,000: a query's key row sits in shared memory). Its distances are
+    K6's own, so on the card its indices equal `knn_indices`' bit for bit.
+    """
+    if x.device.type == "cpu":
+        return knn_indices_fold_plain(x, k, folds)
+    name = "knn_indices_fold"
+    _ext.check_tensors(name, x=x)
+    b, n, c = x.shape
+    _check_k(name, k, n)
+    if folds not in (2, 4, 8):
+        raise ValueError(f"{name}: folds must be 2, 4 or 8, got {folds}")
+    idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
+    lib = _ext.library()
+    with torch.cuda.device(x.device):
+        code = lib.gfs_knn_fold(x.data_ptr(), idx.data_ptr(), b, n, c, k,
+                                folds, _ext.current_stream(x.device))
+    _ext.check(code, name)
+    knn_indices_fold.launches += 1
+    return idx
+
+
+knn_indices_fold.launches = 0
 
 
 def neighbor_stats_plain(idx: torch.Tensor, btab: torch.Tensor
@@ -105,9 +183,9 @@ def knn_with_stats(x: torch.Tensor, btab: torch.Tensor, k: int
     """kNN indices + (in-degree counts, transposed b-scatter).
 
     Args:
-      x:    (B, N, C) features the graph is built on (C <= 64 on CUDA).
-      btab: (B, N, Cb) centre-term table to scatter (Cb <= 64 on CUDA).
-      k:    neighbours per point, self included (k <= 32 on CUDA).
+      x:    (B, N, C) features the graph is built on.
+      btab: (B, N, Cb) centre-term table to scatter.
+      k:    neighbours per point, self included (1 <= k <= N).
     Returns:
       (idx (B, N, k) int32, cnt (B, 1, N) f32, scb (B, N, Cb) f32).
     Both inputs should be detached: the statistics are inputs-only, their
@@ -126,10 +204,7 @@ def knn_with_stats(x: torch.Tensor, btab: torch.Tensor, k: int
     if btab.shape[:2] != (b, n):
         raise ValueError(f"{name}: x {tuple(x.shape)} and btab "
                          f"{tuple(btab.shape)} do not agree")
-    if c > 64 or cb > 64 or not 1 <= k <= min(n, 32):
-        raise ValueError(f"{name}: the kernel takes C, Cb <= 64 and "
-                         f"1 <= k <= min(N, 32); got C={c}, Cb={cb}, k={k}, "
-                         f"N={n}")
+    _check_k(name, k, n)
     idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
     cnt = torch.zeros((b, 1, n), device=x.device, dtype=torch.float32)
     scb = torch.zeros((b, n, cb), device=x.device, dtype=torch.float32)

@@ -2,7 +2,8 @@
 pipelines/basis.py; reference get_basis.py:112-222).
 
 One eval pass of the pre-trained DGCNN over every base-class block collects
-the EdgeConv 1-3 features per class (at most 300,000 points per class, a
+the EdgeConv features per class (every block's output, concatenated: the
+feature GWCAPL matches against the basis) (at most 300,000 points per class, a
 random subsample beyond that), then a global k-means (k-means++ seeding on
 the host, Lloyd on the device), the cluster means and an SVD reconstruction
 that keeps 0.95 of the singular-value energy. The basis is pickled under the

@@ -39,7 +39,8 @@ class ModelConfig:
 
     @property
     def edgeconv_out_dim(self) -> int:
-        """Concatenated EdgeConv1-3 output dim (geometric-word feature space)."""
+        """Concatenated EdgeConv output dim, every block (geometric-word
+        feature space)."""
         return sum(w[-1] for w in self.edgeconv_widths)
 
 

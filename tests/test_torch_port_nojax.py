@@ -25,7 +25,8 @@ for name in ("ops.knn", "ops.fused_edgeconv_train", "ops.attention_train",
              "models.dgcnnseg", "parallel.optim", "pipelines.pretrain",
              "cli.pretrain_cli", "utils.observability", "data.datasets",
              "data.native_loader", "data.synthetic", "ops.edgeconv",
-             "ops.kmeans", "ops.linalg", "pipelines.basis", "cli.basis_cli"):
+             "ops.kmeans", "ops.linalg", "pipelines.basis", "cli.basis_cli",
+             "ops.fused_edgeconv", "ops.attention_kernel", "ops._ext"):
     assert "gfs3dseg_gws_tpu_torch." + name in names, name
 import chip_smoke
 from gfs3dseg_gws_tpu_torch.cli import basis_cli, pretrain_cli, train_cli

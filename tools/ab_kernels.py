@@ -1,0 +1,161 @@
+"""Time the port's kernels at the model's shapes, for an A/B of two
+checkouts on one card.
+
+    cd <checkout> && PYTHONPATH=. python3 <this file> --out run.pt
+    python3 <this file> --compare a.pt b.pt [c.pt ...]
+
+The first form builds the checkout's kernels, runs K1, K2, K3, K4a, K4b,
+K5a, K5b, K6, K7 and K9 at (16, 2048, .), k = 20 (C = 64; K1, K3 and K6
+also C = 9) on inputs drawn from a fixed seed, prints one JSON line of
+CUDA-event times (ms) beside the card's name and power limit, and saves
+the outputs. `ms` is the median over single calls, each waited for, as
+chip_smoke.py times them (the host's time to launch counts where the card
+idles); `ms_queued` is the mean of 30 calls queued back to back (the
+card's time alone). The second form prints, for each output, whether the runs
+agree bit for bit, and on how many rows the kNN indices differ. Run the
+checkouts in turns (A, B, B, A) in one call: two calls may land on two
+cards.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+
+import torch
+
+B, N, K = 16, 2048, 20
+
+
+def cuda_ms(fn, reps: int = 30) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cuda_ms_queued(fn, reps: int = 30) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def run(out: str) -> None:
+    from gfs3dseg_gws_tpu_torch.ops import attention_train as atr
+    from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
+    from gfs3dseg_gws_tpu_torch.ops.attention_kernel import fused_attention
+    from gfs3dseg_gws_tpu_torch.ops.edgeconv import scatter_bwd
+    from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (
+        fused_edgeconv_infer, gather_conv)
+    from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices, knn_with_stats
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    x9, x64 = randn(B, N, 9), randn(B, N, 64)
+    a, b = randn(B, N, 64), randn(B, N, 64)
+    w2, bias2 = randn(64, 64, scale=0.125), randn(64, scale=0.1)
+    s1, t1 = randn(64, scale=0.2) + 1.0, randn(64, scale=0.2)
+    q, k, v, dy = (randn(B, N, 64) for _ in range(4))
+    seed = torch.tensor([77], dtype=torch.int32, device=dev)
+    idx = knn_indices(x64, K)
+    g = randn(B, N, K, 64)
+    zmax_args = fet._gsf(a, b, idx, s1, t1, w2, 0.2)
+    p1 = torch.stack([s1, t1, randn(64, scale=0.1), randn(64).abs() + 0.5,
+                      s1])
+    pk = torch.stack([randn(64).abs() + 0.5, randn(64, scale=0.01),
+                      randn(64, scale=0.01), randn(64, scale=0.1),
+                      randn(64).abs() + 0.5])
+    gsel = randn(B, N, 64)
+    attn_out, m, den = atr._fwd(q, k, v, seed, 8.0, 0.1)
+    delta = (dy * attn_out).sum(-1)
+
+    calls = {
+        "k1_c9": lambda: fused_edgeconv_infer(x9, a, b, w2, bias2, K),
+        "k1_c64": lambda: fused_edgeconv_infer(x64, a, b, w2, bias2, K),
+        "k2": lambda: fused_attention(q, k, v, 8.0),
+        "k3_c9": lambda: knn_with_stats(x9, b, K),
+        "k3_c64": lambda: knn_with_stats(x64, b, K),
+        "k4a": lambda: fet._gsf(a, b, idx, s1, t1, w2, 0.2),
+        "k4b": lambda: fet._bwd(a, b, idx, p1, w2, gsel, zmax_args[3], pk,
+                                0.2),
+        "k5a": lambda: atr._fwd(q, k, v, seed, 8.0, 0.1),
+        "k5b": lambda: atr._bwd(q, k, v, seed, m, den, delta, dy, 8.0, 0.1),
+        "k6_c9": lambda: knn_indices(x9, K),
+        "k6_c64": lambda: knn_indices(x64, K),
+        "k7": lambda: scatter_bwd(idx, g),
+        "k9": lambda: gather_conv(idx, a, b, w2, bias2),
+    }
+    outputs = {name: fn() for name, fn in calls.items()}
+    # K4a's per-point outputs (snbr, zmax, zmin, kmax, kmin); the form of its
+    # bn2 partials differs between versions
+    outputs["k4a"] = outputs["k4a"][:5]
+    torch.cuda.synchronize()
+    times = {name: cuda_ms(fn) for name, fn in calls.items()}
+    queued = {name: cuda_ms_queued(fn) for name, fn in calls.items()}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(json.dumps({"card": smi, "ms": times, "ms_queued": queued}),
+          flush=True)
+
+    def cpu(o):
+        return ([t.cpu() for t in o] if isinstance(o, tuple) else o.cpu())
+
+    torch.save({name: cpu(o) for name, o in outputs.items()}, out)
+
+
+def compare(paths) -> None:
+    runs = [torch.load(p) for p in paths]
+    report = {}
+    for name in runs[0]:
+        outs = [r[name] for r in runs]
+        first = outs[0] if isinstance(outs[0], list) else [outs[0]]
+        entry = {}
+        for other, path in zip(outs[1:], paths[1:]):
+            other = other if isinstance(other, list) else [other]
+            equal = all(torch.equal(x, y) for x, y in zip(first, other))
+            ints = [(x != y).reshape(-1, x.shape[-1]).any(-1).sum().item()
+                    for x, y in zip(first, other)
+                    if x.dtype == torch.int32 and x.dim() == 3]
+            entry[path] = {"bit_for_bit": equal,
+                           **({"index_rows_differing": ints} if ints else {})}
+        report[name] = entry
+    print(json.dumps(report), flush=True)
+
+
+def main() -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--out")
+    p.add_argument("--compare", nargs="+")
+    args = p.parse_args()
+    if args.compare:
+        compare(args.compare)
+    else:
+        run(args.out)
+
+
+if __name__ == "__main__":
+    main()
