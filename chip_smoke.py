@@ -5,7 +5,8 @@
 Builds the hand-written kernels from gfs3dseg_gws_tpu_torch/csrc, holds each
 against its plain PyTorch version on the card (at the model's widths; then
 every kernel past them - C = W = 128 with k = 40, k = 80, attention at
-D = 30 and 128 - and K8, the fold-merge kNN, bit for bit against K6), then
+D = 30, 128 and 192, the kNN at k = 80 on a key row of 30,000 points - and
+K8, the fold-merge kNN, bit for bit against K6), then
 drives the port's paths at the full width of the S3DIS model on synthetic
 S3DIS-layout data: GFS evaluation (`train_cli --only_evaluate`, random
 seeded weights), backbone pre-training (`pretrain_cli --phase pretrain`,
@@ -75,9 +76,11 @@ SEMSEG_WIDTHS = "[[64,64],[64,64],[64]]"
 CLASS_WIDTHS, CLASS_K = "[[64],[64],[128],[256]]", 40
 # the wide kernel checks: every kernel past the fast path's C, W <= 64 and
 # k <= 32 at the classification widths (C = W = 128, k = 40), at k > 64,
-# and the attention at D = 30 (zero-padded to 32) and D = 128 (tiled)
+# and the attention at D = 30 (zero-padded to 32), D = 128 (K2 and K5b's
+# widest single block) and D = 192 (past it: channels split over blocks)
 WIDE_C, WIDE_K, BIG_K, BIG_B = 128, CLASS_K, 80, 4
-WIDE_D = (30, 128)
+WIDE_D = (30, 128, 192)
+LONG_N = 30000                    # kNN at k = BIG_K past one shared key row
 WIDE_REPS = 5                     # timing repetitions past the fast path
 K8_FOLDS = (2, 4, 8)              # K8: folds held to K6 (2 and 4 timed)
 K7_TOL = 1e-5                     # K7, gather gradient: max |diff| / max |ref|
@@ -86,8 +89,9 @@ LLOYD_AGREE = 0.999               # ... per iteration: labels equal on this
                                   # share of points; centres: max |diff| /
 CENTRE_TOL = 1e-4                 # max |CPU| when all labels agree, else (a
 CENTRE_FLIP_TOL = 1e-2            # flipped point moves its two centres) this
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3
-PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, TF32 on them
+# (dense), HBM3
+PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES_PER_S = 67e12, 495e12, 3.35e12
 PROFILE_STEPS = 5                 # train steps under torch.profiler
 # kernel groups of the step's profile: the first group whose pattern is in a
 # kernel's name takes it
@@ -108,12 +112,16 @@ KERNEL_GROUPS = (
 )
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, tf32x3: bool = False):
     """(bound_ms, bound_by): the least time for `flops` fp32 operations (an
-    FMA is two) at the card's fp32 peak outside the tensor cores and for
-    `nbytes` (each input read once, each output written once) at its
-    memory rate; the larger of the two."""
-    t_ops, t_mem = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    FMA is two) at the card's fp32 peak outside the tensor cores, or with
+    `tf32x3` as three TF32 products each on the tensor cores (3xTF32, K2
+    and K5b: fp32-accurate, 3 x flops at the TF32 peak), and for `nbytes`
+    (each input read once, each output written once) at its memory rate;
+    the larger of the two."""
+    t_ops = (3.0 * flops / PEAK_TF32_FLOPS if tf32x3
+             else flops / PEAK_FP32_FLOPS)
+    t_mem = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem
                                      else "bytes")
 
@@ -209,12 +217,17 @@ def check_attention(dev, gen: torch.Generator, d: int = 64, reps: int = 20):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(lambda: sdpa(q, k, v), reps)
     max_err = (got - ref).abs().max().item()
-    bound_ms, bound_by = bound(2.0 * 2 * B * N * N * d, size_of(q, k, v, got))
+    # FMAs: S and P.V (2 B N^2 D); on the tensor cores in 3xTF32 up to
+    # D = 128, on the fp32 pipe past it
+    flops, nbytes = 2.0 * 2 * B * N * N * d, size_of(q, k, v, got)
+    bound_ms, bound_by = bound(flops, nbytes, tf32x3=d <= 128)
+    fp32_ms = bound(flops, nbytes)[0]
     phase(f"K2 fused_attention ({B},{N},{d})", max_abs_err=max_err,
           kernel_ms=ms, plain_ms=plain_ms, sdpa_fp32_ms=library_ms,
-          bound_ms=bound_ms)
+          bound_ms=bound_ms, bound_fp32_ms=fp32_ms)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                bound_fp32_ms=fp32_ms)
 
 
 def rel_err(got, ref) -> float:
@@ -626,24 +639,28 @@ def check_attention_train(dev, gen: torch.Generator, d: int = 64,
         sdpa_fwd_ms=cuda_ms(lambda: sdpa(q, k, v), reps),
         sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
             lib_out, leaves, dy, retain_graph=True), reps))
-    # FMAs: K5a S and A.V (2 B N^2 D); K5b S, dA, dv, dk, dq (5 B N^2 D)
+    # FMAs: K5a S and A.V (2 B N^2 D, fp32 pipe); K5b S, dA, dv, dk, dq
+    # (5 B N^2 D, 3xTF32 on the tensor cores up to D = 128)
     k5a_bound = bound(2.0 * 2 * B * N * N * d,
                       size_of(q, k, v, seed, out, m, den))
-    k5b_bound = bound(2.0 * 5 * B * N * N * d,
-                      size_of(q, k, v, seed, m, den, delta, dy, dq, dk, dv))
+    k5b_args = (2.0 * 5 * B * N * N * d,
+                size_of(q, k, v, seed, m, den, delta, dy, dq, dk, dv))
+    k5b_bound = bound(*k5b_args, tf32x3=d <= 128)
+    k5b_fp32 = bound(*k5b_args)[0]
     phase(f"K5 attention_train ({B},{N},{d}) rate={ATTN_RATE}",
           k5a_rel_err=errs[ATTN_RATE]["fwd"],
           k5b_rel_err=errs[ATTN_RATE]["bwd"],
           k5a_rel_err_rate0=errs[0.0]["fwd"],
           k5b_rel_err_rate0=errs[0.0]["bwd"], keep_share=share,
           keep_sigma=sigma, k5a_bound_ms=k5a_bound[0],
-          k5b_bound_ms=k5b_bound[0], **times)
+          k5b_bound_ms=k5b_bound[0], k5b_bound_fp32_ms=k5b_fp32, **times)
     return (dict(max_abs_err=errs[ATTN_RATE]["fwd_abs"], ms=times["k5a_ms"],
                  plain_ms=times["k5a_plain_ms"], bound_ms=k5a_bound[0],
                  bound_by=k5a_bound[1], library_ms=times["sdpa_fwd_ms"]),
             dict(max_abs_err=errs[ATTN_RATE]["bwd_abs"], ms=times["k5b_ms"],
                  plain_ms=times["k5b_plain_ms"], bound_ms=k5b_bound[0],
-                 bound_by=k5b_bound[1], library_ms=times["sdpa_bwd_ms"]))
+                 bound_by=k5b_bound[1], library_ms=times["sdpa_bwd_ms"],
+                 bound_fp32_ms=k5b_fp32))
 
 
 def check_knn_fold(dev, c: int, gen: torch.Generator):
@@ -716,9 +733,11 @@ def check_wide_kernels(dev, gen: torch.Generator):
     check_fused_train(dev, gen, b=BIG_B, c=72, w1=130, k=BIG_K,
                       reps=WIDE_REPS, composite_times=False)
     for d in WIDE_D:
-        wide["k2"] = check_attention(dev, gen, d, reps=WIDE_REPS)
-        wide["k5a"], wide["k5b"] = check_attention_train(dev, gen, d,
-                                                         reps=WIDE_REPS)
+        k2 = check_attention(dev, gen, d, reps=WIDE_REPS)
+        k5 = check_attention_train(dev, gen, d, reps=WIDE_REPS)
+        if d == 128:
+            wide["k2"], (wide["k5a"], wide["k5b"]) = k2, k5
+    check_long_rows(dev, gen)
     shapes = {"k1": f"({B},{N},{wc}->{wc}->{wc}) k={wk}",
               "k3": f"({B},{N},{wc}) cb={wc} k={wk}",
               "k6": f"({B},{N},{wc}) k={wk}",
@@ -726,13 +745,65 @@ def check_wide_kernels(dev, gen: torch.Generator):
               "k9": f"({B},{N},{wc}->{wc}) k={wk}",
               "k4a": f"({B},{N},{wc}->{wc}) k={wk}",
               "k4b": f"({B},{N},{wc}->{wc}) k={wk}",
-              "k2": f"({B},{N},{WIDE_D[-1]})",
-              "k5a": f"({B},{N},{WIDE_D[-1]}) rate={ATTN_RATE}",
-              "k5b": f"({B},{N},{WIDE_D[-1]}) rate={ATTN_RATE}"}
+              "k2": f"({B},{N},128)",
+              "k5a": f"({B},{N},128) rate={ATTN_RATE}",
+              "k5b": f"({B},{N},128) rate={ATTN_RATE}"}
     return {key: dict(shape=shapes[key], **{
         name: val for name, val in st.items()
-        if name in ("max_abs_err", "ms", "plain_ms", "bound_ms")})
+        if name in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_fp32_ms", "library_ms")})
         for key, st in wide.items()}
+
+
+def knn_plain_by_rows(x, k, rows=2048):
+    """knn_indices_plain's rule (the squared distances of pairwise_sq_dists,
+    nearest first, ties to the lower index) over chunks of query rows, so
+    that the (N, N) scores never exist whole."""
+    from gfs3dseg_gws_tpu_torch.ops.knn import pairwise_sq_dists
+
+    out = []
+    for i0 in range(0, x.shape[1], rows):
+        score = -pairwise_sq_dists(x[:, i0:i0 + rows], x)
+        order = torch.sort(score, dim=-1, descending=True, stable=True)
+        out.append(order.indices[..., :k].to(torch.int32))
+    return torch.cat(out, 1)
+
+
+def check_long_rows(dev, gen: torch.Generator, c: int = 9, cb: int = 64):
+    """K6, K3 and K8 (folds 4) at (1, LONG_N, c), k = BIG_K: a key row
+    longer than shared memory holds, so K8's selection merges chunks
+    through the wrapper's scratch. Each graph held to the plain rule over
+    chunks of rows (graph_agreement), K8 to K6 bit for bit, K3's cnt and
+    scb to the plain statistics of its own idx."""
+    from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices,
+                                                knn_indices_fold,
+                                                knn_with_stats,
+                                                neighbor_stats_plain)
+
+    x = torch.randn((1, LONG_N, c), generator=gen).to(dev)
+    btab = torch.randn((1, LONG_N, cb), generator=gen).to(dev)
+    k = BIG_K
+    ref = knn_plain_by_rows(x, k)
+    idx6 = knn_indices(x, k)
+    idx3, cnt, scb = knn_with_stats(x, btab, k)
+    idx8 = knn_indices_fold(x, k, 4)
+    torch.cuda.synchronize()
+    label = f"kNN (1,{LONG_N},{c}) k={k}"
+    if not (torch.equal(idx6, idx3) and torch.equal(idx6, idx8)):
+        raise AssertionError(f"{label}: K6, K3 and K8 differ")
+    share, order, bad = graph_agreement(x, idx6, ref, label, k)
+    ref_cnt, ref_scb = neighbor_stats_plain(idx3, btab)
+    if not torch.equal(cnt, ref_cnt):
+        raise AssertionError(f"{label}: K3's cnt differs from the plain count")
+    err = rel_err(scb, ref_scb)
+    if err > STATS_TOL:
+        raise AssertionError(f"{label}: K3's scb off by {err}")
+    phase(label, sets_agree=share, order_agree=order, near_tie_rows=len(bad),
+          scb_rel_err=err, max_abs_err=slot_dist_err(x, idx6, ref),
+          k6_ms=cuda_ms(lambda: knn_indices(x, k), WIDE_REPS),
+          k3_ms=cuda_ms(lambda: knn_with_stats(x, btab, k), WIDE_REPS),
+          k8_ms=cuda_ms(lambda: knn_indices_fold(x, k, 4), WIDE_REPS),
+          plain_ms=cuda_ms(lambda: knn_plain_by_rows(x, k), WIDE_REPS))
 
 
 def make_inputs(root: str):

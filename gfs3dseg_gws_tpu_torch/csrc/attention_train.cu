@@ -17,11 +17,10 @@
 // m and denominator den (B, N), as the TPU kernel does, so that the
 // backward recomputes the same P.
 //
-// K5b (`attn_train_bwd_kernel`) is FlashAttention-2's backward with one
-// block per (batch, 64 keys): K and V stay in shared memory, the block
-// walks every 64-query tile and keeps dk and dv for its keys in registers;
-// with Delta_i = dy_i . out_i (= rowsum(dP * P), dropout included) from the
-// caller,
+// K5b is FlashAttention-2's backward with one block per (batch, 64 keys):
+// K and V stay in shared memory, the block walks every query tile and keeps
+// dk and dv for its keys in registers; with Delta_i = dy_i . out_i
+// (= rowsum(dP * P), dropout included) from the caller,
 //   dA = dy v^T,  dP = keep * dA / (1 - rate),  dS = P * (dP - Delta),
 //   dv += A^T dy,  dk += dS^T q / t,  dq += dS k / t.
 // The TPU kernel carried dk and dv across a sequential grid axis; blocks on
@@ -30,6 +29,24 @@
 // last bits vary from run to run; dk and dv do not). Each block starts its
 // walk at another query tile, so that the blocks of one batch element do
 // not add into the same dq rows at the same time.
+//
+// K5b for D <= 128 (`attn_train_bwd_mma_kernel<DP, QT>`, DP = 32, 64 or 128
+// the zero-padded head): all of D in one block of 4 warps, so S and dA are
+// computed once per (key tile, query tile), and all five products on the
+// tensor cores in 3xTF32 (csrc/mma_tf32.cuh). Warp w owns keys 16w .. 16w +
+// 15: it computes S^T = k q^T and dA^T = v dy^T for them (M = 16 keys, N =
+// QT queries, K = D), forms P, A and dS on the accumulators in fp32, and
+// multiplies A^T and dS^T, still in registers, into its dv and dk (M = 16
+// keys, N = D, K = QT queries, with the k permutation of mma_tf32.cuh). dS^T
+// also goes to shared memory, from which the block's dq share (M = QT
+// queries, N = D, K = 64 keys) is multiplied and added with atomics. The
+// block's k and v are copied once; q, dy and their m, den and Delta move
+// per step, the next step's in flight with cp.async while the current one
+// is multiplied. QT = 32 queries a step up to D = 64 and 16 at D = 128, so
+// that two blocks fit on a SM (80 and 107 KB of shared memory; 168-212
+// registers a thread). Neither a third block (QT = 16 at D = 64: 1.3 waves
+// of 512 blocks) nor 8 warps a block (pairs splitting S and dA, at most 128
+// registers) ran faster (PERF.md).
 //
 // Dropout mask: the TPU kernel's in-core random bits cannot be reproduced.
 // Here keep_ij is a counter-based hash of (seed, batch, query i, key j),
@@ -40,26 +57,30 @@
 // (ops/attention_train.py, in int64 arithmetic) draw bit-identical masks.
 // At rate 0 (thr == 0) the hash is skipped.
 //
-// What bounds them: fp32 FMAs. At B=16, N=2048, D=64, K5a does 2 B N^2 D =
-// 8.6 G FMAs and K5b 5 B N^2 D = 21.5 G (S, dA, dv, dk, dq) over a few MB
-// of q, k, v, dy. Every product is register-tiled as in K2: a thread owns
-// 4 queries x 8 keys of a score tile and 4 rows x 8 channels of an output,
-// so one 16-byte shared-memory load feeds 4-8 FMAs. Ragged N is masked
-// here: keys past N get weight 0, queries past N are computed on zeros and
-// never stored.
+// What bounds them: the products. At B=16, N=2048, D=64, K5a does 2 B N^2
+// D = 8.6 G FMAs and K5b 5 B N^2 D = 21.5 G (S, dA, dv, dk, dq) over a few
+// MB of q, k, v, dy. K5a runs them on the fp32 pipe, register-tiled as K2
+// once was: a thread owns 4 queries x 8 keys of a score tile and 4 rows x 8
+// channels of an output, so one 16-byte shared-memory load feeds 4-8 FMAs.
+// K5b (D <= 128) runs them on the tensor cores in 3xTF32, three TF32
+// products each: its bound is 3 x 2 x FMAs / 495 TFLOP/s. Ragged N is
+// masked here: keys past N get weight 0, queries past N are computed on
+// zeros and never stored.
 //
-// Past D = 64 (the <true> instantiations), blockIdx.z takes 64 channels
-// c_out .. c_out + 63 of the outputs (out in K5a; dq, dk, dv in K5b), and
-// every product over D (the scores, dA) streams its operands through the
-// same tiles 64 channels at a time in channel order, with the accumulators
-// carried across the chunks: each z block computes the same scores, so the
-// softmax weights, the saved m and den (written by z = 0) and the mask are
+// Past D = 64 for K5a and past D = 128 for K5b (attn_train_fwd_kernel<true>,
+// attn_train_bwd_wide_kernel), blockIdx.z takes 64 channels c_out .. c_out +
+// 63 of the outputs (out in K5a; dq, dk, dv in K5b), and every product over
+// D (the scores, dA) streams its operands through the same tiles 64
+// channels at a time in channel order, with the accumulators carried across
+// the chunks: each z block computes the same scores, so the softmax
+// weights, the saved m and den (written by z = 0) and the mask are
 // identical across them. K5b then stages the c_out columns of q, dy and k
 // for its outputs. A D that is not a multiple of 4 is zero-padded by the
 // caller (ops/attention_train.py).
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -322,18 +343,20 @@ attn_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// two blocks per SM (107 KB of shared memory each)
-template <bool kWide>
+// past D = 128 (blockIdx.z splits the channels); two blocks per SM (107 KB
+// of shared memory each)
 __global__ void __launch_bounds__(kThreads, 2)
-attn_train_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const int* __restrict__ seed_ptr,
-                      const float* __restrict__ m_in,
-                      const float* __restrict__ den_in,
-                      const float* __restrict__ delta_in,
-                      const float* __restrict__ dy, float* __restrict__ dq,
-                      float* __restrict__ dk, float* __restrict__ dv, int n,
-                      int d, float inv_temp, uint32_t thr, float keep_scale) {
+attn_train_bwd_wide_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const int* __restrict__ seed_ptr,
+                           const float* __restrict__ m_in,
+                           const float* __restrict__ den_in,
+                           const float* __restrict__ delta_in,
+                           const float* __restrict__ dy,
+                           float* __restrict__ dq, float* __restrict__ dk,
+                           float* __restrict__ dv, int n, int d,
+                           float inv_temp, uint32_t thr, float keep_scale) {
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                  // [key][kPad], this block's keys
   float* v_s = k_s + kTile * kPad;    // [key][kPad]
@@ -353,12 +376,7 @@ attn_train_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int rg = tid / 8, cg = tid % 8;
   const size_t off = static_cast<size_t>(batch) * n * d;
   const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
-  const int c_out = kWide ? blockIdx.z * kMaxD : 0;
-
-  if constexpr (!kWide) {
-    stage_rows(k + off, k_s, kPad, k_base, n, d, 1.f);
-    stage_rows(v + off, v_s, kPad, k_base, n, d, 1.f);
-  }
+  const int c_out = blockIdx.z * kMaxD;
 
   float dk_acc[4][8], dv_acc[4][8];
 #pragma unroll
@@ -369,33 +387,26 @@ attn_train_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_tiles = (n + kTile - 1) / kTile;
   for (int step = 0; step < n_tiles; ++step) {
     const int q_base = ((blockIdx.x + step) % n_tiles) * kTile;
+    // S and dA over all of D, then the c_out columns of q, dy and k
     float s[4][8], da[4][8];
-    if constexpr (kWide) {
-      // S and dA over all of D, then the c_out columns of q, dy and k
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = da[i][j] = 0.f;
-      for (int c0 = 0; c0 < d; c0 += kMaxD) {
-        __syncthreads();  // every thread is done with the tiles
-        stage_cols(q + off, q_s, kPad, q_base, n, d, inv_temp, c0);
-        stage_cols(dy + off, dy_s, kPad, q_base, n, d, 1.f, c0);
-        stage_cols(k + off, k_s, kPad, k_base, n, d, 1.f, c0);
-        stage_cols(v + off, v_s, kPad, k_base, n, d, 1.f, c0);
-        __syncthreads();
-        tile_dot_acc(q_s, k_s, rg, cg, s);
-        tile_dot_acc(dy_s, v_s, rg, cg, da);
-      }
+      for (int j = 0; j < 8; ++j) s[i][j] = da[i][j] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kMaxD) {
+      __syncthreads();  // every thread is done with the tiles
+      stage_cols(q + off, q_s, kPad, q_base, n, d, inv_temp, c0);
+      stage_cols(dy + off, dy_s, kPad, q_base, n, d, 1.f, c0);
+      stage_cols(k + off, k_s, kPad, k_base, n, d, 1.f, c0);
+      stage_cols(v + off, v_s, kPad, k_base, n, d, 1.f, c0);
+      __syncthreads();
+      tile_dot_acc(q_s, k_s, rg, cg, s);
+      tile_dot_acc(dy_s, v_s, rg, cg, da);
     }
     __syncthreads();  // every thread is done with the previous tiles
-    if constexpr (!kWide) {
-      stage_rows(q + off, q_s, kPad, q_base, n, d, inv_temp);
-      stage_rows(dy + off, dy_s, kPad, q_base, n, d, 1.f);
-    } else {
-      stage_cols(q + off, q_s, kPad, q_base, n, d, inv_temp, c_out);
-      stage_cols(dy + off, dy_s, kPad, q_base, n, d, 1.f, c_out);
-      stage_cols(k + off, k_s, kPad, k_base, n, d, 1.f, c_out);
-    }
+    stage_cols(q + off, q_s, kPad, q_base, n, d, inv_temp, c_out);
+    stage_cols(dy + off, dy_s, kPad, q_base, n, d, 1.f, c_out);
+    stage_cols(k + off, k_s, kPad, k_base, n, d, 1.f, c_out);
     if (tid < kTile) {
       const int qi = q_base + tid;
       const size_t row = static_cast<size_t>(batch) * n + qi;
@@ -405,10 +416,6 @@ attn_train_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    if constexpr (!kWide) {
-      tile_dot(q_s, k_s, rg, cg, s);     // S  = (q / t) k^T
-      tile_dot(dy_s, v_s, rg, cg, da);   // dA = dy v^T
-    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = rg + 16 * i;
@@ -501,6 +508,258 @@ attn_train_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5b for D <= 128: one block per (batch, 64 keys), 3xTF32 on the tensor
+// cores (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdWarps = 4;                // 16 keys each
+constexpr int kBwdKeys = 16 * kBwdWarps;    // keys per block
+
+template <int DP, int QT>
+constexpr size_t bwd_mma_smem() {
+  return (static_cast<size_t>(2 * kBwdKeys + 4 * QT) * (DP + 4) +
+          kBwdKeys * (QT + 4) + 6 * QT) *
+         sizeof(float);
+}
+
+template <int DP, int QT>
+__global__ void __launch_bounds__(32 * kBwdWarps)
+attn_train_bwd_mma_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const int* __restrict__ seed_ptr,
+                          const float* __restrict__ m_in,
+                          const float* __restrict__ den_in,
+                          const float* __restrict__ delta_in,
+                          const float* __restrict__ dy, float* __restrict__ dq,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int n, int d, float inv_temp, uint32_t thr,
+                          float keep_scale) {
+  constexpr int kS = DP + 4;        // [row][channel] stride: 4 mod 32 banks
+  constexpr int kT = QT + 4;        // dS^T stride: rows 2t apart 8 mod 32
+  constexpr int kQt = QT / 8;       // query tiles of S^T and dA^T
+  constexpr int kDt = DP / 8;       // channel tiles
+  constexpr int kMt = QT / 16;      // query m-tiles of dq
+  constexpr int kDqWarps = kBwdWarps / kMt;  // warps per dq m-tile
+  constexpr int kDqT = kDt / kDqWarps;       // their channel tiles each
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;                       // [64 keys][kS]
+  float* v_s = k_s + kBwdKeys * kS;        // [64 keys][kS]
+  float* qd_s = v_s + kBwdKeys * kS;       // 2 x (q, dy [QT queries][kS])
+  float* ds_t = qd_s + 4 * QT * kS;        // [64 keys][kT]: dS^T
+  float* row_s = ds_t + kBwdKeys * kT;     // 2 x (m, den, Delta [QT])
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int batch = blockIdx.y;
+  const int k_base = blockIdx.x * kBwdKeys;
+  const size_t off = static_cast<size_t>(batch) * n * d;
+  const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
+  const int q_tiles = (n + QT - 1) / QT;
+  // each block starts its walk elsewhere, so that the blocks of one batch
+  // element do not add into the same dq rows at the same time
+  const int first = blockIdx.x * (kBwdKeys / QT);
+
+  // the q and dy rows of one step, and their m, den and Delta, in flight
+  auto stage_step = [&](int step, int buf) {
+    const int q_base = ((first + step) % q_tiles) * QT;
+    float* qs = qd_s + buf * 2 * QT * kS;
+    gfs::stage_async<DP>(q + off, qs, QT, kS, q_base, n, d);
+    gfs::stage_async<DP>(dy + off, qs + QT * kS, QT, kS, q_base, n, d);
+    float* rs = row_s + buf * 3 * QT;
+    for (int e = threadIdx.x; e < 3 * QT; e += blockDim.x) {
+      const int qi = q_base + e % QT;
+      const float* src = e < QT ? m_in : e < 2 * QT ? den_in : delta_in;
+      const bool valid = qi < n;
+      gfs::cp_async4(rs + e,
+                     valid ? src + static_cast<size_t>(batch) * n + qi : src,
+                     valid);
+    }
+  };
+
+  gfs::stage_async<DP>(k + off, k_s, kBwdKeys, kS, k_base, n, d);
+  gfs::stage_async<DP>(v + off, v_s, kBwdKeys, kS, k_base, n, d);
+  stage_step(0, 0);
+  gfs::cp_async_commit();
+
+  // this warp's keys: rows g and g + 8 of the 16 at key0
+  const int key0 = k_base + 16 * warp + g;
+  const float* ka = k_s + (16 * warp + g) * kS;
+  const float* va = v_s + (16 * warp + g) * kS;
+  float dk_acc[kDt][4], dv_acc[kDt][4];
+#pragma unroll
+  for (int j = 0; j < kDt; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  // dq: m-tile mt of the step's queries, channel tiles ct0 .. ct0 + kDqT - 1
+  const int mt = warp / kDqWarps, ct0 = (warp % kDqWarps) * kDqT;
+
+  for (int step = 0; step < q_tiles; ++step) {
+    const int buf = step & 1;
+    const int q_base = ((first + step) % q_tiles) * QT;
+    if (step + 1 < q_tiles) {
+      stage_step(step + 1, buf ^ 1);
+      gfs::cp_async_commit();
+      gfs::cp_async_wait<1>();
+    } else {
+      gfs::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* qs = qd_s + buf * 2 * QT * kS;
+    const float* ys = qs + QT * kS;
+    const float* rs = row_s + buf * 3 * QT;
+
+    // S^T = k q^T and dA^T = v dy^T over all of D: 16 keys x QT queries
+    float st[kQt][4], dat[kQt][4];
+#pragma unroll
+    for (int j = 0; j < kQt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dat[j][e] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < DP; c += 8) {
+      gfs::FragA ak, av;
+      gfs::set_a(ak, ka[c + t], ka[8 * kS + c + t], ka[c + t + 4],
+                 ka[8 * kS + c + t + 4]);
+      gfs::set_a(av, va[c + t], va[8 * kS + c + t], va[c + t + 4],
+                 va[8 * kS + c + t + 4]);
+#pragma unroll
+      for (int j = 0; j < kQt; ++j) {
+        const float* qr = qs + (8 * j + g) * kS + c;
+        const float* yr = ys + (8 * j + g) * kS + c;
+        gfs::FragB bq, by;
+        gfs::set_b(bq, qr[t], qr[t + 4]);
+        gfs::set_b(by, yr[t], yr[t + 4]);
+        gfs::mma_3xtf32(st[j], ak, bq);
+        gfs::mma_3xtf32(dat[j], av, by);
+      }
+    }
+
+    // P from the saved m and den, the mask, A and dS, on the accumulators:
+    // element 2h + e of tile j is key key0 + 8h, query column 8j + 2t + e
+#pragma unroll
+    for (int j = 0; j < kQt; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e, qi = q_base + col;
+        const float mi = rs[col], dli = rs[2 * QT + col];
+        const float idn = qi < n ? 1.f / rs[QT + col] : 0.f;
+        const uint32_t rkey = row_key(seed, batch, qi);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int key = key0 + 8 * h;
+          float& sv = st[j][2 * h + e];
+          float& dav = dat[j][2 * h + e];
+          const float p = key < n ? expf(sv * inv_temp - mi) * idn : 0.f;
+          const bool keep = thr == 0 || kept(rkey, key, thr);
+          const float dp = keep ? dav * keep_scale : 0.f;
+          sv = keep ? p * keep_scale : 0.f;       // A
+          dav = p * (dp - dli);                   // dS
+        }
+      }
+    // dS^T to shared memory, for dq
+#pragma unroll
+    for (int j = 0; j < kQt; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(ds_t + (16 * warp + g + 8 * h) * kT +
+                                   8 * j + 2 * t) =
+            make_float2(dat[j][2 * h], dat[j][2 * h + 1]);
+
+    // dv += A^T dy and dk += dS^T q over the step's queries (k permuted:
+    // A^T and dS^T are the accumulators above; dy and q read at rows 2t,
+    // 2t + 1)
+#pragma unroll
+    for (int kk = 0; kk < kQt; ++kk) {
+      gfs::FragA aa, as;
+      gfs::set_a(aa, st[kk][0], st[kk][2], st[kk][1], st[kk][3]);
+      gfs::set_a(as, dat[kk][0], dat[kk][2], dat[kk][1], dat[kk][3]);
+      const float* yr = ys + (8 * kk + 2 * t) * kS + g;
+      const float* qr = qs + (8 * kk + 2 * t) * kS + g;
+#pragma unroll
+      for (int j = 0; j < kDt; ++j) {
+        gfs::FragB by, bq;
+        gfs::set_b(by, yr[8 * j], yr[kS + 8 * j]);
+        gfs::set_b(bq, qr[8 * j], qr[kS + 8 * j]);
+        gfs::mma_3xtf32(dv_acc[j], aa, by);
+        gfs::mma_3xtf32(dk_acc[j], as, bq);
+      }
+    }
+    __syncthreads();  // dS^T is complete
+
+    // this block's share of dq = dS k / t over its 64 keys (k permuted: dS
+    // read from dS^T and k at key rows 2t, 2t + 1), added with float2
+    // atomics (a lane's two adjacent channels)
+    float gq[kDqT][4];
+#pragma unroll
+    for (int j = 0; j < kDqT; ++j)
+      gq[j][0] = gq[j][1] = gq[j][2] = gq[j][3] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < kBwdKeys / 8; ++kk) {
+      const float* dr = ds_t + (8 * kk + 2 * t) * kT + 16 * mt + g;
+      gfs::FragA a;
+      gfs::set_a(a, dr[0], dr[8], dr[kT], dr[kT + 8]);
+      const float* kr = k_s + (8 * kk + 2 * t) * kS + g;
+#pragma unroll
+      for (int j = 0; j < kDqT; ++j) {
+        gfs::FragB b;
+        gfs::set_b(b, kr[8 * (ct0 + j)], kr[kS + 8 * (ct0 + j)]);
+        gfs::mma_3xtf32(gq[j], a, b);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q_base + 16 * mt + g + 8 * h;
+      if (qi >= n) continue;
+      float* row = dq + off + static_cast<size_t>(qi) * d;
+#pragma unroll
+      for (int j = 0; j < kDqT; ++j) {
+        const int c = 8 * (ct0 + j) + 2 * t;
+        if (c < d)  // one 8-byte red.global.add.v2.f32
+          atomicAdd(reinterpret_cast<float2*>(row + c),
+                    make_float2(gq[j][2 * h] * inv_temp,
+                                gq[j][2 * h + 1] * inv_temp));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    if (key >= n) continue;
+    const size_t row = off + static_cast<size_t>(key) * d;
+#pragma unroll
+    for (int j = 0; j < kDt; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (c >= d) continue;
+      *reinterpret_cast<float2*>(dk + row + c) =
+          make_float2(dk_acc[j][2 * h] * inv_temp,
+                      dk_acc[j][2 * h + 1] * inv_temp);
+      *reinterpret_cast<float2*>(dv + row + c) =
+          make_float2(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
+    }
+  }
+}
+
+template <int DP, int QT>
+cudaError_t launch_bwd_mma(const float* q, const float* k, const float* v,
+                           const int* seed, const float* m, const float* den,
+                           const float* delta, const float* dy, float* dq,
+                           float* dk, float* dv, int batch, int n, int d,
+                           float inv_temp, uint32_t thr, float keep_scale,
+                           cudaStream_t stream) {
+  constexpr size_t smem = bwd_mma_smem<DP, QT>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_train_bwd_mma_kernel<DP, QT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kBwdKeys - 1) / kBwdKeys, batch);
+  attn_train_bwd_mma_kernel<DP, QT><<<grid, 32 * kBwdWarps, smem, stream>>>(
+      q, k, v, seed, m, den, delta, dy, dq, dk, dv, n, d, inv_temp, thr,
+      keep_scale);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int batch, int n, int d, int thr) {
   return batch < 1 || batch > 65535 || n < 1 || d < 4 || d % 4 || thr < 0 ||
          thr > (1 << 24);
@@ -552,20 +811,37 @@ GFS_EXPORT int gfs_attention_train_bwd(const void* q, const void* k,
                                        float keep_scale, void* stream) {
   if (bad_shape(batch, n, d, thr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kern = d > kMaxD ? attn_train_bwd_kernel<true>
-                              : attn_train_bwd_kernel<false>;
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  const auto* sd = static_cast<const int*>(seed);
+  const auto* mf = static_cast<const float*>(m);
+  const auto* df = static_cast<const float*>(den);
+  const auto* lf = static_cast<const float*>(delta);
+  const auto* yf = static_cast<const float*>(dy);
+  auto* dqf = static_cast<float*>(dq);
+  auto* dkf = static_cast<float*>(dk);
+  auto* dvf = static_cast<float*>(dv);
+  const auto th = static_cast<uint32_t>(thr);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (d <= 32)
+    return launch_bwd_mma<32, 32>(qf, kf, vf, sd, mf, df, lf, yf, dqf, dkf,
+                                  dvf, batch, n, d, inv_temp, th, keep_scale,
+                                  s);
+  if (d <= 64)
+    return launch_bwd_mma<64, 32>(qf, kf, vf, sd, mf, df, lf, yf, dqf, dkf,
+                                  dvf, batch, n, d, inv_temp, th, keep_scale,
+                                  s);
+  if (d <= 128)
+    return launch_bwd_mma<128, 16>(qf, kf, vf, sd, mf, df, lf, yf, dqf, dkf,
+                                   dvf, batch, n, d, inv_temp, th,
+                                   keep_scale, s);
   const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_train_bwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBwd));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<grid_of(n, batch, d), kThreads, kSmemBwd,
-         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(seed),
-      static_cast<const float*>(m), static_cast<const float*>(den),
-      static_cast<const float*>(delta), static_cast<const float*>(dy),
-      static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), n, d, inv_temp, static_cast<uint32_t>(thr),
+  attn_train_bwd_wide_kernel<<<grid_of(n, batch, d), kThreads, kSmemBwd, s>>>(
+      qf, kf, vf, sd, mf, df, lf, yf, dqf, dkf, dvf, n, d, inv_temp, th,
       keep_scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,9 +25,16 @@ __device__ __forceinline__ float sq_dist(float qq, float kk, float dot) {
 
 // K8's fold-merge selection (csrc/knn_fold.cu) on x (B, N, C): idx (B, N, k)
 // nearest first; with btab, also K3's neighbour statistics into the zeroed
-// cnt (B, N) and scb (B, N, cb). folds is 2, 4 or 8.
+// cnt (B, N) and scb (B, N, cb). folds is 2, 4 or 8. scratch holds
+// knn_fold_scratch_bytes bytes (may be null when that is 0).
 cudaError_t launch_knn_fold(const float* x, int* idx, int batch, int n, int c,
                             int k, int folds, const float* btab, float* cnt,
-                            float* scb, int cb, cudaStream_t s);
+                            float* scb, int cb, void* scratch,
+                            cudaStream_t s);
+
+// the scratch launch_knn_fold needs at this shape on the current device: 0
+// when one query's key row fits in shared memory
+cudaError_t knn_fold_scratch_bytes(int batch, int n, int c, int k, int folds,
+                                   long long* bytes);
 
 }  // namespace gfs

@@ -70,8 +70,9 @@
 //   same order, so a distance is the one a single pass would give;
 // * 32 < k <= 64: knn_kernel<CP, 64, ...>, the same chain over 64 slots;
 // * k > 64: K8's fold-merge selection (csrc/knn_fold.cu, four folds), which
-//   holds each query's whole key row in shared memory (N up to ~27,000);
-//   for K3 it adds the statistics itself;
+//   holds each query's key row in shared memory, in chunks merged through
+//   the caller's scratch past N ~ 27,000; for K3 it adds the statistics
+//   itself;
 // * W0 or W1 > 64: edge_mlp_kernel<true> takes 64 output columns per block
 //   (grid z) and walks W0 in chunks of 64 through e_s and w2_s, carrying
 //   the GEMM accumulators across the chunks.
@@ -458,9 +459,9 @@ cudaError_t run_knn_c(const float* x, int* idx, int batch, int n, int c,
 // the kNN stage over (batch, n, c): idx (B, N, k), nearest first; with btab
 // also the neighbour statistics (K3). The variant follows c and k.
 cudaError_t launch_knn(const float* x, int* idx, int batch, int n, int c,
-                       int k, cudaStream_t s, const float* btab = nullptr,
-                       float* cnt = nullptr, float* scb = nullptr,
-                       int cb = 0) {
+                       int k, void* scratch, cudaStream_t s,
+                       const float* btab = nullptr, float* cnt = nullptr,
+                       float* scb = nullptr, int cb = 0) {
   const bool stats = btab != nullptr;
   if (k <= kMaxK)
     return stats ? run_knn_c<kMaxK, true>(x, idx, batch, n, c, k, btab, cnt,
@@ -473,7 +474,7 @@ cudaError_t launch_knn(const float* x, int* idx, int batch, int n, int c,
                  : run_knn_c<kWideK, false>(x, idx, batch, n, c, k, btab,
                                             cnt, scb, cb, s);
   return gfs::launch_knn_fold(x, idx, batch, n, c, k, kFolds, btab, cnt, scb,
-                              cb, s);
+                              cb, scratch, s);
 }
 
 // edge_mlp_kernel on given indices: out (B, N, w1)
@@ -505,13 +506,30 @@ bool bad_sizes(int batch, int n, int k) {
 
 }  // namespace
 
+// The bytes of scratch that K1, K3 and K6 (folds 0) or K8 (folds 2, 4, 8)
+// need at this shape on the current device, into *bytes: 0 unless the
+// kNN runs K8's selection in chunks (k > 64 and a key row too long for
+// shared memory). Returns a cudaError_t.
+GFS_EXPORT int gfs_knn_scratch_bytes(int batch, int n, int c, int k,
+                                     int folds, long long* bytes) {
+  *bytes = 0;
+  if (folds == 0) {
+    if (k <= kWideK) return static_cast<int>(cudaSuccess);
+    folds = kFolds;
+  }
+  return static_cast<int>(
+      gfs::knn_fold_scratch_bytes(batch, n, c, k, folds, bytes));
+}
+
 // K1. x (B, N, C), a_table and b_table (B, N, W0), w2 (W0, W1), bias2 (W1),
 // out (B, N, W1) fp32 and the scratch idx (B, N, k) int32: contiguous, on
-// one device. Returns a cudaError_t.
+// one device; scratch: gfs_knn_scratch_bytes(..., 0) bytes, or null when
+// that is 0 (likewise for K6 and K3 below). Returns a cudaError_t.
 GFS_EXPORT int gfs_fused_edgeconv_infer(const void* x, const void* a_table,
                                         const void* b_table, const void* w2,
                                         const void* bias2, void* idx,
-                                        void* out, int batch, int n, int c,
+                                        void* scratch, void* out, int batch,
+                                        int n, int c,
                                         int w0, int w1, int k,
                                         float neg_slope, void* stream) {
   if (bad_sizes(batch, n, k) || c < 1 || w0 < 1 || w1 < 1)
@@ -519,7 +537,8 @@ GFS_EXPORT int gfs_fused_edgeconv_infer(const void* x, const void* a_table,
   const auto s = static_cast<cudaStream_t>(stream);
   auto* ix = static_cast<int*>(idx);
   cudaError_t err =
-      launch_knn(static_cast<const float*>(x), ix, batch, n, c, k, s);
+      launch_knn(static_cast<const float*>(x), ix, batch, n, c, k, scratch,
+                 s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_edge_mlp(
       ix, static_cast<const float*>(a_table),
@@ -530,12 +549,13 @@ GFS_EXPORT int gfs_fused_edgeconv_infer(const void* x, const void* a_table,
 
 // K6: K1's first stage alone. x (B, N, C) fp32, idx (B, N, k) int32:
 // contiguous, on one device. Returns a cudaError_t.
-GFS_EXPORT int gfs_knn_indices(const void* x, void* idx, int batch, int n,
-                               int c, int k, void* stream) {
+GFS_EXPORT int gfs_knn_indices(const void* x, void* idx, void* scratch,
+                               int batch, int n, int c, int k, void* stream) {
   if (bad_sizes(batch, n, k) || c < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_knn(static_cast<const float*>(x),
                                      static_cast<int*>(idx), batch, n, c, k,
+                                     scratch,
                                      static_cast<cudaStream_t>(stream)));
 }
 
@@ -561,12 +581,14 @@ GFS_EXPORT int gfs_gather_conv(const void* idx, const void* a_table,
 // and scb (B, N, Cb) fp32 zeroed by the caller: contiguous, on one device.
 // Returns a cudaError_t.
 GFS_EXPORT int gfs_knn_with_stats(const void* x, const void* btab, void* idx,
-                                  void* cnt, void* scb, int batch, int n,
-                                  int c, int cb, int k, void* stream) {
+                                  void* cnt, void* scb, void* scratch,
+                                  int batch, int n, int c, int cb, int k,
+                                  void* stream) {
   if (bad_sizes(batch, n, k) || c < 1 || cb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_knn(
       static_cast<const float*>(x), static_cast<int*>(idx), batch, n, c, k,
-      static_cast<cudaStream_t>(stream), static_cast<const float*>(btab),
-      static_cast<float*>(cnt), static_cast<float*>(scb), cb));
+      scratch, static_cast<cudaStream_t>(stream),
+      static_cast<const float*>(btab), static_cast<float*>(cnt),
+      static_cast<float*>(scb), cb));
 }

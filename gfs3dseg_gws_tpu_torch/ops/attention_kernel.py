@@ -7,9 +7,10 @@ memory). `attention_plain` is the same function in plain PyTorch
 (counterpart of `_attention_xla`); the wrapper takes it for a tensor on the
 CPU, and the tests and chip_smoke.py hold the kernel against it.
 
-The kernel takes any head width D: past 64 it tiles the output channels
-over a grid axis (csrc/attention.cu), and a D that is not a multiple of 4
-is zero-padded here (`pad_head`), which is exact: the padded q and k
+The kernel takes any head width D: up to 128 one block covers all of D on
+the tensor cores (3xTF32), past it the output channels are tiled over a
+grid axis (csrc/attention.cu); a D that is not a multiple of 4 is
+zero-padded here (`pad_head`), which is exact: the padded q and k
 columns add 0 to every score, the padded v columns are sliced off, and the
 temperature is the caller's.
 """

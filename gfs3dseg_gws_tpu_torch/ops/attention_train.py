@@ -19,10 +19,11 @@ kernel's stream (its in-core random bits cannot be reproduced), nor
 flax's; the tests compare with JAX at rate 0 and check the mask's
 statistics at rate > 0.
 
-The kernels take any head width D (csrc/attention_train.cu tiles it past
-64); a D that is not a multiple of 4 is zero-padded by the stage wrappers
-(`pad_head`, exact: the padded columns add 0 to every score and are sliced
-off the outputs; the temperature is the caller's).
+The kernels take any head width D (csrc/attention_train.cu: K5a tiles it
+past 64; K5b covers D <= 128 in one block on the tensor cores, in 3xTF32,
+and tiles it past that); a D that is not a multiple of 4 is zero-padded by
+the stage wrappers (`pad_head`, exact: the padded columns add 0 to every
+score and are sliced off the outputs; the temperature is the caller's).
 
 Each device stage has a plain twin (`_fwd_plain`, `_bwd_plain`) that the
 stage wrapper takes for a CPU tensor, so on the CPU the Function runs on the

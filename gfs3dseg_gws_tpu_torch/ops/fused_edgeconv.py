@@ -83,12 +83,14 @@ def fused_edgeconv_infer(x: torch.Tensor, a_table: torch.Tensor,
     _check_k(name, k, n)
     out = torch.empty((b, n, w1), device=x.device, dtype=torch.float32)
     idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
+    scratch = _ext.knn_scratch(name, x, k)
     lib = _ext.library()
     with torch.cuda.device(x.device):
         code = lib.gfs_fused_edgeconv_infer(
             x.data_ptr(), a_table.data_ptr(), b_table.data_ptr(),
-            w2.data_ptr(), bias2.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            b, n, c, w0, w1, k, neg_slope, _ext.current_stream(x.device))
+            w2.data_ptr(), bias2.data_ptr(), idx.data_ptr(),
+            _ext.ptr(scratch), out.data_ptr(), b, n, c, w0, w1, k, neg_slope,
+            _ext.current_stream(x.device))
     _ext.check(code, name)
     fused_edgeconv_infer.launches += 1
     return out

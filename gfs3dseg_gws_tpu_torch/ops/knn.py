@@ -19,10 +19,11 @@ statistics before any gather. It replaces the JAX package's TPU kernel
 ops/knn.py::knn_with_stats (`_knn_stats_kernel`) with the CUDA kernel
 `knn_kernel<CP, KMAX, true>` in csrc/fused_edgeconv.cu.
 
-Both take any C and any 1 <= k <= N on the card, by variant: the channels
-in registers for C <= 64 and streamed in chunks past it; the register
-insertion chain for k <= 32 and k <= 64; K8's fold-merge selection for
-k > 64 (N up to ~27,000, the key row of a query in shared memory).
+Both take any C, any N and any 1 <= k <= N on the card, by variant: the
+channels in registers for C <= 64 and streamed in chunks past it; the
+register insertion chain for k <= 32 and k <= 64; K8's fold-merge selection
+for k > 64 (a query's key row in shared memory; past N ~ 27,000 in chunks
+whose k best are merged through a scratch the wrapper allocates).
 
 `knn_indices_fold` (K8) computes what K6 computes by the fold-merge
 tournament of the JAX package's TPU kernel ops/knn.py::_knn_pallas_fold
@@ -50,9 +51,12 @@ def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def knn_indices_plain(x: torch.Tensor, k: int) -> torch.Tensor:
     """Plain twin of K6: x (B, N, C) -> neighbour indices (B, N, k) int32,
-    nearest first (JAX: _knn_xla)."""
+    nearest first, ties to the lower index (JAX: _knn_xla, whose lax.top_k
+    breaks ties so; torch.topk's tie order is neither, hence a stable
+    sort)."""
     score = -pairwise_sq_dists(x, x)
-    return torch.topk(score, k, dim=-1).indices.to(torch.int32)
+    order = torch.sort(score, dim=-1, descending=True, stable=True).indices
+    return order[..., :k].to(torch.int32)
 
 
 def knn_indices(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -61,8 +65,8 @@ def knn_indices(x: torch.Tensor, k: int) -> torch.Tensor:
 
     A CPU tensor goes to `knn_indices_plain`; a CUDA tensor to K6 (any C,
     1 <= k <= N; k > N raises, as in JAX). Ties at equal distance go to the
-    lower index, as in K1. x should be detached: the graph carries no
-    gradient.
+    lower index, on the card as in the twin and in JAX. x should be
+    detached: the graph carries no gradient.
     """
     if x.device.type == "cpu":
         return knn_indices_plain(x, k)
@@ -71,9 +75,11 @@ def knn_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     b, n, c = x.shape
     _check_k(name, k, n)
     idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
+    scratch = _ext.knn_scratch(name, x, k)
     lib = _ext.library()
     with torch.cuda.device(x.device):
-        code = lib.gfs_knn_indices(x.data_ptr(), idx.data_ptr(), b, n, c, k,
+        code = lib.gfs_knn_indices(x.data_ptr(), idx.data_ptr(),
+                                   _ext.ptr(scratch), b, n, c, k,
                                    _ext.current_stream(x.device))
     _ext.check(code, name)
     knn_indices.launches += 1
@@ -127,8 +133,8 @@ def knn_indices_fold(x: torch.Tensor, k: int, folds: int = 4) -> torch.Tensor:
     (B, N, C) -> (B, N, k) int32, nearest first, folds 2, 4 or 8.
 
     A CPU tensor goes to `knn_indices_fold_plain`; a CUDA tensor to the
-    kernel at any N (ragged N needs no gate), any C and 1 <= k <= N (N up
-    to ~27,000: a query's key row sits in shared memory). Its distances are
+    kernel at any N (ragged N needs no gate; past ~27,000 the key row is
+    streamed in chunks), any C and 1 <= k <= N. Its distances are
     K6's own, so on the card its indices equal `knn_indices`' bit for bit.
     """
     if x.device.type == "cpu":
@@ -140,10 +146,12 @@ def knn_indices_fold(x: torch.Tensor, k: int, folds: int = 4) -> torch.Tensor:
     if folds not in (2, 4, 8):
         raise ValueError(f"{name}: folds must be 2, 4 or 8, got {folds}")
     idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
+    scratch = _ext.knn_scratch(name, x, k, folds)
     lib = _ext.library()
     with torch.cuda.device(x.device):
-        code = lib.gfs_knn_fold(x.data_ptr(), idx.data_ptr(), b, n, c, k,
-                                folds, _ext.current_stream(x.device))
+        code = lib.gfs_knn_fold(x.data_ptr(), idx.data_ptr(),
+                                _ext.ptr(scratch), b, n, c, k, folds,
+                                _ext.current_stream(x.device))
     _ext.check(code, name)
     knn_indices_fold.launches += 1
     return idx
@@ -208,11 +216,13 @@ def knn_with_stats(x: torch.Tensor, btab: torch.Tensor, k: int
     idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
     cnt = torch.zeros((b, 1, n), device=x.device, dtype=torch.float32)
     scb = torch.zeros((b, n, cb), device=x.device, dtype=torch.float32)
+    scratch = _ext.knn_scratch(name, x, k)
     lib = _ext.library()
     with torch.cuda.device(x.device):
         code = lib.gfs_knn_with_stats(
             x.data_ptr(), btab.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
-            scb.data_ptr(), b, n, c, cb, k, _ext.current_stream(x.device))
+            scb.data_ptr(), _ext.ptr(scratch), b, n, c, cb, k,
+            _ext.current_stream(x.device))
     _ext.check(code, name)
     knn_with_stats.launches += 1
     return idx, cnt, scb

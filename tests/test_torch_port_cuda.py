@@ -31,7 +31,8 @@ from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices, knn_indices_fold,
                                             knn_indices_plain,
                                             knn_with_stats,
                                             knn_with_stats_plain,
-                                            neighbor_stats_plain)
+                                            neighbor_stats_plain,
+                                            pairwise_sq_dists)
 
 pytestmark = pytest.mark.cuda
 
@@ -97,7 +98,8 @@ def test_fused_edgeconv_kernel_matches_plain(dev, b, n, c, w0, w1, k):
 
 @pytest.mark.parametrize("b,n,d", [(2, 100, 16), (2, 2048, 64), (1, 33, 64),
                                    (3, 130, 44), (2, 100, 30), (2, 300, 128),
-                                   (1, 70, 72)])
+                                   (1, 70, 72), (16, 2048, 128),
+                                   (2, 300, 192)])
 def test_fused_attention_kernel_matches_plain(dev, b, n, d):
     r = np.random.default_rng(n + d)
     q, k, v = (_randn(r, b, n, d).to(dev) for _ in range(3))
@@ -433,6 +435,43 @@ def test_knn_fold_kernel_equals_k6_and_its_twin(dev, b, n, c, k, folds):
     _assert_same_graph(x, idx, knn_indices_fold_plain(x, k, folds))
 
 
+def _knn_plain_by_rows(x, k, rows=2048):
+    """knn_indices_plain's rule (squared distances of pairwise_sq_dists,
+    nearest first, ties to the lower index) over chunks of query rows, so
+    that the (N, N) scores never exist whole."""
+    out = []
+    for i0 in range(0, x.shape[1], rows):
+        score = -pairwise_sq_dists(x[:, i0:i0 + rows], x)
+        order = torch.sort(score, dim=-1, descending=True, stable=True)
+        out.append(order.indices[..., :k].to(torch.int32))
+    return torch.cat(out, 1)
+
+
+@pytest.mark.parametrize("entry", ["k6", "k3", "k8"])
+def test_knn_past_one_shared_key_row(dev, entry):
+    """K6, K3 and K8 at (1, 30000, 9), k = 80: a key row longer than shared
+    memory holds (N ~ 27,000), so K8's selection merges chunks through the
+    scratch; held to the plain rule over chunks of rows, and K3's cnt/scb
+    to the plain statistics of its own idx."""
+    r = np.random.default_rng(30000)
+    x = _randn(r, 1, 30000, 9).to(dev)
+    k = 80
+    if entry == "k3":
+        btab = _randn(r, 1, 30000, 16).to(dev)
+        idx, cnt, scb = knn_with_stats(x, btab, k)
+        ref_cnt, ref_scb = neighbor_stats_plain(idx, btab)
+        assert torch.equal(cnt, ref_cnt)
+        assert (scb - ref_scb).abs().max() <= 1e-5 * ref_scb.abs().max()
+    elif entry == "k6":
+        idx = knn_indices(x, k)
+    else:
+        idx = knn_indices_fold(x, k, 4)
+        assert torch.equal(idx, knn_indices(x, k))
+    torch.cuda.synchronize()
+    assert idx.shape == (1, 30000, k)
+    _assert_same_graph(x, idx, _knn_plain_by_rows(x, k))
+
+
 def test_model_on_card_agrees_with_cpu(dev):
     """evaluate_multi at the model's widths: kernels on the card vs plain
     versions on the CPU, same weights and inputs."""
@@ -463,7 +502,8 @@ def _rel(got, ref):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("b,n,d", [(2, 128, 8), (16, 2048, 64), (1, 33, 64),
-                                   (2, 128, 30), (2, 300, 128), (1, 70, 72)])
+                                   (2, 128, 30), (2, 300, 128), (1, 70, 72),
+                                   (16, 2048, 128), (2, 300, 192)])
 def test_attention_train_kernels_match_plain(dev, b, n, d, rate):
     """K5a and K5b against their twins on the same inputs (the same mask,
     bit for bit: out, m, den within 1e-5; dq, dk, dv within 1e-4 of the

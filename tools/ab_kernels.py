@@ -6,7 +6,8 @@ checkouts on one card.
 
 The first form builds the checkout's kernels, runs K1, K2, K3, K4a, K4b,
 K5a, K5b, K6, K7 and K9 at (16, 2048, .), k = 20 (C = 64; K1, K3 and K6
-also C = 9) on inputs drawn from a fixed seed, prints one JSON line of
+also C = 9; K2, K5a and K5b also at D = 128, the `_d128` entries) on
+inputs drawn from a fixed seed, prints one JSON line of
 CUDA-event times (ms) beside the card's name and power limit, and saves
 the outputs. `ms` is the median over single calls, each waited for, as
 chip_smoke.py times them (the host's time to launch counts where the card
@@ -91,6 +92,10 @@ def run(out: str) -> None:
     gsel = randn(B, N, 64)
     attn_out, m, den = atr._fwd(q, k, v, seed, 8.0, 0.1)
     delta = (dy * attn_out).sum(-1)
+    q2, k2, v2, dy2 = (randn(B, N, 128) for _ in range(4))
+    out2, m2, den2 = atr._fwd(q2, k2, v2, seed, 128 ** 0.5, 0.1)
+    delta2 = (dy2 * out2).sum(-1)
+    t2 = 128 ** 0.5
 
     calls = {
         "k1_c9": lambda: fused_edgeconv_infer(x9, a, b, w2, bias2, K),
@@ -103,6 +108,10 @@ def run(out: str) -> None:
                                 0.2),
         "k5a": lambda: atr._fwd(q, k, v, seed, 8.0, 0.1),
         "k5b": lambda: atr._bwd(q, k, v, seed, m, den, delta, dy, 8.0, 0.1),
+        "k2_d128": lambda: fused_attention(q2, k2, v2, t2),
+        "k5a_d128": lambda: atr._fwd(q2, k2, v2, seed, t2, 0.1),
+        "k5b_d128": lambda: atr._bwd(q2, k2, v2, seed, m2, den2, delta2, dy2,
+                                     t2, 0.1),
         "k6_c9": lambda: knn_indices(x9, K),
         "k6_c64": lambda: knn_indices(x64, K),
         "k7": lambda: scatter_bwd(idx, g),
