@@ -115,8 +115,8 @@ KERNEL_GROUPS = (
 def bound(flops: float, nbytes: float, tf32x3: bool = False):
     """(bound_ms, bound_by): the least time for `flops` fp32 operations (an
     FMA is two) at the card's fp32 peak outside the tensor cores, or with
-    `tf32x3` as three TF32 products each on the tensor cores (3xTF32, K2
-    and K5b: fp32-accurate, 3 x flops at the TF32 peak), and for `nbytes`
+    `tf32x3` as three TF32 products each on the tensor cores (3xTF32, K2,
+    K5a and K5b: fp32-accurate, 3 x flops at the TF32 peak), and for `nbytes`
     (each input read once, each output written once) at its memory rate;
     the larger of the two."""
     t_ops = (3.0 * flops / PEAK_TF32_FLOPS if tf32x3
@@ -586,10 +586,12 @@ def check_attention_train(dev, gen: torch.Generator, d: int = 64,
     """K5a/K5b against their plain twins at (B, N, d), rates ATTN_RATE and
     0. The twins draw the kernels' dropout mask bit for bit, so out, m, den
     (K5a) and dq, dk, dv (K5b, on the twin's m, den and Delta) are held to
-    K5_FWD_TOL / K5_BWD_TOL of the twin's largest entry; the keep share must
-    lie within 5 sigma of 1 - rate. Times at ATTN_RATE, the main path's;
-    beside them, as a yardstick only, fp32 scaled_dot_product_attention
-    forward and backward at dropout 0 (the port never calls it)."""
+    K5_FWD_TOL / K5_BWD_TOL of the twin's largest entry, and so are dq, dk,
+    dv of the card's chain (K5b on K5a's m, den and out) against the twins'
+    chain; the keep share must lie within 5 sigma of 1 - rate. Times at
+    ATTN_RATE, the main path's; beside them, as a yardstick only, fp32
+    scaled_dot_product_attention forward and backward at dropout 0 (the
+    port never calls it)."""
     from gfs3dseg_gws_tpu_torch.ops import attention_train as atr
 
     q, k, v, dy = (torch.randn((B, N, d), generator=gen).to(dev)
@@ -603,17 +605,21 @@ def check_attention_train(dev, gen: torch.Generator, d: int = 64,
         delta = (dy * ref[0]).sum(-1)
         bwd_args = (q, k, v, seed, ref[1], ref[2], delta, dy, temp, rate)
         got_b, ref_b = atr._bwd(*bwd_args), atr._bwd_plain(*bwd_args)
+        chain = atr._bwd(q, k, v, seed, got[1], got[2],
+                         (dy * got[0]).sum(-1), dy, temp, rate)
         torch.cuda.synchronize()
         errs[rate] = dict(
             fwd=max(rel_err(g, r) for g, r in zip(got, ref)),
             bwd=max(rel_err(g, r) for g, r in zip(got_b, ref_b)),
+            chain=max(rel_err(g, r) for g, r in zip(chain, ref_b)),
             fwd_abs=(got[0] - ref[0]).abs().max().item(),
             bwd_abs=max((g - r).abs().max().item()
                         for g, r in zip(got_b, ref_b)))
-        if errs[rate]["fwd"] > K5_FWD_TOL or errs[rate]["bwd"] > K5_BWD_TOL:
+        if (errs[rate]["fwd"] > K5_FWD_TOL or errs[rate]["bwd"] > K5_BWD_TOL
+                or errs[rate]["chain"] > K5_BWD_TOL):
             raise AssertionError(f"K5 at rate {rate} off its twin: "
                                  f"{errs[rate]}")
-        del got, ref, got_b, ref_b
+        del got, ref, got_b, ref_b, chain
     keep = atr.dropout_keep_mask(seed, B, N, ATTN_RATE)
     share = keep.double().mean().item()
     sigma = math.sqrt(ATTN_RATE * (1.0 - ATTN_RATE) / keep.numel())
@@ -639,10 +645,12 @@ def check_attention_train(dev, gen: torch.Generator, d: int = 64,
         sdpa_fwd_ms=cuda_ms(lambda: sdpa(q, k, v), reps),
         sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
             lib_out, leaves, dy, retain_graph=True), reps))
-    # FMAs: K5a S and A.V (2 B N^2 D, fp32 pipe); K5b S, dA, dv, dk, dq
-    # (5 B N^2 D, 3xTF32 on the tensor cores up to D = 128)
-    k5a_bound = bound(2.0 * 2 * B * N * N * d,
-                      size_of(q, k, v, seed, out, m, den))
+    # FMAs: K5a S and A.V (2 B N^2 D); K5b S, dA, dv, dk, dq (5 B N^2 D);
+    # both 3xTF32 on the tensor cores up to D = 128, fp32 past it
+    k5a_args = (2.0 * 2 * B * N * N * d,
+                size_of(q, k, v, seed, out, m, den))
+    k5a_bound = bound(*k5a_args, tf32x3=d <= 128)
+    k5a_fp32 = bound(*k5a_args)[0]
     k5b_args = (2.0 * 5 * B * N * N * d,
                 size_of(q, k, v, seed, m, den, delta, dy, dq, dk, dv))
     k5b_bound = bound(*k5b_args, tf32x3=d <= 128)
@@ -650,13 +658,17 @@ def check_attention_train(dev, gen: torch.Generator, d: int = 64,
     phase(f"K5 attention_train ({B},{N},{d}) rate={ATTN_RATE}",
           k5a_rel_err=errs[ATTN_RATE]["fwd"],
           k5b_rel_err=errs[ATTN_RATE]["bwd"],
+          k5_chain_rel_err=errs[ATTN_RATE]["chain"],
           k5a_rel_err_rate0=errs[0.0]["fwd"],
-          k5b_rel_err_rate0=errs[0.0]["bwd"], keep_share=share,
+          k5b_rel_err_rate0=errs[0.0]["bwd"],
+          k5_chain_rel_err_rate0=errs[0.0]["chain"], keep_share=share,
           keep_sigma=sigma, k5a_bound_ms=k5a_bound[0],
-          k5b_bound_ms=k5b_bound[0], k5b_bound_fp32_ms=k5b_fp32, **times)
+          k5a_bound_fp32_ms=k5a_fp32, k5b_bound_ms=k5b_bound[0],
+          k5b_bound_fp32_ms=k5b_fp32, **times)
     return (dict(max_abs_err=errs[ATTN_RATE]["fwd_abs"], ms=times["k5a_ms"],
                  plain_ms=times["k5a_plain_ms"], bound_ms=k5a_bound[0],
-                 bound_by=k5a_bound[1], library_ms=times["sdpa_fwd_ms"]),
+                 bound_by=k5a_bound[1], library_ms=times["sdpa_fwd_ms"],
+                 bound_fp32_ms=k5a_fp32),
             dict(max_abs_err=errs[ATTN_RATE]["bwd_abs"], ms=times["k5b_ms"],
                  plain_ms=times["k5b_plain_ms"], bound_ms=k5b_bound[0],
                  bound_by=k5b_bound[1], library_ms=times["sdpa_bwd_ms"],
@@ -1698,34 +1710,40 @@ def main() -> int:
                                      for k, v in cls_launches.items()})
     kernels = [
         ("k1", "fused_edgeconv_infer", "fused_edgeconv.cu",
+         "knn_kernel<CP, KMAX, false> + edge_mlp_kernel<false>",
          "fused_edgeconv.py:94", "eval"),
-        ("k2", "fused_attention", "attention.cu", "attention_kernel.py:34",
-         "eval"),
-        ("k3", "knn_with_stats", "fused_edgeconv.cu", "knn.py:380", "train"),
+        ("k2", "fused_attention", "attention.cu",
+         "attention_mma_kernel<DP, KT>", "attention_kernel.py:34", "eval"),
+        ("k3", "knn_with_stats", "fused_edgeconv.cu",
+         "knn_kernel<CP, KMAX, true>", "knn.py:380", "train"),
         ("k4a", "fused_edgeconv_train_fwd", "fused_edgeconv_train.cu",
-         "fused_edgeconv_train.py:408", "train"),
+         "gsf_kernel", "fused_edgeconv_train.py:408", "train"),
         ("k4b", "fused_edgeconv_train_bwd", "fused_edgeconv_train.cu",
-         "fused_edgeconv_train.py:408", "train"),
+         "bwd_kernel", "fused_edgeconv_train.py:408", "train"),
         ("k5a", "attention_train_fwd", "attention_train.cu",
-         "attention_train.py:124", "train"),
+         "attn_train_fwd_mma_kernel<DP, KT>", "attention_train.py:124",
+         "train"),
         ("k5b", "attention_train_bwd", "attention_train.cu",
-         "attention_train.py:124", "train"),
-        ("k6", "knn_indices", "fused_edgeconv.cu", "knn.py:401", "semseg"),
-        ("k7", "gather_neighbors_bwd", "edgeconv.cu", "edgeconv.py:98",
-         "semseg"),
-        ("k8", "knn_indices_fold", "knn_fold.cu", "knn.py:193", "none"),
-        ("k9", "gather_conv", "fused_edgeconv.cu", "fused_edgeconv.py:222",
-         "none"),
+         "attn_train_bwd_mma_kernel<DP, QT>", "attention_train.py:124",
+         "train"),
+        ("k6", "knn_indices", "fused_edgeconv.cu",
+         "knn_kernel<CP, KMAX, false>", "knn.py:401", "semseg"),
+        ("k7", "gather_neighbors_bwd", "edgeconv.cu",
+         "edgeconv_scatter_kernel", "edgeconv.py:98", "semseg"),
+        ("k8", "knn_indices_fold", "knn_fold.cu",
+         "knn_fold_kernel<CP, F, kStats>", "knn.py:193", "none"),
+        ("k9", "gather_conv", "fused_edgeconv.cu", "edge_mlp_kernel<false>",
+         "fused_edgeconv.py:222", "none"),
     ]
     phase("phase seconds", **PHASE_SECONDS)
     phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"gfs3dseg_gws_tpu_torch/csrc/{src}",
+         "source": f"gfs3dseg_gws_tpu_torch/csrc/{src}", "kernel": cu,
          "replaces": f"gfs3dseg_gws_tpu/ops/{tpu}",
          "launches": runs[run][1][key], "launches_run": runs[run][0],
          **stats[key], **({"wide": wide[key]} if key in wide else {})}
-        for key, name, src, tpu, run in kernels]}), flush=True)
+        for key, name, src, cu, tpu, run in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

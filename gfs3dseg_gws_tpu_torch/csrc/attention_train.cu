@@ -9,13 +9,24 @@
 //   A   = keep * P / (1 - rate)          dropped weights are 0
 //   out = A v
 //
-// K5a (`attn_train_fwd_kernel`) is K2 (csrc/attention.cu) plus the mask:
-// one block per (batch, 64 queries), keys and values streamed through
-// shared memory 64 rows at a time, an online softmax in fp32 whose running
-// sum takes every weight while the P.V product takes the kept ones only, so
-// out = (sum_j keep_ij e_ij v_j) / (1 - rate) / den_i. It saves the row max
-// m and denominator den (B, N), as the TPU kernel does, so that the
-// backward recomputes the same P.
+// K5a for D <= 128 (`attn_train_fwd_mma_kernel<DP, KT>`) is K2's
+// attention_mma_kernel (csrc/attention.cu) plus the mask: one block of 8
+// warps per (batch, 128 queries), all of D at once (DP = 32, 64 or 128, the
+// zero-padded head), so every score is computed once. q is staged once; key
+// and value tiles of KT rows stream through two shared buffers with
+// cp.async; S = q k^T and P V run on the tensor cores in 3xTF32 (csrc/
+// mma_tf32.cuh). S is multiplied by 1 / t on its accumulators, as K5b does
+// to its S^T, so the saved row max m is the max of the products K5b
+// recomputes. The online softmax works on the accumulators (a query's row
+// lives in the 4 lanes of a quad): the running sum takes every weight, then
+// the dropped weights are set to 0 before they become P V's A fragments, so
+// out = (sum_j keep_ij e_ij v_j) / (1 - rate) / den_i. It saves m and den
+// (B, N), as the TPU kernel does, so that the backward recomputes the same
+// P. Unlike K2, each key tile's P V goes into fresh accumulators that are
+// added to the output in fp32, since one tensor-core chain over all N keys
+// misses K5a's tolerance (see the P V loop). KT = 64 up to D = 64 and 16
+// at D = 128, as K2 chose: two blocks a SM (55, 104 and 101 KB of shared
+// memory; 128, 128 and 126 registers, no spills; PERF.md).
 //
 // K5b is FlashAttention-2's backward with one block per (batch, 64 keys):
 // K and V stay in shared memory, the block walks every query tile and keeps
@@ -59,24 +70,22 @@
 //
 // What bounds them: the products. At B=16, N=2048, D=64, K5a does 2 B N^2
 // D = 8.6 G FMAs and K5b 5 B N^2 D = 21.5 G (S, dA, dv, dk, dq) over a few
-// MB of q, k, v, dy. K5a runs them on the fp32 pipe, register-tiled as K2
-// once was: a thread owns 4 queries x 8 keys of a score tile and 4 rows x 8
-// channels of an output, so one 16-byte shared-memory load feeds 4-8 FMAs.
-// K5b (D <= 128) runs them on the tensor cores in 3xTF32, three TF32
-// products each: its bound is 3 x 2 x FMAs / 495 TFLOP/s. Ragged N is
-// masked here: keys past N get weight 0, queries past N are computed on
-// zeros and never stored.
+// MB of q, k, v, dy. Up to D = 128 both run them on the tensor cores in
+// 3xTF32, three TF32 products each: their bound is 3 x 2 x FMAs / 495
+// TFLOP/s. Ragged N is masked here: keys past N get weight 0, queries past
+// N are computed on zeros and never stored.
 //
-// Past D = 64 for K5a and past D = 128 for K5b (attn_train_fwd_kernel<true>,
-// attn_train_bwd_wide_kernel), blockIdx.z takes 64 channels c_out .. c_out +
-// 63 of the outputs (out in K5a; dq, dk, dv in K5b), and every product over
-// D (the scores, dA) streams its operands through the same tiles 64
-// channels at a time in channel order, with the accumulators carried across
-// the chunks: each z block computes the same scores, so the softmax
-// weights, the saved m and den (written by z = 0) and the mask are
-// identical across them. K5b then stages the c_out columns of q, dy and k
-// for its outputs. A D that is not a multiple of 4 is zero-padded by the
-// caller (ops/attention_train.py).
+// Past D = 128 (attn_train_fwd_wide_kernel, attn_train_bwd_wide_kernel, on
+// the fp32 pipe, register-tiled: a thread owns 4 rows x 8 columns of a
+// tile, so one 16-byte shared-memory load feeds 4-8 FMAs), blockIdx.z takes
+// 64 channels c_out .. c_out + 63 of the outputs (out in K5a; dq, dk, dv in
+// K5b), and every product over D (the scores, dA) streams its operands
+// through the same tiles 64 channels at a time in channel order, with the
+// accumulators carried across the chunks: each z block computes the same
+// scores, so the softmax weights, the saved m and den (written by z = 0)
+// and the mask are identical across them. K5b then stages the c_out columns
+// of q, dy and k for its outputs. A D that is not a multiple of 4 is
+// zero-padded by the caller (ops/attention_train.py).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -115,26 +124,9 @@ __device__ __forceinline__ bool kept(uint32_t rkey, int col, uint32_t thr) {
   return (mix32(rkey + static_cast<uint32_t>(col) * kGolden) >> 8) >= thr;
 }
 
-// rows [base, base + 64) of a (n, d) matrix into a (64, stride) tile, as
-// float4s (d % 4 == 0), zeros past n and d
-__device__ __forceinline__ void stage_rows(const float* __restrict__ src,
-                                           float* dst, int stride, int base,
-                                           int n, int d, float scale) {
-  for (int e = threadIdx.x; e < kTile * (kMaxD / 4); e += kThreads) {
-    const int r = e / (kMaxD / 4), c = 4 * (e % (kMaxD / 4));
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (base + r < n && c < d) {
-      v = gfs::load4(src + static_cast<size_t>(base + r) * d + c);
-      v.x *= scale;
-      v.y *= scale;
-      v.z *= scale;
-      v.w *= scale;
-    }
-    *reinterpret_cast<float4*>(dst + r * stride + c) = v;
-  }
-}
-
-// stage_rows for columns [c0, c0 + 64) (the tiled kernels past kMaxD)
+// rows [base, base + 64) x columns [c0, c0 + 64) of a (n, d) matrix into
+// a (64, stride) tile, as float4s (d % 4 == 0), zeros past n and d (the
+// tiled kernels past D = 128)
 __device__ __forceinline__ void stage_cols(const float* __restrict__ src,
                                            float* dst, int stride, int base,
                                            int n, int d, float scale,
@@ -153,34 +145,8 @@ __device__ __forceinline__ void stage_cols(const float* __restrict__ src,
   }
 }
 
-// s[i][j] = a_s[rows ra + 16i] . b_s[rows rb + 8j] over kMaxD channels
-__device__ __forceinline__ void tile_dot(const float* a_s, const float* b_s,
-                                         int ra, int rb, float s[4][8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-  for (int c = 0; c < kMaxD; c += 4) {
-    float4 af[4], bf[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) af[i] = gfs::load4(a_s + (ra + 16 * i) * kPad + c);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) bf[j] = gfs::load4(b_s + (rb + 8 * j) * kPad + c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = fmaf(af[i].x, bf[j].x, s[i][j]);
-        s[i][j] = fmaf(af[i].y, bf[j].y, s[i][j]);
-        s[i][j] = fmaf(af[i].z, bf[j].z, s[i][j]);
-        s[i][j] = fmaf(af[i].w, bf[j].w, s[i][j]);
-      }
-  }
-}
-
-// tile_dot without the zeroing: one 64-channel chunk of a product over D
-// (the tiled kernels past kMaxD)
+// s[i][j] += a_s[rows ra + 16i] . b_s[rows rb + 8j] over one 64-channel
+// chunk of a product over D
 __device__ __forceinline__ void tile_dot_acc(const float* a_s,
                                              const float* b_s, int ra, int rb,
                                              float s[4][8]) {
@@ -203,15 +169,16 @@ __device__ __forceinline__ void tile_dot_acc(const float* a_s,
   }
 }
 
-// three blocks per SM (68.6 KB of shared memory each): at most 170 registers
-template <bool kWide>
+// K5a past D = 128 (blockIdx.z splits the channels); three blocks per SM
+// (68.6 KB of shared memory each): at most 170 registers
 __global__ void __launch_bounds__(kThreads, 3)
-attn_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const int* __restrict__ seed_ptr,
-                      float* __restrict__ out, float* __restrict__ m_out,
-                      float* __restrict__ den_out, int n, int d,
-                      float inv_temp, uint32_t thr, float keep_scale) {
+attn_train_fwd_wide_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const int* __restrict__ seed_ptr,
+                           float* __restrict__ out, float* __restrict__ m_out,
+                           float* __restrict__ den_out, int n, int d,
+                           float inv_temp, uint32_t thr, float keep_scale) {
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                  // [query][kPad], scaled by 1/temp
   float* k_s = q_s + kTile * kPad;    // [key][kPad]
@@ -225,9 +192,7 @@ attn_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qg = tid / 8, cg = tid % 8;   // 8 lanes per query group
   const size_t off = static_cast<size_t>(batch) * n * d;
   const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
-  const int c_out = kWide ? blockIdx.z * kMaxD : 0;
-
-  if constexpr (!kWide) stage_rows(q + off, q_s, kPad, q_base, n, d, inv_temp);
+  const int c_out = blockIdx.z * kMaxD;
 
   float o[4][8];
   float m[4], l[4];
@@ -244,27 +209,19 @@ attn_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int base = 0; base < n; base += kTile) {
     // scores of queries qg + 16i against keys base + cg + 8j
     float s[4][8];
-    if constexpr (!kWide) {
-      __syncthreads();  // every thread is done with the previous tile
-      stage_rows(k + off, k_s, kPad, base, n, d, 1.f);
-      stage_rows(v + off, v_s, kMaxD, base, n, d, 1.f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kMaxD) {
+      __syncthreads();  // every thread is done with q_s, k_s (and v_s)
+      stage_cols(q + off, q_s, kPad, q_base, n, d, inv_temp, c0);
+      stage_cols(k + off, k_s, kPad, base, n, d, 1.f, c0);
       __syncthreads();
-      tile_dot(q_s, k_s, qg, cg, s);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-      for (int c0 = 0; c0 < d; c0 += kMaxD) {
-        __syncthreads();  // every thread is done with q_s, k_s (and v_s)
-        stage_cols(q + off, q_s, kPad, q_base, n, d, inv_temp, c0);
-        stage_cols(k + off, k_s, kPad, base, n, d, 1.f, c0);
-        __syncthreads();
-        tile_dot_acc(q_s, k_s, qg, cg, s);
-      }
-      // read after the barrier that publishes p_s below
-      stage_cols(v + off, v_s, kMaxD, base, n, d, 1.f, c_out);
+      tile_dot_acc(q_s, k_s, qg, cg, s);
     }
+    // read after the barrier that publishes p_s below
+    stage_cols(v + off, v_s, kMaxD, base, n, d, 1.f, c_out);
 
     // online softmax over every key; key base + cg exists (base < n), so
     // m_new is finite. The P.V product below takes the kept weights only.
@@ -506,6 +463,205 @@ attn_train_bwd_wide_kernel(const float* __restrict__ q,
                       dv_acc[u][4 * h + 2], dv_acc[u][4 * h + 3]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K5a for D <= 128: one block per (batch, 128 queries), 3xTF32 on the tensor
+// cores (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdWarps = 8;               // 16 queries each
+constexpr int kFwdQ = 16 * kFwdWarps;      // queries per block
+
+template <int DP, int KT>
+constexpr size_t fwd_mma_smem() {
+  return static_cast<size_t>(kFwdQ + 4 * KT) * (DP + 4) * sizeof(float);
+}
+
+template <int DP, int KT>
+// two blocks per SM: at most 128 registers
+__global__ void __launch_bounds__(32 * kFwdWarps, 2)
+attn_train_fwd_mma_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const int* __restrict__ seed_ptr,
+                          float* __restrict__ out, float* __restrict__ m_out,
+                          float* __restrict__ den_out, int n, int d,
+                          float inv_temp, uint32_t thr, float keep_scale) {
+  constexpr int kS = DP + 4;          // row stride: 4 mod 32 banks
+  constexpr int kNt = KT / 8;         // key n-tiles of S
+  constexpr int kDt = DP / 8;         // channel tiles
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                      // [kFwdQ queries][kS]
+  float* kv_s = q_s + kFwdQ * kS;         // 2 x ([KT keys][kS] k, then v)
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int batch = blockIdx.y;
+  const int q_base = blockIdx.x * kFwdQ;
+  const size_t off = static_cast<size_t>(batch) * n * d;
+  const int tiles = (n + KT - 1) / KT;
+
+  gfs::stage_async<DP>(q + off, q_s, kFwdQ, kS, q_base, n, d);
+  gfs::stage_async<DP>(k + off, kv_s, KT, kS, 0, n, d);
+  gfs::stage_async<DP>(v + off, kv_s + KT * kS, KT, kS, 0, n, d);
+  gfs::cp_async_commit();
+
+  // rows g and g + 8 of this warp's 16 queries, and their mask keys
+  const int row0 = q_base + 16 * warp + g;
+  const float* qa = q_s + (16 * warp + g) * kS;
+  const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
+  const uint32_t rkey[2] = {row_key(seed, batch, row0),
+                            row_key(seed, batch, row0 + 8)};
+  float o[kDt][4];
+#pragma unroll
+  for (int j = 0; j < kDt; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    const float* k_s = kv_s + (tile & 1) * 2 * KT * kS;
+    const float* v_s = k_s + KT * kS;
+    if (tile + 1 < tiles) {
+      float* nk = kv_s + ((tile + 1) & 1) * 2 * KT * kS;
+      gfs::stage_async<DP>(k + off, nk, KT, kS, (tile + 1) * KT, n, d);
+      gfs::stage_async<DP>(v + off, nk + KT * kS, KT, kS, (tile + 1) * KT, n,
+                           d);
+      gfs::cp_async_commit();
+      gfs::cp_async_wait<1>();
+    } else {
+      gfs::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S = q k^T over all of D: 16 queries x KT keys
+    float s[kNt][4];
+#pragma unroll
+    for (int j = 0; j < kNt; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < DP; c += 8) {
+      gfs::FragA a;
+      gfs::set_a(a, qa[c + t], qa[8 * kS + c + t], qa[c + t + 4],
+                 qa[8 * kS + c + t + 4]);
+#pragma unroll
+      for (int j = 0; j < kNt; ++j) {
+        const float* kr = k_s + (8 * j + g) * kS + c;
+        gfs::FragB b;
+        gfs::set_b(b, kr[t], kr[t + 4]);
+        gfs::mma_3xtf32(s[j], a, b);
+      }
+    }
+
+    // online softmax on the accumulators: s[j][0..1] is row g, s[j][2..3]
+    // row g + 8, at keys 8j + 2t and 8j + 2t + 1; key tile * KT exists, so
+    // the first tile's max is finite. The running sum takes every weight;
+    // then the dropped ones are set to 0 for P V.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float rmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = tile * KT + 8 * j + 2 * t + e;
+          float& x = s[j][2 * h + e];
+          x = key < n ? x * inv_temp : -INFINITY;
+          rmax = fmaxf(rmax, x);
+        }
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
+      const float m_new = fmaxf(m[h], rmax);
+      const float corr = expf(m[h] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[j][2 * h + e];
+          x = expf(x - m_new);
+          psum += x;
+        }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      l[h] = l[h] * corr + psum;
+      m[h] = m_new;
+#pragma unroll
+      for (int j = 0; j < kDt; ++j) {
+        o[j][2 * h] *= corr;
+        o[j][2 * h + 1] *= corr;
+      }
+      if (thr != 0) {
+#pragma unroll
+        for (int j = 0; j < kNt; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (!kept(rkey[h], tile * KT + 8 * j + 2 * t + e, thr))
+              s[j][2 * h + e] = 0.f;
+      }
+    }
+
+    // O += P V: P's accumulators are the A fragments (k permuted), V read
+    // at key rows 2t and 2t + 1 of each block of 8. Each channel tile sums
+    // the key tile in a fresh accumulator that is then added to O in fp32:
+    // the tensor cores truncate as they accumulate, and one chain over all
+    // N keys drifts (on an H100, 2.2e-5 of the largest output at N = 2048,
+    // D = 64, against chip_smoke.py's K5_FWD_TOL = 1e-5; tests/
+    // test_torch_port_split_tf32.py models it). P is split again for each
+    // channel tile: holding its fragments, or adding per block of 8 keys,
+    // spills past 128 registers.
+#pragma unroll
+    for (int j = 0; j < kDt; ++j) {
+      float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < kNt; ++kk) {
+        gfs::FragA a;
+        gfs::set_a(a, s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+        const float* vr = v_s + (8 * kk + 2 * t) * kS + g + 8 * j;
+        gfs::FragB b;
+        gfs::set_b(b, vr[0], vr[kS]);
+        gfs::mma_3xtf32(pv, a, b);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] += pv[e];
+    }
+    __syncthreads();  // every warp is done with this buffer
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = row0 + 8 * h;
+    if (qi >= n) continue;
+    const size_t row = static_cast<size_t>(batch) * n + qi;
+    if (t == 0) {
+      m_out[row] = m[h];
+      den_out[row] = l[h];
+    }
+    const float f = keep_scale / l[h];
+    float* orow = out + row * d;
+#pragma unroll
+    for (int j = 0; j < kDt; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (c < d)
+        *reinterpret_cast<float2*>(orow + c) =
+            make_float2(o[j][2 * h] * f, o[j][2 * h + 1] * f);
+    }
+  }
+}
+
+template <int DP, int KT>
+cudaError_t launch_fwd_mma(const float* q, const float* k, const float* v,
+                           const int* seed, float* out, float* m, float* den,
+                           int batch, int n, int d, float inv_temp,
+                           uint32_t thr, float keep_scale,
+                           cudaStream_t stream) {
+  constexpr size_t smem = fwd_mma_smem<DP, KT>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_train_fwd_mma_kernel<DP, KT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kFwdQ - 1) / kFwdQ, batch);
+  attn_train_fwd_mma_kernel<DP, KT><<<grid, 32 * kFwdWarps, smem, stream>>>(
+      q, k, v, seed, out, m, den, n, d, inv_temp, thr, keep_scale);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -765,9 +921,10 @@ bool bad_shape(int batch, int n, int d, int thr) {
          thr > (1 << 24);
 }
 
+// the wide kernels' grid (past D = 128): 64 rows x 64 output channels a
+// block
 dim3 grid_of(int n, int batch, int d) {
-  return dim3((n + kTile - 1) / kTile, batch,
-              d > kMaxD ? (d + kMaxD - 1) / kMaxD : 1);
+  return dim3((n + kTile - 1) / kTile, batch, (d + kMaxD - 1) / kMaxD);
 }
 
 }  // namespace
@@ -784,19 +941,30 @@ GFS_EXPORT int gfs_attention_train_fwd(const void* q, const void* k,
                                        void* stream) {
   if (bad_shape(batch, n, d, thr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kern = d > kMaxD ? attn_train_fwd_kernel<true>
-                              : attn_train_fwd_kernel<false>;
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  const auto* sd = static_cast<const int*>(seed);
+  auto* of = static_cast<float*>(out);
+  auto* mf = static_cast<float*>(m);
+  auto* df = static_cast<float*>(den);
+  const auto th = static_cast<uint32_t>(thr);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (d <= 32)
+    return launch_fwd_mma<32, 64>(qf, kf, vf, sd, of, mf, df, batch, n, d,
+                                  inv_temp, th, keep_scale, s);
+  if (d <= 64)
+    return launch_fwd_mma<64, 64>(qf, kf, vf, sd, of, mf, df, batch, n, d,
+                                  inv_temp, th, keep_scale, s);
+  if (d <= 128)
+    return launch_fwd_mma<128, 16>(qf, kf, vf, sd, of, mf, df, batch, n, d,
+                                   inv_temp, th, keep_scale, s);
   const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_train_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemFwd));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<grid_of(n, batch, d), kThreads, kSmemFwd,
-         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(seed),
-      static_cast<float*>(out), static_cast<float*>(m),
-      static_cast<float*>(den), n, d, inv_temp, static_cast<uint32_t>(thr),
-      keep_scale);
+  attn_train_fwd_wide_kernel<<<grid_of(n, batch, d), kThreads, kSmemFwd, s>>>(
+      qf, kf, vf, sd, of, mf, df, n, d, inv_temp, th, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

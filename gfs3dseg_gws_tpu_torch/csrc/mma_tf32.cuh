@@ -1,6 +1,6 @@
 // fp32-accurate products on Hopper's tensor cores ("3xTF32"), and the
-// asynchronous copies that feed them: shared by K2 (csrc/attention.cu) and
-// K5b (csrc/attention_train.cu).
+// asynchronous copies that feed them: shared by K2 (csrc/attention.cu), K5a
+// and K5b (csrc/attention_train.cu).
 //
 // A tensor-core TF32 product keeps 10 mantissa bits of each operand, which
 // alone misses fp32 by ~1e-3. 3xTF32 splits each operand x = hi + lo, with

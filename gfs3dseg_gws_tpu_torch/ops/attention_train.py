@@ -19,9 +19,11 @@ kernel's stream (its in-core random bits cannot be reproduced), nor
 flax's; the tests compare with JAX at rate 0 and check the mask's
 statistics at rate > 0.
 
-The kernels take any head width D (csrc/attention_train.cu: K5a tiles it
-past 64; K5b covers D <= 128 in one block on the tensor cores, in 3xTF32,
-and tiles it past that); a D that is not a multiple of 4 is zero-padded by
+The kernels take any head width D (csrc/attention_train.cu: K5a and K5b
+cover D <= 128 in one block on the tensor cores, in 3xTF32, and split the
+channels over blocks on the fp32 pipe past that; K5a scales the scores by
+1 / t on the products, as K5b recomputes them, so the saved m is the max
+of the same products); a D that is not a multiple of 4 is zero-padded by
 the stage wrappers (`pad_head`, exact: the padded columns add 0 to every
 score and are sliced off the outputs; the temperature is the caller's).
 

@@ -538,6 +538,26 @@ def test_attention_train_kernels_match_plain(dev, b, n, d, rate):
         assert _rel(g.detach(), w.detach()) <= 1e-4
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,d", [(16, 2048, 64), (1, 33, 64), (2, 300, 30),
+                                   (16, 2048, 128), (2, 300, 192)])
+def test_attention_train_kernel_chain_matches_plain_chain(dev, b, n, d, rate):
+    """K5b on K5a's own m, den and out (Delta) against the twins' chain:
+    dq, dk, dv within 1e-4 of the largest entry."""
+    r = np.random.default_rng(n + d + 1)
+    q, k, v, dy = (_randn(r, b, n, d).to(dev) for _ in range(4))
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    temp = d ** 0.5
+    out, m, den = atr._fwd(q, k, v, seed, temp, rate)
+    got = atr._bwd(q, k, v, seed, m, den, (dy * out).sum(-1), dy, temp, rate)
+    out_p, m_p, den_p = atr._fwd_plain(q, k, v, seed, temp, rate)
+    ref = atr._bwd_plain(q, k, v, seed, m_p, den_p, (dy * out_p).sum(-1), dy,
+                         temp, rate)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ref):
+        assert _rel(g, w) <= 1e-4
+
+
 def test_attention_train_wrappers_refuse_what_they_cannot_take(dev):
     seed = torch.zeros(1, dtype=torch.int32, device=dev)
     a = torch.zeros((1, 16, 8), device=dev)

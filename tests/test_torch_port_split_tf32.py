@@ -1,6 +1,6 @@
-"""The 3xTF32 numerics of K2 and K5b, rehearsed on the CPU.
+"""The 3xTF32 numerics of K2, K5a and K5b, rehearsed on the CPU.
 
-K2 (csrc/attention.cu) and K5b (csrc/attention_train.cu) run their
+K2 (csrc/attention.cu), K5a and K5b (csrc/attention_train.cu) run their
 products on the tensor cores as three TF32 products (csrc/mma_tf32.cuh):
 x = hi + lo, hi = x rounded to TF32 (10 mantissa bits, ties away from zero,
 as cvt.rna.tf32.f32), lo = x - hi, and a b ~= a_lo b_hi + a_hi b_lo + a_hi
@@ -9,8 +9,13 @@ reads its top 19 bits (lo truncated); the split as usually written rounds
 lo too. Both are emulated here in torch, on the attention forward and
 backward at (2, 512, D), and must lie within the card checks' tolerances
 of the fp32 twins (chip_smoke.py: K2 atol 1e-5 + rtol 1e-4 per element,
-K5b 1e-4 of the largest entry); single-pass TF32 must not, which is why
-the split is there.
+K5a 1e-5 and K5b 1e-4 of the largest entry); single-pass TF32 must not,
+which is why the split is there.
+
+A tensor core also truncates as it accumulates. K5a's forward is modelled
+with that too, at the model's N = 2048: one accumulator chain over every
+key drifts past K5a's tolerance, so the kernel sums each key tile of P V
+in a fresh accumulator and adds it to its output in fp32.
 """
 import numpy as np
 import pytest
@@ -46,9 +51,9 @@ def _mm(split):
     return mm
 
 
-def _inputs(d, seed):
+def _inputs(d, seed, b=2, n=512):
     r = np.random.default_rng(seed)
-    q, k, v, dy = (torch.from_numpy(r.standard_normal((2, 512, d)).astype(
+    q, k, v, dy = (torch.from_numpy(r.standard_normal((b, n, d)).astype(
         np.float32)) for _ in range(4))
     return q, k, v, dy
 
@@ -83,7 +88,7 @@ def _k2_within(got, ref):
     return bool(((got - ref).abs() <= 1e-5 + 1e-4 * ref.abs()).all())
 
 
-def _k5b_err(got, ref):
+def _rel_err(got, ref):
     return max(((g - r).abs().max() / r.abs().max()).item()
                for g, r in zip(got, ref))
 
@@ -114,7 +119,7 @@ def test_split_tf32_backward_within_k5b_tolerance(d, split, rate):
     ref = atr._bwd_plain(qp, kp, vp, seed, m, den, delta, yp, temp, rate)
     got = _backward(_mm(split), qp, kp, vp, seed, m, den, delta, yp, temp,
                     rate)
-    assert _k5b_err(got, ref) <= 1e-4
+    assert _rel_err(got, ref) <= 1e-4
 
 
 @pytest.mark.parametrize("d", D_CASES)
@@ -132,4 +137,107 @@ def test_single_tf32_misses_both_tolerances(d):
         ref = atr._bwd_plain(qp, kp, vp, 7, m, den, delta, yp, temp, rate)
         got_b = _backward(_mm("1x"), qp, kp, vp, 7, m, den, delta, yp, temp,
                           rate)
-        assert _k5b_err(got_b, ref) > 1e-4
+        assert _rel_err(got_b, ref) > 1e-4
+
+
+def _rz(x: torch.Tensor) -> torch.Tensor:
+    """float64 to float32 rounded toward zero, as a tensor core's
+    accumulator keeps a sum."""
+    y = x.float()
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mm_tc(steps=None):
+    """a @ b as the kernels issue it: m16n8k8 steps of 8 along k, three
+    TF32 products a step (lo as the tensor core reads it), each product's
+    sum of 8 added to the accumulator and truncated to fp32. With `steps`,
+    every `steps` steps start a new accumulator that is added to the result
+    in fp32 (K5a's P V, one accumulator per key tile), else one accumulator
+    runs over all of k (its S)."""
+    def mm(a, b):
+        ah, bh = _rna(a), _rna(b)
+        al, bl = _trunc(a - ah), _trunc(b - bh)
+        out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+        acc = out
+        for i, k0 in enumerate(range(0, a.shape[-1], 8)):
+            if steps and i % steps == 0:
+                acc = torch.zeros_like(out)
+            for x, y in ((al, bh), (ah, bl), (ah, bh)):
+                acc = _rz(acc.double() + x[..., k0:k0 + 8].double()
+                          @ y[..., k0:k0 + 8, :].double())
+            if not steps:
+                out = acc
+            elif i % steps == steps - 1 or k0 + 8 >= a.shape[-1]:
+                out = out + acc
+        return out
+    return mm
+
+
+def _train_forward(mm, q, k, v, seed, temperature, rate, mm_pv=None):
+    """K5a: S through mm with 1 / t on the products, the row max m and the
+    sum den of every weight (before the mask), the dropped weights set to 0
+    before P V through mm_pv (default mm), then out = (P V) (1 / (1 -
+    rate)) / den."""
+    s = mm(q, k.transpose(1, 2)) * (1.0 / temperature)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = torch.sum(p, dim=-1, keepdim=True)
+    if rate > 0.0:
+        keep = atr.dropout_keep_mask(seed, q.shape[0], q.shape[1], rate)
+        p = torch.where(keep, p, torch.zeros_like(p))
+    out = (mm_pv or mm)(p, v) * ((1.0 / (1.0 - rate)) / den)
+    return out, m[..., 0], den[..., 0]
+
+
+K5A_D = [32, 64, 128]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("split", ["3x", "3x_lo_read"])
+@pytest.mark.parametrize("d", K5A_D)
+def test_split_tf32_train_forward_within_k5a_tolerance(d, split, rate):
+    """out, m and den within K5_FWD_TOL = 1e-5 of _fwd_plain's largest
+    entry, each."""
+    q, k, v, _ = _inputs(d, d + 3)
+    seed, temp = 4321, d ** 0.5
+    ref = atr._fwd_plain(q, k, v, seed, temp, rate)
+    got = _train_forward(_mm(split), q, k, v, seed, temp, rate)
+    assert _rel_err(got, ref) <= 1e-5, _rel_err(got, ref)
+
+
+@pytest.mark.parametrize("d", K5A_D)
+def test_single_tf32_misses_k5a_tolerance(d):
+    """One TF32 product per pair misses K5_FWD_TOL at rates 0 and 0.1."""
+    q, k, v, _ = _inputs(d, d + 4)
+    temp = d ** 0.5
+    for rate in (0.0, 0.1):
+        ref = atr._fwd_plain(q, k, v, 7, temp, rate)
+        got = _train_forward(_mm("1x"), q, k, v, 7, temp, rate)
+        assert _rel_err(got, ref) > 1e-5
+
+
+K5A_KEY_TILE = {32: 64, 64: 64, 128: 16}   # KT of attn_train_fwd_mma_kernel
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", K5A_D)
+def test_tensor_core_accumulation_within_k5a_tolerance(d, rate):
+    """K5a as the card accumulates, at (1, 2048, D): S in one chain over D,
+    P V in a fresh accumulator per key tile; out, m, den within 1e-5."""
+    q, k, v, _ = _inputs(d, d + 5, b=1, n=2048)
+    seed, temp = 99, d ** 0.5
+    ref = atr._fwd_plain(q, k, v, seed, temp, rate)
+    got = _train_forward(_mm_tc(), q, k, v, seed, temp, rate,
+                         mm_pv=_mm_tc(K5A_KEY_TILE[d] // 8))
+    assert _rel_err(got, ref) <= 1e-5, _rel_err(got, ref)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_one_accumulator_over_the_keys_misses_k5a_tolerance(d):
+    """P V in one accumulator chain over all 2048 keys misses 1e-5 (on an
+    H100 it gave 2.2e-5 at D = 64): why K5a adds per key tile."""
+    q, k, v, _ = _inputs(d, d + 5, b=1, n=2048)
+    ref = atr._fwd_plain(q, k, v, 99, d ** 0.5, 0.1)
+    got = _train_forward(_mm_tc(), q, k, v, 99, d ** 0.5, 0.1)
+    assert _rel_err(got, ref) > 1e-5

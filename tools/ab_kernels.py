@@ -3,26 +3,37 @@ checkouts on one card.
 
     cd <checkout> && PYTHONPATH=. python3 <this file> --out run.pt
     python3 <this file> --compare a.pt b.pt [c.pt ...]
+    cd <checkout> && PYTHONPATH=. python3 <this file> --ptxas
 
 The first form builds the checkout's kernels, runs K1, K2, K3, K4a, K4b,
 K5a, K5b, K6, K7 and K9 at (16, 2048, .), k = 20 (C = 64; K1, K3 and K6
-also C = 9; K2, K5a and K5b also at D = 128, the `_d128` entries) on
-inputs drawn from a fixed seed, prints one JSON line of
-CUDA-event times (ms) beside the card's name and power limit, and saves
-the outputs. `ms` is the median over single calls, each waited for, as
-chip_smoke.py times them (the host's time to launch counts where the card
-idles); `ms_queued` is the mean of 30 calls queued back to back (the
-card's time alone). The second form prints, for each output, whether the runs
-agree bit for bit, and on how many rows the kNN indices differ. Run the
-checkouts in turns (A, B, B, A) in one call: two calls may land on two
-cards.
+also C = 9; K2, K5a and K5b also at D = 128, the `_d128` entries, and K5a
+at D = 30 and 192) on inputs drawn from a fixed seed, prints one JSON
+line of CUDA-event times (ms) beside the card's name and power limit, and
+saves the outputs. K5b takes m and den from K5a's plain twin on the card,
+so that its inputs do not depend on the checkout's K5a. `ms` is the median
+over single calls, each waited for, as chip_smoke.py times them (the
+host's time to launch counts where the card idles); `ms_queued` is the
+mean of 30 calls queued back to back (the card's time alone). The second
+form prints, for each output of each kernel, whether the runs agree bit
+for bit and their largest difference, and on how many rows the kNN
+indices differ. Run the checkouts in turns (A, B, B, A) in one call: two
+calls may land on two cards. `--only k5a k2 ...` times those entries
+alone. The third form compiles the checkout's attention sources with
+`-Xptxas -v` and prints, for each kernel, its registers, spills and the
+`HMMA.1688.F32.TF32` instructions that `cuobjdump -sass` finds in it, as
+one JSON line.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
+import tempfile
 
 import torch
 
@@ -59,7 +70,7 @@ def cuda_ms_queued(fn, reps: int = 30) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run(out: str) -> None:
+def run(out: str, only=None) -> None:
     from gfs3dseg_gws_tpu_torch.ops import attention_train as atr
     from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
     from gfs3dseg_gws_tpu_torch.ops.attention_kernel import fused_attention
@@ -90,12 +101,16 @@ def run(out: str) -> None:
                       randn(64, scale=0.01), randn(64, scale=0.1),
                       randn(64).abs() + 0.5])
     gsel = randn(B, N, 64)
-    attn_out, m, den = atr._fwd(q, k, v, seed, 8.0, 0.1)
+    attn_out, m, den = atr._fwd_plain(q, k, v, seed, 8.0, 0.1)
     delta = (dy * attn_out).sum(-1)
     q2, k2, v2, dy2 = (randn(B, N, 128) for _ in range(4))
-    out2, m2, den2 = atr._fwd(q2, k2, v2, seed, 128 ** 0.5, 0.1)
-    delta2 = (dy2 * out2).sum(-1)
     t2 = 128 ** 0.5
+    out2, m2, den2 = atr._fwd_plain(q2, k2, v2, seed, t2, 0.1)
+    delta2 = (dy2 * out2).sum(-1)
+    q3, k3, v3 = (randn(B, N, 30) for _ in range(3))
+    t3 = 30 ** 0.5
+    q4, k4, v4 = (randn(B, N, 192) for _ in range(3))
+    t4 = 192 ** 0.5
 
     calls = {
         "k1_c9": lambda: fused_edgeconv_infer(x9, a, b, w2, bias2, K),
@@ -110,6 +125,8 @@ def run(out: str) -> None:
         "k5b": lambda: atr._bwd(q, k, v, seed, m, den, delta, dy, 8.0, 0.1),
         "k2_d128": lambda: fused_attention(q2, k2, v2, t2),
         "k5a_d128": lambda: atr._fwd(q2, k2, v2, seed, t2, 0.1),
+        "k5a_d30": lambda: atr._fwd(q3, k3, v3, seed, t3, 0.1),
+        "k5a_d192": lambda: atr._fwd(q4, k4, v4, seed, t4, 0.1),
         "k5b_d128": lambda: atr._bwd(q2, k2, v2, seed, m2, den2, delta2, dy2,
                                      t2, 0.1),
         "k6_c9": lambda: knn_indices(x9, K),
@@ -117,10 +134,13 @@ def run(out: str) -> None:
         "k7": lambda: scatter_bwd(idx, g),
         "k9": lambda: gather_conv(idx, a, b, w2, bias2),
     }
+    if only:
+        calls = {name: calls[name] for name in only}
     outputs = {name: fn() for name, fn in calls.items()}
     # K4a's per-point outputs (snbr, zmax, zmin, kmax, kmin); the form of its
     # bn2 partials differs between versions
-    outputs["k4a"] = outputs["k4a"][:5]
+    if "k4a" in outputs:
+        outputs["k4a"] = outputs["k4a"][:5]
     torch.cuda.synchronize()
     times = {name: cuda_ms(fn) for name, fn in calls.items()}
     queued = {name: cuda_ms_queued(fn) for name, fn in calls.items()}
@@ -145,13 +165,61 @@ def compare(paths) -> None:
         entry = {}
         for other, path in zip(outs[1:], paths[1:]):
             other = other if isinstance(other, list) else [other]
-            equal = all(torch.equal(x, y) for x, y in zip(first, other))
+            equal = [torch.equal(x, y) for x, y in zip(first, other)]
+            diff = [(x.double() - y.double()).abs().max().item()
+                    for x, y in zip(first, other) if x.is_floating_point()]
             ints = [(x != y).reshape(-1, x.shape[-1]).any(-1).sum().item()
                     for x, y in zip(first, other)
                     if x.dtype == torch.int32 and x.dim() == 3]
-            entry[path] = {"bit_for_bit": equal,
+            entry[path] = {"bit_for_bit": equal, "max_abs_diff": diff,
                            **({"index_rows_differing": ints} if ints else {})}
         report[name] = entry
+    print(json.dumps(report), flush=True)
+
+
+def ptxas() -> None:
+    from gfs3dseg_gws_tpu_torch.ops import _ext
+
+    nvcc = _ext._nvcc()
+    tools = os.path.dirname(nvcc)
+    filt = shutil.which("cu++filt", path=tools) or shutil.which("c++filt")
+    version = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, check=True, timeout=60).stdout
+    report = {"nvcc": version.strip().splitlines()[-1]}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in ("attention.cu", "attention_train.cu"):
+            obj = os.path.join(tmp, src + ".o")
+            res = subprocess.run(
+                [nvcc, *_ext.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+                 str(_ext._CSRC), "-c", str(_ext._CSRC / src), "-o", obj],
+                capture_output=True, text=True, check=True, timeout=600)
+            sass = subprocess.run(
+                [os.path.join(tools, "cuobjdump"), "-sass", obj],
+                capture_output=True, text=True, check=True,
+                timeout=120).stdout
+            kernels, fn = {}, None
+            for line in (res.stdout + res.stderr).splitlines():
+                if found := re.search(r"Function properties for (\S+)", line):
+                    fn = kernels.setdefault(found[1], {})
+                elif fn is not None and (found := re.search(
+                        r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)):
+                    fn["spill_stores"], fn["spill_loads"] = map(
+                        int, found.groups())
+                elif fn is not None and (found := re.search(
+                        r"Used (\d+) registers", line)):
+                    fn["registers"] = int(found[1])
+            for part in sass.split("Function : ")[1:]:
+                name = part.split()[0]
+                kernels.setdefault(name, {})["hmma_tf32"] = part.count(
+                    "HMMA.1688.F32.TF32")
+            if filt:
+                names = subprocess.run([filt], input="\n".join(kernels),
+                                       capture_output=True, text=True,
+                                       timeout=60).stdout.split("\n")
+                kernels = dict(zip(names, kernels.values()))
+            report[src] = {name: kernels[name] for name in kernels
+                           if kernels[name].get("registers") is not None}
     print(json.dumps(report), flush=True)
 
 
@@ -159,11 +227,15 @@ def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out")
     p.add_argument("--compare", nargs="+")
+    p.add_argument("--ptxas", action="store_true")
+    p.add_argument("--only", nargs="+", help="time these entries alone")
     args = p.parse_args()
-    if args.compare:
+    if args.ptxas:
+        ptxas()
+    elif args.compare:
         compare(args.compare)
     else:
-        run(args.out)
+        run(args.out, args.only)
 
 
 if __name__ == "__main__":
