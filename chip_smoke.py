@@ -6,7 +6,9 @@ Builds the hand-written kernels from gfs3dseg_gws_tpu_torch/csrc, holds each
 against its plain PyTorch version on the card (at the model's widths; then
 every kernel past them - C = W = 128 with k = 40, k = 80, attention at
 D = 30, 128 and 192, the kNN at k = 80 on a key row of 30,000 points - and
-K8, the fold-merge kNN, bit for bit against K6), then
+K8, the fold-merge kNN, bit for bit against K6; K6, K3 and K1's kNN stage
+on blocks of copied points, whose exact ties go to the lower index, against
+the twin on every row), then
 drives the port's paths at the full width of the S3DIS model on synthetic
 S3DIS-layout data: GFS evaluation (`train_cli --only_evaluate`, random
 seeded weights), backbone pre-training (`pretrain_cli --phase pretrain`,
@@ -99,9 +101,11 @@ KERNEL_GROUPS = (
     ("K5a attn_train_fwd", ("attn_train_fwd",)),
     ("K5b attn_train_bwd", ("attn_train_bwd",)),
     ("K8 knn_fold_kernel (the kNN for k > 64)", ("knn_fold_kernel",)),
-    ("K6 knn_kernel<CP, KMAX, false>", ("32, false>", "64, false>")),
+    ("K6 knn_split_kernel / knn_kernel <CP, KMAX, (S,) false>",
+     ("2, false>", "4, false>")),
     ("K7 edgeconv_scatter", ("edgeconv_scatter",)),
-    ("K3 knn_kernel", ("knn_kernel",)),
+    ("K3 knn_split_kernel / knn_kernel <CP, KMAX, true>",
+     ("knn_split_kernel", "knn_kernel")),
     ("K4a gsf_kernel", ("gsf_kernel",)),
     ("K4b bwd_kernel", ("bwd_kernel",)),
     ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "sm90_xmma", "cutlass", "Kernel2")),
@@ -320,6 +324,82 @@ def slot_dist_err(x, idx, ref) -> float:
     d2 = pairwise_sq_dists(x, x)
     return (d2.gather(-1, idx.long()) - d2.gather(-1, ref.long())
             ).abs().max().item()
+
+
+def copied_block(n=2048, c=9, copies=548, seed=0):
+    """(1, n, c) standard-normal points, `copies` rows replaced by copies of
+    earlier rows: many queries meet keys at exactly equal distances."""
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((1, n, c)).astype(np.float32)
+    for i in np.sort(r.choice(np.arange(1, n), copies, replace=False)):
+        x[0, i] = x[0, r.integers(0, i)]
+    return x
+
+
+def check_knn_ties(dev, gen: torch.Generator, cb: int = 64):
+    """The fast path's kNN stage (knn_split_kernel: K6, K3 and K1's first
+    stage) on B blocks of copied points (copied_block, seeds 0 .. B-1) at
+    C = 9 and 64: K3's and K8's idx equal K6's bit for bit (K8: the same
+    distances, another selection), and K1's out equals K9 on K6's idx bit
+    for bit (so K1's own graph is K6's). At C = 9 K6's idx equals the
+    twin's on every row, order included; at C = 64, where the twin's
+    cuBLAS distances round otherwise than the kernel's fmaf chains and
+    near-ties between distinct points occur, by graph_agreement. Then K6 at
+    C = 12 (its own CP) and a ragged N: K8's idx bit for bit, the twin's
+    by graph_agreement."""
+    from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (
+        fused_edgeconv_infer, gather_conv)
+    from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices,
+                                                knn_indices_fold,
+                                                knn_indices_plain,
+                                                knn_with_stats)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    tables = (randn(B, N, 64), randn(B, N, 64), randn(64, 64, scale=0.125),
+              randn(64, scale=0.1))
+    btab = randn(B, N, cb)
+    agree = {}
+    for c in (9, 64):
+        x = torch.from_numpy(np.concatenate(
+            [copied_block(c=c, seed=i) for i in range(B)])).to(dev)
+        label = f"kNN on copied points ({B},{N},{c}) k={K}"
+        twin = knn_indices_plain(x, K)
+        idx6 = knn_indices(x, K)
+        idx3 = knn_with_stats(x, btab, K)[0]
+        idx8 = knn_indices_fold(x, K, 4)
+        k1 = fused_edgeconv_infer(x, *tables, K)
+        k9 = gather_conv(idx6, *tables)
+        torch.cuda.synchronize()
+        for name, idx in (("K3", idx3), ("K8", idx8)):
+            if not torch.equal(idx, idx6):
+                rows = int((idx != idx6).any(-1).sum())
+                raise AssertionError(f"{label}: {name} differs from K6 on "
+                                     f"{rows} rows")
+        if not torch.equal(k1, k9):
+            raise AssertionError(f"{label}: K1 differs from K9 on K6's "
+                                 "graph")
+        if c == 9 and not torch.equal(idx6, twin):
+            rows = int((idx6 != twin).any(-1).sum())
+            raise AssertionError(f"{label}: K6 differs from the twin on "
+                                 f"{rows} rows")
+        agree[c] = graph_agreement(x, idx6, twin, label)[:2]
+        del x, twin, idx6, idx3, idx8, k1, k9
+    ragged = randn(B, N - 37, 12)
+    label12 = f"K6 knn_indices ({B},{N - 37},12) k={K}"
+    idx = knn_indices(ragged, K)
+    if not torch.equal(idx, knn_indices_fold(ragged, K, 4)):
+        raise AssertionError(f"{label12}: differs from K8")
+    share, order, bad = graph_agreement(ragged, idx, knn_indices_plain(
+        ragged, K), label12)
+    phase(f"kNN on copied points ({B},{N},9 and 64) k={K}",
+          k3_k8_equal_k6="bit for bit", k1_equals_k9_on_k6="bit for bit",
+          c9_k6_equals_twin="every row, order included",
+          c64_k6_twin_sets_and_order_agree=agree[64],
+          c12_ragged_sets_agree=share,
+          c12_ragged_order_agree=order, c12_ragged_near_tie_rows=len(bad),
+          c12_ragged_equals_k8="bit for bit")
 
 
 def check_scatter(dev, gen: torch.Generator, c: int = 64, reps: int = 20):
@@ -1540,6 +1620,7 @@ def main() -> int:
     check_knn_fold(dev, 9, gen)
     stats["k8"] = timed("k8", check_knn_fold, dev, 64, gen)
     wide = timed("wide_kernels", check_wide_kernels, dev, gen)
+    timed("knn_ties", check_knn_ties, dev, gen)
 
     with tempfile.TemporaryDirectory(prefix="gfs_chip_smoke_") as root:
         # ---- phase 4: the main path, train_cli --only_evaluate on the card
@@ -1710,12 +1791,12 @@ def main() -> int:
                                      for k, v in cls_launches.items()})
     kernels = [
         ("k1", "fused_edgeconv_infer", "fused_edgeconv.cu",
-         "knn_kernel<CP, KMAX, false> + edge_mlp_kernel<false>",
+         "knn_split_kernel<CP, KMAX, false> + edge_mlp_kernel<false>",
          "fused_edgeconv.py:94", "eval"),
         ("k2", "fused_attention", "attention.cu",
          "attention_mma_kernel<DP, KT>", "attention_kernel.py:34", "eval"),
         ("k3", "knn_with_stats", "fused_edgeconv.cu",
-         "knn_kernel<CP, KMAX, true>", "knn.py:380", "train"),
+         "knn_split_kernel<CP, KMAX, true>", "knn.py:380", "train"),
         ("k4a", "fused_edgeconv_train_fwd", "fused_edgeconv_train.cu",
          "gsf_kernel", "fused_edgeconv_train.py:408", "train"),
         ("k4b", "fused_edgeconv_train_bwd", "fused_edgeconv_train.cu",
@@ -1727,7 +1808,7 @@ def main() -> int:
          "attn_train_bwd_mma_kernel<DP, QT>", "attention_train.py:124",
          "train"),
         ("k6", "knn_indices", "fused_edgeconv.cu",
-         "knn_kernel<CP, KMAX, false>", "knn.py:401", "semseg"),
+         "knn_split_kernel<CP, KMAX, false>", "knn.py:401", "semseg"),
         ("k7", "gather_neighbors_bwd", "edgeconv.cu",
          "edgeconv_scatter_kernel", "edgeconv.py:98", "semseg"),
         ("k8", "knn_indices_fold", "knn_fold.cu",

@@ -17,7 +17,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
 }
 
 // the kNN kernels' squared distance from |q|^2, |k|^2 and q.k, each summed
-// as one fmaf chain over the channels in order: K1/K3/K6 (knn_kernel) and
+// as one fmaf chain over the channels in order: K1/K3/K6 (knn_split_kernel,
+// knn_kernel) and
 // K8 (knn_fold_kernel) both use it, so their distances agree bit for bit
 __device__ __forceinline__ float sq_dist(float qq, float kk, float dot) {
   return fmaxf(qq + kk - 2.f * dot, 0.f);

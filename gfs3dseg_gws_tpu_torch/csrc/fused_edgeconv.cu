@@ -20,19 +20,38 @@
 // are a few MB that stay in L2. The two stages want different register
 // budgets, so they are two kernels launched back to back:
 //
-// 1. knn_kernel: one block per (batch, kTileQ queries), one thread per query.
-//    The query's row of x and its sorted top-k list live in registers; key
-//    rows stream through shared memory kTileK at a time (the 512 KB of keys
-//    of one batch element do not fit in the 227 KB a block may use) and are
-//    read as broadcast float4 loads, one load feeding four FMAs in every
-//    lane, with four keys scored at once for four independent FMA chains.
-//    Insertion is a fixed compare-and-swap chain that the compiler unrolls
-//    over kMaxK slots, so the list never leaves registers; slots at or past
-//    k hold -inf and are never displaced by a key, only by the shift
-//    below it (their contents are never read). A key tile is first scored and
-//    filtered against the threshold without branching, and only the
-//    survivors go through the chain, so a warp pays for its busiest lane's
-//    survivors rather than for every key that any lane would insert.
+// 1. knn_split_kernel (C <= 64, k <= 32): one block of kSplitThreads (8
+//    warps) per (batch, Q queries), S threads per query (S = 2, Q = 128;
+//    S = 4, Q = 64 for K3 at C > 16: the faster on the H100). Key rows
+//    stream through shared memory kTileK at a time (the 512 KB of keys of
+//    one batch element do not fit in the 227 KB a block may use), double
+//    buffered with cp.async. Each tile is two phases:
+//    * distances: the block's Q x 64 query.key products as a register-
+//      tiled fp32 product, each thread 4 x 4 tiles (queries qg + 16 v,
+//      keys kg + 16 u), so 8 float4 loads feed 64 FMAs; each dot is one
+//      fmaf chain over the channels in order from 0, written to a shared
+//      tile, and |k|^2 likewise;
+//    * selection: thread s of a query takes the tile's keys S i + s in
+//      index order and keeps its own sorted list of k (distance, index) in
+//      registers, KMAX slots (k exactly for the model's k = 20, else 32). A
+//      key goes after every entry at its distance, and each slot takes its
+//      new entry from the old list alone (stay, the key, or the entry
+//      above), so an insertion is KMAX independent selects rather than a
+//      chain. A thread's keys are first filtered against its threshold
+//      without branching, into a bit mask, and only the survivors are
+//      inserted, so a warp pays for its busiest lane's survivors. The
+//      filter also drops a key farther than every list's ceil(k / S)-th
+//      entry as the last tile left them: the S lists then hold at least k
+//      keys nearer, so such a key is not among the k nearest (exact, ties
+//      included).
+//    At the end one thread per query merges its S lists by (distance,
+//    index). Every partial list is ordered so, and holds every key of its
+//    share that is among the k nearest, so the merged list is the one a
+//    single scan in index order gives, bit for bit: the distances are the
+//    same fmaf chains, and zero channels past C (CP = 12 for C = 9) add
+//    exact zeros to them.
+//    knn_kernel, one thread per query and its chain, serves the rest:
+//    C > 64 and 32 < k <= 64 (below).
 //
 // 2. edge_mlp_kernel: the per-edge layer as a register-tiled fp32 GEMM. A
 //    block takes kTileQ queries and walks their neighbours kChunk at a time:
@@ -46,24 +65,26 @@
 // Ragged N is masked here, not by the caller: key rows past N are never
 // inserted, and queries past N are computed on zeros and never stored.
 //
-// K3: knn_kernel<CP, true> is the training path's kNN with neighbour
-// statistics, replacing the TPU kernel gfs3dseg_gws_tpu/ops/knn.py::
-// knn_with_stats (its Pallas body `_knn_stats_kernel`). After the same
-// top-k it writes idx and then, for every (query i, neighbour j) pair of
-// its tile, adds 1 to cnt[j] and the row b[i, :] to scb[j, :]:
+// K3: knn_split_kernel<CP, KMAX, true> (and knn_kernel<CP, KMAX, true> past
+// the fast path) is the training path's kNN with neighbour statistics,
+// replacing the TPU kernel gfs3dseg_gws_tpu/ops/knn.py::knn_with_stats (its
+// Pallas body `_knn_stats_kernel`). After the same top-k it writes idx and
+// then, for every (query i, neighbour j) pair of its tile, adds 1 to cnt[j]
+// and the row b[i, :] to scb[j, :]:
 //
 //   cnt[j]    = |{(i, r) : idx[i, r] == j}|          (in-degree, exact)
 //   scb[j, :] = sum over those (i, r) of b[i, :]     (transposed b-scatter)
 //
-// The block's two warps walk its pairs, one pair per warp at a time, the
+// The block's warps walk its pairs, one pair per warp at a time, the
 // lanes over the channels, so each float atomicAdd instruction of a warp
 // hits one row of scb in consecutive words. The order of the additions
 // varies from run to run, and so do the last bits of scb; cnt holds small
 // integers and is exact. At k = 20 and Cb = 64 the scatter is 1,280
 // float atomics per query, against the kNN's 2,048 x C distance FMAs.
 //
-// Widths and neighbour counts. The kernels above are the fast path, for
-// C, W0, W1 <= 64 and k <= 32 (the model's widths). Past those:
+// Widths and neighbour counts. knn_split_kernel and edge_mlp_kernel<false>
+// are the fast path, for C, W0, W1 <= 64 and k <= 32 (the model's widths).
+// Past those, knn_kernel, one thread per query, selects:
 // * C > 64: knn_kernel<0, ...> streams the channels through keys_s in
 //   chunks of 64; the partial dot products wait in cand_d and |k|^2 in kk_s
 //   until the last chunk, and the fmaf chains run over the channels in the
@@ -78,20 +99,25 @@
 //   the GEMM accumulators across the chunks.
 //
 // K6 and K9 are K1's two stages, each behind an entry of its own:
-// gfs_knn_indices launches knn_kernel<CP, false> alone and replaces the TPU
+// gfs_knn_indices launches the kNN stage alone and replaces the TPU
 // kernel gfs3dseg_gws_tpu/ops/knn.py::knn_indices (`_knn_pallas`, body
 // `_knn_kernel`); gfs_gather_conv launches edge_mlp_kernel alone on given
 // indices and replaces ops/fused_edgeconv.py::fused_edgeconv_infer_split
 // (body `_gather_conv_kernel`). All three entries share the two launch
 // helpers, so K6 then K9 computes what K1 computes, bit for bit. K6 is
 // bound by its B N^2 C distance FMAs, K9 by its B N k W0 W1 edge-layer FMAs.
+#include <limits.h>
+#include <stdint.h>
+
 #include "common.cuh"
+#include "mma_tf32.cuh"   // the cp.async helpers
 
 namespace {
 
 constexpr int kTileQ = 64;   // queries per block
 constexpr int kTileK = 64;   // key rows per shared-memory tile (multiple of 4)
 constexpr int kMaxK = 32;    // neighbour slots of the fast path's chain
+constexpr int kModelK = 20;  // the model's k (dgcnn_k): a list of its own
 constexpr int kWideK = 64;   // ... of its second instantiation
 constexpr int kFolds = 4;    // K8's folds for k > kWideK
 constexpr int kMaxW = 64;    // a/b table (W0) and output (W1) channels per tile
@@ -114,8 +140,8 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
            float* __restrict__ scb, int cb) {
   constexpr bool kWide = CP == 0;
   constexpr int QW = kWide ? kMaxC : CP;   // channels held at once
-  // the fast path keeps its lists here for the statistics; the others read
-  // them back from idx
+  // with k <= 32 (C > 64 here) the lists wait here for the statistics; the
+  // others read them back from idx
   constexpr bool kNbrSmem = kStats && KMAX == kMaxK;
   __shared__ __align__(16) float keys_s[kTileK][QW];
   __shared__ int nbr_s[kNbrSmem ? kTileQ : 1][KMAX];
@@ -314,6 +340,313 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
   }
 }
 
+// ---- the fast path's kNN stage (C <= 64, k <= 32): knn_split_kernel
+
+constexpr int kSplitThreads = 256;   // 8 warps a block
+
+// the block's shape with S threads per query
+template <int S>
+struct Split {
+  static constexpr int Q = kSplitThreads / S;  // queries per block
+  static constexpr int kShare = kTileK / S;    // a thread's keys a tile
+  static constexpr int V = Q / 16;             // a thread's queries in the
+                                               // distance tile,
+  static constexpr int PV = V < 4 ? V : 4;     // ... PV at a time
+  static constexpr int kDot = Q + 4;           // floats a row of dot_s
+};
+
+// the row stride (floats) of the key and query tiles: CP + 4 or CP + 8,
+// whichever is an odd number of float4s, so the 8 rows 16 apart that a
+// warp's lanes read at one channel lie in 8 different bank quads
+__host__ __device__ constexpr int split_stride(int cp) {
+  return ((cp + 4) / 4) % 2 == 1 ? cp + 4 : cp + 8;
+}
+
+// floats of shared memory for the scan: two key tiles, the query tile, the
+// q.k tile, |k|^2 and the lists' bounds (two tiles' worth)
+template <int CP, int S>
+__host__ __device__ constexpr int split_scan_floats() {
+  return (2 * kTileK + Split<S>::Q) * split_stride(CP) +
+         kTileK * Split<S>::kDot + kTileK + 2 * kSplitThreads;
+}
+
+// ... and the merge, which reuses it: S lists of k (distance, index) per
+// query
+template <int CP, int S>
+__host__ __device__ inline int split_region_floats(int k) {
+  return split_scan_floats<CP, S>() > 2 * kSplitThreads * k
+             ? split_scan_floats<CP, S>()
+             : 2 * kSplitThreads * k;
+}
+
+template <int CP, int KMAX, int S, bool kStats>
+size_t split_smem_bytes(int k) {
+  return (static_cast<size_t>(split_region_floats<CP, S>(k)) +
+          (kStats ? Split<S>::Q * KMAX : 0)) *
+         sizeof(float);
+}
+
+// rows [base, base + rows) x channels [0, CP) of xb (n, c) into a
+// [rows][PK] shared tile with cp.async, zeros past n and c: 16-byte copies
+// when every row starts on 16 bytes (vec), else one float at a time
+template <int CP, int PK>
+__device__ __forceinline__ void split_stage(const float* __restrict__ xb,
+                                            float* dst, int rows, int base,
+                                            int n, int c, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * (CP / 4); e += kSplitThreads) {
+      const int r = e / (CP / 4), ch = 4 * (e % (CP / 4));
+      const bool ok = base + r < n && ch < c;
+      gfs::cp_async16(dst + r * PK + ch,
+                      ok ? xb + static_cast<size_t>(base + r) * c + ch : xb,
+                      ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * CP; e += kSplitThreads) {
+      const int r = e / CP, ch = e % CP;
+      const bool ok = base + r < n && ch < c;
+      gfs::cp_async4(dst + r * PK + ch,
+                     ok ? xb + static_cast<size_t>(base + r) * c + ch : xb,
+                     ok);
+    }
+  }
+}
+
+// CP: 12, 16 or 64 (C padded with zeros); KMAX: slots of the lists (k <=
+// KMAX); S: threads per query; kStats as knn_kernel's
+template <int CP, int KMAX, int S, bool kStats>
+__global__ void __launch_bounds__(kSplitThreads, 2)
+knn_split_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
+                 int c, int k, const float* __restrict__ btab,
+                 float* __restrict__ cnt, float* __restrict__ scb, int cb) {
+  constexpr int PK = split_stride(CP);
+  constexpr int Q = Split<S>::Q, V = Split<S>::V, PV = Split<S>::PV;
+  constexpr int kDot = Split<S>::kDot;
+  extern __shared__ __align__(16) float smem[];
+  float* keys_s = smem;                   // [2][kTileK][PK]
+  float* q_s = keys_s + 2 * kTileK * PK;  // [Q][PK]
+  float* dot_s = q_s + Q * PK;            // [kTileK][kDot]: q.k
+  float* kk_s = dot_s + kTileK * kDot;    // [kTileK]
+  float* bound_s = kk_s + kTileK;         // [2][S][Q]
+  // after the scan: the partial lists, [S][k][Q] each
+  float* mrg_d = smem;
+  int* mrg_i = reinterpret_cast<int*>(smem + S * k * Q);
+  // the merged lists for the statistics, [Q][KMAX]
+  int* nbr_s = reinterpret_cast<int*>(smem + split_region_floats<CP, S>(k));
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int batch = blockIdx.y;
+  const int q0 = blockIdx.x * Q;
+  const float* xb = x + static_cast<size_t>(batch) * n * c;
+  const bool vec =
+      c % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  // selection: query sq of the block, keys S i + s of every key tile
+  const int sq = tid % Q, s = tid / Q;
+  // distances: queries qg + 16 v by keys kg + 16 u
+  const int kg = lane % 8 + 8 * (warp % 2), qg = lane / 8 + 4 * (warp / 2);
+
+  split_stage<CP, PK>(xb, q_s, Q, q0, n, c, vec);
+  split_stage<CP, PK>(xb, keys_s, kTileK, 0, n, c, vec);
+  gfs::cp_async_commit();
+  gfs::cp_async_wait<0>();
+  __syncthreads();
+  float qq = 0.f;
+#pragma unroll
+  for (int ch = 0; ch < CP; ++ch)
+    qq = fmaf(q_s[sq * PK + ch], q_s[sq * PK + ch], qq);
+
+  // the list, sorted by (distance, index); slots at or past k hold what
+  // they are shifted (never read)
+  float best_d[KMAX];
+  int best_i[KMAX];
+#pragma unroll
+  for (int t = 0; t < KMAX; ++t) {
+    best_d[t] = INFINITY;
+    best_i[t] = 0;
+  }
+  float thr = INFINITY;  // always best_d[k - 1]
+  const int m = (k + S - 1) / S - 1;   // the slot the bound reads
+
+  const int tiles = (n + kTileK - 1) / kTileK;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int base = tile * kTileK;
+    const float* kt = keys_s + (tile % 2) * kTileK * PK;
+    // the next tile streams in while this one is scored (its buffer was
+    // last read before the previous tile's second barrier)
+    if (tile + 1 < tiles)
+      split_stage<CP, PK>(xb, keys_s + ((tile + 1) % 2) * kTileK * PK,
+                          kTileK, base + kTileK, n, c, vec);
+    gfs::cp_async_commit();
+    gfs::cp_async_wait<1>();
+    __syncthreads();  // this tile is in; the last selection is done
+
+    // ---- q.k of the tile, each an fmaf chain over the channels in order
+#pragma unroll 1
+    for (int v0 = 0; v0 < V; v0 += PV) {
+      const float* qp = q_s + (qg + 16 * v0) * PK;
+      float acc[PV][4];
+#pragma unroll
+      for (int v = 0; v < PV; ++v)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[v][u] = 0.f;
+#pragma unroll
+      for (int ch = 0; ch < CP; ch += 4) {
+        float4 kv[4], qv[PV];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          kv[u] = gfs::load4(kt + (kg + 16 * u) * PK + ch);
+#pragma unroll
+        for (int v = 0; v < PV; ++v)
+          qv[v] = gfs::load4(qp + 16 * v * PK + ch);
+#pragma unroll
+        for (int v = 0; v < PV; ++v)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc[v][u] = fmaf(qv[v].x, kv[u].x, acc[v][u]);
+            acc[v][u] = fmaf(qv[v].y, kv[u].y, acc[v][u]);
+            acc[v][u] = fmaf(qv[v].z, kv[u].z, acc[v][u]);
+            acc[v][u] = fmaf(qv[v].w, kv[u].w, acc[v][u]);
+          }
+      }
+#pragma unroll
+      for (int v = 0; v < PV; ++v)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          dot_s[(kg + 16 * u) * kDot + qg + 16 * (v0 + v)] = acc[v][u];
+    }
+    if (tid < kTileK) {
+      float s2 = 0.f;
+#pragma unroll
+      for (int ch = 0; ch < CP; ch += 4) {
+        const float4 kv = gfs::load4(kt + tid * PK + ch);
+        s2 = fmaf(kv.x, kv.x, s2);
+        s2 = fmaf(kv.y, kv.y, s2);
+        s2 = fmaf(kv.z, kv.z, s2);
+        s2 = fmaf(kv.w, kv.w, s2);
+      }
+      kk_s[tid] = s2;
+    }
+    __syncthreads();  // dot_s and kk_s are complete
+
+    // ---- selection. The filter: nearer than this list's k-th, and no
+    // farther than the largest of the lists' m-th as the last tile left
+    // them (d <= bound is d < the next float up)
+    float lim = thr;
+    if (tile > 0) {
+      const float* bp = bound_s + ((tile - 1) % 2) * S * Q + sq;
+      float bound = bp[0];
+#pragma unroll
+      for (int u = 1; u < S; ++u) bound = fmaxf(bound, bp[u * Q]);
+      lim = fminf(thr, nextafterf(bound, INFINITY));
+    }
+    const int nk = min(kTileK, n - base);
+    unsigned int mask = 0;
+#pragma unroll
+    for (int i = 0; i < Split<S>::kShare; ++i) {
+      const int r = S * i + s;
+      const float d = gfs::sq_dist(qq, kk_s[r], dot_s[r * kDot + sq]);
+      mask |= (r < nk && d < lim) ? 1u << i : 0u;
+    }
+    // ... then insert the survivors in key order, each after every listed
+    // key at its distance: the list stays ordered by (distance, index)
+    while (mask != 0) {
+      const int i = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const int r = S * i + s;
+      float cd = gfs::sq_dist(qq, kk_s[r], dot_s[r * kDot + sq]);
+      if (cd < thr) {
+        // the entries at cd or nearer keep their slots (a prefix: the list
+        // is sorted); the key takes the next slot and every later entry
+        // moves down one. Each slot is set from the old list alone, top
+        // slot first, so no slot waits for another.
+        const int ci = base + r;
+#pragma unroll
+        for (int t = KMAX - 1; t > 0; --t) {
+          const bool stays = best_d[t] <= cd, above = best_d[t - 1] <= cd;
+          best_i[t] = stays ? best_i[t] : above ? ci : best_i[t - 1];
+          best_d[t] = stays ? best_d[t] : above ? cd : best_d[t - 1];
+        }
+        if (!(best_d[0] <= cd)) {
+          best_d[0] = cd;
+          best_i[0] = ci;
+        }
+        if (k == KMAX) {
+          thr = best_d[KMAX - 1];
+        } else {
+#pragma unroll
+          for (int t = 0; t < KMAX; ++t)
+            if (t == k - 1) thr = best_d[t];
+        }
+      }
+    }
+    float dm = best_d[0];
+#pragma unroll
+    for (int t = 1; t < KMAX; ++t)
+      if (t == m) dm = best_d[t];
+    bound_s[(tile % 2) * S * Q + s * Q + sq] = dm;
+  }
+
+  // ---- merge the S lists of each query by (distance, index)
+  __syncthreads();  // the scan is done with every tile (the lists reuse them)
+#pragma unroll
+  for (int t = 0; t < KMAX; ++t) {
+    if (t < k) {
+      mrg_d[(s * k + t) * Q + sq] = best_d[t];
+      mrg_i[(s * k + t) * Q + sq] = best_i[t];
+    }
+  }
+  __syncthreads();
+  if (s == 0 && q0 + sq < n) {
+    float hd[S];
+    int hi[S], pos[S];
+#pragma unroll
+    for (int u = 0; u < S; ++u) {
+      hd[u] = mrg_d[u * k * Q + sq];
+      hi[u] = mrg_i[u * k * Q + sq];
+      pos[u] = 0;
+    }
+    int* row = idx + (static_cast<size_t>(batch) * n + q0 + sq) * k;
+    for (int t = 0; t < k; ++t) {
+      float bd = hd[0];
+      int bi = hi[0], bu = 0;
+#pragma unroll
+      for (int u = 1; u < S; ++u) {
+        const bool nearer = hd[u] < bd || (hd[u] == bd && hi[u] < bi);
+        bd = nearer ? hd[u] : bd;
+        bi = nearer ? hi[u] : bi;
+        bu = nearer ? u : bu;
+      }
+      row[t] = bi;
+      if constexpr (kStats) nbr_s[sq * KMAX + t] = bi;
+#pragma unroll
+      for (int u = 0; u < S; ++u) {
+        if (u == bu) {
+          // a spent list reads as (inf, past every index)
+          ++pos[u];
+          const bool more = pos[u] < k;
+          const int at = (u * k + (more ? pos[u] : 0)) * Q + sq;
+          hd[u] = more ? mrg_d[at] : INFINITY;
+          hi[u] = more ? mrg_i[at] : INT_MAX;
+        }
+      }
+    }
+  }
+  if constexpr (kStats) {
+    __syncthreads();  // nbr_s is complete
+    const int pairs = min(Q, n - q0) * k;
+    const float* b_b = btab + static_cast<size_t>(batch) * n * cb;
+    float* scb_b = scb + static_cast<size_t>(batch) * n * cb;
+    for (int pr = warp; pr < pairs; pr += kSplitThreads / 32) {
+      const int q = pr / k;
+      const int j = nbr_s[q * KMAX + pr - q * k];
+      const float* brow = b_b + static_cast<size_t>(q0 + q) * cb;
+      float* srow = scb_b + static_cast<size_t>(j) * cb;
+      for (int ch = lane; ch < cb; ch += 32) atomicAdd(srow + ch, brow[ch]);
+      if (lane == 0) atomicAdd(cnt + static_cast<size_t>(batch) * n + j, 1.f);
+    }
+  }
+}
+
 // acc[8][8] += e_s rows 8p .. 8p + 7 times w2_s columns 8cg .. 8cg + 7 over
 // kMaxW channels
 __device__ __forceinline__ void edge_gemm(const float* e_s, const float* w2_s,
@@ -442,16 +775,61 @@ cudaError_t run_knn(const float* x, int* idx, int batch, int n, int c, int k,
   return cudaGetLastError();
 }
 
+// S threads a query: 2 (128 queries a block), but 4 for K3 at C > 16,
+// where S = 2 ran slower on the H100 (PERF.md)
+template <int CP, int KMAX, bool kStats>
+cudaError_t run_knn_split(const float* x, int* idx, int batch, int n, int c,
+                          int k, const float* btab, float* cnt, float* scb,
+                          int cb, cudaStream_t s) {
+  constexpr int S = kStats && CP == kMaxC ? 4 : 2;
+  const auto kernel = knn_split_kernel<CP, KMAX, S, kStats>;
+  const size_t smem = split_smem_bytes<CP, KMAX, S, kStats>(k);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + Split<S>::Q - 1) / Split<S>::Q, batch);
+  kernel<<<grid, kSplitThreads, smem, s>>>(x, idx, n, c, k, btab, cnt, scb,
+                                           cb);
+  return cudaGetLastError();
+}
+
+// the list's length: exactly k for the model's k, else kMaxK slots
+template <int CP, bool kStats>
+cudaError_t run_knn_split_k(const float* x, int* idx, int batch, int n,
+                            int c, int k, const float* btab, float* cnt,
+                            float* scb, int cb, cudaStream_t s) {
+  if (k == kModelK)
+    return run_knn_split<CP, kModelK, kStats>(x, idx, batch, n, c, k, btab,
+                                              cnt, scb, cb, s);
+  return run_knn_split<CP, kMaxK, kStats>(x, idx, batch, n, c, k, btab, cnt,
+                                          scb, cb, s);
+}
+
+// the variant by width: the fast path's split selection for c <= 64 (CP =
+// 12, 16 or 64) and k <= 32, else one thread per query
 template <int KMAX, bool kStats>
 cudaError_t run_knn_c(const float* x, int* idx, int batch, int n, int c,
                       int k, const float* btab, float* cnt, float* scb,
                       int cb, cudaStream_t s) {
-  if (c <= 16)
-    return run_knn<16, KMAX, kStats>(x, idx, batch, n, c, k, btab, cnt, scb,
-                                     cb, s);
-  if (c <= kMaxC)
-    return run_knn<64, KMAX, kStats>(x, idx, batch, n, c, k, btab, cnt, scb,
-                                     cb, s);
+  if constexpr (KMAX == kMaxK) {
+    if (c <= 12)
+      return run_knn_split_k<12, kStats>(x, idx, batch, n, c, k, btab, cnt,
+                                         scb, cb, s);
+    if (c <= 16)
+      return run_knn_split_k<16, kStats>(x, idx, batch, n, c, k, btab, cnt,
+                                         scb, cb, s);
+    if (c <= kMaxC)
+      return run_knn_split_k<64, kStats>(x, idx, batch, n, c, k, btab, cnt,
+                                         scb, cb, s);
+  } else {
+    if (c <= 16)
+      return run_knn<16, KMAX, kStats>(x, idx, batch, n, c, k, btab, cnt,
+                                       scb, cb, s);
+    if (c <= kMaxC)
+      return run_knn<64, KMAX, kStats>(x, idx, batch, n, c, k, btab, cnt,
+                                       scb, cb, s);
+  }
   return run_knn<0, KMAX, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
                                   s);
 }

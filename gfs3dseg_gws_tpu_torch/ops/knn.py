@@ -9,19 +9,22 @@ layers deep the kNN graph is built inside the fused EdgeConv kernel
 two layers deep (models/dgcnn.py) and for the split eval EdgeConv. It
 replaces the JAX package's TPU kernel ops/knn.py::knn_indices (`_knn_pallas`,
 body `_knn_kernel`) with K1's kNN stage launched alone
-(`knn_kernel<CP, false>` in csrc/fused_edgeconv.cu). `knn_indices_plain` is
-its twin; the plain twins of K1 and K3 call the twin, never the kernel.
+(`knn_split_kernel<CP, KMAX, S, false>` in csrc/fused_edgeconv.cu: each
+query's keys split over S threads whose lists are merged exactly).
+`knn_indices_plain` is its twin; the plain twins of K1 and K3 call the twin,
+never the kernel.
 
 `knn_with_stats` (K3) is the training path's kNN: it also returns the
 in-degrees and the transposed b-scatter that let the fused training
 EdgeConv (ops/fused_edgeconv_train.py) compute its first BatchNorm's batch
 statistics before any gather. It replaces the JAX package's TPU kernel
 ops/knn.py::knn_with_stats (`_knn_stats_kernel`) with the CUDA kernel
-`knn_kernel<CP, KMAX, true>` in csrc/fused_edgeconv.cu.
+`knn_split_kernel<CP, KMAX, S, true>` in csrc/fused_edgeconv.cu.
 
 Both take any C, any N and any 1 <= k <= N on the card, by variant: the
-channels in registers for C <= 64 and streamed in chunks past it; the
-register insertion chain for k <= 32 and k <= 64; K8's fold-merge selection
+split selection for C <= 64 and k <= 32; one thread per query
+(`knn_kernel`) past it, the channels streamed in chunks for C > 64, the
+register insertion chain for k <= 64; K8's fold-merge selection
 for k > 64 (a query's key row in shared memory; past N ~ 27,000 in chunks
 whose k best are merged through a scratch the wrapper allocates).
 

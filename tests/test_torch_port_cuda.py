@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import copied_block
 from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
 from gfs3dseg_gws_tpu_torch.models.dgcnnseg import DGCNNSeg
 from gfs3dseg_gws_tpu_torch.models.layers import cross_entropy
@@ -325,6 +326,9 @@ def test_dgcnnseg_train_step_on_card_agrees_with_cpu(dev, monkeypatch,
     (2, 300, 128, 40),     # wide C (chunked), k in the 64 chain
     (2, 200, 9, 80),       # k > 64: fold-merge selection
     (1, 100, 100, 100),    # k = N, wide C
+    (2, 2047, 9, 20),      # the first block's width (CP = 12), ragged N
+    (3, 200, 12, 20),      # C = CP = 12
+    (2, 130, 16, 32),      # C = CP = 16, k at the split chain's limit
 ])
 def test_knn_indices_kernel_matches_plain(dev, b, n, c, k):
     """K6: int32 indices equal to the twin's, order included."""
@@ -339,6 +343,35 @@ def test_knn_indices_kernel_matches_plain(dev, b, n, c, k):
         assert torch.equal(idx, knn_indices_plain(x, k))
     else:
         _assert_same_graph(x, idx, knn_indices_plain(x, k))
+
+
+@pytest.mark.parametrize("c", [9, 64])
+@pytest.mark.parametrize("k", [1, 20, 32])
+def test_knn_stage_on_copied_points_equals_twin(dev, k, c):
+    """K6, K3 and K1's kNN stage on blocks of copied points (exact ties, to
+    the lower index): K3's and K8's idx equal K6's bit for bit, K1's out
+    equals K9 on K6's idx bit for bit, and K6's idx equals the twin's on
+    every row, order included (at C = 64 by the near-tie rule: the twin's
+    cuBLAS distances round otherwise than the kernel's fmaf chains)."""
+    r = np.random.default_rng(k)
+    x = torch.from_numpy(np.concatenate(
+        [copied_block(c=c, seed=s) for s in range(2)])).to(dev)
+    btab = _randn(r, 2, 2048, 64).to(dev)
+    tables = [_randn(r, 2, 2048, 64).to(dev), _randn(r, 2, 2048, 64).to(dev),
+              _randn(r, 64, 64, scale=0.125).to(dev),
+              _randn(r, 64, scale=0.1).to(dev)]
+    twin = knn_indices_plain(x, k)
+    idx6 = knn_indices(x, k)
+    idx3 = knn_with_stats(x, btab, k)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(idx3, idx6)
+    assert torch.equal(knn_indices_fold(x, k, 4), idx6)
+    assert torch.equal(fused_edgeconv_infer(x, *tables, k),
+                       gather_conv(idx6, *tables))
+    if c == 9:
+        assert torch.equal(idx6, twin)
+    else:
+        _assert_same_graph(x, idx6, twin)
 
 
 @pytest.mark.parametrize("b,n,k,c", [(2, 100, 5, 9), (3, 300, 20, 64),

@@ -13,6 +13,7 @@ import torch
 
 import jax.numpy as jnp
 
+from chip_smoke import copied_block
 from gfs3dseg_gws_tpu.ops.fused_edgeconv import _fused_edgeconv_xla
 from gfs3dseg_gws_tpu.ops.knn import _knn_xla
 from gfs3dseg_gws_tpu.ops.knn import knn_with_stats as jax_knn_with_stats
@@ -23,19 +24,9 @@ from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices, knn_indices_plain,
 K = 20
 
 
-def _copied_block(n=2048, c=9, copies=548, seed=0):
-    """(1, n, c) standard-normal points, `copies` rows replaced by copies of
-    earlier rows."""
-    r = np.random.default_rng(seed)
-    x = r.standard_normal((1, n, c)).astype(np.float32)
-    for i in np.sort(r.choice(np.arange(1, n), copies, replace=False)):
-        x[0, i] = x[0, r.integers(0, i)]
-    return x
-
-
 @pytest.fixture(scope="module")
 def block():
-    return _copied_block()
+    return copied_block()
 
 
 def test_knn_twin_equals_xla_on_copied_points(block):

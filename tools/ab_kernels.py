@@ -3,26 +3,28 @@ checkouts on one card.
 
     cd <checkout> && PYTHONPATH=. python3 <this file> --out run.pt
     python3 <this file> --compare a.pt b.pt [c.pt ...]
-    cd <checkout> && PYTHONPATH=. python3 <this file> --ptxas
+    cd <checkout> && PYTHONPATH=. python3 <this file> --ptxas [SOURCE ...]
 
 The first form builds the checkout's kernels, runs K1, K2, K3, K4a, K4b,
-K5a, K5b, K6, K7 and K9 at (16, 2048, .), k = 20 (C = 64; K1, K3 and K6
+K5a, K5b, K6, K7, K8 and K9 at (16, 2048, .), k = 20 (C = 64; K1, K3 and K6
 also C = 9; K2, K5a and K5b also at D = 128, the `_d128` entries, and K5a
-at D = 30 and 192) on inputs drawn from a fixed seed, prints one JSON
-line of CUDA-event times (ms) beside the card's name and power limit, and
-saves the outputs. K5b takes m and den from K5a's plain twin on the card,
-so that its inputs do not depend on the checkout's K5a. `ms` is the median
-over single calls, each waited for, as chip_smoke.py times them (the
-host's time to launch counts where the card idles); `ms_queued` is the
-mean of 30 calls queued back to back (the card's time alone). The second
-form prints, for each output of each kernel, whether the runs agree bit
-for bit and their largest difference, and on how many rows the kNN
-indices differ. Run the checkouts in turns (A, B, B, A) in one call: two
-calls may land on two cards. `--only k5a k2 ...` times those entries
-alone. The third form compiles the checkout's attention sources with
-`-Xptxas -v` and prints, for each kernel, its registers, spills and the
-`HMMA.1688.F32.TF32` instructions that `cuobjdump -sass` finds in it, as
-one JSON line.
+at D = 30 and 192; K1, K3 and K6 past the fast path, at C = 128, k = 40,
+and K6 at k = 80 on (4, 2048, 64), the `_wide` entries) on inputs drawn
+from a fixed seed, prints one JSON line of CUDA-event times (ms) beside the
+card's name and power limit, and saves the outputs. K5b takes m and den
+from K5a's plain twin on the card, so that its inputs do not depend on the
+checkout's K5a. `ms` is the median over single calls, each waited for, as
+chip_smoke.py times them (the host's time to launch counts where the card
+idles); `ms_queued` is the mean of 30 calls queued back to back (the
+card's time alone). The second form prints, for each named output of each
+kernel (K1's out, K3's idx, cnt and scb, ...), whether the runs agree bit
+for bit and their largest difference, and for index outputs on how many
+rows they differ. Run the checkouts in turns (A, B, B, A) in one call: two
+calls may land on two cards. `--only k6_c64 k3_c9 ...` times those entries
+alone. The third form compiles the checkout's attention sources and
+csrc/fused_edgeconv.cu with `-Xptxas -v` and prints, for each kernel, its
+registers, spills, static shared memory and the `HMMA.1688.F32.TF32`
+instructions that `cuobjdump -sass` finds in it, as one JSON line.
 """
 from __future__ import annotations
 
@@ -77,7 +79,8 @@ def run(out: str, only=None) -> None:
     from gfs3dseg_gws_tpu_torch.ops.edgeconv import scatter_bwd
     from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (
         fused_edgeconv_infer, gather_conv)
-    from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices, knn_with_stats
+    from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices, knn_indices_fold,
+                                                knn_with_stats)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -111,6 +114,9 @@ def run(out: str, only=None) -> None:
     t3 = 30 ** 0.5
     q4, k4, v4 = (randn(B, N, 192) for _ in range(3))
     t4 = 192 ** 0.5
+    x128, a128, b128 = (randn(B, N, 128) for _ in range(3))
+    w128, bias128 = randn(128, 128, scale=128 ** -0.5), randn(128, scale=0.1)
+    x4 = randn(4, N, 64)
 
     calls = {
         "k1_c9": lambda: fused_edgeconv_infer(x9, a, b, w2, bias2, K),
@@ -132,15 +138,19 @@ def run(out: str, only=None) -> None:
         "k6_c9": lambda: knn_indices(x9, K),
         "k6_c64": lambda: knn_indices(x64, K),
         "k7": lambda: scatter_bwd(idx, g),
+        "k8": lambda: knn_indices_fold(x64, K, 4),
         "k9": lambda: gather_conv(idx, a, b, w2, bias2),
+        "k1_wide": lambda: fused_edgeconv_infer(x128, a128, b128, w128,
+                                                bias128, 40),
+        "k3_wide": lambda: knn_with_stats(x128, b128, 40),
+        "k6_wide": lambda: knn_indices(x128, 40),
+        "k6_k80_wide": lambda: knn_indices(x4, 80),
     }
+    names = {"k3": ("idx", "cnt", "scb"), "k4a": ("snbr", "zmax", "zmin",
+                                                  "kmax", "kmin")}
     if only:
         calls = {name: calls[name] for name in only}
     outputs = {name: fn() for name, fn in calls.items()}
-    # K4a's per-point outputs (snbr, zmax, zmin, kmax, kmin); the form of its
-    # bn2 partials differs between versions
-    if "k4a" in outputs:
-        outputs["k4a"] = outputs["k4a"][:5]
     torch.cuda.synchronize()
     times = {name: cuda_ms(fn) for name, fn in calls.items()}
     queued = {name: cuda_ms_queued(fn) for name, fn in calls.items()}
@@ -150,34 +160,44 @@ def run(out: str, only=None) -> None:
     print(json.dumps({"card": smi, "ms": times, "ms_queued": queued}),
           flush=True)
 
-    def cpu(o):
-        return ([t.cpu() for t in o] if isinstance(o, tuple) else o.cpu())
+    def named(name, o):
+        """{output name: tensor on the host}; K4a keeps its per-point outputs
+        (the form of its bn2 partials differs between versions)"""
+        o = o if isinstance(o, tuple) else (o,)
+        keys = names.get(name.split("_")[0])
+        if keys is None:
+            keys = (("idx",) if o[0].dtype == torch.int32 else
+                    ("out",) if len(o) == 1 else
+                    tuple(f"out{i}" for i in range(len(o))))
+        return {key: t.cpu() for key, t in zip(keys, o)}
 
-    torch.save({name: cpu(o) for name, o in outputs.items()}, out)
+    torch.save({name: named(name, o) for name, o in outputs.items()}, out)
 
 
 def compare(paths) -> None:
     runs = [torch.load(p) for p in paths]
     report = {}
     for name in runs[0]:
-        outs = [r[name] for r in runs]
-        first = outs[0] if isinstance(outs[0], list) else [outs[0]]
+        first = runs[0][name]
         entry = {}
-        for other, path in zip(outs[1:], paths[1:]):
-            other = other if isinstance(other, list) else [other]
-            equal = [torch.equal(x, y) for x, y in zip(first, other)]
-            diff = [(x.double() - y.double()).abs().max().item()
-                    for x, y in zip(first, other) if x.is_floating_point()]
-            ints = [(x != y).reshape(-1, x.shape[-1]).any(-1).sum().item()
-                    for x, y in zip(first, other)
-                    if x.dtype == torch.int32 and x.dim() == 3]
-            entry[path] = {"bit_for_bit": equal, "max_abs_diff": diff,
-                           **({"index_rows_differing": ints} if ints else {})}
+        for run, path in zip(runs[1:], paths[1:]):
+            other = run[name]
+            res = {}
+            for key, x in first.items():
+                y = other[key]
+                res[key] = {"bit_for_bit": torch.equal(x, y)}
+                if x.is_floating_point():
+                    res[key]["max_abs_diff"] = (
+                        x.double() - y.double()).abs().max().item()
+                elif x.dim() == 3:
+                    res[key]["rows_differing"] = (x != y).reshape(
+                        -1, x.shape[-1]).any(-1).sum().item()
+            entry[path] = res
         report[name] = entry
     print(json.dumps(report), flush=True)
 
 
-def ptxas() -> None:
+def ptxas(sources=()) -> None:
     from gfs3dseg_gws_tpu_torch.ops import _ext
 
     nvcc = _ext._nvcc()
@@ -187,7 +207,8 @@ def ptxas() -> None:
                              text=True, check=True, timeout=60).stdout
     report = {"nvcc": version.strip().splitlines()[-1]}
     with tempfile.TemporaryDirectory() as tmp:
-        for src in ("attention.cu", "attention_train.cu"):
+        for src in sources or ("attention.cu", "attention_train.cu",
+                               "fused_edgeconv.cu"):
             obj = os.path.join(tmp, src + ".o")
             res = subprocess.run(
                 [nvcc, *_ext.NVCC_FLAGS, "-Xptxas", "-v", "-I",
@@ -209,6 +230,8 @@ def ptxas() -> None:
                 elif fn is not None and (found := re.search(
                         r"Used (\d+) registers", line)):
                     fn["registers"] = int(found[1])
+                    if found := re.search(r"(\d+) bytes smem", line):
+                        fn["static_smem_bytes"] = int(found[1])
             for part in sass.split("Function : ")[1:]:
                 name = part.split()[0]
                 kernels.setdefault(name, {})["hmma_tf32"] = part.count(
@@ -227,11 +250,13 @@ def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out")
     p.add_argument("--compare", nargs="+")
-    p.add_argument("--ptxas", action="store_true")
+    p.add_argument("--ptxas", nargs="*", metavar="SOURCE",
+                   help="-Xptxas -v of these csrc sources (default: the "
+                   "attention sources and fused_edgeconv.cu)")
     p.add_argument("--only", nargs="+", help="time these entries alone")
     args = p.parse_args()
-    if args.ptxas:
-        ptxas()
+    if args.ptxas is not None:
+        ptxas(args.ptxas)
     elif args.compare:
         compare(args.compare)
     else:
