@@ -66,6 +66,8 @@ NOISE_GRAD = 1e-5                 # ... unless both gradients are below this
                                   # share of the largest gradient norm
 GRAPH_TIE = 1e-4                  # ... card graph rows the CPU's own graph
                                   # differs on: near-ties (near_tie_rows)
+MAX_TIE = 1e-4                    # ... and global-max points it differs on:
+                                  # |max - value there| / |max| at most this
 ATTN_RATE = 0.1                   # K5: the model's attention dropout
 K5_FWD_TOL, K5_BWD_TOL = 1e-5, 1e-4  # K5a / K5b: max |diff| / max |twin|
 GFS_BLOCKS, GFS_EPOCHS = 256, 2   # GFS training data and epochs
@@ -84,6 +86,7 @@ WIDE_C, WIDE_K, BIG_K, BIG_B = 128, CLASS_K, 80, 4
 WIDE_D = (30, 128, 192)
 LONG_N = 30000                    # kNN at k = BIG_K past one shared key row
 WIDE_REPS = 5                     # timing repetitions past the fast path
+K4_DRAWS = (1, 2, 3)              # K4 at C = W = WIDE_C: seeds of more draws
 K8_FOLDS = (2, 4, 8)              # K8: folds held to K6 (2 and 4 timed)
 K7_TOL = 1e-5                     # K7, gather gradient: max |diff| / max |ref|
 LLOYD_BLOCKS, LLOYD_ITERS = 32, 20  # lloyd card vs CPU: blocks, iterations
@@ -116,15 +119,17 @@ KERNEL_GROUPS = (
 )
 
 
-def bound(flops: float, nbytes: float, tf32x3: bool = False):
+def bound(flops: float, nbytes: float, tf32x3: bool = False,
+          tc_flops: float = 0.0):
     """(bound_ms, bound_by): the least time for `flops` fp32 operations (an
     FMA is two) at the card's fp32 peak outside the tensor cores, or with
     `tf32x3` as three TF32 products each on the tensor cores (3xTF32, K2,
-    K5a and K5b: fp32-accurate, 3 x flops at the TF32 peak), and for `nbytes`
-    (each input read once, each output written once) at its memory rate;
-    the larger of the two."""
+    K5a and K5b: fp32-accurate, 3 x flops at the TF32 peak), plus
+    `tc_flops` more in 3xTF32 (K1: its edge stage beside its fp32 kNN),
+    and for `nbytes` (each input read once, each output written once) at
+    its memory rate; the larger of the two."""
     t_ops = (3.0 * flops / PEAK_TF32_FLOPS if tf32x3
-             else flops / PEAK_FP32_FLOPS)
+             else flops / PEAK_FP32_FLOPS) + 3.0 * tc_flops / PEAK_TF32_FLOPS
     t_mem = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem
                                      else "bytes")
@@ -193,14 +198,20 @@ def check_edgeconv(dev, c: int, gen: torch.Generator, w0: int = 64,
     ms = cuda_ms(lambda: fused_edgeconv_infer(*args, k), reps)
     plain_ms = cuda_ms(lambda: fused_edgeconv_plain(*args, k), reps)
     max_err = diff.max().item()
-    # FMAs: the kNN distances (b N^2 c) and the edge layer (b N k w0 x w1)
-    bound_ms, bound_by = bound(2.0 * (b * N * N * c + b * N * k * w0 * w1),
-                               size_of(*args, got))
+    # FMAs: the kNN distances (b N^2 c, fp32) and the edge layer (b N k w0
+    # x w1: 3xTF32 on the tensor cores up to W0, W1 = 64, fp32 past them)
+    knn_flops, edge_flops = 2.0 * b * N * N * c, 2.0 * b * N * k * w0 * w1
+    nbytes = size_of(*args, got)
+    fp32_ms = bound(knn_flops + edge_flops, nbytes)[0]
+    bound_ms, bound_by = (bound(knn_flops, nbytes, tc_flops=edge_flops)
+                          if max(w0, w1) <= 64
+                          else bound(knn_flops + edge_flops, nbytes))
     phase(label, max_abs_err=max_err,
           rows_within_tol=share, near_tie_rows=len(bad), kernel_ms=ms,
-          plain_ms=plain_ms, bound_ms=bound_ms)
+          plain_ms=plain_ms, bound_ms=bound_ms, bound_fp32_ms=fp32_ms)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                bound_fp32_ms=fp32_ms)
 
 
 def check_attention(dev, gen: torch.Generator, d: int = 64, reps: int = 20):
@@ -478,14 +489,17 @@ def check_gather_conv(dev, gen: torch.Generator, cs=(9, 64), w0: int = 64,
     max_err = (got - ref).abs().max().item()
     ms = cuda_ms(lambda: gather_conv(idx, *tables), reps)
     plain_ms = cuda_ms(lambda: gather_conv_plain(idx, *tables), reps)
-    # FMAs: the edge layer (b N k w0 x w1)
-    bound_ms, bound_by = bound(2.0 * b * N * k * w0 * w1,
-                               size_of(idx, *tables, got))
+    # FMAs: the edge layer (b N k w0 x w1), 3xTF32 on the tensor cores up
+    # to W0, W1 = 64, fp32 past them
+    flops, nbytes = 2.0 * b * N * k * w0 * w1, size_of(idx, *tables, got)
+    bound_ms, bound_by = bound(flops, nbytes, tf32x3=max(w0, w1) <= 64)
+    fp32_ms = bound(flops, nbytes)[0]
     phase(f"K9 gather_conv ({b},{N},{w0}->{w1}) k={k}", max_abs_err=max_err,
           split_equals_k1=f"bit for bit at C={cs}", kernel_ms=ms,
-          plain_ms=plain_ms, bound_ms=bound_ms)
+          plain_ms=plain_ms, bound_ms=bound_ms, bound_fp32_ms=fp32_ms)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                bound_fp32_ms=fp32_ms)
 
 
 def check_knn_stats(dev, c: int, gen: torch.Generator, k: int = K,
@@ -528,24 +542,38 @@ def check_knn_stats(dev, c: int, gen: torch.Generator, k: int = K,
 
 def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
                       w1: int = 64, k: int = K, reps: int = 20,
-                      composite_times: bool = True):
-    """K4a/K4b at (b, N, c -> w1), k, on an idx from the plain kNN.
+                      composite_times: bool = True, timing: bool = True,
+                      draw: str = "in place"):
+    """K4a/K4b at (b, N, c -> w1), k, on an idx from the plain kNN, inputs
+    drawn from `gen`.
 
     The autograd Function (the kernels) against the unfused composition:
     forward and its four batch statistics. Then each stage against its
     plain twin on the same inputs: K4a at the forward's bn1 affine (values;
     max/min slots on >= EC_ROWS of the (point, channel) pairs: a slot may
-    differ where two neighbours' z1 agree to rounding), K4b on K4a's slots.
+    differ where two neighbours' z1 agree to rounding), K4b on K4a's slots
+    (the twin's LeakyReLU branch by the exact sign of the pre-activation,
+    as the kernel's fmaf gives it; the edges where two roundings would flip
+    it are counted).
     K4a's max_abs_err takes its bn2 sums (sum(h1) and the Gram matrix;
     past C, W1 = 64 sum z1 and sum z1^2) per edge, as the bn2 statistics
-    use them. Then the seven gradients of one random
-    cotangent: max |diff| / max |ref|
-    <= GRAD_TOL when every slot agreed; where some differed, the gradient
-    goes to another edge there, and the relative L2 error is held instead.
-    One bn2 scale in eight is negative, so the min branch runs. With
-    `composite_times`, the whole Function and the unfused composition are
-    timed too."""
+    use them. Then the seven gradients of one random cotangent through the
+    whole Function, max |diff| / max |ref| <= GRAD_TOL, against the
+    composition's when both runs select the same neighbour at every (point,
+    channel) - the Function's slot (K4a's max or min slot by the sign of
+    the bn2 scale, at its own statistics) and the composition's argmax over
+    k (at its own statistics, which round otherwise). Where some differ,
+    each such neighbour must be a near-tie (its value below the max there
+    by at most FWD_TOL of the composition's largest output), and the
+    reference is the composition taking the Function's neighbours instead
+    of its argmax, as the card-vs-CPU checks replay the card's kNN graphs:
+    one (point, channel) sent to another edge moves the gradient of `a` by
+    4-7e-4 in relative L2 at (16, 2048, 128 -> 128), k = 40. One bn2 scale
+    in eight is negative, so the min branch runs. With `timing`, K4a and
+    K4b are timed (else None is returned), and with `composite_times` the
+    whole Function and the composition too."""
     from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
+    from gfs3dseg_gws_tpu_torch.ops.edgeconv import gather_neighbors_plain
     from gfs3dseg_gws_tpu_torch.ops.knn import knn_with_stats_plain
 
     def randn(*shape, scale=1.0, shift=0.0):
@@ -575,10 +603,10 @@ def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
     if out_err > FWD_TOL:
         raise AssertionError(f"K4 forward off the plain version by {out_err}")
 
-    # K4a against its twin at the forward's bn1 affine
+    # K4a against its twin at the forward's bn1 affine, as the Function
+    # forms it
     _, mu1, var1, mu2, var2 = f_outs
-    inv1 = torch.rsqrt(var1 + 1e-5)
-    s1, t1 = g1 * inv1, be1 - mu1 * g1 * inv1
+    s1, t1, inv1 = fet._affines(g1, be1, mu1, var1)
     gsf_args = (a, bt, idx, s1, t1, w2, 0.2)
     got, ref = fet._gsf(*gsf_args), fet._gsf_plain(*gsf_args)
     torch.cuda.synchronize()
@@ -595,7 +623,7 @@ def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
                              f"{slots_ok}")
 
     # K4b against its twin on K4a's slots
-    inv2 = torch.rsqrt(var2 + 1e-5)
+    inv2 = torch.rsqrt(var2 + fet.EPS)
     gsel = randn(b, N, w1)
     p1 = torch.stack([s1, t1, mu1, inv1, g1 * inv1])
     pk = torch.stack([g2 * inv2, gsel.mean((0, 1)), randn(w1, scale=0.01),
@@ -603,21 +631,62 @@ def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
     bwd_args = (a, bt, idx, p1, w2, gsel, got[3], pk, 0.2)
     got_b, ref_b = fet._bwd(*bwd_args), fet._bwd_plain(*bwd_args)
     torch.cuda.synchronize()
+    # edges whose bn1 pre-activation lies so near 0 that two roundings give
+    # it the other sign than one: the twin takes the exact sign's branch
+    e0 = gather_neighbors_plain(a, idx) + bt[:, :, None, :]
+    branch_ties = int(((e0 * s1 + t1 >= 0) != (
+        e0.double() * s1.double() + t1.double() >= 0)).sum())
+    del e0
     k4b_err = max(rel_err(g, r) for g, r in zip(got_b, ref_b))
     k4b_abs = max((g - r).abs().max().item() for g, r in zip(got_b, ref_b))
     if k4b_err > GRAD_TOL:
         raise AssertionError(f"K4b off its twin by {k4b_err}")
 
-    # the gradients through the whole Function
-    def l2(f, p):
-        return ((f - p).norm() / p.norm().clamp_min(1e-30)).item()
+    # the neighbour each whole run sends a (point, channel)'s gradient to:
+    # the Function's slot (K4a's, by the sign of its bn2 scale) and the
+    # composition's argmax over k, each at its own statistics
+    ksel = torch.where(g2 * inv2 > 0, got[3], got[4]).long()
+    with torch.no_grad():
+        h2 = fet.train_plain_edges(*params, idx)[0]
+        top = h2.amax(2)
+        flipped = h2.argmax(2) != ksel
+        gap = (top - h2.gather(2, ksel[:, :, None])[:, :, 0])[flipped]
+    run_flips = int(flipped.sum())
+    del h2
+    label = f"K4 fused_edgeconv_train ({b},{N},{c}->{w1}) k={k}"
+    if (gap > FWD_TOL * top.abs().max()).any():
+        raise AssertionError(f"{label}: the Function selects a neighbour "
+                             "that is not a near-tie of the composition's "
+                             "max")
 
-    measure = rel_err if flips == 0 else l2
-    grad_errs = {n: measure(f, p) for n, f, p in zip(names, f_grads, p_grads)}
+    # the gradients through the whole Function: against the composition,
+    # or where the runs select different neighbours (near-ties, each moving
+    # a whole (point, channel)'s gradient to another edge), against the
+    # composition sending each to the Function's neighbour
+    def on_slots(*ins):
+        h2, *stats = fet.train_plain_edges(*ins)
+        return (h2.gather(2, ksel[:, :, None])[:, :, 0], *stats)
+
+    ref_grads = p_grads if run_flips == 0 else run(on_slots)[1]
+    grad_errs = {n: rel_err(f, r) for n, f, r in zip(names, f_grads,
+                                                      ref_grads)}
     worst = max(grad_errs, key=grad_errs.get)
+    grads = dict(
+        draw=draw, slot_flips=flips, k4b_branch_ties=branch_ties,
+        run_slot_flips=run_flips,
+        grad_measure=("max_abs_ratio" if run_flips == 0 else
+                      "max_abs_ratio on the Function's neighbours"),
+        worst_grad=worst, worst_grad_err=grad_errs[worst],
+        free_run_worst_rel_l2=max(
+            ((f - p).norm() / p.norm().clamp_min(1e-30)).item()
+            for f, p in zip(f_grads, p_grads)))
     if grad_errs[worst] > GRAD_TOL:
-        raise AssertionError(f"K4 gradient of {worst} off the plain version "
-                             f"by {grad_errs[worst]}")
+        raise AssertionError(f"{label}: gradient of {worst} off the plain "
+                             f"version by {grad_errs[worst]} ({grads})")
+    if not timing:
+        phase(label, forward_rel_err=out_err, k4a_rel_err=k4a_err,
+              slots_agree=slots_ok, k4b_rel_err=k4b_err, **grads)
+        return None
 
     def fwd(fn, **kw):
         with torch.no_grad():
@@ -647,11 +716,8 @@ def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
                       size_of(*gsf_args[:6], *got))
     k4b_bound = bound(2.0 * 3 * edges * c * w1,
                       size_of(*bwd_args[:8], *got_b))
-    phase(f"K4 fused_edgeconv_train ({b},{N},{c}->{w1}) k={k}",
-          forward_rel_err=out_err, k4a_rel_err=k4a_err, slots_agree=slots_ok,
-          slot_flips=flips, k4b_rel_err=k4b_err,
-          grad_measure="max_abs_ratio" if flips == 0 else "rel_l2",
-          worst_grad=worst, worst_grad_err=grad_errs[worst],
+    phase(label, forward_rel_err=out_err, k4a_rel_err=k4a_err,
+          slots_agree=slots_ok, k4b_rel_err=k4b_err, **grads,
           k4a_bound_ms=k4a_bound[0], k4b_bound_ms=k4b_bound[0], **times)
     return (dict(max_abs_err=k4a_abs, ms=times["k4a_ms"],
                  plain_ms=times["k4a_plain_ms"], bound_ms=k4a_bound[0],
@@ -801,7 +867,8 @@ def check_knn_fold(dev, c: int, gen: torch.Generator):
 
 def check_wide_kernels(dev, gen: torch.Generator):
     """Every kernel past the fast path, held to its twin as at the model's
-    widths: K1, K3, K6, K9 and K4 at C = W = WIDE_C, k = WIDE_K; K7 at C =
+    widths: K1, K3, K6, K9 and K4 at C = W = WIDE_C, k = WIDE_K (K4 also on
+    the inputs of each seed of K4_DRAWS); K7 at C =
     256 (the classification encoder's widest gather); K1, K3, K6 and K4 at
     k = BIG_K (K8's fold-merge selection for the kNN stage), batch BIG_B,
     with ragged 64-column tiles; K2 and K5 (rates ATTN_RATE and 0) at each
@@ -817,6 +884,11 @@ def check_wide_kernels(dev, gen: torch.Generator):
                                 reps=WIDE_REPS)}
     wide["k4a"], wide["k4b"] = check_fused_train(
         dev, gen, c=wc, w1=wc, k=wk, reps=WIDE_REPS, composite_times=False)
+    # the gradient check's margin moves with its inputs: more draws, each
+    # from a generator of its own, whatever ran before
+    for seed in K4_DRAWS:
+        check_fused_train(dev, torch.Generator().manual_seed(seed), c=wc,
+                          w1=wc, k=wk, timing=False, draw=f"seed {seed}")
     check_edgeconv(dev, 9, gen, 72, 130, BIG_K, b=BIG_B, reps=WIDE_REPS)
     check_knn_stats(dev, 64, gen, BIG_K, b=BIG_B, reps=WIDE_REPS)
     check_knn_indices(dev, 64, gen, BIG_K, b=BIG_B, reps=WIDE_REPS)
@@ -1229,8 +1301,16 @@ def compare_train_step(label: str, cpu_model, card_model, dev, run):
     the CPU are the plain twin's of that graph. A gradient that is zero in
     exact arithmetic (a bias whose shift a train-mode BatchNorm downstream
     removes) is rounding noise on both devices: a pair under NOISE_GRAD of
-    the largest gradient norm is counted and left out."""
-    from gfs3dseg_gws_tpu_torch.models import dgcnn
+    the largest gradient norm is counted and left out.
+
+    A block's global max feature (models/dgcnnseg.py::global_max, the max
+    over its points per channel) is replayed likewise: the card's argmax
+    point of each (block, channel) is recorded, and the CPU takes the value
+    at that point (so the gradient goes to the same point), after checking
+    that wherever its own argmax differs, its max and its value at the
+    card's point lie within MAX_TIE of the max: a near-tie that rounding
+    resolves either way."""
+    from gfs3dseg_gws_tpu_torch.models import dgcnn, dgcnnseg
     from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices,
                                                 knn_indices_plain,
                                                 knn_with_stats,
@@ -1265,27 +1345,49 @@ def compare_train_step(label: str, cpu_model, card_model, dev, run):
         idx = replay_idx(x, k)
         return (idx,) + neighbor_stats_plain(idx, btab)
 
+    maxima, max_differing = [], []
+
+    def record_max(feat):
+        maxima.append(feat.argmax(1).cpu())
+        return saved_max(feat)
+
+    def replay_max(feat):
+        at = maxima.pop(0)                                     # (B, C)
+        top = feat.detach().amax(1)
+        bad = feat.detach().argmax(1) != at
+        gap = (top - feat.detach().gather(1, at[:, None])[:, 0]).abs()
+        if (gap[bad] > MAX_TIE * top[bad].abs().clamp_min(1e-30)).any():
+            raise AssertionError(f"global max {len(max_differing)}: the "
+                                 "card's point is not a near-tie of the "
+                                 "CPU's max")
+        max_differing.append(int(bad.sum()))
+        return feat.gather(1, at[:, None])
+
     card_model.load_state_dict(cpu_model.state_dict())
     runs = {}
     saved = dgcnn.knn_with_stats, dgcnn.knn_indices
-    for name, model, device, knn, knn_idx in (
-            ("card", card_model, dev, record, record_idx),
-            ("cpu", cpu_model, "cpu", replay, replay_idx)):
+    saved_max = dgcnnseg.global_max
+    for name, model, device, knn, knn_idx, gmax in (
+            ("card", card_model, dev, record, record_idx, record_max),
+            ("cpu", cpu_model, "cpu", replay, replay_idx, replay_max)):
         dgcnn.knn_with_stats, dgcnn.knn_indices = knn, knn_idx
+        dgcnnseg.global_max = gmax
         try:
             model.train()
             loss = run(model, device)
             loss.backward()
         finally:
             dgcnn.knn_with_stats, dgcnn.knn_indices = saved
+            dgcnnseg.global_max = saved_max
         runs[name] = dict(
             loss=loss.item(),
             grads={n: p.grad.cpu().double().flatten()
                    for n, p in model.named_parameters()},
             stats={n: b.cpu().double() for n, b in model.named_buffers()
                    if n.endswith(("running_mean", "running_var"))})
-    if graphs:
-        raise AssertionError(f"{len(graphs)} card graphs not replayed")
+    if graphs or maxima:
+        raise AssertionError(f"{len(graphs)} card graphs, {len(maxima)} "
+                             "global maxima not replayed")
     ref, got = runs["cpu"], runs["card"]
     loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
     stat_err = max(((v - ref["stats"][n]).abs()
@@ -1304,7 +1406,8 @@ def compare_train_step(label: str, cpu_model, card_model, dev, run):
           cpu_loss=ref["loss"], card_loss=got["loss"], loss_rel_err=loss_err,
           running_stat_err=stat_err, worst_grad=worst,
           worst_grad_cosine=cos[worst], noise_grads=noise,
-          graph_rows_differing=differing)
+          graph_rows_differing=differing,
+          global_max_points_differing=max_differing)
     if loss_err > STEP_RTOL or stat_err > STEP_RTOL:
         raise AssertionError("card and CPU train steps disagree")
     if cos[worst] < GRAD_COS:
@@ -1791,7 +1894,7 @@ def main() -> int:
                                      for k, v in cls_launches.items()})
     kernels = [
         ("k1", "fused_edgeconv_infer", "fused_edgeconv.cu",
-         "knn_split_kernel<CP, KMAX, false> + edge_mlp_kernel<false>",
+         "knn_split_kernel<CP, KMAX, false> + edge_mma_kernel",
          "fused_edgeconv.py:94", "eval"),
         ("k2", "fused_attention", "attention.cu",
          "attention_mma_kernel<DP, KT>", "attention_kernel.py:34", "eval"),
@@ -1813,7 +1916,7 @@ def main() -> int:
          "edgeconv_scatter_kernel", "edgeconv.py:98", "semseg"),
         ("k8", "knn_indices_fold", "knn_fold.cu",
          "knn_fold_kernel<CP, F, kStats>", "knn.py:193", "none"),
-        ("k9", "gather_conv", "fused_edgeconv.cu", "edge_mlp_kernel<false>",
+        ("k9", "gather_conv", "fused_edgeconv.cu", "edge_mma_kernel",
          "fused_edgeconv.py:222", "none"),
     ]
     phase("phase seconds", **PHASE_SECONDS)

@@ -15,10 +15,11 @@
 // memory. Everything is fp32: the TPU kernel's bf16 rounding and its
 // one-hot matmul "gather" (a Mosaic workaround) are not carried over.
 //
-// What bounds it: fp32 FMAs. At B=16, N=2048, C=64, k=20 the distances are
-// 4.3 G FMAs and the per-edge 64x64 layer 2.7 G FMAs, while the bytes read
-// are a few MB that stay in L2. The two stages want different register
-// budgets, so they are two kernels launched back to back:
+// What bounds it: operations. At B=16, N=2048, C=64, k=20 the distances are
+// 4.3 G fp32 FMAs and the per-edge 64x64 layer 2.7 G FMAs (in 3xTF32 on the
+// tensor cores, three TF32 products each), while the bytes read are a few
+// MB that stay in L2. The two stages want different register budgets, so
+// they are two kernels launched back to back:
 //
 // 1. knn_split_kernel (C <= 64, k <= 32): one block of kSplitThreads (8
 //    warps) per (batch, Q queries), S threads per query (S = 2, Q = 128;
@@ -53,14 +54,15 @@
 //    knn_kernel, one thread per query and its chain, serves the rest:
 //    C > 64 and 32 < k <= 64 (below).
 //
-// 2. edge_mlp_kernel: the per-edge layer as a register-tiled fp32 GEMM. A
-//    block takes kTileQ queries and walks their neighbours kChunk at a time:
-//    it builds the chunk's edge rows e = leaky(a[j] + b[i]) in shared memory
-//    (kTileQ * kChunk rows of up to 64 channels, transposed), multiplies
-//    them by W2 (in shared memory) with each thread owning an 8 x 8 output
-//    tile - the 8 edges of 2 queries x 4 neighbours by 8 output channels,
-//    so four float4 loads feed 64 FMAs - and folds bias, LeakyReLU and the
-//    max over the neighbours into its 2 x 8 running maxima.
+// 2. edge_mma_kernel (W0, W1 <= 64): the per-edge layer on the tensor
+//    cores in 3xTF32 mma.sync (csrc/mma_tf32.cuh). A warp takes 16 queries
+//    (the rows of an m16 tile) and all 64 output columns, and walks their
+//    neighbour slots one at a time: the slot's rows a[j] land in shared
+//    memory by cp.async while the previous slot computes, each A element
+//    is formed as leaky(a[j] + b[i]) in fp32 as its fragment loads and
+//    split into hi and lo, W2 waits split in shared memory in fragment
+//    order, and each slot's 64-channel sum starts in fresh accumulators
+//    that fold into running maxima in fp32 (details at the kernel).
 //
 // Ragged N is masked here, not by the caller: key rows past N are never
 // inserted, and queries past N are computed on zeros and never stored.
@@ -82,8 +84,9 @@
 // integers and is exact. At k = 20 and Cb = 64 the scatter is 1,280
 // float atomics per query, against the kNN's 2,048 x C distance FMAs.
 //
-// Widths and neighbour counts. knn_split_kernel and edge_mlp_kernel<false>
-// are the fast path, for C, W0, W1 <= 64 and k <= 32 (the model's widths).
+// Widths and neighbour counts. knn_split_kernel and edge_mma_kernel are the
+// fast path, for C, W0, W1 <= 64 and k <= 32 (the model's widths;
+// edge_mma_kernel takes any k).
 // Past those, knn_kernel, one thread per query, selects:
 // * C > 64: knn_kernel<0, ...> streams the channels through keys_s in
 //   chunks of 64; the partial dot products wait in cand_d and |k|^2 in kk_s
@@ -94,14 +97,15 @@
 //   holds each query's key row in shared memory, in chunks merged through
 //   the caller's scratch past N ~ 27,000; for K3 it adds the statistics
 //   itself;
-// * W0 or W1 > 64: edge_mlp_kernel<true> takes 64 output columns per block
-//   (grid z) and walks W0 in chunks of 64 through e_s and w2_s, carrying
-//   the GEMM accumulators across the chunks.
+// * W0 or W1 > 64: edge_mlp_wide_kernel, a register-tiled fp32 GEMM, takes
+//   64 output columns per block (grid z) and kChunk neighbours of kTileQ
+//   queries a step, and walks W0 in chunks of 64 through e_s and w2_s,
+//   carrying the GEMM accumulators across the chunks.
 //
 // K6 and K9 are K1's two stages, each behind an entry of its own:
 // gfs_knn_indices launches the kNN stage alone and replaces the TPU
 // kernel gfs3dseg_gws_tpu/ops/knn.py::knn_indices (`_knn_pallas`, body
-// `_knn_kernel`); gfs_gather_conv launches edge_mlp_kernel alone on given
+// `_knn_kernel`); gfs_gather_conv launches the edge stage alone on given
 // indices and replaces ops/fused_edgeconv.py::fused_edgeconv_infer_split
 // (body `_gather_conv_kernel`). All three entries share the two launch
 // helpers, so K6 then K9 computes what K1 computes, bit for bit. K6 is
@@ -110,7 +114,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "mma_tf32.cuh"   // the cp.async helpers
+#include "mma_tf32.cuh"   // 3xTF32 mma.sync, the cp.async helpers
 
 namespace {
 
@@ -666,15 +670,216 @@ __device__ __forceinline__ void edge_gemm(const float* e_s, const float* w2_s,
   }
 }
 
-// kWide: W0 or W1 above kMaxW; the block takes output columns col0 ..
-// col0 + 63 (col0 = 64 blockIdx.z) and W0 in chunks of kMaxW
-template <bool kWide>
-__global__ void __launch_bounds__(kMlpThreads)
-edge_mlp_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
+// edge_mma_kernel: the edge stage for W0, W1 <= 64 on the tensor cores.
+// A warp takes kMmaRows = 16 queries (the rows of one m16n8k8 tile) and all
+// 64 output columns (8 n-tiles), and walks their neighbour slots r = 0 ..
+// k - 1: slot r's 16 x 64 edge rows e = leaky(a[idx[i, r]] + b[i]) times W2,
+// in 3xTF32 (csrc/mma_tf32.cuh), summed in fresh accumulators (64 channels,
+// 8 k-steps: no long truncating chain), then folded into running maxima
+// element by element in fp32. leaky(. + bias2) is monotone, so it is
+// applied once to the max, which gives the same floats as the max of
+// leaky(z + bias2). The rows a[idx[i, r + 1]] land in shared memory by
+// cp.async while slot r computes; each warp stages its own rows (and its
+// own b rows, held in registers), so the loop needs no block barrier. W2 is
+// split into hi and lo once a block and kept in shared memory in fragment
+// order (one 16-byte load a lane per B fragment).
+//
+// The sum over channels is taken in an order of our choosing: a lane loads
+// channels 16 p + 4 t .. + 3 of its two rows as one float4 and uses them
+// for the k-steps 2 p (channels + 0, + 1 at k-positions t, t + 4) and 2 p +
+// 1 (+ 2, + 3), and W2's fragments are laid out to match.
+constexpr int kMmaRows = 16;     // queries a warp
+constexpr int kMmaWarps = 4;     // warps a block, 64 queries (2 blocks an
+                                 // SM; 8 warps, one block an SM, ran no
+                                 // faster on the H100: PERF.md)
+constexpr int kMmaStride = 80;   // floats a staged row (64 + 16): the float4
+                                 // loads of a quarter warp (2 rows) are free
+                                 // of bank conflicts
+constexpr int kMmaSlots = 32;    // idx slots staged at a time
+constexpr int kMmaStages = 2;    // a-row buffers
+constexpr int kW2Frags = kMaxW * kMaxW / 2;   // (k-step, n-tile, lane)
+constexpr int kMmaWarpFloats =
+    (kMmaStages + 1) * kMmaRows * kMmaStride + kMmaRows * kMmaSlots;
+
+constexpr size_t kMmaSmem =
+    (4 * static_cast<size_t>(kW2Frags) + kMaxW +
+     kMmaWarps * static_cast<size_t>(kMmaWarpFloats)) * sizeof(float);
+
+// vec16: w0 % 4 == 0 and both tables 16-byte aligned (16-byte copies, else
+// 4-byte ones)
+__global__ void __launch_bounds__(kMmaWarps * 32)
+edge_mma_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
                 const float* __restrict__ b_table,
                 const float* __restrict__ w2, const float* __restrict__ bias2,
                 float* __restrict__ out, int n, int w0, int w1, int k,
-                float neg_slope) {
+                float neg_slope, bool vec16) {
+  extern __shared__ __align__(16) float smem[];
+  uint4* w2f = reinterpret_cast<uint4*>(smem);   // [kk][j][lane]: hi0 hi1
+                                                 // lo0 lo1
+  float* bias_s = smem + 4 * kW2Frags;           // [kMaxW], zero padded
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  float* a_s = bias_s + kMaxW + warp * kMmaWarpFloats;  // [stage][row][ch]
+  float* b_s = a_s + kMmaStages * kMmaRows * kMmaStride;  // [row][ch]
+  int* idx_s = reinterpret_cast<int*>(b_s + kMmaRows * kMmaStride);
+  const int batch = blockIdx.y;
+  const int q0 = (blockIdx.x * kMmaWarps + warp) * kMmaRows;
+  const float* a_b = a_table + static_cast<size_t>(batch) * n * w0;
+  const float* b_b = b_table + static_cast<size_t>(batch) * n * w0;
+  const int* idx_b = idx + static_cast<size_t>(batch) * n * k;
+
+  // W2's B fragments, split once: k-step kk takes channels 16 (kk / 2) +
+  // 4 t + 2 (kk % 2) + {0, 1} at k-positions t, t + 4
+  for (int f = threadIdx.x; f < kW2Frags; f += kMmaWarps * 32) {
+    const int l = f % 32, j = (f / 32) % 8, kk = f / 256;
+    const int r0 = 16 * (kk / 2) + 4 * (l % 4) + 2 * (kk % 2);
+    const int col = 8 * j + l / 4;
+    const bool ok = col < w1;
+    uint32_t h0, lo0, h1, lo1;
+    gfs::split_tf32(ok && r0 < w0 ? w2[r0 * w1 + col] : 0.f, h0, lo0);
+    gfs::split_tf32(ok && r0 + 1 < w0 ? w2[(r0 + 1) * w1 + col] : 0.f, h1,
+                    lo1);
+    w2f[f] = make_uint4(h0, h1, lo0, lo1);
+  }
+  for (int o = threadIdx.x; o < kMaxW; o += kMmaWarps * 32)
+    bias_s[o] = o < w1 ? bias2[o] : 0.f;
+
+  // this warp's 16 rows of `tab` into dst [row][kMmaStride], row r taken
+  // from table row row_of(r) (zeros where that is < 0), channels past w0
+  // zero
+  auto stage = [&](float* dst, const float* tab, auto row_of) {
+    if (vec16) {
+      for (int e = lane; e < kMmaRows * (kMaxW / 4); e += 32) {
+        const int r = e / (kMaxW / 4), c = 4 * (e % (kMaxW / 4));
+        const int j = row_of(r);
+        const bool ok = j >= 0 && c < w0;
+        gfs::cp_async16(dst + r * kMmaStride + c,
+                        ok ? tab + static_cast<size_t>(j) * w0 + c : tab, ok);
+      }
+    } else {
+      for (int e = lane; e < kMmaRows * kMaxW; e += 32) {
+        const int r = e / kMaxW, c = e % kMaxW;
+        const int j = row_of(r);
+        const bool ok = j >= 0 && c < w0;
+        gfs::cp_async4(dst + r * kMmaStride + c,
+                       ok ? tab + static_cast<size_t>(j) * w0 + c : tab, ok);
+      }
+    }
+  };
+  // idx of slots s0 .. s0 + kMmaSlots - 1 of the warp's queries (-1 past n
+  // or k)
+  auto load_idx = [&](int s0) {
+    for (int e = lane; e < kMmaRows * kMmaSlots; e += 32) {
+      const int q = q0 + e / kMmaSlots, s = s0 + e % kMmaSlots;
+      idx_s[e] = q < n && s < k ? idx_b[static_cast<size_t>(q) * k + s] : -1;
+    }
+    __syncwarp();
+  };
+  auto slot_rows = [&](int s) {
+    return [=](int r) { return idx_s[r * kMmaSlots + s % kMmaSlots]; };
+  };
+
+  stage(b_s, b_b, [&](int r) { return q0 + r < n ? q0 + r : -1; });
+  load_idx(0);
+  stage(a_s, a_b, slot_rows(0));
+  gfs::cp_async_commit();
+  gfs::cp_async_wait<0>();
+  __syncthreads();   // w2f, bias_s and every warp's first rows
+
+  // b of rows g and g + 8 at the channels this lane loads
+  float4 bv[4][2];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    bv[p][0] = gfs::load4(b_s + g * kMmaStride + 16 * p + 4 * t);
+    bv[p][1] = gfs::load4(b_s + (g + 8) * kMmaStride + 16 * p + 4 * t);
+  }
+
+  float mx[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mx[j][i] = -INFINITY;
+
+  for (int r = 0; r < k; ++r) {
+    if (r + 1 < k) {
+      if ((r + 1) % kMmaSlots == 0) load_idx(r + 1);
+      stage(a_s + ((r + 1) % kMmaStages) * kMmaRows * kMmaStride, a_b,
+            slot_rows(r + 1));
+      gfs::cp_async_commit();
+      gfs::cp_async_wait<1>();
+    } else {
+      gfs::cp_async_wait<0>();
+    }
+    __syncwarp();   // slot r's rows, from every lane's copies
+    const float* ar = a_s + (r % kMmaStages) * kMmaRows * kMmaStride;
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float4 x0 = gfs::load4(ar + g * kMmaStride + 16 * p + 4 * t);
+      const float4 x1 = gfs::load4(ar + (g + 8) * kMmaStride + 16 * p + 4 * t);
+      gfs::FragA fa[2];   // k-steps 2 p and 2 p + 1
+      gfs::set_a(fa[0], gfs::leaky(x0.x + bv[p][0].x, neg_slope),
+                 gfs::leaky(x1.x + bv[p][1].x, neg_slope),
+                 gfs::leaky(x0.y + bv[p][0].y, neg_slope),
+                 gfs::leaky(x1.y + bv[p][1].y, neg_slope));
+      gfs::set_a(fa[1], gfs::leaky(x0.z + bv[p][0].z, neg_slope),
+                 gfs::leaky(x1.z + bv[p][1].z, neg_slope),
+                 gfs::leaky(x0.w + bv[p][0].w, neg_slope),
+                 gfs::leaky(x1.w + bv[p][1].w, neg_slope));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint4 fb[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) fb[j] = w2f[((2 * p + h) * 8 + j) * 32 + lane];
+        // 3xTF32 as gfs::mma_3xtf32 sums it (a_lo b_hi, a_hi b_lo, a_hi
+        // b_hi), each product over the 8 n-tiles in turn: 8 independent
+        // accumulator chains between two steps of one chain
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          gfs::mma_tf32(acc[j], fa[h].lo, {fb[j].x, fb[j].y});
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          gfs::mma_tf32(acc[j], fa[h].hi, {fb[j].z, fb[j].w});
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          gfs::mma_tf32(acc[j], fa[h].hi, {fb[j].x, fb[j].y});
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mx[j][i] = fmaxf(mx[j][i], acc[j][i]);
+    __syncwarp();   // every lane is done with this buffer
+  }
+
+  // C fragment: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + g + 8 * (i / 2), col = 8 * j + 2 * t + i % 2;
+      if (qi < n && col < w1)
+        out[(static_cast<size_t>(batch) * n + qi) * w1 + col] =
+            gfs::leaky(mx[j][i] + bias_s[col], neg_slope);
+    }
+  }
+}
+
+// W0 or W1 above kMaxW: the block takes output columns col0 .. col0 + 63
+// (col0 = 64 blockIdx.z) and W0 in chunks of kMaxW, as a register-tiled
+// fp32 GEMM
+__global__ void __launch_bounds__(kMlpThreads)
+edge_mlp_wide_kernel(const int* __restrict__ idx,
+                     const float* __restrict__ a_table,
+                     const float* __restrict__ b_table,
+                     const float* __restrict__ w2,
+                     const float* __restrict__ bias2,
+                     float* __restrict__ out, int n, int w0, int w1, int k,
+                     float neg_slope) {
   extern __shared__ __align__(16) float smem[];
   float* e_s = smem;                       // [kMaxW][kRows]: e_s[ch*kRows+r]
   float* w2_s = e_s + kMaxW * kRows;       // [kMaxW][kMaxW], zero padded
@@ -683,17 +888,11 @@ edge_mlp_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
   const int tid = threadIdx.x;
   const int batch = blockIdx.y;
   const int q_base = blockIdx.x * kTileQ;
-  const int col0 = kWide ? blockIdx.z * kMaxW : 0;
+  const int col0 = blockIdx.z * kMaxW;
   // GEMM tile of this thread: edge rows 8p..8p+7 (queries 2p, 2p+1 times
   // kChunk neighbours) by output channels 8cg..8cg+7
   const int p = tid / 8, cg = tid % 8;
 
-  if constexpr (!kWide) {
-    for (int e = tid; e < kMaxW * kMaxW; e += kMlpThreads) {
-      const int r = e / kMaxW, o = e % kMaxW;
-      w2_s[e] = (r < w0 && o < w1) ? w2[r * w1 + o] : 0.f;
-    }
-  }
   for (int o = tid; o < kMaxW; o += kMlpThreads)
     bias_s[o] = col0 + o < w1 ? bias2[col0 + o] : 0.f;
 
@@ -723,20 +922,18 @@ edge_mlp_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int c0 = 0; c0 < (kWide ? w0 : 1); c0 += kMaxW) {
-      __syncthreads();  // the previous GEMM is done with e_s (and w2_s)
+    for (int c0 = 0; c0 < w0; c0 += kMaxW) {
+      __syncthreads();  // the previous GEMM is done with e_s and w2_s
       for (int ch = 0; ch < kMaxW; ++ch)
         e_s[ch * kRows + r_own] =
             (ok && c0 + ch < w0)
                 ? gfs::leaky(a_row[c0 + ch] + b_row[c0 + ch], neg_slope)
                 : 0.f;
-      if constexpr (kWide) {
-        for (int e = tid; e < kMaxW * kMaxW; e += kMlpThreads) {
-          const int r = e / kMaxW, o = e % kMaxW;
-          w2_s[e] = (c0 + r < w0 && col0 + o < w1)
-                        ? w2[static_cast<size_t>(c0 + r) * w1 + col0 + o]
-                        : 0.f;
-        }
+      for (int e = tid; e < kMaxW * kMaxW; e += kMlpThreads) {
+        const int r = e / kMaxW, o = e % kMaxW;
+        w2_s[e] = (c0 + r < w0 && col0 + o < w1)
+                      ? w2[static_cast<size_t>(c0 + r) * w1 + col0 + o]
+                      : 0.f;
       }
       __syncthreads();
       edge_gemm(e_s, w2_s, p, cg, acc);
@@ -855,26 +1052,35 @@ cudaError_t launch_knn(const float* x, int* idx, int batch, int n, int c,
                               cb, scratch, s);
 }
 
-// edge_mlp_kernel on given indices: out (B, N, w1)
+// the edge stage on given indices: out (B, N, w1). W0, W1 <= 64 on the
+// tensor cores (edge_mma_kernel), wider tables on edge_mlp_wide_kernel
 cudaError_t launch_edge_mlp(const int* idx, const float* a_table,
                             const float* b_table, const float* w2,
                             const float* bias2, float* out, int batch, int n,
                             int w0, int w1, int k, float neg_slope,
                             cudaStream_t s) {
-  const bool wide = w0 > kMaxW || w1 > kMaxW;
+  if (w0 > kMaxW || w1 > kMaxW) {
+    cudaError_t err = cudaFuncSetAttribute(
+        edge_mlp_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMlpSmem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((n + kTileQ - 1) / kTileQ, batch,
+                    (w1 + kMaxW - 1) / kMaxW);
+    edge_mlp_wide_kernel<<<grid, kMlpThreads, kMlpSmem, s>>>(
+        idx, a_table, b_table, w2, bias2, out, n, w0, w1, k, neg_slope);
+    return cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      wide ? edge_mlp_kernel<true> : edge_mlp_kernel<false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kMlpSmem));
+      edge_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMmaSmem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kTileQ - 1) / kTileQ, batch,
-                  wide ? (w1 + kMaxW - 1) / kMaxW : 1);
-  if (wide)
-    edge_mlp_kernel<true><<<grid, kMlpThreads, kMlpSmem, s>>>(
-        idx, a_table, b_table, w2, bias2, out, n, w0, w1, k, neg_slope);
-  else
-    edge_mlp_kernel<false><<<grid, kMlpThreads, kMlpSmem, s>>>(
-        idx, a_table, b_table, w2, bias2, out, n, w0, w1, k, neg_slope);
+  constexpr int rows = kMmaWarps * kMmaRows;
+  const bool vec16 = w0 % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(a_table) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(b_table) % 16 == 0;
+  edge_mma_kernel<<<dim3((n + rows - 1) / rows, batch), kMmaWarps * 32,
+                    kMmaSmem, s>>>(idx, a_table, b_table, w2, bias2, out, n,
+                                   w0, w1, k, neg_slope, vec16);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // fp32-accurate products on Hopper's tensor cores ("3xTF32"), and the
 // asynchronous copies that feed them: shared by K2 (csrc/attention.cu), K5a
-// and K5b (csrc/attention_train.cu).
+// and K5b (csrc/attention_train.cu) and K1's edge stage, also K9
+// (csrc/fused_edgeconv.cu: edge_mma_kernel).
 //
 // A tensor-core TF32 product keeps 10 mantissa bits of each operand, which
 // alone misses fp32 by ~1e-3. 3xTF32 splits each operand x = hi + lo, with

@@ -29,6 +29,13 @@ from gfs3dseg_gws_tpu_torch.models.layers import (BatchNorm, Conv1x1,
                                                   train_init_)
 
 
+def global_max(point_feat: torch.Tensor) -> torch.Tensor:
+    """The global feature: the max of (B, N, C) over the N points,
+    (B, 1, C). A function of its own so that a check can swap it, as it
+    swaps the kNN (chip_smoke.py::compare_train_step)."""
+    return torch.amax(point_feat, dim=1, keepdim=True)
+
+
 class Segmenter(nn.Sequential):
     """Conv(256, no bias)+BN+Leaky -> Conv(128)+BN+Leaky -> Dropout ->
     Conv(classes): the reference Sequential, indices 0..7."""
@@ -85,7 +92,7 @@ class DGCNNSeg(nn.Module):
         reference's three blocks); past three blocks its basis would not
         match its own GWCAPL's feature, so the port takes them all."""
         edge_feats, point_feat = self.encoder(pc)
-        global_feat = torch.amax(point_feat, dim=1, keepdim=True)
+        global_feat = global_max(point_feat)
         feats = edge_feats + [global_feat.expand(-1, pc.shape[1], -1)]
         logits = self.segmenter(torch.cat(feats, dim=-1), generator)
         if return_feat:

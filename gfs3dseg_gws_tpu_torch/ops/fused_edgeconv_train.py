@@ -66,6 +66,15 @@ def fused_edgeconv_train_plain(a, b, gamma1, beta1, w2, gamma2, beta2, idx,
                                neg_slope: float = 0.2):
     """Unfused train-mode composition with the same semantics; it builds
     the (B, N, K, C) edge tensor. Returns (out, mu1, var1, mu2, var2)."""
+    h2, *stats = train_plain_edges(a, b, gamma1, beta1, w2, gamma2, beta2,
+                                   idx, neg_slope)
+    return (torch.amax(h2, dim=2), *stats)
+
+
+def train_plain_edges(a, b, gamma1, beta1, w2, gamma2, beta2, idx,
+                      neg_slope: float = 0.2):
+    """`fused_edgeconv_train_plain` before its max over the neighbours:
+    (leaky(bn2(z1)) (B, N, K, W1), mu1, var1, mu2, var2)."""
 
     def bn(x, gamma, beta):
         axes = tuple(range(x.dim() - 1))
@@ -77,8 +86,8 @@ def fused_edgeconv_train_plain(a, b, gamma1, beta1, w2, gamma2, beta2, idx,
     y1, mu1, var1 = bn(e0, gamma1, beta1)
     z1 = torch.einsum("bnkc,cd->bnkd", _leaky(y1, neg_slope), w2)
     y2, mu2, var2 = bn(z1, gamma2, beta2)
-    out = torch.amax(_leaky(y2, neg_slope), dim=2)
-    return (out, mu1.detach(), var1.detach(), mu2.detach(), var2.detach())
+    return (_leaky(y2, neg_slope), mu1.detach(), var1.detach(),
+            mu2.detach(), var2.detach())
 
 
 # --------------------------------------------------------------------------- #
@@ -168,7 +177,8 @@ _gsf.launches = 0
 def _bwd_plain(a, b, idx, p1, w2, gsel, ksel, pk, neg_slope):
     """Plain twin of K4b. p1 = [s1, t1, mu1, inv1, g1s] (5, C), pk = [g2s,
     c1, c2, mu2, inv2] (5, W1). Returns (scat (B,N,2C), psum (B,N,C),
-    dw2 (C,W1), sums (2,C))."""
+    dw2 (C,W1), sums (2,C)). LeakyReLU's derivative takes its branch from
+    the exact sign of the bn1 pre-activation, as the kernel does."""
     s1, t1, mu1, inv1, g1s = p1
     g2s, c1, c2, mu2, inv2 = pk
     k = idx.shape[-1]
@@ -180,7 +190,11 @@ def _bwd_plain(a, b, idx, p1, w2, gsel, ksel, pk, neg_slope):
     dy2 = torch.where(ksel[:, :, None, :] == slot, gsel[:, :, None, :], 0.0)
     dz1 = g2s * (dy2 - c1 - (z1 - mu2) * inv2 * c2)
     dh1 = torch.einsum("bnkd,cd->bnkc", dz1, w2)
-    dy1 = torch.where(pre1 >= 0, dh1, neg_slope * dh1)
+    # LeakyReLU's branch by the exact sign of e0 s1 + t1, as K4b's fmaf
+    # rounds it: the two roundings of pre1 can give a pre-activation within
+    # an ulp of 0 the other sign
+    pos = e0.double() * s1.double() + t1.double() >= 0
+    dy1 = torch.where(pos, dh1, neg_slope * dh1)
     y1hat = (e0 - mu1) * inv1
     gdy1 = g1s * dy1
     bsz, n, _, c = e0.shape

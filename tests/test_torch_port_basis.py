@@ -35,7 +35,9 @@ from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (
     gather_conv_plain)
 from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices, knn_indices_plain
 from gfs3dseg_gws_tpu_torch.ops.linalg import svd_energy_reconstruct
-from torch_port_util import TINY, jax_capl, set_fp32, t, torch_capl
+from torch_port_util import TINY, jax_capl, one_thread, set_fp32, t, torch_capl
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 # the module: the package's __init__ re-exports a function of the same name
 jax_kmeans = importlib.import_module("gfs3dseg_gws_tpu.ops.kmeans")

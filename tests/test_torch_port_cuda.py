@@ -77,6 +77,11 @@ def _assert_same_graph(x, idx, ref):
     (3, 2048, 9, 64, 64, 20),     # first block at full N
     (2, 300, 128, 128, 128, 40),  # wide C/W (chunked), k in the 64 chain
     (1, 200, 9, 72, 130, 70),     # k > 64 (fold-merge kNN), ragged W tiles
+    (2, 150, 9, 30, 40, 20),      # W0 % 4 != 0: the edge rows' 4-byte copies
+    (2, 77, 9, 8, 8, 1),          # k = 1, narrow tables
+    (2, 200, 64, 64, 64, 32),     # model widths at k = 32
+    (1, 120, 16, 64, 64, 33),     # k past one staged chunk of idx (32)
+    (1, 2047, 9, 64, 64, 20),     # N not a multiple of a block's 64 queries
 ])
 def test_fused_edgeconv_kernel_matches_plain(dev, b, n, c, w0, w1, k):
     r = np.random.default_rng(n + c)
@@ -407,6 +412,11 @@ def test_scatter_kernel_and_gather_function_match_plain(dev, b, n, k, c):
     (1, 64, 3, 48, 24, 32),
     (2, 300, 128, 128, 128, 40),
     (1, 200, 9, 72, 130, 70),
+    (2, 150, 9, 30, 40, 20),
+    (2, 77, 9, 8, 8, 1),
+    (2, 200, 64, 64, 64, 32),
+    (1, 120, 16, 64, 64, 33),
+    (1, 2047, 9, 64, 64, 20),
 ])
 def test_split_edgeconv_equals_fused_bit_for_bit(dev, b, n, c, w0, w1, k):
     """K6 then K9 equals K1 bit for bit (the same two device functions);

@@ -18,7 +18,9 @@ from gfs3dseg_gws_tpu.utils.config import (DataConfig as JaxDataConfig,
 from gfs3dseg_gws_tpu_torch.pipelines import gfs as port_gfs
 from gfs3dseg_gws_tpu_torch.utils.config import (DataConfig, ModelConfig,
                                                  TrainConfig)
-from torch_port_util import TINY, jax_capl, set_fp32
+from torch_port_util import TINY, jax_capl, one_thread, set_fp32
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 NPTS, NUM_GW, K_SHOT = 96, 10, 2
 WIDTHS = dict(edgeconv_widths=TINY["edgeconv_widths"],

@@ -25,7 +25,9 @@ from gfs3dseg_gws_tpu.ops.attention_train import (
     attention_train as jax_attention_train)
 from gfs3dseg_gws_tpu_torch.ops.attention_train import (
     attention_train, attention_train_plain, dropout_keep_mask)
-from torch_port_util import TINY, jax_capl, set_fp32, t, torch_capl
+from torch_port_util import TINY, jax_capl, one_thread, set_fp32, t, torch_capl
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 B, N, D = 2, 128, 8
 TEMP = float(D) ** 0.5

@@ -29,6 +29,9 @@ import jax.numpy as jnp
 from gfs3dseg_gws_tpu.ops.knn import _knn_xla
 from chip_smoke import copied_block
 from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices_plain, pairwise_sq_dists
+from torch_port_util import one_thread
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TILE = 64
 

@@ -20,6 +20,9 @@ from gfs3dseg_gws_tpu.ops.knn import knn_with_stats as jax_knn_with_stats
 from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import fused_edgeconv_plain
 from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices, knn_indices_plain,
                                             knn_with_stats)
+from torch_port_util import one_thread
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 K = 20
 

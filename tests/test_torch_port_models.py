@@ -18,7 +18,9 @@ from gfs3dseg_gws_tpu_torch.utils.checkpoint import (_put_bn, _put_conv,
                                                      load_checkpoint,
                                                      load_torch_gfs_state_dict,
                                                      state_dict_from_jax)
-from torch_port_util import TINY, jax_capl, set_fp32, t, torch_capl
+from torch_port_util import TINY, jax_capl, one_thread, set_fp32, t, torch_capl
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 NPTS, NUM_GW = 64, 10
 FEAT_TOL = dict(rtol=1e-4, atol=1e-4)      # features

@@ -20,7 +20,9 @@ from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (fused_edgeconv_infer,
                                                        fused_edgeconv_plain)
 from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices
 from gfs3dseg_gws_tpu_torch.ops.metrics import confusion_matrix, gfs_miou
-from torch_port_util import set_fp32, t
+from torch_port_util import one_thread, set_fp32, t
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 B, N, W, K = 2, 128, 8, 5
 

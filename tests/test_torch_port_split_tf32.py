@@ -16,14 +16,26 @@ A tensor core also truncates as it accumulates. K5a's forward is modelled
 with that too, at the model's N = 2048: one accumulator chain over every
 key drifts past K5a's tolerance, so the kernel sums each key tile of P V
 in a fresh accumulator and adds it to its output in fp32.
+
+K1's edge stage (also K9, `edge_mma_kernel` in csrc/fused_edgeconv.cu) is
+modelled as the kernel sums it: per neighbour slot a fresh accumulator
+over the 64 channels in 8 k-steps (channels grouped as the kernel's
+fragments group them), then bias, LeakyReLU and the max over the slots in
+fp32; held to the twin `gather_conv_plain` within chip_smoke.py's EC_TOL.
 """
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import EC_TOL
 from gfs3dseg_gws_tpu_torch.ops import attention_train as atr
 from gfs3dseg_gws_tpu_torch.ops.attention_kernel import (attention_plain,
                                                          pad_head)
+from gfs3dseg_gws_tpu_torch.ops.edgeconv import gather_neighbors_plain
+from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import gather_conv_plain
+from torch_port_util import one_thread
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _rna(x: torch.Tensor) -> torch.Tensor:
@@ -241,3 +253,55 @@ def test_one_accumulator_over_the_keys_misses_k5a_tolerance(d):
     ref = atr._fwd_plain(q, k, v, 99, d ** 0.5, 0.1)
     got = _train_forward(_mm_tc(), q, k, v, 99, d ** 0.5, 0.1)
     assert _rel_err(got, ref) > 1e-5
+
+
+# the channel each k-step position of edge_mma_kernel takes: k-step 2 p + h
+# sums channels 16 p + 4 t + 2 h + {0, 1} (t = 0 .. 3)
+EDGE_ORDER = [16 * p + 4 * t + 2 * h + e for p in range(4) for h in range(2)
+              for t in range(4) for e in range(2)]
+
+
+def _edge_inputs(b=2, n=200, w=64, k=20, seed=11):
+    """K9's inputs as chip_smoke.py draws them (W2 scaled by W0^-1/2, the
+    bias by 0.1), on random neighbour indices; N = 200 is not a multiple of
+    the kernel's 64 queries a block."""
+    r = np.random.default_rng(seed)
+    idx = torch.from_numpy(r.integers(0, n, (b, n, k)).astype(np.int32))
+    a, bt = (torch.from_numpy(r.standard_normal((b, n, w)).astype(np.float32))
+             for _ in range(2))
+    w2 = torch.from_numpy((r.standard_normal((w, w)) * w ** -0.5).astype(
+        np.float32))
+    bias = torch.from_numpy((r.standard_normal(w) * 0.1).astype(np.float32))
+    return idx, a, bt, w2, bias
+
+
+def _edge_stage(mm, idx, a, bt, w2, bias, slope=0.2):
+    """The edge stage with its product through mm over the kernel's channel
+    order: each (query, slot) row is its own accumulator; the max over the
+    slots, then bias and LeakyReLU (monotone: the same floats as the max of
+    leaky(z + bias))."""
+    e = gather_neighbors_plain(a, idx) + bt[:, :, None, :]
+    e = torch.where(e >= 0, e, slope * e)
+    z = mm(e[..., EDGE_ORDER], w2[EDGE_ORDER]).amax(2) + bias
+    return torch.where(z >= 0, z, slope * z)
+
+
+def _within_ec_tol(got, ref):
+    return bool(((got - ref).abs() <= EC_TOL[0] + EC_TOL[1] * ref.abs()
+                 ).all())
+
+
+def test_edge_stage_tensor_core_sums_within_ec_tolerance():
+    """K9 at (2, 200, 64 -> 64), k = 20, as the card sums it (3xTF32, one
+    accumulator per slot over 8 k-steps, truncating): within EC_TOL."""
+    args = _edge_inputs()
+    got = _edge_stage(_mm_tc(), *args)
+    assert _within_ec_tol(got, gather_conv_plain(*args))
+
+
+def test_single_tf32_misses_ec_tolerance():
+    """One TF32 product per pair misses EC_TOL on the same inputs: why the
+    edge stage splits its operands."""
+    args = _edge_inputs()
+    assert not _within_ec_tol(_edge_stage(_mm("1x"), *args),
+                              gather_conv_plain(*args))

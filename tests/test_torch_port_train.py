@@ -34,7 +34,9 @@ from gfs3dseg_gws_tpu_torch.parallel.optim import make_pretrain_optimizer
 from gfs3dseg_gws_tpu_torch.parallel.steps import pretrain_step
 from gfs3dseg_gws_tpu_torch.utils.checkpoint import (
     pretrain_state_dict_from_jax)
-from torch_port_util import TINY, randomize_bn, set_fp32, t
+from torch_port_util import TINY, one_thread, randomize_bn, set_fp32, t
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 B, N, NCLS = 2, 128, 8
 SEG_WIDTHS = dict(edgeconv_widths=TINY["edgeconv_widths"],

@@ -39,7 +39,9 @@ from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices, knn_indices_fold,
                                             knn_indices_plain,
                                             knn_with_stats,
                                             pairwise_sq_dists)
-from torch_port_util import jax_capl, set_fp32, t, torch_capl
+from torch_port_util import jax_capl, one_thread, set_fp32, t, torch_capl
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 B, N = 2, 128
 WIDE, WIDE_K = 72, 40               # past the fast kernels' 64 and 32

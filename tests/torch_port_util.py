@@ -5,6 +5,7 @@ built with use_pallas=False on the CPU, and their weights reach the port
 through `state_dict_from_jax`.
 """
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -13,6 +14,19 @@ import jax.numpy as jnp
 # the tiny widths of tests/test_torch_ckpt_pipeline.py
 TINY = dict(edgeconv_widths=((8, 8), (8, 8), (8, 8)), mlp_widths=(16, 16),
             base_widths=(8, 8), output_dim=8, main_dim=16, k=5)
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """torch on one intra-op thread for a test module. The tier-1 run puts
+    several pytest workers on a few cores, where torch's pool of a thread
+    per core contends with the other workers' for every small op: one case
+    of test_torch_port_knn_select.py took 255 s on 8 threads beside the
+    others and 2.8 s on one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def set_fp32():

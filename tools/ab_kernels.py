@@ -8,8 +8,9 @@ checkouts on one card.
 The first form builds the checkout's kernels, runs K1, K2, K3, K4a, K4b,
 K5a, K5b, K6, K7, K8 and K9 at (16, 2048, .), k = 20 (C = 64; K1, K3 and K6
 also C = 9; K2, K5a and K5b also at D = 128, the `_d128` entries, and K5a
-at D = 30 and 192; K1, K3 and K6 past the fast path, at C = 128, k = 40,
-and K6 at k = 80 on (4, 2048, 64), the `_wide` entries) on inputs drawn
+at D = 30 and 192; K1, K3, K6 and K9 past the fast path, at C = 128,
+k = 40, and K6 at k = 80 on (4, 2048, 64), the `_wide` entries; K9 also at
+W0 = 30 -> W1 = 40, whose rows take 4-byte copies, `k9_w30`) on inputs drawn
 from a fixed seed, prints one JSON line of CUDA-event times (ms) beside the
 card's name and power limit, and saves the outputs. K5b takes m and den
 from K5a's plain twin on the card, so that its inputs do not depend on the
@@ -117,6 +118,9 @@ def run(out: str, only=None) -> None:
     x128, a128, b128 = (randn(B, N, 128) for _ in range(3))
     w128, bias128 = randn(128, 128, scale=128 ** -0.5), randn(128, scale=0.1)
     x4 = randn(4, N, 64)
+    idx128 = knn_indices(x128, 40)
+    a30, b30 = randn(B, N, 30), randn(B, N, 30)
+    w30, bias40 = randn(30, 40, scale=30 ** -0.5), randn(40, scale=0.1)
 
     calls = {
         "k1_c9": lambda: fused_edgeconv_infer(x9, a, b, w2, bias2, K),
@@ -140,11 +144,13 @@ def run(out: str, only=None) -> None:
         "k7": lambda: scatter_bwd(idx, g),
         "k8": lambda: knn_indices_fold(x64, K, 4),
         "k9": lambda: gather_conv(idx, a, b, w2, bias2),
+        "k9_w30": lambda: gather_conv(idx, a30, b30, w30, bias40),
         "k1_wide": lambda: fused_edgeconv_infer(x128, a128, b128, w128,
                                                 bias128, 40),
         "k3_wide": lambda: knn_with_stats(x128, b128, 40),
         "k6_wide": lambda: knn_indices(x128, 40),
         "k6_k80_wide": lambda: knn_indices(x4, 80),
+        "k9_wide": lambda: gather_conv(idx128, a128, b128, w128, bias128),
     }
     names = {"k3": ("idx", "cnt", "scb"), "k4a": ("snbr", "zmax", "zmin",
                                                   "kmax", "kmin")}
