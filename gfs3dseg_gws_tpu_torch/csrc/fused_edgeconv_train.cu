@@ -17,9 +17,12 @@
 //   dy1 = (dz1 @ W2^T) * leaky'(pre1),  yhat1 = (e0 - mu1) * inv1
 //
 // and reduces dW2 = h1^T dz1, sum(dy1), sum(dy1 * yhat1) per block and
-// psum[i] = sum_t g1s * dy1 per query, and scatters [g1s * dy1 | yhat1]
-// onto the neighbour rows scat[j] with float atomics (their order, and so
-// the last bits of scat, vary from run to run). All fp32: the TPU's bf16
+// psum[i] = sum_t g1s * dy1 per query, and scatters g1s * dy1 onto the
+// neighbour rows scat[j] with float atomics (their order, and so the last
+// bits of scat, vary from run to run). The sum of yhat1 over the in-edges
+// of j, which the TPU kernel scatters too, has a closed form that the glue
+// takes from K3's in-degrees and b-scatter: inv1 (cnt_j (a_j - mu1) +
+// scb_j). All fp32: the TPU's bf16
 // one-hot "gathers" and bf16 residual are Mosaic workarounds. Neither
 // kernel writes a (B, N, k, C) edge tensor: the backward gathers a[j] again,
 // from L2, instead of reading back a stored one (168 MB at B=16, N=2048).
@@ -30,7 +33,7 @@
 //
 // What bounds them: fp32 FMAs and shared-memory bandwidth. At B=16,
 // N=2048, k=20, C=W1=64 the forward is 2 x 2.7 G FMAs (z1 and the Gram
-// matrix), the backward 3 x 2.7 G (z1, dW2, dh1) plus 84 M float atomics.
+// matrix), the backward 3 x 2.7 G (z1, dW2, dh1) plus 42 M float atomics.
 // A block takes kTileQ queries and walks their neighbours a few at a time:
 // it builds the step's edge rows (one row = one (query, slot) pair) in
 // shared memory, transposed as [channel][row] with a padded stride, runs
@@ -517,7 +520,7 @@ bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
       const int q = q_base + qi;
       if (q >= n || t >= k) continue;
       const int nbr = idx[(boff + q) * k + t];
-      float* srow = scat + (boff + nbr) * (2 * c);
+      float* srow = scat + (boff + nbr) * c;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int ch = cg + 8 * j;
@@ -532,7 +535,6 @@ bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
           sum1[j] = fmaf(dy, y, sum1[j]);
           ps[i / kBChunk][j] += g;
           atomicAdd(srow + ch, g);
-          atomicAdd(srow + c + ch, y);
         }
       }
     }
@@ -720,8 +722,8 @@ gsf_wide_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // it afterwards) and dz1 for the block's columns, then dW2[chunk ct,
 // columns ot] and the share of dh1 = dz1 W2^T that the block's columns
 // give to chunk ct. dy1 and all that follows from it are linear in dh1, so
-// the OT column tiles' shares add up: scat by float atomics (its yhat1
-// half once, from ot = 0), psum into slice ot of psum (OT, B, N, C) and the
+// the OT column tiles' shares add up: scat by float atomics, psum into
+// slice ot of psum (OT, B, N, C) and the
 // bn1 sums into slot ot of part (blocks, C W1 + OT 2 C), which the glue
 // adds.
 // ------------------------------------------------------------------------
@@ -879,7 +881,7 @@ bwd_wide_kernel(const float* __restrict__ a, const float* __restrict__ b,
       const int q = q_base + 2 * p + i / kBChunk;
       if (q >= n || t >= k) continue;
       const int nbr = idx[(boff + q) * k + t];
-      float* srow = scat + (boff + nbr) * (2 * c);
+      float* srow = scat + (boff + nbr) * c;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int cl = cg + 8 * j, ch = ch0 + cl;
@@ -893,7 +895,6 @@ bwd_wide_kernel(const float* __restrict__ a, const float* __restrict__ b,
           sum1[j] = fmaf(dy, y, sum1[j]);
           ps[i / kBChunk][j] += g;
           atomicAdd(srow + ch, g);
-          if (ot == 0) atomicAdd(srow + c + ch, y);
         }
       }
     }
@@ -965,7 +966,7 @@ GFS_EXPORT int gfs_edgeconv_train_fwd(const void* a, const void* b,
 }
 
 // K4b. a, b (B, N, C), p1 (5, C), w2 (C, W1), gsel (B, N, W1), pk (5, W1)
-// fp32 and idx (B, N, k), ksel (B, N, W1) int32 in; scat (B, N, 2C) fp32
+// fp32 and idx (B, N, k), ksel (B, N, W1) int32 in; scat (B, N, C) fp32
 // zeroed by the caller, psum (B, N, C) and part (B * ceil(N / 64),
 // C * W1 + 2C) fp32 out: contiguous, on one device. Past C, W1 <= 64, psum
 // is (OT, B, N, C) and part (B * ceil(N / 64), C * W1 + OT * 2C) with OT =
