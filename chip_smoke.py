@@ -56,6 +56,7 @@ MISS_RATIO, MISS_SLACK = 2.0, 1e-3  # card may miss fp64 this much more than
 CMP_BLOCKS = 8                    # blocks compared between card and CPU
 STATS_TOL = 1e-4                  # K3 scb: max |diff| / max |twin|
 FWD_TOL, GRAD_TOL = 1e-4, 1e-3    # K4 forward / gradients, same measure
+K4B_Z1_TOL = 1e-4                 # K4b at c2 ~ N(0, 1), same measure
 PRE_BLOCKS, PRE_EPOCHS = 160, 2   # pre-training data and epochs
 LEARN_STEPS, LEARN_DROP = 30, 0.10  # one batch: loss must fall >= 10%
 TRAIN_CMP_BLOCKS = 4              # card vs CPU train step: blocks (2 at
@@ -554,7 +555,9 @@ def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
     differ where two neighbours' z1 agree to rounding), K4b on K4a's slots
     (the twin's LeakyReLU branch by the exact sign of the pre-activation,
     as the kernel's fmaf gives it; the edges where two roundings would flip
-    it are counted).
+    it are counted), and again with c2 100 times larger, where the
+    recomputed z1 weighs in dz1 as much as the cotangent, within K4B_Z1_TOL
+    (a z1 in single TF32 misses it: tests/test_torch_port_split_tf32.py).
     K4a's max_abs_err takes its bn2 sums (sum(h1) and the Gram matrix;
     past C, W1 = 64 sum z1 and sum z1^2) per edge, as the bn2 statistics
     use them. Then the seven gradients of one random cotangent through the
@@ -641,6 +644,19 @@ def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
     k4b_abs = max((g - r).abs().max().item() for g, r in zip(got_b, ref_b))
     if k4b_err > GRAD_TOL:
         raise AssertionError(f"K4b off its twin by {k4b_err}")
+    # the same at c2 ~ N(0, 1), where (z1 - mu2) inv2 c2 weighs in dz1 as
+    # much as the dy2 term (no new draw: c2 above is 0.01 N(0, 1)): K4b's
+    # z1 must be fp32-accurate, as 3xTF32 is and single TF32 is not
+    pk_z1 = pk.clone()
+    pk_z1[2] *= 100.0
+    z1_args = (*bwd_args[:7], pk_z1, 0.2)
+    got_z, ref_z = fet._bwd(*z1_args), fet._bwd_plain(*z1_args)
+    torch.cuda.synchronize()
+    k4b_z1_err = max(rel_err(g, r) for g, r in zip(got_z, ref_z))
+    del got_z, ref_z
+    if k4b_z1_err > K4B_Z1_TOL:
+        raise AssertionError(f"K4b at c2 ~ N(0, 1) off its twin by "
+                             f"{k4b_z1_err} (> {K4B_Z1_TOL})")
 
     # the neighbour each whole run sends a (point, channel)'s gradient to:
     # the Function's slot (K4a's, by the sign of its bn2 scale) and the
@@ -685,7 +701,8 @@ def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
                              f"version by {grad_errs[worst]} ({grads})")
     if not timing:
         phase(label, forward_rel_err=out_err, k4a_rel_err=k4a_err,
-              slots_agree=slots_ok, k4b_rel_err=k4b_err, **grads)
+              slots_agree=slots_ok, k4b_rel_err=k4b_err,
+              k4b_z1_rel_err=k4b_z1_err, **grads)
         return None
 
     def fwd(fn, **kw):
@@ -709,22 +726,30 @@ def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
                 fet.fused_edgeconv_train_plain)))
     # FMAs per edge (b N k of them), c x w1 each: K4a z1 and the Gram
     # matrix (past the fast path: z1 and its square, 2 w1 more), K4b dz1 ->
-    # dh1, dW2 and the recomputed z1
+    # dh1, dW2 and the recomputed z1. K4b's bound up to C, W1 = 64 takes
+    # its three products in 3xTF32 on the tensor cores (fp32-accurate, as
+    # its z1 already runs), past them in fp32; the all-fp32 bound beside it
     edges = b * N * k
-    gram = c * c if max(c, w1) <= 64 else w1
+    fast = max(c, w1) <= 64
+    gram = c * c if fast else w1
     k4a_bound = bound(2.0 * edges * (c * w1 + gram),
                       size_of(*gsf_args[:6], *got))
-    k4b_bound = bound(2.0 * 3 * edges * c * w1,
-                      size_of(*bwd_args[:8], *got_b))
+    k4b_flops = 3 * 2.0 * edges * c * w1
+    k4b_bytes = size_of(*bwd_args[:8], *got_b)
+    k4b_bound = bound(k4b_flops, k4b_bytes, tf32x3=fast)
+    k4b_fp32_ms = bound(k4b_flops, k4b_bytes)[0]
     phase(label, forward_rel_err=out_err, k4a_rel_err=k4a_err,
-          slots_agree=slots_ok, k4b_rel_err=k4b_err, **grads,
-          k4a_bound_ms=k4a_bound[0], k4b_bound_ms=k4b_bound[0], **times)
+          slots_agree=slots_ok, k4b_rel_err=k4b_err,
+          k4b_z1_rel_err=k4b_z1_err, **grads,
+          k4a_bound_ms=k4a_bound[0], k4b_bound_ms=k4b_bound[0],
+          k4b_bound_fp32_ms=k4b_fp32_ms, **times)
     return (dict(max_abs_err=k4a_abs, ms=times["k4a_ms"],
                  plain_ms=times["k4a_plain_ms"], bound_ms=k4a_bound[0],
                  bound_by=k4a_bound[1], library_ms=None),
             dict(max_abs_err=k4b_abs, ms=times["k4b_ms"],
                  plain_ms=times["k4b_plain_ms"], bound_ms=k4b_bound[0],
-                 bound_by=k4b_bound[1], library_ms=None))
+                 bound_by=k4b_bound[1], library_ms=None,
+                 bound_fp32_ms=k4b_fp32_ms))
 
 
 def check_attention_train(dev, gen: torch.Generator, d: int = 64,

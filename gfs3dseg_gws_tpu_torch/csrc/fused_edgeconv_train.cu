@@ -17,15 +17,13 @@
 //   dy1 = (dz1 @ W2^T) * leaky'(pre1),  yhat1 = (e0 - mu1) * inv1
 //
 // and reduces dW2 = h1^T dz1, sum(dy1), sum(dy1 * yhat1) per block and
-// psum[i] = sum_t g1s * dy1 per query, and scatters g1s * dy1 onto the
-// neighbour rows scat[j] with float atomics (their order, and so the last
-// bits of scat, vary from run to run). The sum of yhat1 over the in-edges
-// of j, which the TPU kernel scatters too, has a closed form that the glue
-// takes from K3's in-degrees and b-scatter: inv1 (cnt_j (a_j - mu1) +
-// scb_j). All fp32: the TPU's bf16
-// one-hot "gathers" and bf16 residual are Mosaic workarounds. Neither
-// kernel writes a (B, N, k, C) edge tensor: the backward gathers a[j] again,
-// from L2, instead of reading back a stored one (168 MB at B=16, N=2048).
+// psum[i] = sum_t g1s * dy1 per query, and scatters [g1s * dy1 | yhat1]
+// onto the neighbour rows scat[j] with float atomics (their order, and so
+// the last bits of scat, vary from run to run). fp32 accuracy throughout
+// (3xTF32 where the tensor cores take a product): the TPU's bf16 one-hot
+// "gathers" and bf16 residual are Mosaic workarounds. Neither kernel
+// writes a (B, N, k, C) edge tensor: the backward gathers a[j] again, from
+// L2, instead of reading back a stored one (168 MB at B=16, N=2048).
 //
 // Per-block sums (Gram, sum h1, dW2, the bn1 sums) go to a (blocks, ...)
 // buffer of partials in a fixed order, and the glue sums them: the forward
@@ -33,7 +31,9 @@
 //
 // What bounds them: fp32 FMAs and shared-memory bandwidth. At B=16,
 // N=2048, k=20, C=W1=64 the forward is 2 x 2.7 G FMAs (z1 and the Gram
-// matrix), the backward 3 x 2.7 G (z1, dW2, dh1) plus 42 M float atomics.
+// matrix), the backward 3 x 2.7 G (z1, dW2, dh1) plus 84 M float atomics;
+// K4b's recomputed z1 runs on the tensor cores in 3xTF32 (csrc/
+// mma_tf32.cuh) for C, W1 <= 64, its other two products in fp32.
 // A block takes kTileQ queries and walks their neighbours a few at a time:
 // it builds the step's edge rows (one row = one (query, slot) pair) in
 // shared memory, transposed as [channel][row] with a padded stride, runs
@@ -49,6 +49,7 @@
 // of 64 through the same buffers; see their comments. Any k: a slot takes
 // 16 bits of the packed max/min slots.
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -65,11 +66,18 @@ constexpr size_t kFwdSmem =
     sizeof(float);
 
 // K4b: 2 neighbours per step, 128 edge rows (three row buffers and two
-// copies of W2 must fit in one block's shared memory)
+// copies of W2 must fit in one block's shared memory). The fast kernel
+// keeps W2 for z1 as split TF32 fragments (kW2Frags 16-byte entries, twice
+// the floats of a plain copy).
 constexpr int kBChunk = 2;
 constexpr int kBRows = kTileQ * kBChunk;
 constexpr int kBStride = kBRows + 4;
+constexpr int kW2Frags = kMaxW * kMaxW / 2;   // (k-step, n-tile, lane)
 constexpr size_t kBwdSmem =
+    (3 * static_cast<size_t>(kMaxW) * kBStride + 4 * kW2Frags +
+     kMaxW * kMaxW + 10 * kMaxW) *
+    sizeof(float);
+constexpr size_t kBwdWideSmem =
     (3 * static_cast<size_t>(kMaxW) * kBStride + 2 * kMaxW * kMaxW +
      10 * kMaxW) *
     sizeof(float);
@@ -351,7 +359,18 @@ gsf_kernel(const float* __restrict__ a, const float* __restrict__ b,
 }
 
 // ------------------------------------------------------------------------
-// K4b: the backward, gathering a[j] again
+// K4b: the backward, gathering a[j] again. Each step's z1 = h1 @ W2 runs on
+// the tensor cores: warp w takes edge rows 16 w .. 16 w + 15 of h_s (the
+// rows of one m16n8k8 tile: queries 8 w .. 8 w + 7 times the step's two
+// slots) and all 64 columns as 8 n-tiles, 8 k-steps of 3xTF32 in fresh
+// accumulators (no chain longer than the 64 channels; the n-tile loop has
+// no early exit, so the 8 accumulator chains interleave), and forms dz1
+// straight from the C fragments into dz_s. k-step kk takes channel 8 kk +
+// 2 t at k-position t and 8 kk + 2 t + 1 at t + 4: with h_s's stride of
+// 132 = 4 mod 32 floats the A loads of a warp hit 32 different banks. W2
+// is split into hi and lo once a block and kept in fragment order (one
+// 16-byte load a lane per B fragment), as in edge_mma_kernel. dW2 and dh1
+// stay fp32 register tiles.
 // ------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads, 1)
 bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -365,8 +384,10 @@ bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   float* h_s = smem;                       // [kMaxW][kBStride]: h1
   float* y_s = h_s + kMaxW * kBStride;     // [kMaxW][kBStride]: yhat1
   float* dz_s = y_s + kMaxW * kBStride;    // [kMaxW][kBStride]: dz1 by column
-  float* w2p_s = dz_s + kMaxW * kBStride;  // [ch][8cg + j] = W2[ch][cg + 8j]
-  float* w2tp_s = w2p_s + kMaxW * kMaxW;   // [o][8cg + j] = W2[cg + 8j][o]
+  // [kk][j][lane]: hi0 hi1 lo0 lo1 of W2's B fragments
+  uint4* w2f = reinterpret_cast<uint4*>(dz_s + kMaxW * kBStride);
+  float* w2tp_s = reinterpret_cast<float*>(w2f + kW2Frags);
+                                           // [o][8cg + j] = W2[cg + 8j][o]
   float* p1_s = w2tp_s + kMaxW * kMaxW;    // [5][kMaxW]: s1 t1 mu1 inv1 g1s
   float* pk_s = p1_s + 5 * kMaxW;          // [5][kMaxW]: g2s c1 c2 mu2 inv2
 
@@ -374,10 +395,22 @@ bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int q_base = blockIdx.x * kTileQ;
   const size_t boff = static_cast<size_t>(blockIdx.y) * n;
 
+  // W2's B fragments, split once: k-step kk takes channels 8 kk + 2 t and
+  // 8 kk + 2 t + 1 at k-positions t, t + 4 (t = lane % 4) of column 8 j +
+  // lane / 4
+  for (int f = tid; f < kW2Frags; f += kThreads) {
+    const int l = f % 32, j = (f / 32) % 8, kk = f / 256;
+    const int r0 = 8 * kk + 2 * (l % 4), col = 8 * j + l / 4;
+    const bool ok = col < w1;
+    uint32_t h0, lo0, h1, lo1;
+    gfs::split_tf32(ok && r0 < c ? w2[r0 * w1 + col] : 0.f, h0, lo0);
+    gfs::split_tf32(ok && r0 + 1 < c ? w2[(r0 + 1) * w1 + col] : 0.f, h1,
+                    lo1);
+    w2f[f] = make_uint4(h0, h1, lo0, lo1);
+  }
   for (int e = tid; e < kMaxW * kMaxW; e += kThreads) {
     const int row = e / kMaxW, col = e % kMaxW;
     const int strided = col / 8 + 8 * (col % 8);   // cg + 8j of col = 8cg + j
-    w2p_s[e] = (row < c && strided < w1) ? w2[row * w1 + strided] : 0.f;
     w2tp_s[e] = (row < w1 && strided < c) ? w2[strided * w1 + row] : 0.f;
   }
   for (int e = tid; e < 5 * kMaxW; e += kThreads) {
@@ -404,8 +437,11 @@ bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int* idx_row = idx + (boff + (qb_ok ? qb : 0)) * k;
   const float* a_b = a + boff * c;
 
-  // GEMM role: rows 4p .. 4p + 3 = queries 2p, 2p + 1 times the step's two
-  // slots, columns (z1, dz1) or channels (dh1) cg + 8j
+  // tensor-core role (z1, dz1): the warp's 16 rows, fragment lane = 4 lg +
+  // lt (lg = the fragment's row group g, lt its k-position t)
+  const int warp = tid / 32, lg = (tid % 32) / 4, lt = tid % 4;
+  // GEMM role (dh1): rows 4p .. 4p + 3 = queries 2p, 2p + 1 times the
+  // step's two slots, channels cg + 8j
   const int p = tid / 8, cg = tid % 8;
   float ps[2][8], sum0[8], sum1[8];
 #pragma unroll
@@ -444,40 +480,51 @@ bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
     }
     __syncthreads();
 
-    // z1 = h1 @ W2, then dz1 into dz_s
-    float acc[4][8];
+    // z1 = h1 @ W2 on the tensor cores (3xTF32 as gfs::mma_3xtf32 sums it:
+    // a_lo b_hi, a_hi b_lo, a_hi b_hi, each product over the 8 n-tiles in
+    // turn), then dz1 into dz_s
+    float zc[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int ch = 0; ch < kMaxW; ++ch) {
-      const float4 a0 = gfs::load4(&h_s[ch * kBStride + 4 * p]);
-      const float4 b0 = gfs::load4(&w2p_s[ch * kMaxW + 8 * cg]);
-      const float4 b1 = gfs::load4(&w2p_s[ch * kMaxW + 8 * cg + 4]);
-      const float av[4] = {a0.x, a0.y, a0.z, a0.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int i = 0; i < 4; ++i) zc[j][i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < kMaxW / 8; ++kk) {
+      const float* hk = h_s + (8 * kk + 2 * lt) * kBStride + 16 * warp + lg;
+      gfs::FragA fa;
+      gfs::set_a(fa, hk[0], hk[8], hk[kBStride], hk[kBStride + 8]);
+      uint4 fb[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < 8; ++j) fb[j] = w2f[(kk * 8 + j) * 32 + tid % 32];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        gfs::mma_tf32(zc[j], fa.lo, {fb[j].x, fb[j].y});
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        gfs::mma_tf32(zc[j], fa.hi, {fb[j].z, fb[j].w});
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        gfs::mma_tf32(zc[j], fa.hi, {fb[j].x, fb[j].y});
     }
+    // C fragment i: row lg + 8 (i / 2), column 8 j + 2 lt + i % 2; row r is
+    // query r / 2, slot t0 + r % 2, as the build phase lays them out
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int t = t0 + i % kBChunk;
-      const int q = q_base + 2 * p + i / kBChunk;
+      const int r = 16 * warp + lg + 8 * (i / 2);
+      const int t = t0 + r % kBChunk;
+      const int q = q_base + r / kBChunk;
       const bool ok = q < n && t < k;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int o = cg + 8 * j;
+        const int o = 8 * j + 2 * lt + i % 2;
         float dz = 0.f;
         if (ok && o < w1) {
           const size_t qo = (boff + q) * w1 + o;
           const float dy2 = ksel[qo] == t ? gsel[qo] : 0.f;
           dz = g2s_s[o] *
-               (dy2 - c1_s[o] - (acc[i][j] - mu2_s[o]) * inv2_s[o] * c2_s[o]);
+               (dy2 - c1_s[o] - (zc[j][i] - mu2_s[o]) * inv2_s[o] * c2_s[o]);
         }
-        dz_s[o * kBStride + 4 * p + i] = dz;
+        dz_s[o * kBStride + r] = dz;
       }
     }
     __syncthreads();
@@ -497,6 +544,7 @@ bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
     }
 
     // dh1 = dz1 @ W2^T, then dy1, the bn1 sums, psum and the scatter
+    float acc[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -520,7 +568,7 @@ bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
       const int q = q_base + qi;
       if (q >= n || t >= k) continue;
       const int nbr = idx[(boff + q) * k + t];
-      float* srow = scat + (boff + nbr) * c;
+      float* srow = scat + (boff + nbr) * (2 * c);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int ch = cg + 8 * j;
@@ -535,6 +583,7 @@ bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
           sum1[j] = fmaf(dy, y, sum1[j]);
           ps[i / kBChunk][j] += g;
           atomicAdd(srow + ch, g);
+          atomicAdd(srow + c + ch, y);
         }
       }
     }
@@ -722,8 +771,8 @@ gsf_wide_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // it afterwards) and dz1 for the block's columns, then dW2[chunk ct,
 // columns ot] and the share of dh1 = dz1 W2^T that the block's columns
 // give to chunk ct. dy1 and all that follows from it are linear in dh1, so
-// the OT column tiles' shares add up: scat by float atomics, psum into
-// slice ot of psum (OT, B, N, C) and the
+// the OT column tiles' shares add up: scat by float atomics (its yhat1
+// half once, from ot = 0), psum into slice ot of psum (OT, B, N, C) and the
 // bn1 sums into slot ot of part (blocks, C W1 + OT 2 C), which the glue
 // adds.
 // ------------------------------------------------------------------------
@@ -881,7 +930,7 @@ bwd_wide_kernel(const float* __restrict__ a, const float* __restrict__ b,
       const int q = q_base + 2 * p + i / kBChunk;
       if (q >= n || t >= k) continue;
       const int nbr = idx[(boff + q) * k + t];
-      float* srow = scat + (boff + nbr) * c;
+      float* srow = scat + (boff + nbr) * (2 * c);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int cl = cg + 8 * j, ch = ch0 + cl;
@@ -895,6 +944,7 @@ bwd_wide_kernel(const float* __restrict__ a, const float* __restrict__ b,
           sum1[j] = fmaf(dy, y, sum1[j]);
           ps[i / kBChunk][j] += g;
           atomicAdd(srow + ch, g);
+          if (ot == 0) atomicAdd(srow + c + ch, y);
         }
       }
     }
@@ -966,7 +1016,7 @@ GFS_EXPORT int gfs_edgeconv_train_fwd(const void* a, const void* b,
 }
 
 // K4b. a, b (B, N, C), p1 (5, C), w2 (C, W1), gsel (B, N, W1), pk (5, W1)
-// fp32 and idx (B, N, k), ksel (B, N, W1) int32 in; scat (B, N, C) fp32
+// fp32 and idx (B, N, k), ksel (B, N, W1) int32 in; scat (B, N, 2C) fp32
 // zeroed by the caller, psum (B, N, C) and part (B * ceil(N / 64),
 // C * W1 + 2C) fp32 out: contiguous, on one device. Past C, W1 <= 64, psum
 // is (OT, B, N, C) and part (B * ceil(N / 64), C * W1 + OT * 2C) with OT =
@@ -982,14 +1032,15 @@ GFS_EXPORT int gfs_edgeconv_train_bwd(const void* a, const void* b,
     return static_cast<int>(cudaErrorInvalidValue);
   const bool wide = is_wide(c, w1);
   const auto kern = wide ? bwd_wide_kernel : bwd_kernel;
+  const size_t smem = wide ? kBwdWideSmem : kBwdSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kBwdSmem));
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + kTileQ - 1) / kTileQ, batch,
                   wide ? ((w1 + kMaxW - 1) / kMaxW) * ((c + kMaxW - 1) / kMaxW)
                        : 1);
-  kern<<<grid, kThreads, kBwdSmem, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const int*>(idx), static_cast<const float*>(p1),
       static_cast<const float*>(w2), static_cast<const float*>(gsel),

@@ -24,10 +24,8 @@ kernels in csrc/fused_edgeconv_train.cu, with the same closed-form algebra:
   the min of z1 by the sign of the bn2 scale, selected here in torch;
 * K4b (`_bwd`) re-gathers a[idx] (no (B, N, K, C) residual is stored),
   recomputes e0/h1/z1 and reduces dW2, the two bn1 sums and
-  sum_k g1 * dy1 per point, and scatters g1 * dy1 onto the neighbour rows;
-  da and db are assembled here in closed form, with the sum of yhat1 over
-  each point's in-edges from cnt and scb (`_yhat1_in_sums`; the JAX kernel
-  scatters it).
+  sum_k g1 * dy1 per point, and scatters [g1 * dy1 | yhat1] onto the
+  neighbour rows; da and db are assembled here in closed form.
 
 On the card the stages take any C, W1 and 1 <= k <= N: past C, W1 <= 64
 the kernels tile W1 (and, in K4b, C) over a grid axis, and the partial
@@ -113,6 +111,13 @@ def _bn2_moments(stats, w2, e):
             torch.einsum("cd,ce,ed->d", w2, stats[c:].reshape(c, c) / e, w2))
 
 
+def _z1(h1, w2):
+    """z1 = h1 @ W2 on every edge (B, N, K, W1) in fp32: the twins' product
+    (K4b's kernel takes it on the tensor cores in 3xTF32 for C, W1 <= 64,
+    tests/test_torch_port_split_tf32.py rehearses that here)."""
+    return torch.einsum("bnkc,cd->bnkd", h1, w2)
+
+
 def _gsf_plain(a, b, idx, s1, t1, w2, neg_slope):
     """Plain twin of K4a. Returns (snbr (B,N,C), zmax, zmin (B,N,W1),
     kmax, kmin (B,N,W1) int32, stats): the sums over the B N K edges the
@@ -120,7 +125,7 @@ def _gsf_plain(a, b, idx, s1, t1, w2, neg_slope):
     (`_bn2_moments`)."""
     nbr = gather_neighbors_plain(a, idx)                      # (B,N,K,C)
     h1 = _leaky((nbr + b[:, :, None, :]) * s1 + t1, neg_slope)
-    z1 = torch.einsum("bnkc,cd->bnkd", h1, w2)
+    z1 = _z1(h1, w2)
     zmax, kmax = torch.max(z1, dim=2)
     zmin, kmin = torch.min(z1, dim=2)
     if _wide(*w2.shape):
@@ -178,7 +183,7 @@ _gsf.launches = 0
 
 def _bwd_plain(a, b, idx, p1, w2, gsel, ksel, pk, neg_slope):
     """Plain twin of K4b. p1 = [s1, t1, mu1, inv1, g1s] (5, C), pk = [g2s,
-    c1, c2, mu2, inv2] (5, W1). Returns (scat (B,N,C), psum (B,N,C),
+    c1, c2, mu2, inv2] (5, W1). Returns (scat (B,N,2C), psum (B,N,C),
     dw2 (C,W1), sums (2,C)). LeakyReLU's derivative takes its branch from
     the exact sign of the bn1 pre-activation, as the kernel does."""
     s1, t1, mu1, inv1, g1s = p1
@@ -187,7 +192,7 @@ def _bwd_plain(a, b, idx, p1, w2, gsel, ksel, pk, neg_slope):
     e0 = gather_neighbors_plain(a, idx) + b[:, :, None, :]
     pre1 = e0 * s1 + t1
     h1 = _leaky(pre1, neg_slope)
-    z1 = torch.einsum("bnkc,cd->bnkd", h1, w2)
+    z1 = _z1(h1, w2)
     slot = torch.arange(k, device=a.device)[None, None, :, None]
     dy2 = torch.where(ksel[:, :, None, :] == slot, gsel[:, :, None, :], 0.0)
     dz1 = g2s * (dy2 - c1 - (z1 - mu2) * inv2 * c2)
@@ -200,9 +205,10 @@ def _bwd_plain(a, b, idx, p1, w2, gsel, ksel, pk, neg_slope):
     y1hat = (e0 - mu1) * inv1
     gdy1 = g1s * dy1
     bsz, n, _, c = e0.shape
-    flat = idx.reshape(bsz, n * k, 1).long().expand(bsz, n * k, c)
-    scat = torch.zeros((bsz, n, c), dtype=a.dtype, device=a.device)
-    scat.scatter_add_(1, flat, gdy1.reshape(bsz, n * k, c))
+    flat = idx.reshape(bsz, n * k, 1).long().expand(bsz, n * k, 2 * c)
+    scat = torch.zeros((bsz, n, 2 * c), dtype=a.dtype, device=a.device)
+    scat.scatter_add_(1, flat, torch.cat([gdy1, y1hat], -1).reshape(
+        bsz, n * k, 2 * c))
     sums = torch.stack([dy1.sum((0, 1, 2)), (dy1 * y1hat).sum((0, 1, 2))])
     return (scat, gdy1.sum(2), torch.einsum("bnkc,bnkd->cd", h1, dz1),
             sums)
@@ -228,7 +234,7 @@ def _bwd(a, b, idx, p1, w2, gsel, ksel, pk, neg_slope):
     # past C, W1 <= 64 each of the OT column tiles leaves its own psum and
     # bn1 sums, added below
     n_ot = -(-w1 // 64) if _wide(c, w1) else 1
-    scat = torch.zeros((bsz, n, c), device=a.device)
+    scat = torch.zeros((bsz, n, 2 * c), device=a.device)
     psum = torch.empty((n_ot, bsz, n, c), device=a.device)
     part = torch.empty((bsz * tiles, c * w1 + n_ot * 2 * c), device=a.device)
     lib = _ext.library()
@@ -267,14 +273,6 @@ def _check_shapes(name, a, b, idx, w2):
                          f"bits (k <= 65535); got k={k}")
 
 
-def _yhat1_in_sums(a, cnt, scb, mu1, inv1):
-    """sum of yhat1 = (a[j] + b[i] - mu1) inv1 over the in-edges (i, j) of
-    each point j, in closed form from K3's in-degrees cnt (B, 1, N) and
-    transposed b-scatter scb (B, N, C): inv1 (cnt_j (a_j - mu1) + scb_j).
-    (B, N, C); the JAX kernel scatters it edge by edge."""
-    return inv1 * (cnt[:, 0, :, None] * (a - mu1) + scb)
-
-
 # --------------------------------------------------------------------------- #
 # the autograd Function
 # --------------------------------------------------------------------------- #
@@ -310,8 +308,7 @@ class _FusedEdgeConvTrain(torch.autograd.Function):
         ksel = torch.where(pos, kmax, kmin)
         out = _leaky(z1sel * s2a + t2, neg_slope)
         ctx.save_for_backward(a, b, idx, w2, gamma1, beta1, gamma2, mu1,
-                              var1, mu2, var2, z1sel, ksel, out, snbr, cnt,
-                              scb)
+                              var1, mu2, var2, z1sel, ksel, out, snbr, cnt)
         ctx.neg_slope = neg_slope
         ctx.mark_non_differentiable(mu1, var1, mu2, var2)
         return out, mu1, var1, mu2, var2
@@ -319,7 +316,7 @@ class _FusedEdgeConvTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gout, *_stat_cotangents):
         (a, b, idx, w2, g1, beta1, g2, mu1, var1, mu2, var2, z1sel, ksel,
-         out, snbr, cnt, scb) = ctx.saved_tensors
+         out, snbr, cnt) = ctx.saved_tensors
         slope = ctx.neg_slope
         bsz, n, c = a.shape
         k = idx.shape[-1]
@@ -339,8 +336,7 @@ class _FusedEdgeConvTrain(torch.autograd.Function):
                                      ksel.contiguous(), pk, slope)
         gd1 = g1s * sums[0] / e
         gd2 = g1s * sums[1] / e
-        da = (scat - gd1 * cnt[:, 0, :, None]
-              - gd2 * _yhat1_in_sums(a, cnt, scb, mu1, inv1))
+        da = scat[..., :c] - gd1 * cnt[:, 0, :, None] - gd2 * scat[..., c:]
         db = psum - k * gd1 - gd2 * ((snbr + k * b - k * mu1) * inv1)
         return (da, db, sums[1], sums[0], dw2, c2 * e, c1 * e, None, None,
                 None, None)

@@ -179,7 +179,8 @@ def _fet_args(r, b, n, c, w1, dev):
     (1, 100, 40, 130, 20),  # wide W1 only, 3 ragged column tiles
 ])
 def test_fused_edgeconv_train_kernels_match_plain(dev, b, n, c, w1, k):
-    """K4a and K4b against their twins on the same inputs, then the whole
+    """K4a and K4b against their twins on the same inputs (K4b also with
+    its bn2 coefficient c2 100 times larger), then the whole
     Function against the unfused composition: forward, statistics and all
     seven gradients within 1e-4 (forward) / 1e-3 (gradients) of the
     reference's largest magnitude."""
@@ -199,6 +200,11 @@ def test_fused_edgeconv_train_kernels_match_plain(dev, b, n, c, w1, k):
     pk = torch.stack([params[5], 0.01 * params[6], 0.01 * params[6],
                       0.1 * params[6], 1.0 + 0.1 * params[5].abs()])
     bwd = (params[0], params[1], idx, p1, params[4], gsel, got[3], pk, 0.2)
+    for g, w in zip(fet._bwd(*bwd), fet._bwd_plain(*bwd)):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+    # c2 100 times larger, so that the rounding of the recomputed z1 shows
+    # in dz1 (as chip_smoke.py::check_fused_train holds it too)
+    pk[2] *= 100.0
     for g, w in zip(fet._bwd(*bwd), fet._bwd_plain(*bwd)):
         assert (g - w).abs().max() <= 1e-4 * w.abs().max()
 

@@ -22,13 +22,20 @@ modelled as the kernel sums it: per neighbour slot a fresh accumulator
 over the 64 channels in 8 k-steps (channels grouped as the kernel's
 fragments group them), then bias, LeakyReLU and the max over the slots in
 fp32; held to the twin `gather_conv_plain` within chip_smoke.py's EC_TOL.
+
+K4b's recomputed z1 (`bwd_kernel` in csrc/fused_edgeconv_train.cu) is
+modelled the same way, in its own channel order: the whole backward stage
+`_bwd_plain` with z1 as the card sums it stays within chip_smoke.py's
+GRAD_TOL of the fp32 twin, and within its K4B_Z1_TOL where c2 is drawn
+large enough for z1's rounding to show; single TF32 misses the latter.
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import EC_TOL
+from chip_smoke import EC_TOL, GRAD_TOL, K4B_Z1_TOL, rel_err
 from gfs3dseg_gws_tpu_torch.ops import attention_train as atr
+from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
 from gfs3dseg_gws_tpu_torch.ops.attention_kernel import (attention_plain,
                                                          pad_head)
 from gfs3dseg_gws_tpu_torch.ops.edgeconv import gather_neighbors_plain
@@ -305,3 +312,82 @@ def test_single_tf32_misses_ec_tolerance():
     args = _edge_inputs()
     assert not _within_ec_tol(_edge_stage(_mm("1x"), *args),
                               gather_conv_plain(*args))
+
+
+# the channel each k-step position of K4b's z1 takes (bwd_kernel): k-step kk
+# sums channels 8 kk + 2 t (position t) and 8 kk + 2 t + 1 (t + 4)
+K4B_ORDER = [8 * kk + 2 * t + e for kk in range(8) for e in range(2)
+             for t in range(4)]
+
+
+def _k4b_args(c2_scale=1.0):
+    """K4b's inputs at (2, 200, 64 -> 64), k = 20, as chip_smoke.py's
+    check_fused_train draws them (c2 0.01 N(0, 1), times `c2_scale`), the
+    statistics from the Function's forward; N = 200 is no multiple of 64."""
+    r = np.random.default_rng(12)
+    bsz, n, c, k = 2, 200, 64, 20
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((r.standard_normal(shape) * scale
+                                 + shift).astype(np.float32))
+
+    a, bt = randn(bsz, n, c), randn(bsz, n, c)
+    g1, be1 = randn(c, scale=0.2, shift=1.0), randn(c, scale=0.2)
+    w2 = randn(c, c, scale=c ** -0.5)
+    g2 = randn(c, scale=0.2, shift=1.0) * torch.tensor(
+        [-1.0 if i % 8 == 0 else 1.0 for i in range(c)])
+    idx = torch.from_numpy(r.integers(0, n, (bsz, n, k)).astype(np.int32))
+    _, mu1, var1, mu2, var2 = fet.fused_edgeconv_train(
+        a, bt, g1, be1, w2, g2, randn(c, scale=0.2), idx)
+    s1, t1, inv1 = fet._affines(g1, be1, mu1, var1)
+    inv2 = torch.rsqrt(var2 + fet.EPS)
+    gsel = randn(bsz, n, c)
+    p1 = torch.stack([s1, t1, mu1, inv1, g1 * inv1])
+    pk = torch.stack([g2 * inv2, gsel.mean((0, 1)),
+                      randn(c, scale=0.01) * c2_scale, mu2, inv2])
+    kmax = fet._gsf_plain(a, bt, idx, s1, t1, w2, 0.2)[3]
+    return (a, bt, idx, p1, w2, gsel, kmax, pk, 0.2)
+
+
+def _k4b_z1_err(monkeypatch, mm, args):
+    """The largest of K4b's outputs' errors (scat, psum, dW2, the bn1 sums;
+    max |diff| / max |twin|) with z1 through `mm` in the kernel's channel
+    order, against the fp32 twin."""
+    ref = fet._bwd_plain(*args)
+    with monkeypatch.context() as m:
+        m.setattr(fet, "_z1", lambda h1, w: mm(h1[..., K4B_ORDER],
+                                               w[K4B_ORDER]))
+        got = fet._bwd_plain(*args)
+    return max(rel_err(g, w) for g, w in zip(got, ref))
+
+
+def test_k4b_tensor_core_z1_within_grad_tolerance(monkeypatch):
+    """K4b with z1 as the card sums it (3xTF32, one accumulator an edge row
+    over 8 k-steps, truncating, in the kernel's channel order), against
+    the fp32 twin: every output within GRAD_TOL of the twin's largest
+    entry, the measure chip_smoke.py holds the card's K4b to."""
+    err = _k4b_z1_err(monkeypatch, _mm_tc(), _k4b_args())
+    print(f"K4b with tensor-core z1: {err:.3g} of the twin's largest entry "
+          f"(GRAD_TOL {GRAD_TOL}, margin {GRAD_TOL / err:.3g}x)")
+    assert 0.0 < err <= GRAD_TOL
+
+
+def test_k4b_tensor_core_z1_within_z1_tolerance(monkeypatch):
+    """The same with c2 100 times larger, as chip_smoke.py's second K4b
+    check draws it, so that z1's rounding shows in dz1: within
+    K4B_Z1_TOL."""
+    err = _k4b_z1_err(monkeypatch, _mm_tc(), _k4b_args(100.0))
+    print(f"K4b at c2 ~ N(0, 1), tensor-core z1: {err:.3g} (K4B_Z1_TOL "
+          f"{K4B_Z1_TOL}, margin {K4B_Z1_TOL / err:.3g}x)")
+    assert 0.0 < err <= K4B_Z1_TOL
+
+
+def test_k4b_single_tf32_z1_misses_z1_tolerance(monkeypatch):
+    """z1 in one TF32 product misses K4B_Z1_TOL on the same inputs (and
+    passes GRAD_TOL at c2 0.01 N(0, 1)): why the kernel splits its
+    operands, and why chip_smoke.py checks K4b at the larger c2 too."""
+    err = _k4b_z1_err(monkeypatch, _mm("1x"), _k4b_args(100.0))
+    print(f"K4b at c2 ~ N(0, 1), single-TF32 z1: {err:.3g} (K4B_Z1_TOL "
+          f"{K4B_Z1_TOL})")
+    assert err > K4B_Z1_TOL
+    assert _k4b_z1_err(monkeypatch, _mm("1x"), _k4b_args()) <= GRAD_TOL

@@ -27,11 +27,9 @@ from gfs3dseg_gws_tpu.ops.knn import knn_with_stats as jax_knn_with_stats
 from gfs3dseg_gws_tpu_torch.models.dgcnnseg import DGCNNSeg
 from gfs3dseg_gws_tpu_torch.models.layers import (BatchNorm, Conv1x1,
                                                   cross_entropy, train_init_)
-from gfs3dseg_gws_tpu_torch.ops.edgeconv import gather_neighbors_plain
 from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv_train import (
-    _yhat1_in_sums, fused_edgeconv_train, fused_edgeconv_train_plain)
-from gfs3dseg_gws_tpu_torch.ops.knn import (knn_with_stats,
-                                            neighbor_stats_plain)
+    fused_edgeconv_train, fused_edgeconv_train_plain)
+from gfs3dseg_gws_tpu_torch.ops.knn import knn_with_stats
 from gfs3dseg_gws_tpu_torch.parallel.optim import make_pretrain_optimizer
 from gfs3dseg_gws_tpu_torch.parallel.steps import pretrain_step
 from gfs3dseg_gws_tpu_torch.utils.checkpoint import (
@@ -252,45 +250,6 @@ def test_fused_edgeconv_train_stats_carry_no_gradient():
                                   for n in NAMES], idx)
     assert outs[0].requires_grad
     assert not any(o.requires_grad for o in outs[1:])
-
-
-@pytest.mark.parametrize("n,k", [(100, 20), (37, 37)],
-                         ids=["ragged_in_degree_0", "k_equals_n"])
-def test_yhat1_in_sums_closed_form_equals_scatter(n, k):
-    """The sum of yhat1 = (a[j] + b[i] - mu1) inv1 over each point's
-    in-edges, which K4b no longer scatters, in closed form from cnt and scb
-    (fp32) against a float64 scatter_add_ of yhat1 edge by edge: within
-    1e-5 of the reference's largest magnitude (fp32 rounding of sums of up
-    to N terms); a point no edge reaches gets exactly 0. N is no multiple
-    of the kernels' 64 queries a block; with k < N point 0 has in-degree 0,
-    with k = N every point is every query's neighbour."""
-    r = np.random.default_rng(n + k)
-    c = 8
-    a, b = (r.standard_normal((B, n, c)).astype(np.float32)
-            for _ in range(2))
-    mu1 = (0.3 * r.standard_normal(c)).astype(np.float32)
-    inv1 = (0.5 + r.uniform(0, 1, c)).astype(np.float32)
-    if k < n:
-        idx = t(r.integers(1, n, (B, n, k)).astype(np.int32))
-    else:
-        idx = knn_with_stats(t(r.standard_normal((B, n, 3)).astype(
-            np.float32)), t(b), k)[0]
-    cnt, scb = neighbor_stats_plain(idx, t(b))
-    got = _yhat1_in_sums(t(a), cnt, scb, t(mu1), t(inv1))
-
-    a64, b64 = t(a).double(), t(b).double()
-    yhat1 = ((gather_neighbors_plain(a64, idx) + b64[:, :, None, :]
-              - t(mu1).double()) * t(inv1).double())
-    flat = idx.reshape(B, n * k, 1).long().expand(B, n * k, c)
-    want = torch.zeros((B, n, c), dtype=torch.float64).scatter_add_(
-        1, flat, yhat1.reshape(B, n * k, c))
-    assert got.dtype == torch.float32 and got.shape == (B, n, c)
-    assert _rel(got, want) < 1e-5, _rel(got, want)
-    if k < n:
-        assert not bool((idx == 0).any())
-        assert bool((got[:, 0] == 0).all())
-    else:
-        assert bool((cnt == n).all())
 
 
 # --------------------------------------------------------------------------- #

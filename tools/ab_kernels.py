@@ -9,7 +9,8 @@ The first form builds the checkout's kernels, runs K1, K2, K3, K4a, K4b,
 K5a, K5b, K6, K7, K8 and K9 at (16, 2048, .), k = 20 (C = 64; K1, K3 and K6
 also C = 9; K2, K5a and K5b also at D = 128, the `_d128` entries, and K5a
 at D = 30 and 192; K1, K3, K6 and K9 past the fast path, at C = 128,
-k = 40, and K6 at k = 80 on (4, 2048, 64), the `_wide` entries; K9 also at
+k = 40, and K6 at k = 80 on (4, 2048, 64), the `_wide` entries, and K4b
+at C = W1 = 128, k = 40, `k4b_wide`; K9 also at
 W0 = 30 -> W1 = 40, whose rows take 4-byte copies, `k9_w30`) on inputs drawn
 from a fixed seed, prints one JSON line of CUDA-event times (ms) beside the
 card's name and power limit, and saves the outputs. K5b takes m and den
@@ -19,13 +20,18 @@ chip_smoke.py times them (the host's time to launch counts where the card
 idles); `ms_queued` is the mean of 30 calls queued back to back (the
 card's time alone). The second form prints, for each named output of each
 kernel (K1's out, K3's idx, cnt and scb, ...), whether the runs agree bit
-for bit and their largest difference, and for index outputs on how many
-rows they differ. Run the checkouts in turns (A, B, B, A) in one call: two
-calls may land on two cards. `--only k6_c64 k3_c9 ...` times those entries
-alone. The third form compiles the checkout's attention sources and
-csrc/fused_edgeconv.cu with `-Xptxas -v` and prints, for each kernel, its
-registers, spills, static shared memory and the `HMMA.1688.F32.TF32`
-instructions that `cuobjdump -sass` finds in it, as one JSON line.
+for bit, their largest difference and the first run's largest magnitude
+beside it, and for index outputs on how many rows they differ. Where two
+runs' outputs differ in width only (K4b's scat (B, N, 2C) against a
+variant that leaves its yhat1 half to a closed form, (B, N, C)), the first
+columns they share are compared, and the entry says so. Run the checkouts in turns (A,
+B, B, A) in one call: two calls may land on two cards. `--only k6_c64
+k3_c9 ...` times those entries alone. The third form compiles the
+checkout's attention sources, csrc/fused_edgeconv.cu and
+csrc/fused_edgeconv_train.cu with `-Xptxas -v` and prints, for each
+kernel, its registers, spills, static shared memory and the
+`HMMA.1688.F32.TF32` instructions that `cuobjdump -sass` finds in it, as
+one JSON line.
 """
 from __future__ import annotations
 
@@ -121,6 +127,14 @@ def run(out: str, only=None) -> None:
     idx128 = knn_indices(x128, 40)
     a30, b30 = randn(B, N, 30), randn(B, N, 30)
     w30, bias40 = randn(30, 40, scale=30 ** -0.5), randn(40, scale=0.1)
+    s1w, t1w = randn(128, scale=0.2) + 1.0, randn(128, scale=0.2)
+    p1w = torch.stack([s1w, t1w, randn(128, scale=0.1),
+                       randn(128).abs() + 0.5, s1w])
+    pkw = torch.stack([randn(128).abs() + 0.5, randn(128, scale=0.01),
+                       randn(128, scale=0.01), randn(128, scale=0.1),
+                       randn(128).abs() + 0.5])
+    gselw = randn(B, N, 128)
+    kselw = fet._gsf(a128, b128, idx128, s1w, t1w, w128, 0.2)[3]
 
     calls = {
         "k1_c9": lambda: fused_edgeconv_infer(x9, a, b, w2, bias2, K),
@@ -151,9 +165,12 @@ def run(out: str, only=None) -> None:
         "k6_wide": lambda: knn_indices(x128, 40),
         "k6_k80_wide": lambda: knn_indices(x4, 80),
         "k9_wide": lambda: gather_conv(idx128, a128, b128, w128, bias128),
+        "k4b_wide": lambda: fet._bwd(a128, b128, idx128, p1w, w128, gselw,
+                                     kselw, pkw, 0.2),
     }
     names = {"k3": ("idx", "cnt", "scb"), "k4a": ("snbr", "zmax", "zmin",
-                                                  "kmax", "kmin")}
+                                                  "kmax", "kmin"),
+             "k4b": ("scat", "psum", "dw2", "sums")}
     if only:
         calls = {name: calls[name] for name in only}
     outputs = {name: fn() for name, fn in calls.items()}
@@ -191,10 +208,20 @@ def compare(paths) -> None:
             res = {}
             for key, x in first.items():
                 y = other[key]
-                res[key] = {"bit_for_bit": torch.equal(x, y)}
+                res[key] = {}
+                if x.shape[:-1] == y.shape[:-1] and x.shape != y.shape:
+                    # K4b's scat: (B, N, 2C) [g1s dy1 | yhat1] against a
+                    # variant's (B, N, C) g1s dy1 alone
+                    cols = min(x.shape[-1], y.shape[-1])
+                    res[key]["compared"] = (
+                        f"first {cols} columns of {x.shape[-1]} and "
+                        f"{y.shape[-1]}")
+                    x, y = x[..., :cols], y[..., :cols]
+                res[key]["bit_for_bit"] = torch.equal(x, y)
                 if x.is_floating_point():
                     res[key]["max_abs_diff"] = (
                         x.double() - y.double()).abs().max().item()
+                    res[key]["max_abs"] = x.abs().max().item()
                 elif x.dim() == 3:
                     res[key]["rows_differing"] = (x != y).reshape(
                         -1, x.shape[-1]).any(-1).sum().item()
@@ -214,7 +241,8 @@ def ptxas(sources=()) -> None:
     report = {"nvcc": version.strip().splitlines()[-1]}
     with tempfile.TemporaryDirectory() as tmp:
         for src in sources or ("attention.cu", "attention_train.cu",
-                               "fused_edgeconv.cu"):
+                               "fused_edgeconv.cu",
+                               "fused_edgeconv_train.cu"):
             obj = os.path.join(tmp, src + ".o")
             res = subprocess.run(
                 [nvcc, *_ext.NVCC_FLAGS, "-Xptxas", "-v", "-I",
@@ -258,7 +286,8 @@ def main() -> None:
     p.add_argument("--compare", nargs="+")
     p.add_argument("--ptxas", nargs="*", metavar="SOURCE",
                    help="-Xptxas -v of these csrc sources (default: the "
-                   "attention sources and fused_edgeconv.cu)")
+                   "attention sources, fused_edgeconv.cu and "
+                   "fused_edgeconv_train.cu)")
     p.add_argument("--only", nargs="+", help="time these entries alone")
     args = p.parse_args()
     if args.ptxas is not None:
