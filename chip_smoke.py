@@ -251,6 +251,16 @@ def rel_err(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
 
 
+def k4a_offset_affine(r: np.random.Generator, c: int):
+    """The bn1 affine (s1, t1) of K4a's offset check: s1 ~ 1e-5 (1 + 0.2
+    N(0, 1)), t1 ~ U[0.5, 1.5], so that h1 = leaky(e0 s1 + t1) is one
+    value a channel to a spread far below a TF32 step: every edge row
+    rounds the same way, and a Gram matrix in single TF32 misses FWD_TOL
+    (tests/test_torch_port_split_tf32.py)."""
+    s1 = (1e-5 * (1.0 + 0.2 * r.standard_normal(c))).astype(np.float32)
+    return s1, r.uniform(0.5, 1.5, c).astype(np.float32)
+
+
 def near_tie_rows(x, bad, label, rtol=TIE_RTOL, by_norm=False, k=K):
     """Each (b, i) in `bad` must be a near-tie at the k-th neighbour: the
     k-th and (k+1)-th plain squared distances within `rtol` of the k-th, or
@@ -552,7 +562,10 @@ def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
     forward and its four batch statistics. Then each stage against its
     plain twin on the same inputs: K4a at the forward's bn1 affine (values;
     max/min slots on >= EC_ROWS of the (point, channel) pairs: a slot may
-    differ where two neighbours' z1 agree to rounding), K4b on K4a's slots
+    differ where two neighbours' z1 agree to rounding), and again on the
+    offset input of `k4a_offset_affine` against the twin in fp64 (values,
+    within FWD_TOL, which a Gram matrix in single TF32 misses: its
+    rounding averages out at the draw above), K4b on K4a's slots
     (the twin's LeakyReLU branch by the exact sign of the pre-activation,
     as the kernel's fmaf gives it; the edges where two roundings would flip
     it are counted), and again with c2 100 times larger, where the
@@ -624,6 +637,24 @@ def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
     if k4a_err > FWD_TOL or slots_ok < EC_ROWS:
         raise AssertionError(f"K4a off its twin: values {k4a_err}, slots "
                              f"{slots_ok}")
+    # K4a on the offset input (h1 one value a channel, k4a_offset_affine),
+    # where every edge row rounds the same way: a Gram matrix in single
+    # TF32 misses FWD_TOL there (5.8e-4 at (2, 200, 64 -> 64) on the CPU)
+    # while at the draw above its rounding averages out. Held against the
+    # twin in fp64 (values only: z1 differs between slots by ~1e-5 of
+    # itself there, near-ties for any rounding)
+    off_args = (a, bt, idx, *(torch.from_numpy(v).to(dev) for v in
+                              k4a_offset_affine(np.random.default_rng(SEED),
+                                                c)), w2, 0.2)
+    got_o = fet._gsf(*off_args)
+    ref_o = fet._gsf_plain(*(x.double() if x.is_floating_point() else x
+                             for x in off_args[:6]), 0.2)
+    torch.cuda.synchronize()
+    k4a_offset_err = max(rel_err(got_o[i], ref_o[i]) for i in values)
+    del got_o, ref_o
+    if k4a_offset_err > FWD_TOL:
+        raise AssertionError(f"K4a on the offset input off its fp64 twin "
+                             f"by {k4a_offset_err} (> {FWD_TOL})")
 
     # K4b against its twin on K4a's slots
     inv2 = torch.rsqrt(var2 + fet.EPS)
@@ -701,8 +732,8 @@ def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
                              f"version by {grad_errs[worst]} ({grads})")
     if not timing:
         phase(label, forward_rel_err=out_err, k4a_rel_err=k4a_err,
-              slots_agree=slots_ok, k4b_rel_err=k4b_err,
-              k4b_z1_rel_err=k4b_z1_err, **grads)
+              slots_agree=slots_ok, k4a_offset_rel_err=k4a_offset_err,
+              k4b_rel_err=k4b_err, k4b_z1_rel_err=k4b_z1_err, **grads)
         return None
 
     def fwd(fn, **kw):
@@ -726,26 +757,30 @@ def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
                 fet.fused_edgeconv_train_plain)))
     # FMAs per edge (b N k of them), c x w1 each: K4a z1 and the Gram
     # matrix (past the fast path: z1 and its square, 2 w1 more), K4b dz1 ->
-    # dh1, dW2 and the recomputed z1. K4b's bound up to C, W1 = 64 takes
-    # its three products in 3xTF32 on the tensor cores (fp32-accurate, as
-    # its z1 already runs), past them in fp32; the all-fp32 bound beside it
+    # dh1, dW2 and the recomputed z1. Up to C, W1 = 64 K4a's bound takes
+    # both its products in 3xTF32 on the tensor cores, as it runs them, and
+    # K4b's its three (fp32-accurate, as its z1 already runs), past them in
+    # fp32; the all-fp32 bound beside each
     edges = b * N * k
     fast = max(c, w1) <= 64
     gram = c * c if fast else w1
-    k4a_bound = bound(2.0 * edges * (c * w1 + gram),
-                      size_of(*gsf_args[:6], *got))
+    k4a_flops = 2.0 * edges * (c * w1 + gram)
+    k4a_bytes = size_of(*gsf_args[:6], *got)
+    k4a_bound = bound(k4a_flops, k4a_bytes, tf32x3=fast)
+    k4a_fp32_ms = bound(k4a_flops, k4a_bytes)[0]
     k4b_flops = 3 * 2.0 * edges * c * w1
     k4b_bytes = size_of(*bwd_args[:8], *got_b)
     k4b_bound = bound(k4b_flops, k4b_bytes, tf32x3=fast)
     k4b_fp32_ms = bound(k4b_flops, k4b_bytes)[0]
     phase(label, forward_rel_err=out_err, k4a_rel_err=k4a_err,
-          slots_agree=slots_ok, k4b_rel_err=k4b_err,
-          k4b_z1_rel_err=k4b_z1_err, **grads,
-          k4a_bound_ms=k4a_bound[0], k4b_bound_ms=k4b_bound[0],
-          k4b_bound_fp32_ms=k4b_fp32_ms, **times)
+          slots_agree=slots_ok, k4a_offset_rel_err=k4a_offset_err,
+          k4b_rel_err=k4b_err, k4b_z1_rel_err=k4b_z1_err, **grads,
+          k4a_bound_ms=k4a_bound[0], k4a_bound_fp32_ms=k4a_fp32_ms,
+          k4b_bound_ms=k4b_bound[0], k4b_bound_fp32_ms=k4b_fp32_ms, **times)
     return (dict(max_abs_err=k4a_abs, ms=times["k4a_ms"],
                  plain_ms=times["k4a_plain_ms"], bound_ms=k4a_bound[0],
-                 bound_by=k4a_bound[1], library_ms=None),
+                 bound_by=k4a_bound[1], library_ms=None,
+                 bound_fp32_ms=k4a_fp32_ms),
             dict(max_abs_err=k4b_abs, ms=times["k4b_ms"],
                  plain_ms=times["k4b_plain_ms"], bound_ms=k4b_bound[0],
                  bound_by=k4b_bound[1], library_ms=None,

@@ -77,6 +77,21 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a,
   mma_tf32(d, a.hi, b.hi);
 }
 
+// four 8 x 4 tiles of fp32 from shared memory, one 16-byte row a lane:
+// lane l gives the address of row l % 8 of tile l / 8 (16-byte aligned) and
+// gets r[i] = word t of row g of tile i. With the tiles (rows m .. m + 7,
+// k .. k + 3), (m + 8 .., k ..), (m .., k + 4 ..), (m + 8 .., k + 4 ..) of a
+// [row][k] buffer, r is the A fragment of rows m .. m + 15; r[0], r[2] and
+// r[1], r[3] are the B fragments of n-tiles m .. m + 7 and m + 8 .. m + 15
+// of the same buffer read as [n][k].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
 // 16 bytes global -> shared without a register round trip; zeros when
 // !valid (src is then not read)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,

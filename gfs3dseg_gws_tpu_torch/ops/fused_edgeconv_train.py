@@ -18,14 +18,17 @@ kernels in csrc/fused_edgeconv_train.cu, with the same closed-form algebra:
 * K4a (`_gsf`) gathers a[idx] once, forms h1 and z1 = h1 @ W2 per edge and
   reduces sum(h1), the Gram matrix h1^T h1 (the bn2 statistics follow as
   E[z1] = E[h1] W2, E[z1^2] = diag(W2^T E[h1 h1^T] W2)), the running
-  max/min of z1 over k with their slots, and sum_k a[idx]; past C, W1 <=
-  64 it reduces sum z1 and sum z1^2 per column instead of the C x C Gram;
+  max/min of z1 over k with their slots, and sum_k a[idx]; for C, W1 <= 64
+  it takes z1 and the Gram matrix on the tensor cores in 3xTF32, past
+  that it reduces sum z1 and sum z1^2 per column instead of the C x C
+  Gram, in fp32;
 * bn2 + leaky is monotone per channel, so the block output is the max or
   the min of z1 by the sign of the bn2 scale, selected here in torch;
 * K4b (`_bwd`) re-gathers a[idx] (no (B, N, K, C) residual is stored),
-  recomputes e0/h1/z1 and reduces dW2, the two bn1 sums and
-  sum_k g1 * dy1 per point, and scatters [g1 * dy1 | yhat1] onto the
-  neighbour rows; da and db are assembled here in closed form.
+  recomputes e0/h1/z1 (z1 in 3xTF32 for C, W1 <= 64) and reduces dW2,
+  the two bn1 sums and sum_k g1 * dy1 per point, and scatters
+  [g1 * dy1 | yhat1] onto the neighbour rows; da and db are assembled
+  here in closed form.
 
 On the card the stages take any C, W1 and 1 <= k <= N: past C, W1 <= 64
 the kernels tile W1 (and, in K4b, C) over a grid axis, and the partial
@@ -113,9 +116,16 @@ def _bn2_moments(stats, w2, e):
 
 def _z1(h1, w2):
     """z1 = h1 @ W2 on every edge (B, N, K, W1) in fp32: the twins' product
-    (K4b's kernel takes it on the tensor cores in 3xTF32 for C, W1 <= 64,
-    tests/test_torch_port_split_tf32.py rehearses that here)."""
+    (K4a's and K4b's kernels take it on the tensor cores in 3xTF32 for C,
+    W1 <= 64, tests/test_torch_port_split_tf32.py rehearses that here)."""
     return torch.einsum("bnkc,cd->bnkd", h1, w2)
+
+
+def _gram(h1):
+    """The Gram matrix h1^T h1 over every edge (C, C) in fp32: the twin's
+    product (K4a's kernel takes it on the tensor cores in 3xTF32 for C,
+    W1 <= 64, tests/test_torch_port_split_tf32.py rehearses that here)."""
+    return torch.einsum("bnkc,bnkd->cd", h1, h1)
 
 
 def _gsf_plain(a, b, idx, s1, t1, w2, neg_slope):
@@ -131,8 +141,7 @@ def _gsf_plain(a, b, idx, s1, t1, w2, neg_slope):
     if _wide(*w2.shape):
         stats = torch.cat([z1.sum((0, 1, 2)), (z1 * z1).sum((0, 1, 2))])
     else:
-        stats = torch.cat([h1.sum((0, 1, 2)),
-                           torch.einsum("bnkc,bnkd->cd", h1, h1).reshape(-1)])
+        stats = torch.cat([h1.sum((0, 1, 2)), _gram(h1).reshape(-1)])
     return (nbr.sum(2), zmax, zmin, kmax.to(torch.int32),
             kmin.to(torch.int32), stats)
 

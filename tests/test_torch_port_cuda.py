@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import copied_block
+from chip_smoke import copied_block, k4a_offset_affine
 from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
 from gfs3dseg_gws_tpu_torch.models.dgcnnseg import DGCNNSeg
 from gfs3dseg_gws_tpu_torch.models.layers import cross_entropy
@@ -179,8 +179,9 @@ def _fet_args(r, b, n, c, w1, dev):
     (1, 100, 40, 130, 20),  # wide W1 only, 3 ragged column tiles
 ])
 def test_fused_edgeconv_train_kernels_match_plain(dev, b, n, c, w1, k):
-    """K4a and K4b against their twins on the same inputs (K4b also with
-    its bn2 coefficient c2 100 times larger), then the whole
+    """K4a and K4b against their twins on the same inputs (K4a also on the
+    offset input against the fp64 twin, K4b also with its bn2 coefficient
+    c2 100 times larger), then the whole
     Function against the unfused composition: forward, statistics and all
     seven gradients within 1e-4 (forward) / 1e-3 (gradients) of the
     reference's largest magnitude."""
@@ -194,6 +195,19 @@ def test_fused_edgeconv_train_kernels_match_plain(dev, b, n, c, w1, k):
     for g, w in zip(got, ref):
         assert (g.float() - w.float()).abs().max() <= 1e-4 * max(
             w.float().abs().max(), 1.0)
+    # K4a on chip_smoke.py's offset input (h1 one value a channel), against
+    # the twin in fp64: snbr, zmax, zmin and the bn2 sums within 1e-4 of
+    # its largest entry, which a Gram matrix in single TF32 misses
+    off = (params[0], params[1], idx, *(torch.from_numpy(v).to(dev) for v in
+                                        k4a_offset_affine(
+                                            np.random.default_rng(c), c)),
+           params[4])
+    got_o = fet._gsf(*off, 0.2)
+    ref_o = fet._gsf_plain(*(x.double() if x.is_floating_point() else x
+                             for x in off), 0.2)
+    for i in (0, 1, 2, 5):
+        assert ((got_o[i].double() - ref_o[i]).abs().max()
+                <= 1e-4 * ref_o[i].abs().max())
     gsel = _randn(r, b, n, w1).to(dev)
     p1 = torch.stack([s1, t1, 0.1 * params[3], 1.0 + 0.1 * params[2],
                       params[2]])

@@ -28,12 +28,22 @@ modelled the same way, in its own channel order: the whole backward stage
 `_bwd_plain` with z1 as the card sums it stays within chip_smoke.py's
 GRAD_TOL of the fp32 twin, and within its K4B_Z1_TOL where c2 is drawn
 large enough for z1's rounding to show; single TF32 misses the latter.
+
+K4a (`gsf_kernel`, same file) takes z1 in the same channel order and the
+Gram matrix h1^T h1 of its bn2 statistics over the edge rows of each
+block, in fresh accumulators of 16 k-steps (128 rows); `_gsf_plain` with
+both products as the card sums them stays within chip_smoke.py's FWD_TOL
+of the fp32 twin, its slots on >= EC_ROWS of the pairs. Single TF32 misses
+FWD_TOL in z1; in the Gram matrix its rounding averages out over the rows,
+so it is shown missing on an input whose h1 is a constant per channel
+(a spread far below a TF32 step), where every row rounds the same way.
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import EC_TOL, GRAD_TOL, K4B_Z1_TOL, rel_err
+from chip_smoke import (EC_ROWS, EC_TOL, FWD_TOL, GRAD_TOL, K4B_Z1_TOL,
+                        k4a_offset_affine, rel_err)
 from gfs3dseg_gws_tpu_torch.ops import attention_train as atr
 from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
 from gfs3dseg_gws_tpu_torch.ops.attention_kernel import (attention_plain,
@@ -391,3 +401,135 @@ def test_k4b_single_tf32_z1_misses_z1_tolerance(monkeypatch):
           f"{K4B_Z1_TOL})")
     assert err > K4B_Z1_TOL
     assert _k4b_z1_err(monkeypatch, _mm("1x"), _k4b_args()) <= GRAD_TOL
+
+
+def _gram_blocks(h1):
+    """The edge rows (B, N, k, C) of h1 as gsf_kernel lays them out: one
+    (blocks, 256 steps, C) matrix a block of 64 queries, step by step (4
+    slots each), row 32 (q // 8) + 8 u + q % 8 for query q at slot u of
+    the step; zero rows past N and past k."""
+    b, n, k, c = h1.shape
+    npad, kpad = -(-n // 64) * 64, -(-k // 4) * 4
+    x = torch.zeros(b, npad, kpad, c)
+    x[:, :n, :k] = h1
+    x = x.reshape(b, npad // 64, 8, 8, kpad // 4, 4, c).permute(
+        0, 1, 4, 2, 5, 3, 6)
+    return x.reshape(b * (npad // 64), -1, c)
+
+
+def _gram_tc(steps=16):
+    """h1^T h1 as gsf_kernel sums it: each block's rows through
+    `_mm_tc(steps)` (fresh accumulators of `steps` k-steps, added in fp32;
+    None: one accumulator over all of the block's rows), then the blocks'
+    partials added."""
+    def gram(h1):
+        x = _gram_blocks(h1)
+        return _mm_tc(steps)(x.transpose(1, 2), x).sum(0)
+    return gram
+
+
+def _gram_1x(h1):
+    """h1^T h1 in single TF32 (fp32 sums)."""
+    x = h1.reshape(-1, h1.shape[-1])
+    return _mm("1x")(x.T, x)
+
+
+def _k4a_args(offset=False):
+    """K4a's inputs at (2, 200, 64 -> 64), k = 20: `_k4b_args`'s tables,
+    indices, W2 and bn1 affine, or with `offset` the affine of
+    chip_smoke.py's second K4a check (h1 = t1 + e0 s1 with s1 ~ 1e-5: one
+    value a channel, to a spread far below a TF32 step)."""
+    a, bt, idx, p1, w2 = _k4b_args()[:5]
+    if offset:
+        r = np.random.default_rng(13)
+        s1, t1 = (torch.from_numpy(v) for v in k4a_offset_affine(r, 64))
+    else:
+        s1, t1 = p1[0], p1[1]
+    return a, bt, idx, s1, t1, w2, 0.2
+
+
+def _k4a_errs(monkeypatch, z1mm, gram, args, double_ref=False):
+    """K4a's values (snbr, zmax, zmin, the bn2 sums; max |diff| / max
+    |twin| each) with z1 through `z1mm` in the kernel's channel order and
+    the Gram matrix through `gram`, against the twin (in fp64 with
+    `double_ref`, as chip_smoke.py's offset check holds it), and the share
+    of (point, channel) pairs whose max and min slots both agree."""
+    ref_args = ([t.double() if t.is_floating_point() else t
+                 for t in args[:6]] + [args[6]]) if double_ref else args
+    ref = fet._gsf_plain(*ref_args)
+    with monkeypatch.context() as m:
+        m.setattr(fet, "_z1", lambda h1, w: z1mm(h1[..., K4B_ORDER],
+                                                 w[K4B_ORDER]))
+        m.setattr(fet, "_gram", gram)
+        got = fet._gsf_plain(*args)
+    errs = {name: rel_err(got[i], ref[i]) for name, i in
+            (("snbr", 0), ("zmax", 1), ("zmin", 2), ("bn2_sums", 5))}
+    slots = ((got[3] == ref[3]) & (got[4] == ref[4])).float().mean().item()
+    return errs, slots
+
+
+def test_k4a_twin_gram_hook_is_the_einsum():
+    """`_gsf_plain`'s `_gram` hook is the fp32 product it replaced."""
+    a, bt, idx, s1, t1, w2, slope = _k4a_args()
+    h1 = fet._leaky((gather_neighbors_plain(a, idx) + bt[:, :, None, :])
+                    * s1 + t1, slope)
+    assert torch.equal(fet._gram(h1), torch.einsum("bnkc,bnkd->cd", h1, h1))
+    stats = fet._gsf_plain(a, bt, idx, s1, t1, w2, slope)[5]
+    assert torch.equal(stats[64:], fet._gram(h1).reshape(-1))
+
+
+def test_k4a_tensor_core_sums_within_fwd_tolerance(monkeypatch):
+    """K4a with z1 and the Gram matrix as the card sums them (3xTF32,
+    truncating accumulators: z1 one an edge row over 8 k-steps, the Gram
+    matrix one per 128 rows of a block's step): snbr, zmax, zmin and the
+    bn2 sums within FWD_TOL of the fp32 twin, the slots on >= EC_ROWS of
+    the pairs, the measures chip_smoke.py holds the card's K4a to."""
+    errs, slots = _k4a_errs(monkeypatch, _mm_tc(), _gram_tc(), _k4a_args())
+    worst = max(errs.values())
+    print(f"K4a on the tensor cores: {errs}, slots {slots} (FWD_TOL "
+          f"{FWD_TOL}, margin {FWD_TOL / worst:.3g}x)")
+    assert worst <= FWD_TOL and slots >= EC_ROWS
+
+
+def test_k4a_single_tf32_z1_misses_fwd_tolerance(monkeypatch):
+    """z1 in one TF32 product (the Gram matrix as the card sums it) moves
+    zmax and zmin past FWD_TOL: why the kernel splits z1's operands."""
+    errs, _ = _k4a_errs(monkeypatch, _mm("1x"), _gram_tc(), _k4a_args())
+    print(f"K4a with single-TF32 z1: {errs}")
+    assert min(errs["zmax"], errs["zmin"]) > FWD_TOL
+
+
+def test_k4a_single_tf32_gram_averages_out_at_the_default_draw(monkeypatch):
+    """At the default draw single-TF32 rounding of the Gram matrix
+    averages out over the rows and stays within FWD_TOL: why the Gram
+    matrix is also held on the offset input below."""
+    errs, _ = _k4a_errs(monkeypatch, _mm_tc(), _gram_1x, _k4a_args())
+    print(f"K4a with a single-TF32 Gram matrix: {errs}")
+    assert errs["bn2_sums"] <= FWD_TOL
+
+
+@pytest.mark.parametrize("steps", [16, None], ids=["per_half_step",
+                                                   "one_chain"])
+def test_k4a_tensor_core_gram_on_the_offset_input(monkeypatch, steps):
+    """On the offset input (h1 one value a channel, every row rounding the
+    same way) the Gram matrix as the card sums it stays within FWD_TOL of
+    the fp64 twin, and so do zmax, zmin and snbr, as chip_smoke.py's second
+    K4a check holds them (its slots are not held there: z1 differs between
+    slots by ~1e-5 of itself, near-ties for any rounding). One accumulator
+    over all 1,280 rows of a block (`one_chain`) stays within it too, with
+    less margin: the kernel's fresh accumulators are margin, not need."""
+    errs, _ = _k4a_errs(monkeypatch, _mm_tc(), _gram_tc(steps),
+                        _k4a_args(offset=True), double_ref=True)
+    print(f"K4a on the offset input, Gram steps {steps}: {errs} (margin "
+          f"{FWD_TOL / max(errs.values()):.3g}x)")
+    assert max(errs.values()) <= FWD_TOL
+
+
+def test_k4a_single_tf32_gram_misses_on_the_offset_input(monkeypatch):
+    """A single-TF32 Gram matrix misses FWD_TOL on the offset input (z1 as
+    the card sums it): why the kernel splits the Gram matrix's operands,
+    and why chip_smoke.py checks K4a on that input too."""
+    errs, _ = _k4a_errs(monkeypatch, _mm_tc(), _gram_1x,
+                        _k4a_args(offset=True), double_ref=True)
+    print(f"K4a on the offset input, single-TF32 Gram matrix: {errs}")
+    assert errs["bn2_sums"] > FWD_TOL

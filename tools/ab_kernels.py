@@ -9,8 +9,8 @@ The first form builds the checkout's kernels, runs K1, K2, K3, K4a, K4b,
 K5a, K5b, K6, K7, K8 and K9 at (16, 2048, .), k = 20 (C = 64; K1, K3 and K6
 also C = 9; K2, K5a and K5b also at D = 128, the `_d128` entries, and K5a
 at D = 30 and 192; K1, K3, K6 and K9 past the fast path, at C = 128,
-k = 40, and K6 at k = 80 on (4, 2048, 64), the `_wide` entries, and K4b
-at C = W1 = 128, k = 40, `k4b_wide`; K9 also at
+k = 40, and K6 at k = 80 on (4, 2048, 64), the `_wide` entries, and K4a
+and K4b at C = W1 = 128, k = 40, `k4a_wide` and `k4b_wide`; K9 also at
 W0 = 30 -> W1 = 40, whose rows take 4-byte copies, `k9_w30`) on inputs drawn
 from a fixed seed, prints one JSON line of CUDA-event times (ms) beside the
 card's name and power limit, and saves the outputs. K5b takes m and den
@@ -165,6 +165,8 @@ def run(out: str, only=None) -> None:
         "k6_wide": lambda: knn_indices(x128, 40),
         "k6_k80_wide": lambda: knn_indices(x4, 80),
         "k9_wide": lambda: gather_conv(idx128, a128, b128, w128, bias128),
+        "k4a_wide": lambda: fet._gsf(a128, b128, idx128, s1w, t1w, w128,
+                                     0.2),
         "k4b_wide": lambda: fet._bwd(a128, b128, idx128, p1w, w128, gselw,
                                      kselw, pkw, 0.2),
     }
