@@ -1,7 +1,8 @@
 // fp32-accurate products on Hopper's tensor cores ("3xTF32"), and the
 // asynchronous copies that feed them: shared by K2 (csrc/attention.cu), K5a
-// and K5b (csrc/attention_train.cu) and K1's edge stage, also K9
-// (csrc/fused_edgeconv.cu: edge_mma_kernel).
+// and K5b (csrc/attention_train.cu), K1's edge stage, also K9
+// (csrc/fused_edgeconv.cu: edge_mma_kernel), and K4a and K4b
+// (csrc/fused_edgeconv_train.cu).
 //
 // A tensor-core TF32 product keeps 10 mantissa bits of each operand, which
 // alone misses fp32 by ~1e-3. 3xTF32 splits each operand x = hi + lo, with
