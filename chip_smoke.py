@@ -755,15 +755,16 @@ def check_fused_train(dev, gen: torch.Generator, b: int = B, c: int = 64,
                                            cnt=cnt, scb=scb)),
             fwd_bwd_plain_ms=cuda_ms(lambda: run(
                 fet.fused_edgeconv_train_plain)))
-    # FMAs per edge (b N k of them), c x w1 each: K4a z1 and the Gram
-    # matrix (past the fast path: z1 and its square, 2 w1 more), K4b dz1 ->
-    # dh1, dW2 and the recomputed z1. Up to C, W1 = 64 K4a's bound takes
-    # both its products in 3xTF32 on the tensor cores, as it runs them, and
-    # K4b's its three (fp32-accurate, as its z1 already runs), past them in
-    # fp32; the all-fp32 bound beside each
+    # FMAs per edge (b N k of them): K4a z1 (c x w1) and the Gram matrix,
+    # which is symmetric, so c (c + 1) / 2 of its entries (past the fast
+    # path: z1 and its square, 2 w1 more); K4b c x w1 each for dz1 -> dh1,
+    # dW2 and the recomputed z1. Up to C, W1 = 64 K4a's bound takes both its
+    # products in 3xTF32 on the tensor cores, as it runs them, and K4b's its
+    # three (fp32-accurate, as its z1 already runs), past them in fp32; the
+    # all-fp32 bound beside each
     edges = b * N * k
     fast = max(c, w1) <= 64
-    gram = c * c if fast else w1
+    gram = c * (c + 1) // 2 if fast else w1
     k4a_flops = 2.0 * edges * (c * w1 + gram)
     k4a_bytes = size_of(*gsf_args[:6], *got)
     k4a_bound = bound(k4a_flops, k4a_bytes, tf32x3=fast)

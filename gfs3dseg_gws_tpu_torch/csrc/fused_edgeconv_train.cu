@@ -30,11 +30,12 @@
 // statistics and dW2 are the same from run to run.
 //
 // What bounds them: their products. At B=16, N=2048, k=20, C=W1=64 the
-// forward is 2 x 2.7 G FMAs (z1 and the Gram matrix), the backward 3 x 2.7
-// G (z1, dW2, dh1) plus 84 M float atomics. For C, W1 <= 64 both of K4a's
-// products and K4b's recomputed z1 run on the tensor cores in 3xTF32
-// (csrc/mma_tf32.cuh: 0.065 ms for K4a at the card's TF32 peak, against
-// 0.160 ms for its FMAs in fp32); K4b's dW2 and dh1 are fp32 FMAs.
+// forward needs 2.7 G FMAs for z1 and 1.4 G for the symmetric Gram matrix
+// (c (c + 1) / 2 entries; gsf_kernel computes all c x c), the backward
+// 3 x 2.7 G (z1, dW2, dh1) plus 84 M float atomics. For C, W1 <= 64 both
+// of K4a's products and K4b's recomputed z1 run on the tensor cores in
+// 3xTF32 (csrc/mma_tf32.cuh: 0.049 ms for K4a at the card's TF32 peak,
+// against 0.121 ms for its FMAs in fp32); K4b's dW2 and dh1 are fp32 FMAs.
 // A block takes kTileQ queries and walks their neighbours a few at a time:
 // it builds the step's edge rows (one row = one (query, slot) pair) in
 // shared memory, transposed as [channel][row] with a padded stride, and

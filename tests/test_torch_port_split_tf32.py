@@ -417,14 +417,13 @@ def _gram_blocks(h1):
     return x.reshape(b * (npad // 64), -1, c)
 
 
-def _gram_tc(steps=16):
+def _gram_tc():
     """h1^T h1 as gsf_kernel sums it: each block's rows through
-    `_mm_tc(steps)` (fresh accumulators of `steps` k-steps, added in fp32;
-    None: one accumulator over all of the block's rows), then the blocks'
-    partials added."""
+    `_mm_tc(16)` (fresh accumulators of 16 k-steps, a half step's 128
+    rows, added in fp32), then the blocks' partials added."""
     def gram(h1):
         x = _gram_blocks(h1)
-        return _mm_tc(steps)(x.transpose(1, 2), x).sum(0)
+        return _mm_tc(16)(x.transpose(1, 2), x).sum(0)
     return gram
 
 
@@ -499,28 +498,15 @@ def test_k4a_single_tf32_z1_misses_fwd_tolerance(monkeypatch):
     assert min(errs["zmax"], errs["zmin"]) > FWD_TOL
 
 
-def test_k4a_single_tf32_gram_averages_out_at_the_default_draw(monkeypatch):
-    """At the default draw single-TF32 rounding of the Gram matrix
-    averages out over the rows and stays within FWD_TOL: why the Gram
-    matrix is also held on the offset input below."""
-    errs, _ = _k4a_errs(monkeypatch, _mm_tc(), _gram_1x, _k4a_args())
-    print(f"K4a with a single-TF32 Gram matrix: {errs}")
-    assert errs["bn2_sums"] <= FWD_TOL
-
-
-@pytest.mark.parametrize("steps", [16, None], ids=["per_half_step",
-                                                   "one_chain"])
-def test_k4a_tensor_core_gram_on_the_offset_input(monkeypatch, steps):
+def test_k4a_tensor_core_gram_on_the_offset_input(monkeypatch):
     """On the offset input (h1 one value a channel, every row rounding the
     same way) the Gram matrix as the card sums it stays within FWD_TOL of
     the fp64 twin, and so do zmax, zmin and snbr, as chip_smoke.py's second
     K4a check holds them (its slots are not held there: z1 differs between
-    slots by ~1e-5 of itself, near-ties for any rounding). One accumulator
-    over all 1,280 rows of a block (`one_chain`) stays within it too, with
-    less margin: the kernel's fresh accumulators are margin, not need."""
-    errs, _ = _k4a_errs(monkeypatch, _mm_tc(), _gram_tc(steps),
+    slots by ~1e-5 of itself, near-ties for any rounding)."""
+    errs, _ = _k4a_errs(monkeypatch, _mm_tc(), _gram_tc(),
                         _k4a_args(offset=True), double_ref=True)
-    print(f"K4a on the offset input, Gram steps {steps}: {errs} (margin "
+    print(f"K4a on the offset input: {errs} (margin "
           f"{FWD_TOL / max(errs.values()):.3g}x)")
     assert max(errs.values()) <= FWD_TOL
 
