@@ -6,9 +6,9 @@ Builds the hand-written kernels from gfs3dseg_gws_tpu_torch/csrc, holds each
 against its plain PyTorch version on the card (at the model's widths; then
 every kernel past them - C = W = 128 with k = 40, k = 80, attention at
 D = 30, 128 and 192, the kNN at k = 80 on a key row of 30,000 points - and
-K8, the fold-merge kNN, bit for bit against K6; K6, K3 and K1's kNN stage
-on blocks of copied points, whose exact ties go to the lower index, against
-the twin on every row), then
+K8, the kNN by its own selection, bit for bit against K6; K6, K3 and K1's
+kNN stage on blocks of copied points, whose exact ties go to the lower
+index, against the twin on every row), then
 drives the port's paths at the full width of the S3DIS model on synthetic
 S3DIS-layout data: GFS evaluation (`train_cli --only_evaluate`, random
 seeded weights), backbone pre-training (`pretrain_cli --phase pretrain`,
@@ -104,7 +104,8 @@ PROFILE_STEPS = 5                 # train steps under torch.profiler
 KERNEL_GROUPS = (
     ("K5a attn_train_fwd", ("attn_train_fwd",)),
     ("K5b attn_train_bwd", ("attn_train_bwd",)),
-    ("K8 knn_fold_kernel (the kNN for k > 64)", ("knn_fold_kernel",)),
+    ("K8 knn_stream_kernel / knn_fold_kernel (the kNN for k > 64)",
+     ("knn_stream_kernel", "knn_fold_kernel")),
     ("K6 knn_split_kernel / knn_kernel <CP, KMAX, (S,) false>",
      ("2, false>", "4, false>")),
     ("K7 edgeconv_scatter", ("edgeconv_scatter",)),
@@ -425,12 +426,12 @@ def check_knn_ties(dev, gen: torch.Generator, cb: int = 64):
 
 
 def check_scatter(dev, gen: torch.Generator, c: int = 64, reps: int = 20):
-    """K7 against scatter_bwd_plain at g (B, N, K, 64) on the graph K6
-    builds on (B, N, 64) features, within K7_TOL of the largest entry (float
+    """K7 against scatter_bwd_plain at g (B, N, K, c) on the graph K6
+    builds on (B, N, c) features, within K7_TOL of the largest entry (float
     atomics); then the gather Function's gradient against autograd through
     gather_neighbors_plain on the card, likewise. Library: one index_add_
-    of the flattened g into the flattened (B*N, 64) table, which the port
-    never calls."""
+    of the flattened g into the flattened (B*N, c) table, which the port
+    never calls. Prints the kernel's share of its bytes bound."""
     from gfs3dseg_gws_tpu_torch.ops.edgeconv import (_flat_rows,
                                                      gather_neighbors,
                                                      gather_neighbors_plain,
@@ -463,7 +464,8 @@ def check_scatter(dev, gen: torch.Generator, c: int = 64, reps: int = 20):
     bound_ms, bound_by = bound(float(g.numel()), size_of(idx, g, got))
     phase(f"K7 gather_neighbors backward ({B},{N},{K},{c})", rel_err=err,
           function_grad_rel_err=fn_err, max_abs_err=max_err, kernel_ms=ms,
-          plain_ms=plain_ms, index_add_ms=library_ms, bound_ms=bound_ms)
+          plain_ms=plain_ms, index_add_ms=library_ms, bound_ms=bound_ms,
+          share_of_bound=bound_ms / ms)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
@@ -885,45 +887,64 @@ def check_attention_train(dev, gen: torch.Generator, d: int = 64,
 def check_knn_fold(dev, c: int, gen: torch.Generator):
     """K8 (knn_indices_fold) at (B, N, c): at k = K and k = CLASS_K with
     each of K8_FOLDS, and at a ragged N, its indices equal K6's bit for
-    bit (the same distance code, ties to the lower index); against its
-    twin (the same tournament in torch, on the card) by the rule of K6
-    (graph_agreement). Times: folds 2 and 4 at k = K beside K6 in this
-    call; the twin at folds 4. Bound as K6's: the B N^2 c distance FMAs."""
+    bit (K6 there runs its own selection on the same distance code, ties
+    to the lower index); at k = kcap (the streaming selection's cap, read
+    from the library, which K6 shares past k = 64) and kcap + 1 (the
+    fold-merge tournament, folds 2 and 8 against K6's 4) on BIG_B blocks,
+    likewise.
+    Every graph against the twin (the JAX tournament in torch, on the card)
+    by the rule of K6 (graph_agreement). Times: folds 2 and 4 at k = K
+    beside K6 in this call, k = BIG_K on (BIG_B, N, c) with its own bound;
+    the twin at folds 4. Bound as K6's: the B N^2 c distance FMAs."""
+    from gfs3dseg_gws_tpu_torch.ops._ext import knn_stream_cap
     from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices,
                                                 knn_indices_fold,
                                                 knn_indices_fold_plain)
 
     x = torch.randn((B, N, c), generator=gen).to(dev)
     ragged = x[:, :N - 37].contiguous()
+    few = x[:BIG_B].contiguous()
+    kcap = knn_stream_cap()
     max_err, agree = 0.0, {}
     for k, folds, pts in ([(k, f, x) for k in (K, CLASS_K)
-                           for f in K8_FOLDS] + [(K, 4, ragged)]):
+                           for f in K8_FOLDS] + [(K, 4, ragged)] +
+                          [(kcap, 4, few), (kcap + 1, 2, few),
+                           (kcap + 1, 8, few)]):
         idx = knn_indices_fold(pts, k, folds)
         k6 = knn_indices(pts, k)
         torch.cuda.synchronize()
-        label = f"K8 ({B},{pts.shape[1]},{c}) k={k} folds={folds}"
+        label = (f"K8 ({pts.shape[0]},{pts.shape[1]},{c}) k={k} "
+                 f"folds={folds}")
         if not torch.equal(idx, k6):
             rows = int((idx != k6).any(-1).sum())
             raise AssertionError(f"{label}: differs from K6 on {rows} rows")
         twin = knn_indices_fold_plain(pts, k, folds)
         share, order, _ = graph_agreement(pts, idx, twin, label, k)
-        agree[f"k{k}_f{folds}_n{pts.shape[1]}"] = (share, order)
+        agree[f"k{k}_f{folds}_b{pts.shape[0]}_n{pts.shape[1]}"] = (share,
+                                                                   order)
         max_err = max(max_err, slot_dist_err(pts, idx, twin))
         del idx, k6, twin
     times = {f"k8_folds{f}_ms": cuda_ms(lambda f=f: knn_indices_fold(x, K, f))
              for f in (2, 4)}
     times["k6_ms"] = cuda_ms(lambda: knn_indices(x, K))
+    times["k8_k80_ms"] = cuda_ms(lambda: knn_indices_fold(few, BIG_K, 4))
+    times["k6_k80_ms"] = cuda_ms(lambda: knn_indices(few, BIG_K))
     plain_ms = cuda_ms(lambda: knn_indices_fold_plain(x, K, 4), WIDE_REPS)
     bound_ms, bound_by = bound(2.0 * B * N * N * c,
                                size_of(x) + B * N * K * 4)
+    k80_bound = bound(2.0 * BIG_B * N * N * c,
+                      size_of(few) + BIG_B * N * BIG_K * 4)[0]
     phase(f"K8 knn_indices_fold ({B},{N},{c}) k={K}",
-          equals_k6="bit for bit, folds 2/4/8 at k=20 and 40, ragged N",
+          equals_k6=("bit for bit, folds 2/4/8 at k=20 and 40, ragged N, "
+                     f"k={kcap} and {kcap + 1}"), kcap=kcap,
           twin_sets_and_order_agree=json.dumps(agree), max_abs_err=max_err,
-          plain_ms=plain_ms, bound_ms=bound_ms, **times)
+          plain_ms=plain_ms, bound_ms=bound_ms,
+          share_of_bound=bound_ms / times["k8_folds4_ms"],
+          k80_bound_ms=k80_bound, **times)
     return dict(max_abs_err=max_err, ms=times["k8_folds4_ms"],
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None, folds2_ms=times["k8_folds2_ms"],
-                k6_same_call_ms=times["k6_ms"])
+                k6_same_call_ms=times["k6_ms"], k80_ms=times["k8_k80_ms"])
 
 
 def check_wide_kernels(dev, gen: torch.Generator):
@@ -931,7 +952,7 @@ def check_wide_kernels(dev, gen: torch.Generator):
     widths: K1, K3, K6, K9 and K4 at C = W = WIDE_C, k = WIDE_K (K4 also on
     the inputs of each seed of K4_DRAWS); K7 at C =
     256 (the classification encoder's widest gather); K1, K3, K6 and K4 at
-    k = BIG_K (K8's fold-merge selection for the kNN stage), batch BIG_B,
+    k = BIG_K (K8's streaming selection for the kNN stage), batch BIG_B,
     with ragged 64-column tiles; K2 and K5 (rates ATTN_RATE and 0) at each
     D of WIDE_D. Returns each kernel's numbers at the first of these
     shapes."""
@@ -996,10 +1017,20 @@ def knn_plain_by_rows(x, k, rows=2048):
 
 def check_long_rows(dev, gen: torch.Generator, c: int = 9, cb: int = 64):
     """K6, K3 and K8 (folds 4) at (1, LONG_N, c), k = BIG_K: a key row
-    longer than shared memory holds, so K8's selection merges chunks
-    through the wrapper's scratch. Each graph held to the plain rule over
-    chunks of rows (graph_agreement), K8 to K6 bit for bit, K3's cnt and
-    scb to the plain statistics of its own idx."""
+    longer than shared memory holds, which K8's streaming selection (K6's
+    and K3's too, at k > 64) never keeps whole. Each graph held to the
+    plain rule over chunks of rows (graph_agreement), K8 to K6 bit for bit,
+    K3's cnt and scb to the plain statistics of its own idx. Then K8 one
+    past the streaming selection's cap (k = kcap + 1), where the fold-merge
+    tournament merges chunks of the row through the wrapper's scratch: held
+    to the plain rule over chunks of rows by the same rule, and exactly to
+    two other selections on the same distances: K6 (four folds) against K8
+    at two, and its first kcap columns against the streaming selection at
+    k = kcap; on every row ordered otherwise than the plain rule, the two
+    graphs' squared distances (float64) slot by slot within TIE_RTOL of
+    the row's largest. Reported there: the rows ordered otherwise and that
+    largest gap."""
+    from gfs3dseg_gws_tpu_torch.ops._ext import knn_stream_cap
     from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices,
                                                 knn_indices_fold,
                                                 knn_with_stats,
@@ -1023,12 +1054,43 @@ def check_long_rows(dev, gen: torch.Generator, c: int = 9, cb: int = 64):
     err = rel_err(scb, ref_scb)
     if err > STATS_TOL:
         raise AssertionError(f"{label}: K3's scb off by {err}")
+    kcap = knn_stream_cap()
+    kf = kcap + 1
+    fold8, fold6 = knn_indices_fold(x, kf, 2), knn_indices(x, kf)
+    stream = knn_indices_fold(x, kcap, 2)
+    ref_f = knn_plain_by_rows(x, kf)
+    torch.cuda.synchronize()
+    label_f = f"kNN (1,{LONG_N},{c}) k={kf}"
+    if not torch.equal(fold8, fold6):
+        raise AssertionError(f"{label_f}: K8 (folds 2) and K6 (folds 4) "
+                             "differ")
+    if not torch.equal(fold8[..., :kcap], stream):
+        raise AssertionError(f"{label_f}: the tournament differs from the "
+                             "streaming selection")
+    share_f, order_f, bad_f = graph_agreement(x, fold8, ref_f, label_f, kf)
+    differ = (fold8 != ref_f).any(-1)
+    xd, gap_f = x.double(), 0.0
+    for b, i in differ.nonzero().tolist():
+        d2 = ((xd[b] - xd[b, i]) ** 2).sum(-1)
+        got, want = d2[fold8[b, i].long()], d2[ref_f[b, i].long()]
+        gap_f = max(gap_f, ((got - want).abs().max() / want.max()).item())
+    if gap_f > TIE_RTOL:
+        raise AssertionError(f"{label_f}: a row ordered otherwise than the "
+                             f"plain rule is no near-tie ({gap_f})")
     phase(label, sets_agree=share, order_agree=order, near_tie_rows=len(bad),
           scb_rel_err=err, max_abs_err=slot_dist_err(x, idx6, ref),
           k6_ms=cuda_ms(lambda: knn_indices(x, k), WIDE_REPS),
           k3_ms=cuda_ms(lambda: knn_with_stats(x, btab, k), WIDE_REPS),
           k8_ms=cuda_ms(lambda: knn_indices_fold(x, k, 4), WIDE_REPS),
-          plain_ms=cuda_ms(lambda: knn_plain_by_rows(x, k), WIDE_REPS))
+          plain_ms=cuda_ms(lambda: knn_plain_by_rows(x, k), WIDE_REPS),
+          bound_ms=bound(2.0 * LONG_N * LONG_N * c,
+                         size_of(x) + LONG_N * k * 4)[0],
+          **{f"k{kf}_tournament": "K6 and the streaming selection, bit "
+                                  "for bit",
+             f"k{kf}_sets_agree": share_f, f"k{kf}_order_agree": order_f,
+             f"k{kf}_near_tie_rows": len(bad_f),
+             f"k{kf}_rows_ordered_otherwise": int(differ.sum()),
+             f"k{kf}_fp64_slot_gap": gap_f})
 
 
 def make_inputs(root: str):
@@ -1974,9 +2036,11 @@ def main() -> int:
         ("k6", "knn_indices", "fused_edgeconv.cu",
          "knn_split_kernel<CP, KMAX, false>", "knn.py:401", "semseg"),
         ("k7", "gather_neighbors_bwd", "edgeconv.cu",
-         "edgeconv_scatter_kernel", "edgeconv.py:98", "semseg"),
+         "edgeconv_scatter_kernel<V> (V = float4 where C % 4 == 0)",
+         "edgeconv.py:98", "semseg"),
         ("k8", "knn_indices_fold", "knn_fold.cu",
-         "knn_fold_kernel<CP, F, kStats>", "knn.py:193", "none"),
+         f"knn_stream_kernel<CP, kStats> (k <= {_ext.knn_stream_cap()}), "
+         "knn_fold_kernel<CP, F, kStats> past it", "knn.py:193", "none"),
         ("k9", "gather_conv", "fused_edgeconv.cu", "edge_mma_kernel",
          "fused_edgeconv.py:222", "none"),
     ]

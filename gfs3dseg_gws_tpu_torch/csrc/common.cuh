@@ -18,23 +18,25 @@ __device__ __forceinline__ float4 load4(const float* p) {
 
 // the kNN kernels' squared distance from |q|^2, |k|^2 and q.k, each summed
 // as one fmaf chain over the channels in order: K1/K3/K6 (knn_split_kernel,
-// knn_kernel) and
-// K8 (knn_fold_kernel) both use it, so their distances agree bit for bit
+// knn_kernel) and K8 (knn_stream_kernel, knn_fold_kernel) all use it, so
+// their distances agree bit for bit
 __device__ __forceinline__ float sq_dist(float qq, float kk, float dot) {
   return fmaxf(qq + kk - 2.f * dot, 0.f);
 }
 
-// K8's fold-merge selection (csrc/knn_fold.cu) on x (B, N, C): idx (B, N, k)
-// nearest first; with btab, also K3's neighbour statistics into the zeroed
-// cnt (B, N) and scb (B, N, cb). folds is 2, 4 or 8. scratch holds
-// knn_fold_scratch_bytes bytes (may be null when that is 0).
+// K8's selection (csrc/knn_fold.cu) on x (B, N, C): idx (B, N, k) nearest
+// first; with btab, also K3's neighbour statistics into the zeroed cnt
+// (B, N) and scb (B, N, cb). k <= 256 runs the streaming selection
+// (knn_stream_kernel), past it the fold-merge tournament; folds is 2, 4 or
+// 8 (4 with btab), the tournament's. scratch holds knn_fold_scratch_bytes
+// bytes (may be null when that is 0).
 cudaError_t launch_knn_fold(const float* x, int* idx, int batch, int n, int c,
                             int k, int folds, const float* btab, float* cnt,
                             float* scb, int cb, void* scratch,
                             cudaStream_t s);
 
 // the scratch launch_knn_fold needs at this shape on the current device: 0
-// when one query's key row fits in shared memory
+// unless k > 256 and one query's key row does not fit in shared memory
 cudaError_t knn_fold_scratch_bytes(int batch, int n, int c, int k, int folds,
                                    long long* bytes);
 

@@ -93,10 +93,12 @@
 //   until the last chunk, and the fmaf chains run over the channels in the
 //   same order, so a distance is the one a single pass would give;
 // * 32 < k <= 64: knn_kernel<CP, 64, ...>, the same chain over 64 slots;
-// * k > 64: K8's fold-merge selection (csrc/knn_fold.cu, four folds), which
-//   holds each query's key row in shared memory, in chunks merged through
-//   the caller's scratch past N ~ 27,000; for K3 it adds the statistics
-//   itself;
+// * k > 64: K8's selection (csrc/knn_fold.cu): up to k = 256 its
+//   streaming selection (knn_stream_kernel: 32 queries a block, each with a
+//   sorted list and a queue of taken keys in shared memory, merged by
+//   bitonic networks; no scratch at any N), past it the fold-merge
+//   tournament (four folds, the caller's scratch past N ~ 27,000); for K3
+//   it adds the statistics itself;
 // * W0 or W1 > 64: edge_mlp_wide_kernel, a register-tiled fp32 GEMM, takes
 //   64 output columns per block (grid z) and kChunk neighbours of kTileQ
 //   queries a step, and walks W0 in chunks of 64 through e_s and w2_s,
@@ -123,7 +125,7 @@ constexpr int kTileK = 64;   // key rows per shared-memory tile (multiple of 4)
 constexpr int kMaxK = 32;    // neighbour slots of the fast path's chain
 constexpr int kModelK = 20;  // the model's k (dgcnn_k): a list of its own
 constexpr int kWideK = 64;   // ... of its second instantiation
-constexpr int kFolds = 4;    // K8's folds for k > kWideK
+constexpr int kFolds = 4;    // K8's tournament's folds (k > 256)
 constexpr int kMaxW = 64;    // a/b table (W0) and output (W1) channels per tile
 constexpr int kMaxC = 64;    // input channels held in registers
 constexpr int kChunk = 4;    // neighbours per edge-GEMM step
@@ -1092,7 +1094,7 @@ bool bad_sizes(int batch, int n, int k) {
 
 // The bytes of scratch that K1, K3 and K6 (folds 0) or K8 (folds 2, 4, 8)
 // need at this shape on the current device, into *bytes: 0 unless the
-// kNN runs K8's selection in chunks (k > 64 and a key row too long for
+// kNN runs K8's tournament in chunks (k > 256 and a key row too long for
 // shared memory). Returns a cudaError_t.
 GFS_EXPORT int gfs_knn_scratch_bytes(int batch, int n, int c, int k,
                                      int folds, long long* bytes) {

@@ -1,5 +1,4 @@
-// K8: exact kNN indices by fold-merge selection, hand-written for Hopper
-// (sm_90a).
+// K8: exact kNN indices, hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel gfs3dseg_gws_tpu/ops/knn.py::_knn_pallas_fold (its
 // Pallas body `_knn_fold_kernel`), which computes what K6 computes - the k
@@ -7,42 +6,78 @@
 // tournament: split the key row into `folds` column slices, sort every
 // column across the folds with a small network (so each column's minimum
 // sits in fold 0), then pop the global minimum k times from fold 0 alone,
-// shifting the popped column up by one fold.
+// shifting the popped column up by one fold. The tournament is the TPU's
+// way to take a minimum out of VMEM; a block of this card needs no such
+// thing, so for k <= kCap (256) K8 runs a streaming selection instead, and
+// the tournament stays only past kCap.
 //
-// Here one warp owns one query. Its whole key row lives in shared memory as
-// 64-bit keys, the distance's bits high and the key's index low: exact (the
-// TPU packed both into 32 bits and lost 2^-12 of the distance) and ordered
-// by (distance, index), K6's rule for ties. Lane l owns the columns l,
-// l + 32, ... of the (folds, w) layout (w = ceil(N / folds); keys past N are
-// all-ones and never popped, so ragged N needs no gate). A round is a
-// five-step shuffle-min over the lanes' minima of their fold-0 entries;
-// the lane whose column popped shifts it and rescans its own w / 32
-// entries, the others wait.
+// Keys are 64 bits, the distance's bits high and the key's index low:
+// exact (the TPU packed both into 32 bits and lost 2^-12 of the distance),
+// distinct, and ordered by (distance, index), K6's rule for ties. The
+// distances come from K6's own arithmetic: |q|^2, |k|^2 and q.k are fmaf
+// chains over the channels in order (64 channels at a time for C > 64,
+// the chains carried from chunk to chunk; zero channels past C add exact
+// zeros) and gfs::sq_dist puts them together, so K8's indices equal K6's
+// bit for bit. fmaxf(x, 0) may return -0.0, whose sign bit would sort it
+// after every positive distance: the sign bit is cleared before packing.
 //
-// The distances come from K6's own arithmetic: |q|^2, |k|^2 and q.k are
-// fmaf chains over the channels in order (the key tile staged through
-// shared memory, 64 channels at a time for C > 64) and gfs::sq_dist puts
-// them together, so K8's indices equal K6's bit for bit. fmaxf(x, 0) may
-// return -0.0, whose sign bit would sort it after every positive distance:
-// the sign bit is cleared before packing.
+// 1. knn_stream_kernel (k <= kCap): the selection of Johnson, Douze and
+//    Jegou's WarpSelect ("Billion-scale similarity search with GPUs",
+//    arXiv 1702.08734), on distances computed a tile at a time. A block of
+//    8 warps takes 32 queries and streams every key row of its batch
+//    element through shared memory, 64 rows a tile, double buffered with
+//    cp.async. Each tile:
+//    * distances: the 32 x 64 query.key products as a register-tiled fp32
+//      product (each thread 2 queries x 4 keys, knn_split_kernel's layout
+//      in csrc/fused_edgeconv.cu), each dot one fmaf chain; |k|^2 once a
+//      key row, by 64 threads (their chains carried across the chunks of
+//      C > 64), |q|^2 once a query, by the lane that keeps it;
+//    * selection: warp w keeps queries 4w .. 4w + 3. Each query holds its
+//      best keys as a sorted list of kl = max(32, k rounded up to a power
+//      of two) keys in shared memory, and a queue of up to 64 taken keys.
+//      Lane l scores keys l and l + 32 of the tile; a key is taken only if
+//      it is below the list's k-th key (all-ones until k keys are listed),
+//      and the taken keys are appended to the queue in index order (a
+//      ballot and its prefix counts). When a tile's keys would overflow the
+//      queue, the queue is merged first and the tile's keys filtered again
+//      against the new k-th key; while fewer than k keys are listed, a
+//      queue that holds k is merged at once.
+//    The merge: the queue, padded with all-ones, is sorted by a 64-wide
+//    bitonic network (one compare-exchange a lane a stage), the list's
+//    entry kl - 1 - t is replaced by the smaller of it and the queue's t-th
+//    (the kl smallest of both, as a bitonic sequence), and a bitonic merge
+//    sorts the list again. Keys are distinct, so the list holds the kl
+//    smallest keys taken so far whatever order they came in; a key left out
+//    was above the k-th of k listed keys, so it is not among the k nearest.
+//    At the end every queue is merged, and the list's first k indices are
+//    the query's row of idx. The state does not grow with N: one code path
+//    for every N, no scratch, and at kl <= 128 two blocks an SM.
+// 2. knn_fold_kernel (k > kCap): the tournament above. One warp owns one
+//    query; its whole key row lives in shared memory, lane l owning the
+//    columns l, l + 32, ... of the (folds, w) layout (w = ceil(N / folds);
+//    keys past N are all-ones and never popped). A round is a five-step
+//    shuffle-min over the lanes' minima of their fold-0 entries; the lane
+//    whose column popped shifts it and rescans its own w / 32 entries.
+//    A key row takes N * 8 bytes of shared memory per query, so past
+//    N ~ 27,000 (at eight warps: 3,328 keys each, four folds) the row is
+//    streamed in chunks that fit: each chunk runs the same fold-merge, and
+//    its pops are merged with the query's running k best, a sorted list of
+//    k keys kept in a global scratch (B, N, 2, k) (the merge writes the
+//    other half of the pair and the two swap). A row that fits runs in one
+//    chunk and pops straight into idx, with no scratch.
 //
 // launch_knn_fold also serves K1, K3 and K6 for k > 64 (csrc/
-// fused_edgeconv.cu), with K3's neighbour statistics added per popped
-// neighbour: the lanes add the query's btab row into scb[j], lane 0 adds 1
-// to cnt[j]. What bounds K8: the B N^2 C distance FMAs, as for K6; each
-// block of up to eight warps streams every key row once per eight queries.
-//
-// A whole key row takes N * 8 bytes of shared memory per query, so past
-// N ~ 27,000 (at eight warps: 3,328 keys each, four folds) the row is
-// streamed in chunks that fit: each chunk runs the same fold-merge, and its
-// pops are merged with the query's running k best, a sorted list of k keys
-// kept in a global scratch (B, N, 2, k) (the merge writes the other half of
-// the pair and the two swap); the statistics are added from the final
-// list. A row that fits runs in one chunk and pops straight into idx (and
-// the statistics), with no scratch.
+// fused_edgeconv.cu), with K3's neighbour statistics added from each
+// query's final list: the lanes add the query's btab row into scb[j], lane
+// 0 adds 1 to cnt[j]. `folds` chooses the tournament's layout and nothing
+// else: the indices never depend on it. What bounds K8: the B N^2 C
+// distance FMAs, as for K6.
+#include <stdint.h>
+
 #include <algorithm>
 
 #include "common.cuh"
+#include "mma_tf32.cuh"   // the cp.async helpers
 
 namespace {
 
@@ -50,6 +85,357 @@ constexpr int kTile = 64;                 // key rows per shared-memory tile
 constexpr int kMaxWarps = 8;              // queries per block, at most
 using fold_key = unsigned long long;       // (distance bits << 32) | index
 constexpr fold_key kNoKey = ~0ull;
+
+// ---- 1. knn_stream_kernel (k <= kCap)
+
+constexpr int kCap = 256;            // the longest list: k <= kCap
+constexpr int kSelThreads = 256;     // 8 warps a block
+constexpr int kSelQ = 32;            // queries a block
+constexpr int kOwn = kSelQ / 8;      // ... a warp keeps
+constexpr int kQueue = 64;           // taken keys a query's queue holds
+constexpr int kDot = kTile + 8;      // floats a row of dot_s ([query][key])
+
+// the row stride (floats) of the key and query tiles: qw + 4 or qw + 8,
+// whichever is an odd number of float4s (no bank conflicts; as
+// knn_split_kernel's)
+__host__ __device__ constexpr int sel_stride(int qw) {
+  return ((qw + 4) / 4) % 2 == 1 ? qw + 4 : qw + 8;
+}
+
+// floats of shared memory before the lists: two key tiles, the query tile
+// (two for C > 64, whose query channels change with the chunk), the q.k
+// tile and |k|^2 (an even count: the lists after them are 8-byte aligned)
+template <int CP>
+__host__ __device__ constexpr int stream_floats() {
+  constexpr int qw = CP == 0 ? 64 : CP;
+  return (2 * kTile + (CP == 0 ? 2 : 1) * kSelQ) * sel_stride(qw) +
+         kSelQ * kDot + kTile;
+}
+
+template <int CP>
+size_t stream_smem_bytes(int kl) {
+  return stream_floats<CP>() * sizeof(float) +
+         static_cast<size_t>(kSelQ) * (kl + kQueue) * sizeof(fold_key);
+}
+
+// rows [base, base + rows) x channels [c0, c0 + QW) of xb (n, c) into a
+// [rows][PK] shared tile with cp.async, zeros past n and c: 16-byte copies
+// when every row starts on 16 bytes (vec), else one float at a time
+template <int QW, int PK>
+__device__ __forceinline__ void stream_stage(const float* __restrict__ xb,
+                                             float* dst, int rows, int base,
+                                             int c0, int n, int c, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * (QW / 4); e += kSelThreads) {
+      const int r = e / (QW / 4), ch = 4 * (e % (QW / 4));
+      const bool ok = base + r < n && c0 + ch < c;
+      gfs::cp_async16(
+          dst + r * PK + ch,
+          ok ? xb + static_cast<size_t>(base + r) * c + c0 + ch : xb, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * QW; e += kSelThreads) {
+      const int r = e / QW, ch = e % QW;
+      const bool ok = base + r < n && c0 + ch < c;
+      gfs::cp_async4(
+          dst + r * PK + ch,
+          ok ? xb + static_cast<size_t>(base + r) * c + c0 + ch : xb, ok);
+    }
+  }
+}
+
+// the first of the two entries of compare-exchange p at a bitonic stage of
+// this stride (a power of two): p / stride * 2 stride + p % stride
+__device__ __forceinline__ int pair_first(int p, int stride) {
+  return ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
+}
+
+// one warp merges a query's queue (fill keys) into its sorted list of kl
+// keys; returns the list's k-th key. Out of line: the selection calls it
+// from eight places, which inlined cost the kernel its registers.
+__device__ __noinline__ fold_key merge_queue(fold_key* list,
+                                                fold_key* queue, int fill,
+                                                int kl, int k, int lane) {
+  __syncwarp();   // the queue's keys are written
+  for (int e = fill + lane; e < kQueue; e += 32) queue[e] = kNoKey;
+  __syncwarp();
+  // bitonic sort of the queue, ascending: a compare-exchange a lane a stage
+#pragma unroll
+  for (int size = 2; size <= kQueue; size *= 2) {
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride /= 2) {
+      const int i = pair_first(lane, stride);
+      const fold_key a = queue[i], b = queue[i + stride];
+      if ((a > b) == ((i & size) == 0)) {
+        queue[i] = b;
+        queue[i + stride] = a;
+      }
+      __syncwarp();
+    }
+  }
+  // the kl smallest of list and queue: entry kl - 1 - t takes the smaller
+  // of itself and the queue's t-th, which leaves the list bitonic
+  for (int t = lane; t < min(kl, kQueue); t += 32) {
+    const fold_key v = queue[t];
+    if (v < list[kl - 1 - t]) list[kl - 1 - t] = v;
+  }
+  __syncwarp();
+  // bitonic merge, ascending
+  for (int stride = kl / 2; stride > 0; stride /= 2) {
+    for (int p = lane; p < kl / 2; p += 32) {
+      const int i = pair_first(p, stride);
+      const fold_key a = list[i], b = list[i + stride];
+      if (a > b) {
+        list[i] = b;
+        list[i + stride] = a;
+      }
+    }
+    __syncwarp();
+  }
+  return list[k - 1];
+}
+
+// CP: input width padded with zeros to 12, 16 or 64, or 0 for C > 64
+// (64-channel chunks); kStats: K3's statistics into the zeroed cnt (B, N)
+// and scb (B, N, cb). kl: the lists' length (a power of two, k <= kl <=
+// kCap)
+template <int CP, bool kStats>
+__global__ void __launch_bounds__(kSelThreads, 2)
+knn_stream_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
+                  int c, int k, int kl, const float* __restrict__ btab,
+                  float* __restrict__ cnt, float* __restrict__ scb, int cb) {
+  constexpr bool kWide = CP == 0;
+  constexpr int QW = kWide ? 64 : CP;         // channels a step
+  constexpr int PK = sel_stride(QW);
+  constexpr int V = kSelQ / 16;               // a thread's queries
+  extern __shared__ __align__(16) float smem[];
+  float* keys_s = smem;                                  // [2][kTile][PK]
+  float* q_s = keys_s + 2 * kTile * PK;                  // [1 or 2][Q][PK]
+  float* dot_s = q_s + (kWide ? 2 : 1) * kSelQ * PK;     // [Q][kDot]
+  float* kk_s = dot_s + kSelQ * kDot;                    // [kTile]
+  fold_key* lists = reinterpret_cast<fold_key*>(smem + stream_floats<CP>());
+  fold_key* queues = lists + kSelQ * kl;                 // [Q][kQueue]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int batch = blockIdx.y;
+  const int q0 = blockIdx.x * kSelQ;
+  const float* xb = x + static_cast<size_t>(batch) * n * c;
+  const bool vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  // distances: queries qg + 16 v by keys kg + 16 u
+  const int kg = lane % 8 + 8 * (warp % 2), qg = lane / 8 + 4 * (warp / 2);
+  const int chunks = kWide ? (c + QW - 1) / QW : 1;
+  const int steps = (n + kTile - 1) / kTile * chunks;
+
+  for (int e = tid; e < kSelQ * kl; e += kSelThreads) lists[e] = kNoKey;
+  // the selection state of this warp's queries (the same in every lane);
+  // lane o < kOwn also sums |q|^2 of query kOwn w + o
+  fold_key thr[kOwn];
+  int fill[kOwn];
+#pragma unroll
+  for (int o = 0; o < kOwn; ++o) {
+    thr[o] = kNoKey;
+    fill[o] = 0;
+  }
+  float qq = 0.f, kk = 0.f;
+  float acc[V][4];
+
+  stream_stage<QW, PK>(xb, q_s, kSelQ, q0, 0, n, c, vec);
+  stream_stage<QW, PK>(xb, keys_s, kTile, 0, 0, n, c, vec);
+  gfs::cp_async_commit();
+  for (int st = 0; st < steps; ++st) {
+    const int tile = st / chunks, cc = st - tile * chunks;
+    const int base = tile * kTile;
+    // the next step's rows stream in while this one computes (their
+    // buffers were last read before the previous step's second barrier)
+    if (st + 1 < steps) {
+      const int nt = (st + 1) / chunks, nc = st + 1 - nt * chunks;
+      stream_stage<QW, PK>(xb, keys_s + ((st + 1) % 2) * kTile * PK, kTile,
+                           nt * kTile, nc * QW, n, c, vec);
+      if constexpr (kWide)
+        stream_stage<QW, PK>(xb, q_s + ((st + 1) % 2) * kSelQ * PK, kSelQ,
+                             q0, nc * QW, n, c, vec);
+    }
+    gfs::cp_async_commit();
+    gfs::cp_async_wait<1>();
+    __syncthreads();  // this step's rows are in
+
+    const float* kt = keys_s + (st % 2) * kTile * PK;
+    const float* qt = q_s + (kWide ? (st % 2) * kSelQ * PK : 0);
+    if (cc == 0) {
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[v][u] = 0.f;
+      kk = 0.f;
+    }
+    // ---- q.k, |k|^2 and |q|^2 over this step's channels, in order
+#pragma unroll
+    for (int ch = 0; ch < QW; ch += 4) {
+      float4 kv[4], qv[V];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        kv[u] = gfs::load4(kt + (kg + 16 * u) * PK + ch);
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        qv[v] = gfs::load4(qt + (qg + 16 * v) * PK + ch);
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[v][u] = fmaf(qv[v].x, kv[u].x, acc[v][u]);
+          acc[v][u] = fmaf(qv[v].y, kv[u].y, acc[v][u]);
+          acc[v][u] = fmaf(qv[v].z, kv[u].z, acc[v][u]);
+          acc[v][u] = fmaf(qv[v].w, kv[u].w, acc[v][u]);
+        }
+    }
+    if (tid < kTile) {
+#pragma unroll
+      for (int ch = 0; ch < QW; ch += 4) {
+        const float4 kv = gfs::load4(kt + tid * PK + ch);
+        kk = fmaf(kv.x, kv.x, kk);
+        kk = fmaf(kv.y, kv.y, kk);
+        kk = fmaf(kv.z, kv.z, kk);
+        kk = fmaf(kv.w, kv.w, kk);
+      }
+    }
+    if (tile == 0 && lane < kOwn) {
+      const float* qp = qt + (kOwn * warp + lane) * PK;
+#pragma unroll
+      for (int ch = 0; ch < QW; ch += 4) {
+        const float4 qv = gfs::load4(qp + ch);
+        qq = fmaf(qv.x, qv.x, qq);
+        qq = fmaf(qv.y, qv.y, qq);
+        qq = fmaf(qv.z, qv.z, qq);
+        qq = fmaf(qv.w, qv.w, qq);
+      }
+    }
+    const bool last = cc == chunks - 1;
+    if (last) {
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          dot_s[(qg + 16 * v) * kDot + kg + 16 * u] = acc[v][u];
+      if (tid < kTile) kk_s[tid] = kk;
+    }
+    __syncthreads();  // dot_s and kk_s are complete; this step's rows read
+    if (!last) continue;
+
+    // ---- selection: lane l scores keys l and l + 32 of the tile for each
+    // of the warp's queries, all of them before any is appended
+    const unsigned below = (1u << lane) - 1;
+    fold_key key[kOwn][2];
+    bool ok[kOwn][2];
+    unsigned m0[kOwn], m1[kOwn];
+#pragma unroll
+    for (int o = 0; o < kOwn; ++o) {
+      const int ql = kOwn * warp + o;
+      const float qv = __shfl_sync(0xffffffffu, qq, o);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = lane + 32 * h, j = base + r;
+        const float d = gfs::sq_dist(qv, kk_s[r], dot_s[ql * kDot + r]);
+        key[o][h] = (static_cast<fold_key>(__float_as_uint(d) & 0x7fffffffu)
+                     << 32) | static_cast<unsigned>(j);
+        ok[o][h] = j < n && q0 + ql < n;
+      }
+      m0[o] = __ballot_sync(0xffffffffu, ok[o][0] && key[o][0] < thr[o]);
+      m1[o] = __ballot_sync(0xffffffffu, ok[o][1] && key[o][1] < thr[o]);
+    }
+#pragma unroll
+    for (int o = 0; o < kOwn; ++o) {
+      if ((m0[o] | m1[o]) == 0) continue;
+      const int ql = kOwn * warp + o;
+      fold_key* list = lists + ql * kl;
+      fold_key* queue = queues + ql * kQueue;
+      if (fill[o] + __popc(m0[o]) + __popc(m1[o]) > kQueue) {
+        thr[o] = merge_queue(list, queue, fill[o], kl, k, lane);
+        fill[o] = 0;
+        m0[o] = __ballot_sync(0xffffffffu, ok[o][0] && key[o][0] < thr[o]);
+        m1[o] = __ballot_sync(0xffffffffu, ok[o][1] && key[o][1] < thr[o]);
+      }
+      if (m0[o] >> lane & 1u)
+        queue[fill[o] + __popc(m0[o] & below)] = key[o][0];
+      if (m1[o] >> lane & 1u)
+        queue[fill[o] + __popc(m0[o]) + __popc(m1[o] & below)] = key[o][1];
+      fill[o] += __popc(m0[o]) + __popc(m1[o]);
+      // the first k keys queued while fewer than k are listed: merge now,
+      // so that the next tile meets a k-th key
+      if (thr[o] == kNoKey && fill[o] >= k) {
+        thr[o] = merge_queue(list, queue, fill[o], kl, k, lane);
+        fill[o] = 0;
+      }
+    }
+  }
+
+  // ---- the last merge of every queue; idx rows and the statistics
+#pragma unroll
+  for (int o = 0; o < kOwn; ++o) {
+    const int ql = kOwn * warp + o, qi = q0 + ql;
+    if (qi >= n) break;
+    fold_key* list = lists + ql * kl;
+    if (fill[o] > 0)
+      merge_queue(list, queues + ql * kQueue, fill[o], kl, k, lane);
+    __syncwarp();
+    int* row = idx + (static_cast<size_t>(batch) * n + qi) * k;
+    for (int r = lane; r < k; r += 32)
+      row[r] = static_cast<int>(list[r] & 0xffffffffu);
+    if constexpr (kStats) {
+      const float* brow = btab + (static_cast<size_t>(batch) * n + qi) * cb;
+      for (int r = 0; r < k; ++r) {
+        const int j = static_cast<int>(list[r] & 0xffffffffu);
+        float* srow = scb + (static_cast<size_t>(batch) * n + j) * cb;
+        for (int ch = lane; ch < cb; ch += 32) atomicAdd(srow + ch, brow[ch]);
+        if (lane == 0)
+          atomicAdd(cnt + static_cast<size_t>(batch) * n + j, 1.f);
+      }
+    }
+  }
+}
+
+// the lists' length for k: a power of two, at least 32
+int stream_list(int k) {
+  int kl = 32;
+  while (kl < k) kl *= 2;
+  return kl;
+}
+
+template <int CP, bool kStats>
+cudaError_t run_stream(const float* x, int* idx, int batch, int n, int c,
+                       int k, const float* btab, float* cnt, float* scb,
+                       int cb, cudaStream_t s) {
+  const auto kernel = knn_stream_kernel<CP, kStats>;
+  const int kl = stream_list(k);
+  const size_t smem = stream_smem_bytes<CP>(kl);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kSelQ - 1) / kSelQ, batch);
+  kernel<<<grid, kSelThreads, smem, s>>>(x, idx, n, c, k, kl, btab, cnt, scb,
+                                         cb);
+  return cudaGetLastError();
+}
+
+// the variant by width: CP = 12, 16 or 64 (C zero-padded), or 64-channel
+// chunks past 64
+template <bool kStats>
+cudaError_t run_stream_c(const float* x, int* idx, int batch, int n, int c,
+                         int k, const float* btab, float* cnt, float* scb,
+                         int cb, cudaStream_t s) {
+  if (c <= 12)
+    return run_stream<12, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
+                                  s);
+  if (c <= 16)
+    return run_stream<16, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
+                                  s);
+  if (c <= 64)
+    return run_stream<64, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
+                                  s);
+  return run_stream<0, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb, s);
+}
+
+// ---- 2. knn_fold_kernel (k > kCap)
 
 __device__ __forceinline__ void cx(fold_key& a, fold_key& b) {
   const fold_key lo = a < b ? a : b;
@@ -361,10 +747,18 @@ cudaError_t launch_knn_fold(const float* x, int* idx, int batch, int n, int c,
                             int k, int folds, const float* btab, float* cnt,
                             float* scb, int cb, void* scratch,
                             cudaStream_t s) {
-  if (batch < 1 || batch > 65535 || n < 1 || c < 1 || k < 1 || k > n)
+  if (batch < 1 || batch > 65535 || n < 1 || c < 1 || k < 1 || k > n ||
+      (folds != 2 && folds != 4 && folds != 8))
     return cudaErrorInvalidValue;
-  if (btab != nullptr) {  // K3 for k > 64: four folds
-    if (folds != 4 || cb < 1) return cudaErrorInvalidValue;
+  if (btab != nullptr && cb < 1) return cudaErrorInvalidValue;
+  if (k <= kCap)  // the streaming selection (folds: validated, unused)
+    return btab != nullptr
+               ? run_stream_c<true>(x, idx, batch, n, c, k, btab, cnt, scb,
+                                    cb, s)
+               : run_stream_c<false>(x, idx, batch, n, c, k, nullptr,
+                                     nullptr, nullptr, 0, s);
+  if (btab != nullptr) {  // K3 for k > kCap: four folds
+    if (folds != 4) return cudaErrorInvalidValue;
     return run_fold_c<4, true>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
                                scratch, s);
   }
@@ -388,6 +782,8 @@ cudaError_t knn_fold_scratch_bytes(int batch, int n, int c, int k, int folds,
   if (batch < 1 || n < 1 || c < 1 || k < 1 || k > n ||
       (folds != 2 && folds != 4 && folds != 8))
     return cudaErrorInvalidValue;
+  *bytes = 0;
+  if (k <= kCap) return cudaSuccess;   // the streaming selection
   FoldPlan plan;
   const cudaError_t err = plan_fold(n, c, folds, &plan);
   if (err != cudaSuccess) return err;
@@ -400,8 +796,9 @@ cudaError_t knn_fold_scratch_bytes(int batch, int n, int c, int k, int folds,
 }  // namespace gfs
 
 // K8. x (B, N, C) fp32, idx (B, N, k) int32: contiguous, on one device;
-// folds 2, 4 or 8; scratch: gfs_knn_scratch_bytes(..., folds) bytes, or
-// null when that is 0. Returns a cudaError_t.
+// folds 2, 4 or 8 (the tournament's, past k = 256); scratch:
+// gfs_knn_scratch_bytes(..., folds) bytes, or null when that is 0. Returns
+// a cudaError_t.
 GFS_EXPORT int gfs_knn_fold(const void* x, void* idx, void* scratch,
                             int batch, int n, int c, int k, int folds,
                             void* stream) {
@@ -410,3 +807,7 @@ GFS_EXPORT int gfs_knn_fold(const void* x, void* idx, void* scratch,
       folds, nullptr, nullptr, nullptr, 0, scratch,
       static_cast<cudaStream_t>(stream)));
 }
+
+// The longest k that K8 (and K1, K3 and K6 past k = 64) runs on the
+// streaming selection; past it, the fold-merge tournament.
+GFS_EXPORT int gfs_knn_stream_cap() { return kCap; }

@@ -48,6 +48,8 @@ _SIGNATURES = {
     # batch, n, c, k, folds (0: the K1/K3/K6 route), bytes out
     "gfs_knn_scratch_bytes": (_I, _I, _I, _I, _I,
                               ctypes.POINTER(ctypes.c_longlong)),
+    # no arguments: the streaming kNN selection's longest k
+    "gfs_knn_stream_cap": (),
     # idx, g, dx, batch, n, k, c, stream
     "gfs_edgeconv_scatter": (_P, _P, _P, _I, _I, _I, _I, _P),
     # idx, a_table, b_table, w2, bias2, out, batch, n, w0, w1, k,
@@ -173,8 +175,8 @@ def current_stream(device) -> int:
 def knn_scratch(name: str, x: torch.Tensor, k: int, folds: int = 0):
     """The scratch the kNN selection needs for x (B, N, C) and k on x's
     device (folds 0: K1, K3 and K6; 2, 4 or 8: K8), or None: only K8's
-    selection of a key row too long for shared memory (k > 64, N past
-    ~27,000) takes one, (B, N, 2, k) 64-bit keys."""
+    fold-merge tournament on a key row too long for shared memory (k > 256,
+    N past ~27,000) takes one, (B, N, 2, k) 64-bit keys."""
     b, n, c = x.shape
     nbytes = ctypes.c_longlong(0)
     with torch.cuda.device(x.device):
@@ -183,6 +185,13 @@ def knn_scratch(name: str, x: torch.Tensor, k: int, folds: int = 0):
     if nbytes.value == 0:
         return None
     return torch.empty(nbytes.value, device=x.device, dtype=torch.uint8)
+
+
+def knn_stream_cap() -> int:
+    """The longest k that K8's streaming selection runs (kCap in
+    csrc/knn_fold.cu; K1, K3 and K6 take it past k = 64): past it, the
+    fold-merge tournament."""
+    return library().gfs_knn_stream_cap()
 
 
 def ptr(t) -> int:

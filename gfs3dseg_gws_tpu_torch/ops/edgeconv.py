@@ -8,7 +8,9 @@ The forward is one row gather over the flattened (B*N, C) table (XLA's
 
 which replaces the JAX package's TPU kernel `_scatter_bwd_pallas` (body
 `_scatter_bwd_kernel`) with K7, `edgeconv_scatter_kernel` in
-csrc/edgeconv.cu. `scatter_bwd_plain` is its twin (`index_add_`, the
+csrc/edgeconv.cu (several edge rows in flight a warp, each added into dx
+by float atomics, four channels an atomic where C % 4 == 0).
+`scatter_bwd_plain` is its twin (`index_add_`, the
 counterpart of `_scatter_bwd_xla`'s exact fp32 segment sum). The TPU
 kernel's bf16 one-hot matmul is not carried over.
 
@@ -49,9 +51,10 @@ def scatter_bwd_plain(idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def scatter_bwd(idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K7 on a CUDA tensor, its plain twin on a CPU tensor.
 
-    idx (B, N, K) contiguous int32, g (B, N, K, C) contiguous fp32 (any C).
-    The kernel adds with float atomics, so the last bits of the result vary
-    from run to run."""
+    idx (B, N, K) contiguous int32, g (B, N, K, C) contiguous fp32 (any C;
+    C % 4 == 0 adds 16-byte vectors, other C single floats). The kernel
+    adds with float atomics, so the last bits of the result vary from run
+    to run."""
     if g.device.type == "cpu":
         return scatter_bwd_plain(idx, g)
     name = "gather_neighbors backward (K7)"

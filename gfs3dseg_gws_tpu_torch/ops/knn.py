@@ -24,14 +24,18 @@ ops/knn.py::knn_with_stats (`_knn_stats_kernel`) with the CUDA kernel
 Both take any C, any N and any 1 <= k <= N on the card, by variant: the
 split selection for C <= 64 and k <= 32; one thread per query
 (`knn_kernel`) past it, the channels streamed in chunks for C > 64, the
-register insertion chain for k <= 64; K8's fold-merge selection
-for k > 64 (a query's key row in shared memory; past N ~ 27,000 in chunks
-whose k best are merged through a scratch the wrapper allocates).
+register insertion chain for k <= 64; K8's selection for k > 64: up to
+k = 256 its streaming selection (`knn_stream_kernel`: each query's sorted
+list and queue of taken keys in shared memory, at any N), past it the
+fold-merge tournament (a query's key row in shared memory; past N ~ 27,000
+in chunks whose k best are merged through a scratch the wrapper
+allocates).
 
-`knn_indices_fold` (K8) computes what K6 computes by the fold-merge
-tournament of the JAX package's TPU kernel ops/knn.py::_knn_pallas_fold
-(body `_knn_fold_kernel`), in csrc/knn_fold.cu; its plain twin
-`knn_indices_fold_plain` runs the same tournament in torch. As in JAX, no
+`knn_indices_fold` (K8) replaces the JAX package's TPU kernel
+ops/knn.py::_knn_pallas_fold (body `_knn_fold_kernel`), the fold-merge
+tournament, with csrc/knn_fold.cu: `knn_stream_kernel` for k <= 256,
+`knn_fold_kernel` (the tournament) past it. Its plain twin
+`knn_indices_fold_plain` runs the JAX tournament in torch. As in JAX, no
 model path calls it.
 """
 from __future__ import annotations
@@ -132,13 +136,17 @@ def knn_indices_fold_plain(x: torch.Tensor, k: int, folds: int = 4
 
 
 def knn_indices_fold(x: torch.Tensor, k: int, folds: int = 4) -> torch.Tensor:
-    """K8: `knn_indices` by fold-merge selection (JAX: _knn_pallas_fold),
-    (B, N, C) -> (B, N, k) int32, nearest first, folds 2, 4 or 8.
+    """K8: `knn_indices` by an exact selection of its own (JAX:
+    _knn_pallas_fold), (B, N, C) -> (B, N, k) int32, nearest first.
 
     A CPU tensor goes to `knn_indices_fold_plain`; a CUDA tensor to the
-    kernel at any N (ragged N needs no gate; past ~27,000 the key row is
-    streamed in chunks), any C and 1 <= k <= N. Its distances are
-    K6's own, so on the card its indices equal `knn_indices`' bit for bit.
+    kernel at any N (ragged N needs no gate), any C and 1 <= k <= N: the
+    streaming selection for k <= 256, the fold-merge tournament past it
+    (a key row past ~27,000 streamed in chunks). `folds` (2, 4 or 8) is
+    validated as in JAX: up to k = 256 it is kept for parity with JAX alone
+    and unused, past it it sets the tournament's layout; the indices never
+    depend on it. Its distances are K6's own, so on the card its indices
+    equal `knn_indices`' bit for bit.
     """
     if x.device.type == "cpu":
         return knn_indices_fold_plain(x, k, folds)

@@ -11,7 +11,11 @@ also C = 9; K2, K5a and K5b also at D = 128, the `_d128` entries, and K5a
 at D = 30 and 192; K1, K3, K6 and K9 past the fast path, at C = 128,
 k = 40, and K6 at k = 80 on (4, 2048, 64), the `_wide` entries, and K4a
 and K4b at C = W1 = 128, k = 40, `k4a_wide` and `k4b_wide`; K9 also at
-W0 = 30 -> W1 = 40, whose rows take 4-byte copies, `k9_w30`) on inputs drawn
+W0 = 30 -> W1 = 40, whose rows take 4-byte copies, `k9_w30`; K7 at
+C = 256, `k7_wide`; K8 also at C = 9, `k8_c9`, and at k = 80 on
+(4, 2048, 64), `k8_k80`, beside K3 there, `k3_k80`; K6, K3 and K8 at
+k = 80 on one row of 30,000 points, C = 9, `k6_long`, `k3_long`,
+`k8_long`) on inputs drawn
 from a fixed seed, prints one JSON line of CUDA-event times (ms) beside the
 card's name and power limit, and saves the outputs. K5b takes m and den
 from K5a's plain twin on the card, so that its inputs do not depend on the
@@ -21,14 +25,16 @@ idles); `ms_queued` is the mean of 30 calls queued back to back (the
 card's time alone). The second form prints, for each named output of each
 kernel (K1's out, K3's idx, cnt and scb, ...), whether the runs agree bit
 for bit, their largest difference and the first run's largest magnitude
-beside it, and for index outputs on how many rows they differ. Where two
+beside it, and for index outputs (K3, K6 and K8's idx) on how many rows
+they differ. Where two
 runs' outputs differ in width only (K4b's scat (B, N, 2C) against a
 variant that leaves its yhat1 half to a closed form, (B, N, C)), the first
 columns they share are compared, and the entry says so. Run the checkouts in turns (A,
 B, B, A) in one call: two calls may land on two cards. `--only k6_c64
 k3_c9 ...` times those entries alone. The third form compiles the
-checkout's attention sources, csrc/fused_edgeconv.cu and
-csrc/fused_edgeconv_train.cu with `-Xptxas -v` and prints, for each
+checkout's attention sources, csrc/fused_edgeconv.cu,
+csrc/fused_edgeconv_train.cu, csrc/edgeconv.cu and csrc/knn_fold.cu with
+`-Xptxas -v` and prints, for each
 kernel, its registers, spills, static shared memory and the
 `HMMA.1688.F32.TF32` instructions that `cuobjdump -sass` finds in it, as
 one JSON line.
@@ -125,6 +131,9 @@ def run(out: str, only=None) -> None:
     w128, bias128 = randn(128, 128, scale=128 ** -0.5), randn(128, scale=0.1)
     x4 = randn(4, N, 64)
     idx128 = knn_indices(x128, 40)
+    g256 = randn(B, N, K, 256)
+    b4 = randn(4, N, 64)
+    x_long, b_long = randn(1, 30000, 9), randn(1, 30000, 64)
     a30, b30 = randn(B, N, 30), randn(B, N, 30)
     w30, bias40 = randn(30, 40, scale=30 ** -0.5), randn(40, scale=0.1)
     s1w, t1w = randn(128, scale=0.2) + 1.0, randn(128, scale=0.2)
@@ -156,7 +165,14 @@ def run(out: str, only=None) -> None:
         "k6_c9": lambda: knn_indices(x9, K),
         "k6_c64": lambda: knn_indices(x64, K),
         "k7": lambda: scatter_bwd(idx, g),
+        "k7_wide": lambda: scatter_bwd(idx, g256),
         "k8": lambda: knn_indices_fold(x64, K, 4),
+        "k8_c9": lambda: knn_indices_fold(x9, K, 4),
+        "k8_k80": lambda: knn_indices_fold(x4, 80, 4),
+        "k3_k80": lambda: knn_with_stats(x4, b4, 80),
+        "k6_long": lambda: knn_indices(x_long, 80),
+        "k3_long": lambda: knn_with_stats(x_long, b_long, 80),
+        "k8_long": lambda: knn_indices_fold(x_long, 80, 4),
         "k9": lambda: gather_conv(idx, a, b, w2, bias2),
         "k9_w30": lambda: gather_conv(idx, a30, b30, w30, bias40),
         "k1_wide": lambda: fused_edgeconv_infer(x128, a128, b128, w128,
@@ -244,7 +260,8 @@ def ptxas(sources=()) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for src in sources or ("attention.cu", "attention_train.cu",
                                "fused_edgeconv.cu",
-                               "fused_edgeconv_train.cu"):
+                               "fused_edgeconv_train.cu", "edgeconv.cu",
+                               "knn_fold.cu"):
             obj = os.path.join(tmp, src + ".o")
             res = subprocess.run(
                 [nvcc, *_ext.NVCC_FLAGS, "-Xptxas", "-v", "-I",
@@ -288,8 +305,8 @@ def main() -> None:
     p.add_argument("--compare", nargs="+")
     p.add_argument("--ptxas", nargs="*", metavar="SOURCE",
                    help="-Xptxas -v of these csrc sources (default: the "
-                   "attention sources, fused_edgeconv.cu and "
-                   "fused_edgeconv_train.cu)")
+                   "attention sources, fused_edgeconv.cu, "
+                   "fused_edgeconv_train.cu, edgeconv.cu and knn_fold.cu)")
     p.add_argument("--only", nargs="+", help="time these entries alone")
     args = p.parse_args()
     if args.ptxas is not None:
