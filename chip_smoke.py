@@ -15,7 +15,10 @@ seeded weights), backbone pre-training (`pretrain_cli --phase pretrain`,
 two short epochs with validation), geometric-word extraction (`basis_cli`
 on the pre-training checkpoint) and GFS base-stage training (`train_cli`,
 two short epochs from the pre-trained encoder and that basis, validation
-after each, its checkpoint evaluated again); then the same chain
+after each, its checkpoint evaluated again), the six few-shot baseline
+phases of `pretrain_cli` from that pre-trained encoder (ProtoNet and MPTI
+training and evaluation, MPTI's GFS evaluation, FineTune); then the same
+chain
 pre-train -> basis -> GFS train -> evaluate at the DGCNN semantic-
 segmentation widths, whose third EdgeConv block is one layer deep, and at
 the DGCNN classification encoder's (four one-layer blocks 64, 64, 128, 256,
@@ -99,6 +102,15 @@ CENTRE_FLIP_TOL = 1e-2            # flipped point moves its two centres) this
 # (dense), HBM3
 PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES_PER_S = 67e12, 495e12, 3.35e12
 PROFILE_STEPS = 5                 # train steps under torch.profiler
+# the few-shot baselines: prototrain / mptitrain episodes (one validation
+# at the last), bank episodes a class pair, mptigfs's base and query
+# blocks, finetune's inner steps and episodes, repetitions of a device
+# episode's time; label_propagate card vs CPU fp64: max |diff| / max |z|
+FS_ITERS, FS_MPTI_ITERS, FS_BANK, FS_BLOCKS = 4, 2, 1, 16
+FT_ITERS, FT_EPISODES, FS_REPS = 3, 2, 5
+LP_TOL = 1e-3
+RELOAD_TOL = 1e-3                 # eval phase vs its train phase's mIoU
+PROTO_EPISODES = 4                # ProtoNet card vs CPU: test episodes
 # kernel groups of the step's profile: the first group whose pattern is in a
 # kernel's name takes it
 KERNEL_GROUPS = (
@@ -114,6 +126,8 @@ KERNEL_GROUPS = (
     ("K4a gsf_kernel", ("gsf_kernel",)),
     ("K4b bwd_kernel", ("bwd_kernel",)),
     ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "sm90_xmma", "cutlass", "Kernel2")),
+    ("solve (cuSOLVER LU)", ("getrf", "getrs", "trsm", "laswp", "potrf")),
+    ("sort", ("Sort", "sort")),
     ("Adam", ("multi_tensor", "adam", "Adam")),
     ("reductions", ("reduce", "Reduce")),
     ("elementwise", ("elementwise", "Elementwise", "vectorized", "unrolled",
@@ -1797,6 +1811,279 @@ def check_gfs_step_vs_cpu(dev, setup, gp: torch.Tensor):
                                     fake_row=fake.to(device))[1])
 
 
+# --------------------------------------------------------------------------- #
+# the few-shot baselines (pretrain_cli's six baseline phases)
+# --------------------------------------------------------------------------- #
+
+def baseline_argv(dev, phase_name: str, data_dir: str, save: str, *extra):
+    """pretrain_cli arguments of a baseline phase at the default widths,
+    N = 2048, 2-way 1-shot, one query a way, FS_BANK bank episodes a class
+    pair."""
+    return ["--phase", phase_name, "--dataset", "s3dis", "--cvfold", "0",
+            "--data_path", data_dir, "--save_path", save, "--pc_npts",
+            str(N), "--n_way", "2", "--k_shot", "1", "--n_queries", "1",
+            "--n_episode_test", str(FS_BANK), "--seed", str(SEED),
+            "--device", dev.type, *extra]
+
+
+def run_baseline(dev, name: str, argv, expected, **limits):
+    """One pretrain_cli baseline phase on the card: its launches against
+    `expected`, its mIoU and loss finite; prints a phase line. Returns
+    (result, wall seconds)."""
+    from gfs3dseg_gws_tpu_torch.cli import pretrain_cli
+
+    read = reset_launches()
+    t0 = time.perf_counter()
+    res = pretrain_cli.main(argv, **limits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read()
+    if "history" in res:            # a train phase: its last validation
+        miou, loss = res["best_iou"], res["history"][-1]["loss"]
+        extra = {"train_losses": [round(v, 6) for v in res["train_losses"]],
+                 "train_episodes": res["episodes"],
+                 "train_ms_per_episode":
+                     1e3 * res["train_seconds"] / res["episodes"]}
+        losses = res["train_losses"] + [loss]
+    elif "losses" in res:           # finetune
+        miou, losses = res["mean_iou"], res["losses"]
+        extra = {"episodes": res["episodes"],
+                 "last_losses": [round(v, 6) for v in losses[-3:]]}
+    elif "hm_iou" in res:           # mptigfs
+        miou, losses = res["mean_iou"], []
+        extra = {k: res[k] for k in ("base_iou", "novel_iou", "hm_iou",
+                                     "base_blocks", "query_blocks")}
+    else:                           # protoeval, mptieval
+        miou, losses = res["mean_iou"], [res["loss"]]
+        extra = {"loss": res["loss"], "episodes": res["episodes"]}
+    phase(name, wall_seconds=wall, miou=miou, **extra,
+          **{f"{k}_launches": v for k, v in launches.items()})
+    if not (math.isfinite(miou) and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"{name}: mIoU {miou}, losses {losses}")
+    check_launches(name, launches, expected)
+    return res, wall
+
+
+def check_reloaded(name: str, evaluated, trained) -> None:
+    """The eval phase read the train phase's checkpoint: its test bank
+    holds the validation bank's episodes (both drawn from one seed), so
+    its mIoU is the one validation's, within RELOAD_TOL."""
+    if abs(evaluated["mean_iou"] - trained["best_iou"]) > RELOAD_TOL:
+        raise AssertionError(f"{name}: mIoU {evaluated['mean_iou']} from "
+                             f"the checkpoint, {trained['best_iou']} in "
+                             "training")
+
+
+def check_proto_vs_cpu(dev, learner, episodes):
+    """ProtoNet test episodes on the card against the CPU (the same
+    weights), held as evaluate_multi's is, over all their query points
+    together (PROTO_EPISODES episodes, as many points as evaluate_multi's
+    CMP_BLOCKS blocks; one episode's 4,096 points hold too few kNN
+    near-ties for the rule): the card's logits against the CPU's fp64 ones
+    may miss LOGIT_TOL (relative to the logit's size: the euclidean logits
+    are negative squared distances) on at most MISS_RATIO times as many
+    points as the CPU's fp32 ones, plus MISS_SLACK, and argmax agreement
+    >= CPU_AGREE."""
+    import copy
+
+    card_model = learner.model.eval()
+    cpu_model = copy.deepcopy(card_model).cpu()
+    cpu64_model = copy.deepcopy(cpu_model).double()
+    card, cpu32, cpu64 = [], [], []
+    with torch.inference_mode():
+        for episode in episodes:
+            args = [torch.from_numpy(np.asarray(a, dt)) for a, dt in zip(
+                episode[:4], (np.float32, np.int64, np.float32, np.int64))]
+            card.append(card_model(*(a.to(dev) for a in args))[0].cpu())
+            cpu32.append(cpu_model(*args)[0])
+            cpu64.append(cpu64_model(*(a.double() if a.is_floating_point()
+                                       else a for a in args))[0])
+    card, cpu32, cpu64 = (torch.cat(x).double() for x in (card, cpu32,
+                                                           cpu64))
+
+    def within(a, b):
+        return ((a - b).abs() <= LOGIT_TOL * (1.0 + b.abs())).all(
+            -1).double().mean().item()
+
+    agree = (card.argmax(-1) == cpu32.argmax(-1)).double().mean().item()
+    card_miss, cpu_miss = 1.0 - within(card, cpu64), 1.0 - within(cpu32,
+                                                                  cpu64)
+    # per point: where kNN near-ties flip, a few points move far and the
+    # rest not at all
+    rel = ((card - cpu64).abs() / (1.0 + cpu64.abs())).amax(-1)
+    phase(f"card_vs_cpu protonet test episodes ({len(episodes)})",
+          points=card.shape[0] * card.shape[1], argmax_agree=agree,
+          card_misses_cpu64=card_miss, cpu32_misses_cpu64=cpu_miss,
+          max_abs_diff=(card - cpu32).abs().max().item(),
+          rel_diff_quantiles=[float(q) for q in torch.quantile(
+              rel.flatten(), torch.tensor([0.5, 0.99, 0.999],
+                                          dtype=torch.float64))],
+          max_abs_logit=cpu64.abs().max().item())
+    if agree < CPU_AGREE or card_miss > MISS_RATIO * cpu_miss + MISS_SLACK:
+        raise AssertionError("ProtoNet: card and CPU disagree")
+
+
+def check_label_propagate(dev, learner, episode):
+    """MPTI's graph of one eval episode on the card ((2 + 1) x 100
+    prototypes + 2 x 2048 query points = 4,396 nodes of 192 features):
+    label_propagate of the card's affinity on the card against the CPU
+    in fp64 (max |diff| / max |z| <= LP_TOL, argmax agreement on the
+    query rows >= CPU_AGREE), and the card's times of the affinity and
+    the solve."""
+    from gfs3dseg_gws_tpu_torch.ops.linalg import (
+        label_propagate, local_constrained_affinity)
+
+    model = learner.model.eval()
+    sx, sy, qx, _ = learner._episode_args(episode)
+    with torch.inference_mode():
+        s_feat, q_feat = model.support_query_features(sx, qx)
+        node_feat, y0, num_p = model.graph_nodes(s_feat, sy, q_feat)
+
+        def affinity():
+            return local_constrained_affinity(node_feat, model.k_connect,
+                                              model.sigma)
+
+        a = affinity()
+        z = label_propagate(a, y0).cpu().double()
+        z64 = label_propagate(a.cpu().double(), y0.cpu().double())
+        err = ((z - z64).abs().max() / z64.abs().max()).item()
+        agree = (z[num_p:].argmax(-1) == z64[num_p:].argmax(-1)).double(
+            ).mean().item()
+        affinity_ms = cuda_ms(affinity, FS_REPS)
+        solve_ms = cuda_ms(lambda: label_propagate(a, y0), FS_REPS)
+    phase("card_vs_cpu label_propagate", nodes=node_feat.shape[0],
+          feat=node_feat.shape[1], rel_err=err, argmax_agree=agree,
+          affinity_ms=affinity_ms, solve_ms=solve_ms)
+    if node_feat.shape[0] != 3 * 100 + 2 * N:
+        raise AssertionError(f"MPTI graph of {node_feat.shape[0]} nodes")
+    if err > LP_TOL or agree < CPU_AGREE:
+        raise AssertionError("label_propagate: card and CPU disagree")
+
+
+def episode_ms(dev, name: str, learner, episode):
+    """One train and one test episode of a trained learner on device
+    tensors: CUDA-event medians (FS_REPS repetitions), and the train
+    episode's kernel time by group from torch.profiler against its wall
+    (device idle share = 1 - kernels / wall)."""
+    from gfs3dseg_gws_tpu_torch.parallel.steps import (fewshot_test_step,
+                                                       fewshot_train_step)
+
+    args = learner._episode_args(episode)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def train():
+        return fewshot_train_step(learner.model, learner.opt, *args, gen,
+                                  learner.sched)
+
+    train_ms = cuda_ms(train, FS_REPS)
+    test_ms = cuda_ms(lambda: fewshot_test_step(learner.model, *args),
+                      FS_REPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FS_REPS):
+        train()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / FS_REPS
+    groups, launches = profile_groups(train, FS_REPS)
+    numbers = {}
+    if groups is not None:
+        kernels = sum(groups.values())
+        numbers = dict(kernel_ms=kernels, idle_share=1.0 - kernels / wall_ms,
+                       launches=launches, groups_ms=json.dumps(
+                           {k: round(v, 4) for k, v in groups.items()
+                            if v > 0}))
+    phase(f"device episode {name}", train_ms=train_ms, test_ms=test_ms,
+          train_wall_ms=wall_ms, **numbers)
+
+
+def check_baselines(dev, root: str, pre_ckpt: str, test_dir: str):
+    """The six baseline phases of pretrain_cli on the card at the default
+    widths from the default-width pre-training checkpoint, with their
+    launches: prototrain (FS_ITERS episodes, one validation) -> protoeval
+    from its checkpoint; mptitrain (FS_MPTI_ITERS) -> mptieval; mptigfs
+    (FS_BLOCKS base and query blocks); finetune (FT_EPISODES episodes of
+    FT_ITERS inner steps). A train episode runs the encoder twice (support,
+    query), an eval episode too; FineTune's frozen encoder runs no K4b.
+    Then a ProtoNet test episode and MPTI's label propagation card vs
+    CPU, and the device time of an episode."""
+    from gfs3dseg_gws_tpu_torch.data.episodes import StaticEpisodeBank
+    from gfs3dseg_gws_tpu_torch.pipelines.baselines import (
+        FewShotConfig, make_finetune_loop)
+    from gfs3dseg_gws_tpu_torch.utils.config import ModelConfig
+
+    data_dir = pretrain_data(root)
+    save = os.path.join(root, "baselines") + "/"
+    bank = math.comb(6, 2) * FS_BANK   # S3DIS fold 0: six novel classes
+    att = ("--use_attention",)
+    pretrained = ("--pretrain_checkpoint_path", pre_ckpt)
+    seconds = {}
+
+    res, seconds["prototrain"] = run_baseline(
+        dev, "prototrain", baseline_argv(
+            dev, "prototrain", data_dir, save, "--n_iters", str(FS_ITERS),
+            "--eval_interval", str(FS_ITERS), *att, *pretrained),
+        expected_launches(DEFAULT_WIDTHS, 2 * FS_ITERS, 2 * bank, True))
+    proto = res["learner"]
+    proto_dir = save + "log_proto_s3dis_S0_N2_K1_TL0_Att1"
+    evaluated, seconds["protoeval"] = run_baseline(
+        dev, "protoeval", baseline_argv(
+            dev, "protoeval", data_dir, save, "--model_checkpoint_path",
+            proto_dir, *att),
+        expected_launches(DEFAULT_WIDTHS, 0, 2 * bank, True))
+    train_res, seconds["mptitrain"] = run_baseline(
+        dev, "mptitrain", baseline_argv(
+            dev, "mptitrain", data_dir, save, "--n_iters",
+            str(FS_MPTI_ITERS), "--eval_interval", str(FS_MPTI_ITERS), *att,
+            *pretrained),
+        expected_launches(DEFAULT_WIDTHS, 2 * FS_MPTI_ITERS, 2 * bank, True))
+    mpti = train_res["learner"]
+    check_reloaded("protoeval", evaluated, res)
+    mpti_dir = os.path.join(save, "log_mpti_S0_N2_K1_Att1_")
+    evaluated, seconds["mptieval"] = run_baseline(
+        dev, "mptieval", baseline_argv(
+            dev, "mptieval", data_dir, save, "--model_checkpoint_path",
+            mpti_dir, *att),
+        expected_launches(DEFAULT_WIDTHS, 0, 2 * bank, True))
+    check_reloaded("mptieval", evaluated, train_res)
+    # forwards: the base blocks, one a novel class's support shot, the
+    # query blocks
+    _, seconds["mptigfs"] = run_baseline(
+        dev, "mptigfs", baseline_argv(
+            dev, "mptigfs", data_dir, save + "mptigfs",
+            "--model_checkpoint_path", mpti_dir, "--testing_data_path",
+            test_dir, *att),
+        expected_launches(DEFAULT_WIDTHS, 0, 2 * FS_BLOCKS + 6, True),
+        max_base_blocks=FS_BLOCKS, max_query_blocks=FS_BLOCKS)
+    ft = expected_launches(DEFAULT_WIDTHS, FT_ITERS * FT_EPISODES,
+                           FT_EPISODES)
+    ft["k4b"] = 0
+    _, seconds["finetune"] = run_baseline(
+        dev, "finetune", baseline_argv(
+            dev, "finetune", data_dir, save, "--n_iters", str(FT_ITERS),
+            *pretrained),
+        ft, max_episodes=FT_EPISODES)
+
+    test_bank = StaticEpisodeBank(data_dir, "s3dis", num_episode_per_comb=
+                                  FS_BANK, n_way=2, k_shot=1, num_point=N,
+                                  mode="test")
+    episode = test_bank[0]
+    check_proto_vs_cpu(dev, proto, [test_bank[i]
+                                    for i in range(PROTO_EPISODES)])
+    check_label_propagate(dev, mpti, episode)
+    episode_ms(dev, "protonet", proto, episode)
+    episode_ms(dev, "mpti", mpti, episode)
+    model, new_opt, inner, _ = make_finetune_loop(
+        ModelConfig(), FewShotConfig(device=dev.type), 3, device=dev)
+    sx = torch.from_numpy(episode[0].reshape(-1, N, 9)).to(dev)
+    sy = torch.from_numpy((episode[1] * np.array([1, 2])[:, None, None])
+                          .reshape(-1, N).astype(np.int64)).to(dev)
+    opt = new_opt()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    phase("device step finetune inner", ms=cuda_ms(
+        lambda: inner(opt, sx, sy, gen), FS_REPS))
+    phase("baselines", **{f"{k}_seconds": v for k, v in seconds.items()})
+
+
 def main() -> int:
     # ---- phase 0: the card
     t_start = time.perf_counter()
@@ -1967,6 +2254,11 @@ def main() -> int:
         timed("gfs_learning_check", check_gfs_learning, dev, gfs, gp)
         timed("gfs_step", check_gfs_step, dev, gfs, gp)
         timed("card_vs_cpu_gfs_step", check_gfs_step_vs_cpu, dev, gfs, gp)
+
+        # ---- phase 13b: the few-shot baselines (prototrain, protoeval,
+        # mptitrain, mptieval, mptigfs, finetune) from the pre-trained
+        # encoder, card vs CPU for a ProtoNet episode and MPTI's solve
+        timed("baselines", check_baselines, dev, root, pre_ckpt, test_dir)
 
         # ---- phases 14-18: the DGCNN semantic-segmentation widths, pre-
         # training -> basis -> GFS training -> evaluation, card vs CPU for

@@ -6,16 +6,20 @@ Generalized few-shot 3D point-cloud segmentation via geometric words
 module is tested against.
 
 This package covers GFS base-stage training and evaluation (`train.py`,
-with and without `--only_evaluate`) and backbone pre-training
-(`pretrain/main.py --phase pretrain`):
+with and without `--only_evaluate`), geometric-word extraction
+(`get_basis.py`), backbone pre-training (`pretrain/main.py --phase
+pretrain`) and the few-shot baselines (its phases prototrain, protoeval,
+mptitrain, mptieval, mptigfs and finetune):
 
   data/       host data layer: datasets, registries, samplers, synthetic
               blocks, the native C++ batch loader (ctypes)
   ops/        kernel wrappers (hand-written CUDA for sm_90a, csrc/) and
               their plain-PyTorch versions; kNN, coding, metrics
-  models/     DGCNN, self-attention, the GW/CAPL head and the segmentors
+  models/     DGCNN, self-attention, the GW/CAPL head, the segmentors,
+              ProtoNet and MPTI
   parallel/   single-device train and eval steps, optimizers
-  pipelines/  GFS training and evaluation, pre-training
+  pipelines/  GFS training and evaluation, pre-training, geometric words,
+              the few-shot baselines
   utils/      config, logging, checkpoints and the JAX-weight converters
   cli/        `python -m gfs3dseg_gws_tpu_torch.cli.train_cli`,
               `python -m gfs3dseg_gws_tpu_torch.cli.pretrain_cli`

@@ -6,8 +6,17 @@ cli/pretrain_cli.py; reference pretrain/main.py:14-136).
         --batch_size 16 --pc_npts 2048 --pc_augm --pretrain_lr 0.001 \\
         --pretrain_weight_decay 1e-4 --device cuda
 
-Same flags as the JAX CLI, plus `--device`. Only `--phase pretrain` is
-ported; the baseline phases raise NotImplementedError.
+    python -m gfs3dseg_gws_tpu_torch.cli.pretrain_cli --phase prototrain \
+        --data_path <blocks> --save_path <dir>/ --pretrain_checkpoint_path \
+        <log_pretrain dir> --n_way 2 --k_shot 1 --use_attention
+
+Same flags as the JAX CLI, plus `--device`. Phases: `pretrain` (backbone
+pre-training), `prototrain` / `mptitrain` (episodic training of the
+ProtoNet / MPTI baselines), `protoeval` / `mptieval` (their test banks
+from `--model_checkpoint_path`), `mptigfs` (MPTI in the GFS setting,
+`--testing_data_path`) and `finetune` (the FineTune baseline;
+`--n_iters` is its inner loop's length). Log directories are named as
+the JAX CLI names them.
 """
 from __future__ import annotations
 
@@ -22,13 +31,13 @@ from gfs3dseg_gws_tpu_torch.cli.common import (
     disable_tf32,
     model_config_from_args,
 )
-from gfs3dseg_gws_tpu_torch.utils.config import PretrainConfig
+from gfs3dseg_gws_tpu_torch.utils.config import PretrainConfig, replace
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Backbone pre-training and few-shot baselines "
-                    "(PyTorch/CUDA port: --phase pretrain)")
+                    "(PyTorch/CUDA port)")
     p.add_argument("--phase", type=str, default="pretrain",
                    choices=["pretrain", "finetune", "prototrain", "protoeval",
                             "mptitrain", "mptieval", "mptigfs"])
@@ -72,29 +81,81 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None):
+def main(argv=None, **limits):
+    """Run one phase. `limits` cut a run short, for tests and smoke runs:
+    `max_iters` and `bank_episodes` (prototrain, mptitrain),
+    `bank_episodes` (protoeval, mptieval), `max_episodes` and
+    `bank_episodes` (finetune), `max_base_blocks` and `max_query_blocks`
+    (mptigfs)."""
     args = build_parser().parse_args(argv)
-    if args.phase != "pretrain":
-        raise NotImplementedError(
-            f"--phase {args.phase} is not ported yet (ROADMAP.md queue 1 "
-            "§10, baselines); the port runs --phase pretrain")
     disable_tf32()
     model_cfg = model_config_from_args(args)
     data_cfg = data_config_from_args(args)
-    log_dir = os.path.join(
-        args.save_path, f"log_pretrain_{args.dataset}_S{args.cvfold}_LongTail")
-    pre_cfg = PretrainConfig(
-        batch_size=args.batch_size, lr=args.pretrain_lr,
-        weight_decay=args.pretrain_weight_decay, n_iters=args.n_iters,
-        step_size=args.pretrain_step_size, gamma=args.pretrain_gamma,
-        eval_interval=args.eval_interval, seed=args.seed, log_dir=log_dir,
-        device=args.device)
 
     from gfs3dseg_gws_tpu_torch.pipelines.gfs import resolve_device
-    from gfs3dseg_gws_tpu_torch.pipelines.pretrain import pretrain
 
     resolve_device(args.device)     # fail before any data is touched
-    return pretrain(model_cfg, data_cfg, pre_cfg)
+    if args.phase == "pretrain":
+        from gfs3dseg_gws_tpu_torch.pipelines.pretrain import pretrain
+
+        log_dir = os.path.join(
+            args.save_path,
+            f"log_pretrain_{args.dataset}_S{args.cvfold}_LongTail")
+        pre_cfg = PretrainConfig(
+            batch_size=args.batch_size, lr=args.pretrain_lr,
+            weight_decay=args.pretrain_weight_decay, n_iters=args.n_iters,
+            step_size=args.pretrain_step_size, gamma=args.pretrain_gamma,
+            eval_interval=args.eval_interval, seed=args.seed,
+            log_dir=log_dir, device=args.device)
+        return pretrain(model_cfg, data_cfg, pre_cfg, **limits)
+
+    from gfs3dseg_gws_tpu_torch.pipelines.baselines import (
+        FewShotConfig, episodic_eval, episodic_train, finetune,
+        mpti_test_gfs)
+
+    fs_cfg = FewShotConfig(
+        n_way=args.n_way, k_shot=args.k_shot, n_queries=args.n_queries,
+        n_iters=args.n_iters, lr=args.lr, step_size=args.step_size,
+        gamma=args.gamma, eval_interval=args.eval_interval,
+        n_episode_test=args.n_episode_test, dist_method=args.dist_method,
+        n_subprototypes=args.n_subprototypes, k_connect=args.k_connect,
+        sigma=args.sigma, use_attention=args.use_attention, seed=args.seed,
+        h2d=args.h2d, device=args.device)
+    pretrained = args.pretrain_checkpoint_path or ""
+    model_ckpt = args.model_checkpoint_path or ""
+    if args.phase == "prototrain":
+        log_dir = args.save_path + (
+            f"log_proto_{args.dataset}_S{args.cvfold}_N{args.n_way}"
+            f"_K{args.k_shot}_TL{int(args.triplet_loss_weight > 0)}"
+            f"_Att{int(args.use_attention)}")
+        return episodic_train("proto", model_cfg, data_cfg,
+                              replace(fs_cfg, log_dir=log_dir), pretrained,
+                              model_ckpt, **limits)
+    if args.phase == "mptitrain":
+        log_dir = os.path.join(
+            args.save_path,
+            f"log_mpti_S{args.cvfold}_N{args.n_way}_K{args.k_shot}"
+            f"_Att{int(args.use_attention)}_{args.log_dir}")
+        return episodic_train("mpti", model_cfg, data_cfg,
+                              replace(fs_cfg, log_dir=log_dir), pretrained,
+                              model_ckpt, **limits)
+    if args.phase in ("protoeval", "mptieval"):
+        kind = "proto" if args.phase == "protoeval" else "mpti"
+        log_dir = model_ckpt or args.save_path
+        if os.path.isfile(log_dir):
+            log_dir = os.path.dirname(log_dir)
+        return episodic_eval(kind, model_cfg, data_cfg,
+                             replace(fs_cfg, log_dir=log_dir), model_ckpt,
+                             **limits)
+    if args.phase == "mptigfs":
+        return mpti_test_gfs(model_cfg, data_cfg,
+                             replace(fs_cfg, log_dir=args.save_path),
+                             model_ckpt, args.testing_data_path, **limits)
+    log_dir = args.save_path + (
+        f"log_finetune_{args.dataset}_S{args.cvfold}_N{args.n_way}"
+        f"_K{args.k_shot}")
+    return finetune(model_cfg, data_cfg, replace(fs_cfg, log_dir=log_dir),
+                    pretrained, inner_iters=args.n_iters, **limits)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
 """Segmentation metrics (counterpart of the JAX package's ops/metrics.py).
 
 The confusion matrix is counted on the device; only the (C, C) counts go to
-the host, where the GFS metric (numpy) reduces them.
+the host, where the GFS metric (numpy) reduces them. The few-shot metric of
+the baselines accumulates each episode's (n_way+1)^2 counts into the global
+matrix on the device or on the host (`fewshot_accumulate`).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -100,3 +102,56 @@ def gfs_miou(
     novel_iou = float(np.mean(novel_list))
     hm = 2.0 * base_iou * novel_iou / (base_iou + novel_iou)
     return mean_iou, base_iou, novel_iou, float(hm), iou_list
+
+
+def intersection_and_union(pred: torch.Tensor, gt: torch.Tensor,
+                           num_classes: int, ignore_index: int = 255
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Histogram IoU counts (reference util/util.py:64-104): per-class
+    intersection, union and target-area counts, (num_classes,) int64 each.
+    Elements whose gt is `ignore_index` count nowhere."""
+    pred = pred.reshape(-1).long()
+    gt = gt.reshape(-1).long()
+    valid = gt != ignore_index
+    overflow = torch.full_like(gt, num_classes)
+    pred = torch.where(valid, pred, overflow)
+    gt = torch.where(valid, gt, overflow)
+
+    def count(x):
+        hist = torch.zeros(num_classes + 1, dtype=torch.long,
+                           device=x.device)
+        hist.scatter_add_(0, x, torch.ones_like(x))
+        return hist[:num_classes]
+
+    area_inter = count(torch.where(pred == gt, pred, overflow))
+    area_pred, area_gt = count(pred), count(gt)
+    return area_inter, area_pred + area_gt - area_inter, area_gt
+
+
+def fewshot_accumulate(cm_global: Union[np.ndarray, torch.Tensor],
+                       cm_episode: Union[np.ndarray, torch.Tensor],
+                       label2class: Sequence[int],
+                       test_classes: Sequence[int]) -> None:
+    """Add one episode's (n_way+1, n_way+1) confusion counts into the
+    global (len(test_classes)+1, ...) matrix, episode label i + 1 at
+    test_classes.index(label2class[i]) + 1 and the background at 0
+    (reference pretrain/runs/eval.py:35-60). A tensor `cm_global` is added
+    to on its device, without a host sync; an array on the host."""
+    classes = [int(c) for c in test_classes]
+    perm = np.zeros(len(label2class) + 1, dtype=np.int64)
+    for i, cls in enumerate(label2class):
+        perm[i + 1] = classes.index(int(cls)) + 1
+    if isinstance(cm_global, torch.Tensor):
+        p = torch.from_numpy(perm).to(cm_global.device)
+        cm_global[p[:, None], p[None, :]] += cm_episode.to(cm_global.dtype)
+        return
+    cm_global[perm[:, None], perm[None, :]] += np.asarray(cm_episode,
+                                                          np.float64)
+
+
+def fewshot_miou(cm_global: np.ndarray) -> Tuple[float, np.ndarray]:
+    """The classic few-shot metric: per-class IoU, and its mean over the
+    foreground classes only (reference pretrain/runs/eval.py:62-70)."""
+    iou = iou_from_confusion(cm_global, safe=True)
+    return float(np.mean(iou[1:])), iou

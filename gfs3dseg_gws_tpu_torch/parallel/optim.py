@@ -3,7 +3,9 @@
 Reference GFS training: Adam with the encoder at 0.1x base_lr and the heads
 and prototypes at base_lr, StepLR(step_size, gamma) per epoch
 (train.py:426-439). Reference pretrain: Adam(lr, weight_decay) +
-StepLR(50, 0.5) (pretrain/runs/pre_train.py:133-137). torch Adam's
+StepLR(50, 0.5) (pretrain/runs/pre_train.py:133-137). Reference few-shot
+baselines: Adam with the encoder at 1e-4 and the rest at lr, StepLR per
+iteration (pretrain/models/proto_learner.py:24-32). torch Adam's
 weight_decay adds wd * param to the gradient (L2, not AdamW's decoupled
 decay), which is what the JAX package's `add_decayed_weights` before `adam`
 computes.
@@ -60,4 +62,24 @@ def make_gfs_optimizer(model: torch.nn.Module, base_lr: float,
          {"params": rest, "lr": base_lr}], weight_decay=weight_decay)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, step_lr(step_size, gamma, steps_per_epoch))
+    return opt, sched
+
+
+def make_fewshot_optimizer(model: torch.nn.Module, lr: float,
+                           step_size: int, gamma: float,
+                           encoder_lr: float = 1e-4
+                           ) -> Tuple[torch.optim.Adam,
+                                      torch.optim.lr_scheduler.LambdaLR]:
+    """The ProtoNet / MPTI optimizer (JAX pipelines/baselines.py::
+    _make_optimizer, an optax.multi_transform): Adam at `encoder_lr` for
+    the DGCNN `encoder.*` and at `lr` for everything else (base learner,
+    attention or mapper), no weight decay, both on a StepLR of the
+    iteration count (one optimizer step an iteration)."""
+    encoder, rest = [], []
+    for name, p in model.named_parameters():
+        (encoder if name.startswith("encoder.") else rest).append(p)
+    opt = torch.optim.Adam([{"params": encoder, "lr": encoder_lr},
+                            {"params": rest, "lr": lr}])
+    sched = torch.optim.lr_scheduler.LambdaLR(opt,
+                                              step_lr(step_size, gamma, 1))
     return opt, sched

@@ -1,7 +1,8 @@
 """Single-device train and eval steps (counterpart of the JAX package's
 parallel/steps.py: the GFS train step, steps.py:223-264, the pretrain step,
 steps.py:655-692, and the eval factories, steps.py:534-577, 727-742 and
-745-808).
+745-808; and of the few-shot baselines' episode steps,
+pipelines/baselines.py:160-190).
 
 Plain functions; each returns device tensors and never synchronises, so a
 loop can queue steps back to back and read the results later. The JAX
@@ -55,6 +56,40 @@ def pretrain_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
     if sched is not None:
         sched.step()
     return loss.detach()
+
+
+def fewshot_train_step(model, opt: torch.optim.Optimizer, support_x,
+                       support_y, query_x, query_y,
+                       generator: Optional[torch.Generator] = None,
+                       sched=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One episodic update of a ProtoNet / MPTI (reference
+    proto_learner.py:34-49): train-mode forward (support and query in two
+    encoder calls), backward, optimizer step, then the per-iteration LR
+    schedule. `generator` draws the attention's dropout seed. Returns
+    (loss, accuracy of the query argmax) as device tensors."""
+    model.train()
+    logits, loss = model(support_x, support_y, query_x, query_y, generator)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    if sched is not None:
+        sched.step()
+    pred = torch.argmax(logits.detach(), dim=-1)
+    return loss.detach(), torch.mean((pred == query_y).to(torch.float32))
+
+
+@torch.inference_mode()
+def fewshot_test_step(model, support_x, support_y, query_x, query_y
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """One eval episode (reference proto_learner.py:51-65): eval-mode
+    forward, argmax, the (n_way+1)^2 confusion counts. Returns (pred, cm,
+    loss, accuracy) as device tensors."""
+    model.eval()
+    logits, loss = model(support_x, support_y, query_x, query_y)
+    pred = torch.argmax(logits, dim=-1)
+    cm = confusion_matrix(pred, query_y, support_x.shape[0] + 1)
+    return pred, cm, loss, torch.mean((pred == query_y).to(torch.float32))
 
 
 @torch.inference_mode()

@@ -17,7 +17,11 @@ and `train.py --use_pretrain_weight` read) and `checkpoint.npz` (the flat
 training writes its `GWCAPL` in that flat layout too (`save_gfs_npz`, read
 by the JAX package's `load_checkpoint` + `restore_into`), and beside it the
 optimizer and step in the port's own format (`save_train_state`), for
-resume. Nothing here imports jax.
+resume. The few-shot baselines (ProtoNet, MPTI) write the reference's
+episodic `checkpoint.tar` ({'iteration', 'model_state_dict', 'loss',
+'IoU'}) and the JAX package's `checkpoint.npz`, whose variables nest the
+feature extractor under `feat` (`fewshot_state_dict_from_jax`,
+`save_fewshot_npz`). Nothing here imports jax.
 """
 from __future__ import annotations
 
@@ -265,6 +269,85 @@ def pretrain_state_dict_from_jax(params: Mapping,
     return sd
 
 
+def _fewshot_layout(block_depths: Sequence[int], n_mlp: int,
+                    n_base_convs: int, attention: bool) -> List[_Entry]:
+    """The few-shot feature extractor's key map: the port's (and the
+    reference's) top-level keys, the JAX package's paths under `feat`
+    (its utils/checkpoint.py::_export_feat_state)."""
+    layout = _encoder_layout(block_depths, n_mlp) + [
+        entry for entry in _head_layout(n_base_convs)
+        if attention or not entry[0].startswith("att_learner.")]
+    if not attention:
+        layout.append(("linear_mapper", "linear_mapper/kernel", "conv1d",
+                       False))
+    return [(key, f"feat/{path}", kind, bias)
+            for key, path, kind, bias in layout]
+
+
+def fewshot_state_dict_from_jax(params: Mapping,
+                                batch_stats: Optional[Mapping] = None
+                                ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ProtoNet / MPTI variables ({'feat': {encoder,
+    base_learner, att_learner | linear_mapper}}) -> the port's `ProtoNet` /
+    `MPTI` state dict (the reference's keys; same argument forms as
+    `state_dict_from_jax`)."""
+    params, batch_stats = _split_variables(params, batch_stats)
+    feat = params["feat"]
+    sd: Dict[str, torch.Tensor] = {}
+    _put_layout(sd, _fewshot_layout(*_jax_encoder_depths(feat["encoder"]),
+                                    _jax_base_convs(feat),
+                                    "att_learner" in feat),
+                params, batch_stats)
+    return sd
+
+
+def _model_fewshot_layout(model) -> List[_Entry]:
+    enc = model.encoder
+    return _fewshot_layout([len(b.widths) for b in enc.edge_convs],
+                           len(enc.conv.layer) // 3,
+                           len(model.base_learner.convs),
+                           model.use_attention)
+
+
+def save_fewshot_npz(model, path: str, meta: Optional[Dict] = None) -> None:
+    """Write a `ProtoNet` / `MPTI` as the JAX package's few-shot
+    `checkpoint.npz` (flat `params/feat/...`, `batch_stats/feat/...`),
+    which its `FewShotLearner` restores strictly."""
+    _save_npz(model, _model_fewshot_layout(model), (), path, meta)
+
+
+def save_torch_fewshot_checkpoint(model, out_dir: str, iteration: int = 0,
+                                  iou: float = 0.0, loss: float = 0.0) -> str:
+    """Write `out_dir/checkpoint.tar` in the reference's episodic-baseline
+    format ({'iteration', 'model_state_dict', 'loss', 'IoU'},
+    pretrain/runs/proto_train.py:72-78). Returns the path."""
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "checkpoint.tar")
+    torch.save({"iteration": int(iteration), "model_state_dict": sd,
+                "loss": float(loss), "IoU": float(iou)}, path)
+    return path
+
+
+def load_torch_fewshot_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference episodic-baseline checkpoint, given as its directory
+    (the reference appends `checkpoint.tar`) or the file -> its model
+    state dict. A pre-training tar ({'params': encoder}) is refused: it
+    belongs to `pretrain_checkpoint_path`."""
+    p = path if path.endswith(".tar") else os.path.join(path,
+                                                        "checkpoint.tar")
+    ckpt = torch_load(p)
+    if "model_state_dict" not in ckpt:
+        if "params" in ckpt:
+            raise ValueError(
+                f"{p} is a pre-training encoder checkpoint ({{'params': "
+                "...}}); pass it as the pretrain checkpoint, not as an "
+                "episodic-baseline model checkpoint")
+        raise ValueError(f"{p} has no 'model_state_dict' key; not an "
+                         "episodic-baseline checkpoint.tar")
+    return dict(ckpt["model_state_dict"])
+
+
 def _model_encoder_layout(model) -> List[_Entry]:
     enc = model.encoder
     return _encoder_layout([len(b.widths) for b in enc.edge_convs],
@@ -337,7 +420,10 @@ def load_pretrained_encoder(path: str) -> Dict[str, torch.Tensor]:
     """A pre-trained encoder as a state dict of `DGCNN` keys (no `encoder.`
     prefix), from the pre-training `checkpoint.npz` (the JAX package's or
     the port's) or the reference `checkpoint.tar` ({"params": encoder state
-    dict}) (JAX pipelines/gfs.py::_load_encoder_any)."""
+    dict}, or the directory holding it) (JAX
+    pipelines/gfs.py::_load_encoder_any)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "checkpoint.tar")
     if path.endswith(".npz"):
         flat, _ = load_checkpoint(path)
         tree = _unflatten(flat)

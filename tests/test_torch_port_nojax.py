@@ -1,10 +1,11 @@
 """The port must import and start on a host without JAX (the GPU host has
 none), and without any module of the JAX package: every module of
 gfs3dseg_gws_tpu_torch imports (the training slices' kernels, models,
-optimizers, pipelines and CLIs among them, and geometric-word extraction),
-`chip_smoke` imports, and the three CLIs answer --help, in a subprocess
-where importing jax, flax or gfs3dseg_gws_tpu (even its numpy-only
-modules) fails."""
+optimizers, pipelines and CLIs among them, geometric-word extraction and
+the few-shot baselines), `chip_smoke` imports, and the three CLIs answer
+--help, in a subprocess where importing jax, flax or gfs3dseg_gws_tpu
+(even its numpy-only modules) fails, and h5py too (the GPU host has
+none)."""
 import os
 import subprocess
 import sys
@@ -16,6 +17,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["gfs3dseg_gws_tpu"] = None
+sys.modules["h5py"] = None
 import gfs3dseg_gws_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -26,7 +28,9 @@ for name in ("ops.knn", "ops.fused_edgeconv_train", "ops.attention_train",
              "cli.pretrain_cli", "utils.observability", "data.datasets",
              "data.native_loader", "data.synthetic", "ops.edgeconv",
              "ops.kmeans", "ops.linalg", "pipelines.basis", "cli.basis_cli",
-             "ops.fused_edgeconv", "ops.attention_kernel", "ops._ext"):
+             "ops.fused_edgeconv", "ops.attention_kernel", "ops._ext",
+             "data.episodes", "ops.metrics", "ops.fps", "models.protonet",
+             "models.mpti", "pipelines.baselines", "parallel.steps"):
     assert "gfs3dseg_gws_tpu_torch." + name in names, name
 import chip_smoke
 from gfs3dseg_gws_tpu_torch.cli import basis_cli, pretrain_cli, train_cli

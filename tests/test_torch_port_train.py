@@ -540,14 +540,15 @@ def _flags(parser: argparse.ArgumentParser):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--phase", "finetune"], NotImplementedError, "§10"),
+    (["--phase", "finetune", "--data_path", "does_not_exist"], RuntimeError,
+     "CUDA is not available"),
     (["--phase", "pretrain", "--data_path", "does_not_exist"], RuntimeError,
      "CUDA is not available"),
 ], ids=["baseline_phase", "cuda_without_gpu"])
 def test_pretrain_cli_refuses_what_it_cannot_run(monkeypatch, tmp_path, argv,
                                                  error, match):
-    """A phase the port does not have raises, naming its ROADMAP section;
-    `--device cuda` without a GPU raises before any data is read."""
+    """`--device cuda` without a GPU raises before any data is read or any
+    directory is made, for a baseline phase as for pre-training."""
     from gfs3dseg_gws_tpu_torch.cli import pretrain_cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
