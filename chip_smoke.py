@@ -22,7 +22,14 @@ chain
 pre-train -> basis -> GFS train -> evaluate at the DGCNN semantic-
 segmentation widths, whose third EdgeConv block is one layer deep, and at
 the DGCNN classification encoder's (four one-layer blocks 64, 64, 128, 256,
-k = 40). It checks the card against the CPU on each. Every phase prints
+k = 40). It checks the card against the CPU on each. It also preprocesses
+raw data: S3DIS rooms (one of a million points) and ScanNet scans through
+`preprocess_cli` (collection, then `room2blocks` on the card, held to the
+host's byte for byte) into blocks that `train_cli --only_evaluate`
+evaluates; and takes what the main path wrote through the checkpoint
+converter (`cli/convert_checkpoint.py`, round trips bit for bit, the GFS
+`.pth` evaluated to the npz's mIoU) and the GFS step through the port's
+`trace` and `StepTimer`. Every phase prints
 one line of numbers; any failure raises and the script exits non-zero. The
 line before the last lists every kernel with its launches on the main
 paths, error against its plain version, time, plain time, bound and
@@ -32,6 +39,7 @@ no JAX.
 """
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -111,6 +119,18 @@ FT_ITERS, FT_EPISODES, FS_REPS = 3, 2, 5
 LP_TOL = 1e-3
 RELOAD_TOL = 1e-3                 # eval phase vs its train phase's mIoU
 PROTO_EPISODES = 4                # ProtoNet card vs CPU: test episodes
+# raw data: an average S3DIS room (273 M points over 272 rooms, about 6 x 5
+# m), the other rooms small; ScanNet scans of a typical vertex count, their
+# over-segmentation a grid of cells; the raw ScanNet category of class c
+# (class 0: a label no row of the tsv names)
+RAW_ROOM_POINTS, RAW_ROOM_M, SMALL_ROOM_POINTS = 1_000_000, (6.0, 5.0), 12_000
+SCAN_POINTS, SCAN_M, SCAN_CELL = 100_000, (6.0, 4.0), 0.5
+SCANNET_RAW = (
+    "mystery object", "wall", "floor", "chair", "table", "desk", "bed",
+    "bookshelf", "couch", "sink", "bathtub", "toilet", "curtain", "counter",
+    "door", "window", "shower curtain", "refrigerator", "picture", "cabinet",
+    "trash can")
+TRACE_STEPS, TIMER_STEPS = 3, 6   # gfs_train_steps under trace / StepTimer
 # kernel groups of the step's profile: the first group whose pattern is in a
 # kernel's name takes it
 KERNEL_GROUPS = (
@@ -1419,6 +1439,23 @@ def check_learning(dev, root: str):
                              f"only")
 
 
+def check_replayed_graph(x, idx, k: int, label: str) -> int:
+    """The card's kNN graph `idx` of the CPU features `x`, before the CPU
+    replays it: the rows where it differs from the CPU's own graph (as
+    sets) are at most 1 - EC_ROWS of them, each a near-tie at the k-th
+    distance (GRAPH_TIE). Returns how many rows differ."""
+    from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices_plain
+
+    row_ok = (idx.sort(-1).values
+              == knn_indices_plain(x, k).sort(-1).values).all(-1)
+    bad = (~row_ok).nonzero().tolist()
+    if len(bad) > (1.0 - EC_ROWS) * row_ok.numel():
+        raise AssertionError(f"{label}: {len(bad)} rows differ from the "
+                             "CPU's")
+    near_tie_rows(x, bad, label, GRAPH_TIE, by_norm=True, k=k)
+    return len(bad)
+
+
 def compare_train_step(label: str, cpu_model, card_model, dev, run):
     """One train step (no dropout) of the same weights and batch on the
     card and on the CPU (the card model takes the CPU model's weights),
@@ -1448,9 +1485,7 @@ def compare_train_step(label: str, cpu_model, card_model, dev, run):
     card's point lie within MAX_TIE of the max: a near-tie that rounding
     resolves either way."""
     from gfs3dseg_gws_tpu_torch.models import dgcnn, dgcnnseg
-    from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices,
-                                                knn_indices_plain,
-                                                knn_with_stats,
+    from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices, knn_with_stats,
                                                 neighbor_stats_plain)
 
     graphs, differing = [], []
@@ -1467,15 +1502,8 @@ def compare_train_step(label: str, cpu_model, card_model, dev, run):
 
     def replay_idx(x, k):
         idx = graphs.pop(0)
-        row_ok = (idx.sort(-1).values
-                  == knn_indices_plain(x, k).sort(-1).values).all(-1)
-        bad = (~row_ok).nonzero().tolist()
-        if len(bad) > (1.0 - EC_ROWS) * row_ok.numel():
-            raise AssertionError(f"card graph {len(differing)}: {len(bad)} "
-                                 f"rows differ from the CPU's")
-        near_tie_rows(x, bad, f"card graph {len(differing)}", GRAPH_TIE,
-                      by_norm=True, k=k)
-        differing.append(len(bad))
+        differing.append(check_replayed_graph(
+            x, idx, k, f"card graph {len(differing)}"))
         return idx
 
     def replay(x, btab, k):
@@ -1587,14 +1615,14 @@ def check_train_step_vs_cpu(dev, root: str, widths: str = DEFAULT_WIDTHS,
 # GFS base-stage training
 # --------------------------------------------------------------------------- #
 
-def gfs_setup(train_dir: str, test_dir: str):
+def gfs_setup(train_dir: str, test_dir: str, dataset: str = "s3dis"):
     """The port's GFS setup on the CPU (datasets and class orders)."""
     from gfs3dseg_gws_tpu_torch.pipelines import gfs as port_gfs
     from gfs3dseg_gws_tpu_torch.utils.config import (DataConfig, ModelConfig,
                                                      TrainConfig)
 
     return port_gfs.build_setup(
-        ModelConfig(), DataConfig(data_path=train_dir,
+        ModelConfig(), DataConfig(dataset=dataset, data_path=train_dir,
                                   testing_data_path=test_dir, pc_npts=N,
                                   k_shot=5, pc_augm=True),
         TrainConfig(batch_size=B, device="cpu"),
@@ -1629,7 +1657,9 @@ def check_gfs_train(dev, root: str, test_dir: str, basis_path: str,
     validation on support seed 0 after each; launches checked per step and
     per forward. Then the newest checkpoint through `train_cli
     --only_evaluate` (the 5 support seeds), its launches checked too.
-    Returns the training run's launches and the setup."""
+    Returns the training run's launches, the setup, and the checkpoint
+    with its evaluation ({"checkpoint", "evaluated", "eval_launches",
+    "argv": the arguments the evaluation shares with training})."""
     import glob
 
     from gfs3dseg_gws_tpu_torch.cli import train_cli
@@ -1704,7 +1734,8 @@ def check_gfs_train(dev, root: str, test_dir: str, basis_path: str,
         raise AssertionError(f"non-finite mIoU {mious} from {ckpt}")
     check_launches(f"{name} evaluate", ev_launches, expected_launches(
         widths, 0, eval_forwards(setup, ev["coding_sweep"]), True))
-    return launches, setup
+    return launches, setup, {"checkpoint": ckpt, "evaluated": ev,
+                             "eval_launches": ev_launches, "argv": common}
 
 
 def check_gfs_learning(dev, setup, gp: torch.Tensor):
@@ -1759,10 +1790,10 @@ def profile_groups(fn, steps: int):
     return groups, launches / steps
 
 
-def check_gfs_step(dev, setup, gp: torch.Tensor):
-    """gfs_train_step alone on device tensors: the CUDA-event median, the
-    host-clock wall of PROFILE_STEPS steps, and the kernel time by group
-    from torch.profiler (device idle share = 1 - kernels / wall)."""
+def gfs_step_fn(dev, setup, gp: torch.Tensor):
+    """One gfs_train_step of a full-width GWCAPL (seed SEED + 1) with its
+    optimizer and schedule on a fixed batch of device tensors, as a
+    function of no arguments (each call takes a step)."""
     from gfs3dseg_gws_tpu_torch.parallel.optim import make_gfs_optimizer
     from gfs3dseg_gws_tpu_torch.parallel.steps import gfs_train_step
 
@@ -1774,6 +1805,14 @@ def check_gfs_step(dev, setup, gp: torch.Tensor):
     def step():
         return gfs_train_step(model, opt, pts, lbl, gp, gen, sched)
 
+    return step
+
+
+def check_gfs_step(dev, setup, gp: torch.Tensor):
+    """gfs_train_step alone on device tensors: the CUDA-event median, the
+    host-clock wall of PROFILE_STEPS steps, and the kernel time by group
+    from torch.profiler (device idle share = 1 - kernels / wall)."""
+    step = gfs_step_fn(dev, setup, gp)
     step_ms = cuda_ms(step)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1923,6 +1962,77 @@ def check_proto_vs_cpu(dev, learner, episodes):
         raise AssertionError("ProtoNet: card and CPU disagree")
 
 
+def check_proto_episodes_vs_cpu(dev, learner, episodes):
+    """ProtoNet test episodes on the card against the CPU in fp32 (the
+    same weights), one episode at a time, with the card's kNN graphs
+    replayed on the CPU as compare_train_step replays them: each EdgeConv
+    block's graph is taken on the card by K6 (knn_indices, the kNN stage
+    K1 runs; K6 -> K9 equals K1 bit for bit), checked where it differs
+    from the CPU's own graph (near-ties only, check_replayed_graph), and
+    the CPU block then runs K1's plain edge stage on it
+    (gather_conv_plain). With the graphs fixed, what is left is rounding:
+    on every query point of every episode the card's logits lie within
+    LOGIT_TOL of the CPU's (relative to 1 + |logit|, the euclidean logits
+    being negative squared distances), and the argmax agrees wherever the
+    CPU's top two logits lie further apart than that. The margin is one
+    point's: it does not grow with the points an episode or a pool
+    holds."""
+    import copy
+
+    from gfs3dseg_gws_tpu_torch.models import dgcnn
+    from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import gather_conv_plain
+    from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices
+
+    card_model = learner.model.eval()
+    cpu_model = copy.deepcopy(card_model).cpu()
+    saved = dgcnn.fused_edgeconv_infer
+    graphs, rows = [], []
+
+    def record(x, a_table, b_table, w2, bias2, k, neg_slope=0.2):
+        graphs.append(knn_indices(x, k).cpu())
+        return saved(x, a_table, b_table, w2, bias2, k, neg_slope)
+
+    def replay(x, a_table, b_table, w2, bias2, k, neg_slope=0.2):
+        idx = graphs.pop(0)
+        rows.append(check_replayed_graph(x, idx, k,
+                                         f"ProtoNet graph {len(rows)}"))
+        return gather_conv_plain(idx, a_table, b_table, w2, bias2, neg_slope)
+
+    worst, flips, tight = [], 0, 0
+    try:
+        for i, episode in enumerate(episodes):
+            args = [torch.from_numpy(np.asarray(a, dt)) for a, dt in zip(
+                episode[:4], (np.float32, np.int64, np.float32, np.int64))]
+            with torch.inference_mode():
+                dgcnn.fused_edgeconv_infer = record
+                card = card_model(*(a.to(dev) for a in args))[0].cpu()
+                dgcnn.fused_edgeconv_infer = replay
+                cpu = cpu_model(*args)[0]
+            if graphs:
+                raise AssertionError(f"{len(graphs)} card graphs not "
+                                     "replayed")
+            card, cpu = card.double(), cpu.double()
+            rel = ((card - cpu).abs() / (1.0 + cpu.abs())).amax(-1)
+            top2 = cpu.topk(2, dim=-1).values
+            clear = (top2[..., 0] - top2[..., 1]) > 2.0 * LOGIT_TOL * (
+                1.0 + top2[..., 0].abs())
+            off = (card.argmax(-1) != cpu.argmax(-1)) & clear
+            worst.append(rel.max().item())
+            flips += int(off.sum())
+            tight += int((~clear).sum())
+            if worst[-1] > LOGIT_TOL or off.any():
+                raise AssertionError(
+                    f"ProtoNet episode {i}: card vs CPU max rel diff "
+                    f"{worst[-1]}, {int(off.sum())} argmax flips")
+    finally:
+        dgcnn.fused_edgeconv_infer = saved
+    phase(f"card_vs_cpu protonet episode by episode ({len(episodes)}, "
+          "card graphs replayed)", points_per_episode=card.shape[0]
+          * card.shape[1], max_rel_diff=worst, tol=LOGIT_TOL,
+          argmax_flips=flips, near_tie_points=tight,
+          graph_rows_differing=rows)
+
+
 def check_label_propagate(dev, learner, episode):
     """MPTI's graph of one eval episode on the card ((2 + 1) x 100
     prototypes + 2 x 2048 query points = 4,396 nodes of 192 features):
@@ -2067,8 +2177,9 @@ def check_baselines(dev, root: str, pre_ckpt: str, test_dir: str):
                                   FS_BANK, n_way=2, k_shot=1, num_point=N,
                                   mode="test")
     episode = test_bank[0]
-    check_proto_vs_cpu(dev, proto, [test_bank[i]
-                                    for i in range(PROTO_EPISODES)])
+    proto_episodes = [test_bank[i] for i in range(PROTO_EPISODES)]
+    check_proto_vs_cpu(dev, proto, proto_episodes)
+    check_proto_episodes_vs_cpu(dev, proto, proto_episodes)
     check_label_propagate(dev, mpti, episode)
     episode_ms(dev, "protonet", proto, episode)
     episode_ms(dev, "mpti", mpti, episode)
@@ -2082,6 +2193,451 @@ def check_baselines(dev, root: str, pre_ckpt: str, test_dir: str):
     phase("device step finetune inner", ms=cuda_ms(
         lambda: inner(opt, sx, sy, gen), FS_REPS))
     phase("baselines", **{f"{k}_seconds": v for k, v in seconds.items()})
+
+
+# --------------------------------------------------------------------------- #
+# preprocessing: raw rooms and scans -> blocks -> evaluation
+# --------------------------------------------------------------------------- #
+
+def write_s3dis_raw(raw: str) -> None:
+    """A raw S3DIS tree (Stanford3dDataset_v1.2_Aligned_Version layout,
+    tests/test_collect.py:28): Areas 1-6, Area_1/office_1 at the size of an
+    average S3DIS room (RAW_ROOM_POINTS over RAW_ROOM_M), one room of
+    SMALL_ROOM_POINTS over 2 x 2 m in each other Area and two in Area_6
+    (the test split). Each room is one instance file of every class, its
+    points uniform over the room, plus `stairs`, a class the registry
+    lacks (clutter); each room sits at its own offset, as S3DIS rooms do
+    in their Area's frame."""
+    from gfs3dseg_gws_tpu_torch.data.registry import S3DIS_CLASSNAMES
+
+    rng = np.random.default_rng(SEED + 3)
+    names = S3DIS_CLASSNAMES + ["stairs"]
+    rooms = [("Area_1", "office_1", RAW_ROOM_POINTS, RAW_ROOM_M)]
+    rooms += [(f"Area_{a}", "office_1", SMALL_ROOM_POINTS, (2.0, 2.0))
+              for a in range(2, 6)]
+    rooms += [("Area_6", f"office_{r}", SMALL_ROOM_POINTS, (2.0, 2.0))
+              for r in (1, 2)]
+    for a, (area, room, n, (sx, sy)) in enumerate(rooms):
+        anno = os.path.join(raw, area, room, "Annotations")
+        os.makedirs(anno)
+        per = n // len(names)
+        for name in names:
+            xyz = rng.uniform((0.0, 0.0, 0.0), (sx, sy, 3.0), (per, 3))
+            xyz += (7.5 * a, -3.25 * a, 0.5)
+            rgb = rng.integers(0, 256, (per, 3))
+            rows = np.concatenate([xyz, rgb], axis=1).tolist()
+            with open(os.path.join(anno, f"{name}_1.txt"), "w") as f:
+                f.write("".join("%.3f %.3f %.3f %d %d %d\n" % tuple(r)
+                                for r in rows))
+
+
+def write_ply(path: str, xyz: np.ndarray, rgb: np.ndarray) -> None:
+    """Binary little-endian PLY of the vertices, as ScanNet's
+    *_vh_clean_2.ply holds them (x y z float, red green blue uchar)."""
+    rows = np.empty(len(xyz), np.dtype([
+        ("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("red", "u1"),
+        ("green", "u1"), ("blue", "u1")]))
+    for name, col in zip(("x", "y", "z", "red", "green", "blue"),
+                         np.concatenate([xyz, rgb], axis=1).T):
+        rows[name] = col
+    with open(path, "wb") as f:
+        f.write(("ply\nformat binary_little_endian 1.0\n"
+                 f"element vertex {len(xyz)}\n"
+                 "property float x\nproperty float y\nproperty float z\n"
+                 "property uchar red\nproperty uchar green\n"
+                 "property uchar blue\nend_header\n").encode())
+        f.write(rows.tobytes())
+
+
+def write_scannet_raw(scans: str, val_names) -> None:
+    """Raw ScanNet scans (tests/test_collect.py:41-84 layout: ply,
+    segs.json, aggregation.json): the first two named after scenes of the
+    vendored v2 validation list (the test split), the others train scenes;
+    SCAN_POINTS vertices over SCAN_M each. The over-segmentation is a grid
+    of SCAN_CELL cells, one segment a cell and one segGroup (instance) a
+    segment, the class of a cell varying with its place and the scan; a
+    cell's group names the raw category of SCANNET_RAW (class 0: a label
+    the tsv lacks, so class 0). Every 11th segment is in no group (its
+    vertices are left out) and every 13th group also names the next
+    segment (emitted twice)."""
+    rng = np.random.default_rng(SEED + 5)
+    nx, ny = (int(round(m / SCAN_CELL)) for m in SCAN_M)
+    names = list(val_names[:2]) + [f"scene09{90 + s}_00" for s in range(3)]
+    for s, scene in enumerate(names):
+        sdir = os.path.join(scans, scene)
+        os.makedirs(sdir)
+        xyz = rng.uniform((0.0, 0.0, 0.0), (*SCAN_M, 3.0),
+                          (SCAN_POINTS, 3)).astype(np.float32)
+        write_ply(os.path.join(sdir, f"{scene}_vh_clean_2.ply"), xyz,
+                  rng.integers(0, 256, (SCAN_POINTS, 3)))
+        cell = (np.minimum(xyz[:, 0] // SCAN_CELL, nx - 1)
+                + nx * np.minimum(xyz[:, 1] // SCAN_CELL, ny - 1))
+        with open(os.path.join(
+                sdir, f"{scene}_vh_clean_2.0.010000.segs.json"), "w") as f:
+            json.dump({"segIndices": cell.astype(int).tolist()}, f)
+        groups = []
+        for g in range(nx * ny):
+            if g % 11 == 5:
+                continue
+            cls = (g % nx + 5 * (g // nx) + 7 * s) % len(SCANNET_RAW)
+            groups.append({"label": SCANNET_RAW[cls], "segments":
+                           [g, g + 1] if g % 13 == 0 else [g]})
+        with open(os.path.join(sdir, f"{scene}.aggregation.json"), "w") as f:
+            json.dump({"segGroups": groups}, f)
+
+
+def block_tree(root: str):
+    """{path under root: bytes} of every block file of a dataset root."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(root, "blocks_*", "data",
+                                              "*.npy"))):
+        with open(path, "rb") as f:
+            out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def cut_blocks(dev, out: str, dataset: str):
+    """`preprocess_cli room2blocks` for both splits on the card into `out`,
+    and with `--device cpu` on a copy of its scenes: the card's block
+    files must be the host's, name for name and byte for byte. Returns
+    (the card's block count, the seconds of the card's and the host's
+    runs)."""
+    import shutil
+
+    from gfs3dseg_gws_tpu_torch.cli import preprocess_cli
+
+    host = out + "_host"
+    shutil.copytree(os.path.join(out, "scenes"), os.path.join(host, "scenes"))
+    seconds = {}
+    for d, device in ((out, dev.type), (host, "cpu")):
+        t0 = time.perf_counter()
+        for split in (["--train"], []):
+            preprocess_cli.main(["room2blocks", "--data_path",
+                                 os.path.join(d, "scenes"), "--dataset",
+                                 dataset, "--device", device] + split)
+        seconds[device] = time.perf_counter() - t0
+    card, ref = block_tree(out), block_tree(host)
+    if sorted(card) != sorted(ref) or card != ref:
+        raise AssertionError(f"{dataset}: room2blocks on the card wrote "
+                             f"{len(card)} block files, the host {len(ref)}, "
+                             "or their bytes differ")
+    return len(card), seconds[dev.type], seconds["cpu"]
+
+
+def evaluate_blocks(dev, root: str, name: str, dataset: str, train_dir: str,
+                    test_dir: str, basis_path: str, pth: str, *extra):
+    """`train_cli --only_evaluate` on the card on the blocks in
+    train_dir / test_dir: K1/K2 launches against eval_forwards, finite
+    per-seed mIoUs. Returns its result."""
+    from gfs3dseg_gws_tpu_torch.cli import train_cli
+
+    argv = ["--phase", "test", "--only_evaluate", "--dataset", dataset,
+            "--cvfold", "0", "--data_path", train_dir,
+            "--testing_data_path", test_dir, "--basis_path", basis_path,
+            "--model_checkpoint_path", pth, "--save_path",
+            os.path.join(root, name), "--pc_npts", str(N), "--k_shot", "5",
+            "--eval_weight", "1.2", "--energy", "0.9", "--batch_size",
+            str(B), "--device", dev.type, *extra]
+    read = reset_launches()
+    t0 = time.perf_counter()
+    res = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read()
+    setup = gfs_setup(train_dir, test_dir, dataset)
+    forwards = eval_forwards(setup, res["coding_sweep"])
+    phase(name, per_seed_miou=[round(float(v), 6) for v in
+                               res["per_seed"][:, 0]],
+          mean_iou=res["mean_iou"], base_iou=res["base_iou"],
+          novel_iou=res["novel_iou"], hm_iou=res["hm_iou"],
+          blocks=res["n_blocks"], wall_seconds=wall, forwards=forwards,
+          **{f"{k}_launches": v for k, v in launches.items()})
+    if not np.isfinite(res["per_seed"]).all():
+        raise AssertionError(f"{name}: non-finite per-seed mIoU "
+                             f"{res['per_seed']}")
+    check_launches(name, launches,
+                   expected_launches(DEFAULT_WIDTHS, 0, forwards, True))
+    return res
+
+
+def check_raw_s3dis(dev, root: str, basis_path: str, pth: str):
+    """Raw S3DIS rooms -> `preprocess_cli collect_s3dis` (both splits) ->
+    `room2blocks --device cuda`, held to `--device cpu` byte for byte, the
+    large room's room2blocks timed on the card and on the host (median
+    of 3, the arrays equal) -> `train_cli --only_evaluate` on the card's
+    blocks with make_inputs' seeded weights and basis."""
+    from gfs3dseg_gws_tpu_torch.cli import preprocess_cli
+    from gfs3dseg_gws_tpu_torch.data import preprocess as pp
+
+    t0 = time.perf_counter()
+    raw, out = os.path.join(root, "raw_s3dis"), os.path.join(root, "s3dis")
+    write_s3dis_raw(raw)
+    t1 = time.perf_counter()
+    for split in (["--train"], []):
+        preprocess_cli.main(["collect_s3dis", "--data_path", raw,
+                             "--out_root", out] + split)
+    t2 = time.perf_counter()
+    n_blocks, card_s, host_s = cut_blocks(dev, out, "s3dis")
+
+    room = np.load(os.path.join(out, "scenes", "train_data",
+                                "Area_1_office_1.npy"))
+    times = {}
+    for device in (dev, torch.device("cpu")):
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            blocks = pp.room2blocks(room, device=device)
+            runs.append(time.perf_counter() - t)
+        times[device.type] = (statistics.median(runs), blocks)
+    card, host = times[dev.type][1], times["cpu"][1]
+    if len(card) != len(host) or any(
+            a.dtype != b.dtype or a.shape != b.shape
+            or a.tobytes() != b.tobytes() for a, b in zip(card, host)):
+        raise AssertionError("room2blocks: the card's blocks of the large "
+                             "room are not the host's")
+    phase("raw S3DIS -> blocks", large_room_points=room.shape[0],
+          large_room_blocks=len(card), large_room_card_seconds=times[
+              dev.type][0], large_room_host_seconds=times["cpu"][0],
+          write_raw_seconds=t1 - t0, collect_seconds=t2 - t1,
+          room2blocks_cli_card_seconds=card_s,
+          room2blocks_cli_host_seconds=host_s, block_files=n_blocks,
+          card_equals_host="byte for byte")
+    evaluate_blocks(dev, root, "evaluate_gfs on raw S3DIS blocks", "s3dis",
+                    os.path.join(out, "blocks_bs1_s1"),
+                    os.path.join(out, "blocks_bs1_s1_test"), basis_path, pth)
+
+
+def check_raw_scannet(dev, root: str, basis_path: str):
+    """Raw ScanNet scans -> `preprocess_cli collect_scannet` (the vendored
+    meta: the two scans named after v2 validation scenes go to the test
+    split) -> `room2blocks --dataset scannet --device cuda`, held to the
+    host's -> a full-width GWCAPL with seeded random weights at the
+    ScanNet class count (21, 15 base) through `train_cli --only_evaluate
+    --dataset scannet`: finite per-seed mIoUs, class 0 out of every
+    aggregate (per_class holds classes 1-20; mIoU is their mean)."""
+    from gfs3dseg_gws_tpu_torch.cli import preprocess_cli
+    from gfs3dseg_gws_tpu_torch.data import preprocess as pp
+    from gfs3dseg_gws_tpu_torch.data.registry import SCANNET_CLASSNAMES
+    from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
+
+    tsv = pp.load_scannet_label_map(pp.scannet_meta_paths()[0],
+                                    SCANNET_CLASSNAMES)
+    if [tsv.get(r, 0) for r in SCANNET_RAW] != list(range(21)):
+        raise AssertionError("SCANNET_RAW does not map to classes 0-20")
+    t0 = time.perf_counter()
+    scans, out = os.path.join(root, "scans"), os.path.join(root, "scannet")
+    write_scannet_raw(scans, pp.load_scannet_val_scenes())
+    t1 = time.perf_counter()
+    preprocess_cli.main(["collect_scannet", "--data_path", scans,
+                         "--out_root", out])
+    split = {sub: len(os.listdir(os.path.join(out, "scenes", sub)))
+             for sub in ("train_data", "test_data")}
+    t2 = time.perf_counter()
+    n_blocks, card_s, host_s = cut_blocks(dev, out, "scannet")
+    phase("raw ScanNet -> blocks", scans=len(os.listdir(scans)),
+          scenes=split, vertices_per_scan=SCAN_POINTS,
+          write_raw_seconds=t1 - t0, collect_seconds=t2 - t1,
+          room2blocks_cli_card_seconds=card_s,
+          room2blocks_cli_host_seconds=host_s, block_files=n_blocks,
+          card_equals_host="byte for byte")
+    if split != {"train_data": 3, "test_data": 2}:
+        raise AssertionError(f"ScanNet split {split}")
+    model = GWCAPL(classes=21, base_num=15, num_gw=NUM_GW,
+                   generator=torch.Generator().manual_seed(SEED + 4))
+    pth = os.path.join(root, "ckpt_scannet", "model.pth")
+    os.makedirs(os.path.dirname(pth))
+    torch.save({"epoch": 0, "state_dict": model.state_dict(),
+                "optimizer": {}, "max_iou": 0.0}, pth)
+    res = evaluate_blocks(dev, root, "evaluate_gfs on raw ScanNet blocks",
+                          "scannet", os.path.join(out, "blocks_bs1_s1"),
+                          os.path.join(out, "blocks_bs1_s1_test"),
+                          basis_path, pth, "--total_classes", "21")
+    per_class = np.asarray(res["per_class"])
+    if per_class.shape != (20,) or abs(res["mean_iou"]
+                                       - per_class.mean()) > 1e-9:
+        raise AssertionError(f"ScanNet: class 0 in the aggregates "
+                             f"({per_class.shape}, {res['mean_iou']})")
+
+
+# --------------------------------------------------------------------------- #
+# the checkpoint converter, trace and StepTimer
+# --------------------------------------------------------------------------- #
+
+def npz_round_trip(src: str, modes, tmp: str, carried=(),
+                   keep=lambda key: True):
+    """`src` through convert_checkpoint's two `modes` (npz -> reference
+    file -> npz): every array `keep` selects and the metadata the
+    reference file carries (`carried`) must come back bit for bit.
+    Returns the number of arrays."""
+    from gfs3dseg_gws_tpu_torch.cli import convert_checkpoint
+    from gfs3dseg_gws_tpu_torch.utils.checkpoint import load_checkpoint
+
+    mid, back = tmp + (".pth" if modes[0] in ("npz-to-gfs", "npz-to-coding")
+                       else ""), tmp + ".npz"
+    convert_checkpoint.main([modes[0], src, mid])
+    convert_checkpoint.main([modes[1], mid, back])
+    if modes[0] == "npz-to-coding":
+        with np.load(src) as a, np.load(back) as b:
+            ref, got, meta = {"coding": a["coding"]}, {
+                "coding": b["coding"]}, ({}, {})
+    else:
+        (ref, m_ref), (got, m_got) = load_checkpoint(src), load_checkpoint(
+            back)
+        ref = {k: v for k, v in ref.items() if keep(k)}
+        meta = ({k: v for k, v in m_ref.items() if k in carried},
+                {k: v for k, v in m_got.items() if k in carried})
+    if (sorted(got) != sorted(ref) or meta[0] != meta[1] or any(
+            got[k].dtype != v.dtype or np.ascontiguousarray(got[k]).tobytes()
+            != np.ascontiguousarray(v).tobytes() for k, v in ref.items())):
+        raise AssertionError(f"{modes}: {src} does not come back bit for "
+                             "bit")
+    return len(ref)
+
+
+def check_converter(dev, root: str, gfs_run, pre_ckpts, proto_dir: str,
+                    coding_npz: str):
+    """cli/convert_checkpoint.py on what the main path wrote: the GFS npz
+    of phases 10-13 through npz-to-gfs and gfs-to-npz, its .pth evaluated
+    by `train_cli --only_evaluate` (the per-seed mIoUs must be the npz's
+    exactly); the pre-training checkpoints at the default and semseg
+    widths (npz-to-pretrain, pretrain-to-npz: the tar holds the encoder
+    alone), the ProtoNet checkpoint of the baselines phase (npz-to-fewshot,
+    fewshot-to-npz) and phase 4's base coding (npz-to-coding,
+    coding-to-npz)."""
+    from gfs3dseg_gws_tpu_torch.cli import convert_checkpoint, train_cli
+
+    t0 = time.perf_counter()
+    tmp = os.path.join(root, "converted")
+    os.makedirs(tmp)
+    arrays = {"gfs": npz_round_trip(gfs_run["checkpoint"],
+                                    ("npz-to-gfs", "gfs-to-npz"),
+                                    os.path.join(tmp, "gfs"),
+                                    ("epoch", "max_iou"))}
+    for name, tar in pre_ckpts.items():
+        arrays[name] = npz_round_trip(
+            os.path.join(os.path.dirname(tar), "checkpoint.npz"),
+            ("npz-to-pretrain", "pretrain-to-npz"),
+            os.path.join(tmp, name), keep=lambda key: "/encoder/" in key)
+    arrays["protonet"] = npz_round_trip(
+        os.path.join(proto_dir, "checkpoint.npz"),
+        ("npz-to-fewshot", "fewshot-to-npz"), os.path.join(tmp, "proto"),
+        ("iteration", "IoU", "loss"))
+    arrays["coding"] = npz_round_trip(coding_npz, ("npz-to-coding",
+                                                   "coding-to-npz"),
+                                      os.path.join(tmp, "coding"))
+    t1 = time.perf_counter()
+
+    # the .pth beside the npz, so that evaluate_gfs finds the same coding
+    npz = gfs_run["checkpoint"]
+    pth = os.path.join(os.path.dirname(npz), "converted.pth")
+    convert_checkpoint.main(["npz-to-gfs", npz, pth])
+    read = reset_launches()
+    ev = train_cli.main(gfs_run["argv"] + [
+        "--phase", "test", "--only_evaluate", "--model_checkpoint_path",
+        pth, "--save_path", os.path.join(root, "gfs_from_pth"),
+        "--eval_weight", "1.2", "--energy", "0.9"])
+    torch.cuda.synchronize()
+    launches = read()
+    ref = gfs_run["evaluated"]
+    diff = float(np.abs(ev["per_seed"] - ref["per_seed"]).max())
+    phase("converter", round_trips=arrays, round_trip_seconds=t1 - t0,
+          pth_per_seed_miou=[round(float(v), 6) for v in
+                             ev["per_seed"][:, 0]],
+          npz_per_seed_miou=[round(float(v), 6) for v in
+                             ref["per_seed"][:, 0]],
+          pth_vs_npz_max_diff=diff, coding_sweep=ev["coding_sweep"],
+          **{f"{k}_launches": v for k, v in launches.items()})
+    if not np.array_equal(ev["per_seed"], ref["per_seed"]):
+        raise AssertionError("the converted .pth does not reproduce the "
+                             "npz's per-seed mIoU")
+    if launches != gfs_run["eval_launches"]:
+        raise AssertionError(f"the .pth evaluation launched {launches}, "
+                             f"the npz's {gfs_run['eval_launches']}")
+
+
+def check_trace(dev, root: str, step):
+    """TRACE_STEPS calls of `step` (default-width gfs_train_steps) inside
+    the port's `trace`: its Chrome-trace JSON must hold device time under
+    the kernel symbols of K3, K4a, K4b, K5a and K5b (ms a step, beside
+    profile_groups' figure for as many further steps). Returns the traced
+    kernel ms a step."""
+    from gfs3dseg_gws_tpu_torch.utils.observability import trace
+
+    step()
+    torch.cuda.synchronize()
+    log_dir = os.path.join(root, "trace")
+    t0 = time.perf_counter()
+    with trace(log_dir):
+        for _ in range(TRACE_STEPS):
+            step()
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    files = glob.glob(os.path.join(log_dir, "*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    traced = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    n_kernels = 0
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        n_kernels += 1
+        key = next((name for name, pats in KERNEL_GROUPS
+                    if any(p in e["name"] for p in pats)), None)
+        if key is not None:
+            traced[key] += e["dur"] / 1e3 / TRACE_STEPS
+    profiled, _ = profile_groups(step, TRACE_STEPS)
+    want = [name for name, _ in KERNEL_GROUPS
+            if name.split()[0] in ("K3", "K4a", "K4b", "K5a", "K5b")]
+    phase("trace gfs_train_step", steps=TRACE_STEPS,
+          file=os.path.basename(files[0]),
+          megabytes=os.path.getsize(files[0]) / 2 ** 20,
+          kernel_events_per_step=n_kernels / TRACE_STEPS,
+          seconds=t1 - t0, columns="[trace ms, profile_groups ms] a step",
+          **{name.split()[0]: [round(traced[name], 4),
+                               round(profiled[name], 4) if profiled
+                               else None] for name in want})
+    missing = [name for name in want if not traced[name] > 0.0]
+    if missing:
+        raise AssertionError(f"the trace holds no device time under "
+                             f"{missing}")
+    return sum(traced.values())
+
+
+def check_step_timer(dev, step, traced_ms: float):
+    """TIMER_STEPS calls of `step` under `StepTimer(warmup=1, device=cuda)`,
+    each also timed by CUDA events inside the timed block: a wall that
+    waits for the device is no shorter than the device's time of the same
+    steps, nor than their traced kernel time; an unsynchronised timer
+    (device=cpu) measures the launches only."""
+    from gfs3dseg_gws_tpu_torch.utils.observability import StepTimer
+
+    timer, unsynced = StepTimer(warmup=1, device=dev), StepTimer(
+        warmup=1, device="cpu")
+    device_ms = []
+    for _ in range(TIMER_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with timer:
+            start.record()
+            step()
+            end.record()
+        device_ms.append(start.elapsed_time(end))
+    for _ in range(TIMER_STEPS):
+        with unsynced:
+            step()
+    torch.cuda.synchronize()
+    event_ms = statistics.mean(device_ms[1:])
+    phase("StepTimer gfs_train_step", steps=TIMER_STEPS, warmup=1,
+          timer_ms=1e3 * timer.mean, cuda_event_ms=event_ms,
+          traced_kernel_ms=traced_ms,
+          unsynchronised_timer_ms=1e3 * unsynced.mean)
+    if not 1e3 * timer.mean >= max(event_ms, traced_ms):
+        raise AssertionError(f"StepTimer {1e3 * timer.mean} ms < the "
+                             f"device's {event_ms} ms (kernels "
+                             f"{traced_ms} ms)")
 
 
 def main() -> int:
@@ -2237,6 +2793,13 @@ def main() -> int:
             raise AssertionError("card and CPU disagree")
         PHASE_SECONDS["evaluation"] = time.perf_counter() - t_eval
 
+        # ---- phase 5b: raw data -> blocks -> evaluation: raw S3DIS rooms
+        # (one of a million points) and ScanNet scans through
+        # preprocess_cli, room2blocks on the card held to the host's, the
+        # blocks through train_cli --only_evaluate
+        timed("raw_s3dis", check_raw_s3dis, dev, root, basis_path, pth)
+        timed("raw_scannet", check_raw_scannet, dev, root, basis_path)
+
         # ---- phases 6-9: pre-training, geometric words from its
         # checkpoint, the learning check, card vs CPU
         pre_ckpt = timed("pretrain", check_pretrain, dev, root)
@@ -2248,8 +2811,9 @@ def main() -> int:
 
         # ---- phases 10-13: GFS training from the pre-trained encoder and
         # its basis, the learning check, the train step alone, card vs CPU
-        train_launches, gfs = timed("gfs_train_and_evaluate", check_gfs_train,
-                                    dev, root, test_dir, gw_path, pre_ckpt)
+        train_launches, gfs, gfs_run = timed(
+            "gfs_train_and_evaluate", check_gfs_train, dev, root, test_dir,
+            gw_path, pre_ckpt)
         gp = torch.from_numpy(port_gfs.load_basis(gw_path)).to(dev)
         timed("gfs_learning_check", check_gfs_learning, dev, gfs, gp)
         timed("gfs_step", check_gfs_step, dev, gfs, gp)
@@ -2272,9 +2836,10 @@ def main() -> int:
                        SEMSEG_WIDTHS, "semseg_basis")
         timed("card_vs_cpu_lloyd", check_lloyd, dev, root, seg_ckpt,
               SEMSEG_WIDTHS)
-        seg_launches, _ = timed("semseg_gfs_train_and_evaluate",
-                                check_gfs_train, dev, root, test_dir, seg_gw,
-                                seg_ckpt, SEMSEG_WIDTHS, "semseg_gfs_train")
+        seg_launches, _, _ = timed("semseg_gfs_train_and_evaluate",
+                                   check_gfs_train, dev, root, test_dir,
+                                   seg_gw, seg_ckpt, SEMSEG_WIDTHS,
+                                   "semseg_gfs_train")
         phase("semseg chain", widths=SEMSEG_WIDTHS,
               seconds=time.perf_counter() - t0)
 
@@ -2289,12 +2854,24 @@ def main() -> int:
               dev, root, CLASS_WIDTHS, CLASS_K, 2)
         cls_gw = timed("class_basis", run_basis, dev, root, cls_ckpt,
                        CLASS_WIDTHS, "class_basis", CLASS_K)
-        cls_launches, _ = timed("class_gfs_train_and_evaluate",
-                                check_gfs_train, dev, root, test_dir, cls_gw,
-                                cls_ckpt, CLASS_WIDTHS, "class_gfs_train",
-                                CLASS_K)
+        cls_launches, _, _ = timed("class_gfs_train_and_evaluate",
+                                   check_gfs_train, dev, root, test_dir,
+                                   cls_gw, cls_ckpt, CLASS_WIDTHS,
+                                   "class_gfs_train", CLASS_K)
         phase("classification chain", widths=CLASS_WIDTHS, k=CLASS_K,
               seconds=time.perf_counter() - t0)
+
+        # ---- phases 23-24: the checkpoint converter on what the main path
+        # wrote, trace and StepTimer around the default-width GFS step
+        timed("converter", check_converter, dev, root, gfs_run,
+              {"default": pre_ckpt, "semseg": seg_ckpt},
+              os.path.join(root, "baselines",
+                           "log_proto_s3dis_S0_N2_K1_TL0_Att1"),
+              os.path.join(root, "eval",
+                           "base_class_gp_coding_energy=0.9.npz"))
+        step = gfs_step_fn(dev, gfs, gp)
+        traced_ms = timed("trace", check_trace, dev, root, step)
+        timed("step_timer", check_step_timer, dev, step, traced_ms)
 
     # launches of one main-path run each: K1/K2 in the evaluation
     # (train_cli --only_evaluate), K3-K5 in GFS training at the default

@@ -179,7 +179,7 @@ class FewShotLearner:
         loss."""
         save_fewshot_npz(self.model, os.path.join(log_dir, "checkpoint.npz"),
                          meta)
-        save_torch_fewshot_checkpoint(self.model, log_dir,
+        save_torch_fewshot_checkpoint(self.model.state_dict(), log_dir,
                                       meta.get("iteration", 0),
                                       meta.get("IoU", 0.0),
                                       meta.get("loss", 0.0))

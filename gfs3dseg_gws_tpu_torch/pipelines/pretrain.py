@@ -150,7 +150,8 @@ def pretrain(model_cfg, data_cfg, pretrain_cfg,
                     model, os.path.join(pretrain_cfg.log_dir,
                                         "checkpoint.npz"),
                     {"epoch": epoch, "miou": miou})
-                save_torch_pretrain_checkpoint(model, pretrain_cfg.log_dir)
+                save_torch_pretrain_checkpoint(model.state_dict(),
+                                               pretrain_cfg.log_dir)
 
     writer.close()
     return {"best_iou": best_iou, "history": history, "model": model}

@@ -21,7 +21,17 @@ resume. The few-shot baselines (ProtoNet, MPTI) write the reference's
 episodic `checkpoint.tar` ({'iteration', 'model_state_dict', 'loss',
 'IoU'}) and the JAX package's `checkpoint.npz`, whose variables nest the
 feature extractor under `feat` (`fewshot_state_dict_from_jax`,
-`save_fewshot_npz`). Nothing here imports jax.
+`save_fewshot_npz`).
+
+The way back works on state dicts at any encoder depth (the JAX package's
+torch-tar reader takes two-layer blocks only): `gfs_flat_from_state_dict`,
+`pretrain_flat_from_state_dict` and `fewshot_flat_from_state_dict` invert
+the three `*_state_dict_from_jax`, `save_checkpoint` writes their arrays
+as the JAX package's npz, and `save_torch_gfs_checkpoint`,
+`save_torch_pretrain_checkpoint`, `save_torch_fewshot_checkpoint` and
+`save_torch_coding` write the reference's `.pth` / `.tar` files
+(`cli/convert_checkpoint.py` converts between the two). Nothing here
+imports jax.
 """
 from __future__ import annotations
 
@@ -260,11 +270,14 @@ def pretrain_state_dict_from_jax(params: Mapping,
                                  batch_stats: Optional[Mapping] = None
                                  ) -> Dict[str, torch.Tensor]:
     """The JAX package's DGCNNSeg variables -> the port's `DGCNNSeg` state
-    dict (same argument forms as `state_dict_from_jax`)."""
+    dict (same argument forms as `state_dict_from_jax`). Variables that
+    hold the encoder alone (the JAX package's converted `checkpoint.tar`)
+    give the encoder's keys alone."""
     params, batch_stats = _split_variables(params, batch_stats)
     sd: Dict[str, torch.Tensor] = {}
-    layout = (_encoder_layout(*_jax_encoder_depths(params["encoder"]))
-              + _SEGMENTER_LAYOUT)
+    layout = _encoder_layout(*_jax_encoder_depths(params["encoder"]))
+    if "segmenter" in params:
+        layout += _SEGMENTER_LAYOUT
     _put_layout(sd, layout, params, batch_stats)
     return sd
 
@@ -301,39 +314,171 @@ def fewshot_state_dict_from_jax(params: Mapping,
     return sd
 
 
-def _model_fewshot_layout(model) -> List[_Entry]:
-    enc = model.encoder
-    return _fewshot_layout([len(b.widths) for b in enc.edge_convs],
-                           len(enc.conv.layer) // 3,
-                           len(model.base_learner.convs),
-                           model.use_attention)
+# --------------------------------------------------------------------------- #
+# port state dict -> JAX variables (the inverses, at any encoder depth)
+# --------------------------------------------------------------------------- #
+
+def _convs(sd: Mapping, fmt: str) -> int:
+    """How many layers a module list holds: the n with `fmt.format(n)` in
+    `sd` for n = 0, 1, ... (a conv_bn_stack holds [conv, BatchNorm,
+    activation] a layer, so its n-th conv weight is `{3 n}.weight`)."""
+    n = 0
+    while fmt.format(n=n, i=3 * n) in sd:
+        n += 1
+    return n
+
+
+def _sd_depths(sd: Mapping) -> Tuple[List[int], int]:
+    """The EdgeConv block depths and MLP depth of the DGCNN whose
+    `encoder.` keys `sd` holds."""
+    depths = []
+    while f"encoder.edge_convs.{len(depths)}.layer.0.weight" in sd:
+        depths.append(_convs(
+            sd, f"encoder.edge_convs.{len(depths)}.layer.{{i}}.weight"))
+    return depths, _convs(sd, "encoder.conv.layer.{i}.weight")
+
+
+def _sd_base_convs(sd: Mapping) -> int:
+    return _convs(sd, "base_learner.convs.{n}.0.weight")
+
+
+def gfs_flat_from_state_dict(sd: Mapping) -> Dict[str, np.ndarray]:
+    """A `GWCAPL` state dict (the reference's GFS keys) -> the JAX
+    package's flat `params/...`, `batch_stats/...` arrays: the inverse of
+    `state_dict_from_jax`."""
+    layout = (_encoder_layout(*_sd_depths(sd))
+              + _head_layout(_sd_base_convs(sd)) + _FUSION_LAYOUT)
+    return _flat_from_state_dict(sd, layout, _PROTOS)
+
+
+def pretrain_flat_from_state_dict(sd: Mapping) -> Dict[str, np.ndarray]:
+    """A `DGCNNSeg` state dict, or its `encoder.` keys alone -> flat JAX
+    arrays (the encoder, and the segmenter where `sd` has one): the
+    inverse of `pretrain_state_dict_from_jax`."""
+    layout = _encoder_layout(*_sd_depths(sd))
+    if "segmenter.0.weight" in sd:
+        layout += _SEGMENTER_LAYOUT
+    return _flat_from_state_dict(sd, layout, ())
+
+
+def fewshot_flat_from_state_dict(sd: Mapping) -> Dict[str, np.ndarray]:
+    """A `ProtoNet` / `MPTI` state dict -> flat JAX arrays under
+    `params/feat/...`, `batch_stats/feat/...`: the inverse of
+    `fewshot_state_dict_from_jax`."""
+    return _flat_from_state_dict(sd, _fewshot_layout(
+        *_sd_depths(sd), _sd_base_convs(sd),
+        "att_learner.q_map.weight" in sd), ())
+
+
+def _flat_from_state_dict(sd: Mapping, layout: Sequence[_Entry],
+                          extra: Sequence[str]) -> Dict[str, np.ndarray]:
+    """`sd` through `layout` (plus the parameters named in `extra`, kept at
+    the top level) as flat npz arrays (copies, on the host)."""
+    def host(name):
+        return np.array(sd[name].detach().cpu())
+
+    flat: Dict[str, np.ndarray] = {f"params/{name}": host(name)
+                                   for name in extra}
+    for key, path, kind, has_bias in layout:
+        if kind == "bn":
+            flat[f"params/{path}/scale"] = host(key + ".weight")
+            flat[f"params/{path}/bias"] = host(key + ".bias")
+            flat[f"batch_stats/{path}/mean"] = host(key + ".running_mean")
+            flat[f"batch_stats/{path}/var"] = host(key + ".running_var")
+            continue
+        w = host(key + ".weight")
+        flat[f"params/{path}"] = np.ascontiguousarray(
+            w.reshape(w.shape[0], w.shape[1]).T)
+        if has_bias:
+            flat[f"params/{path.rsplit('/', 1)[0]}/bias"] = host(key + ".bias")
+    return flat
+
+
+def save_checkpoint(path: str, flat: Mapping[str, np.ndarray],
+                    meta: Optional[Dict] = None) -> None:
+    """Write flat arrays and JSON metadata as the JAX package's `.npz`
+    checkpoint (its `save_checkpoint` layout; `load_checkpoint` reads it
+    back)."""
+    arrays = dict(flat)
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta or {}).encode(),
+                                       dtype=np.uint8)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+def save_gfs_npz(model, path: str, meta: Optional[Dict] = None) -> None:
+    """Write a `GWCAPL` in the JAX package's flat checkpoint layout: the
+    JAX package's `load_checkpoint` + `restore_into` read it into its
+    GWCAPL, and so does the port's `load_checkpoint` +
+    `state_dict_from_jax`."""
+    save_checkpoint(path, gfs_flat_from_state_dict(model.state_dict()), meta)
+
+
+def save_pretrain_npz(model, path: str, meta: Optional[Dict] = None) -> None:
+    """Write a `DGCNNSeg` as the JAX package's `checkpoint.npz`: flat
+    `params/...` and `batch_stats/...` arrays plus a JSON `__meta__`, the
+    layout its `save_checkpoint` writes and `restore_into` reads."""
+    save_checkpoint(path, pretrain_flat_from_state_dict(model.state_dict()),
+                    meta)
 
 
 def save_fewshot_npz(model, path: str, meta: Optional[Dict] = None) -> None:
     """Write a `ProtoNet` / `MPTI` as the JAX package's few-shot
     `checkpoint.npz` (flat `params/feat/...`, `batch_stats/feat/...`),
     which its `FewShotLearner` restores strictly."""
-    _save_npz(model, _model_fewshot_layout(model), (), path, meta)
+    save_checkpoint(path, fewshot_flat_from_state_dict(model.state_dict()),
+                    meta)
 
 
-def save_torch_fewshot_checkpoint(model, out_dir: str, iteration: int = 0,
-                                  iou: float = 0.0, loss: float = 0.0) -> str:
-    """Write `out_dir/checkpoint.tar` in the reference's episodic-baseline
-    format ({'iteration', 'model_state_dict', 'loss', 'IoU'},
-    pretrain/runs/proto_train.py:72-78). Returns the path."""
-    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+# --------------------------------------------------------------------------- #
+# the reference's torch formats
+# --------------------------------------------------------------------------- #
+
+def _host_state_dict(sd: Mapping) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+
+def save_torch_gfs_checkpoint(sd: Mapping, path: str, epoch: int = 0,
+                              max_iou: float = 0.0) -> None:
+    """Write a `GWCAPL` state dict as the reference's GFS `.pth`
+    ({'epoch', 'state_dict', 'optimizer', 'max_iou'}, reference
+    train.py:561), which `load_torch_gfs_state_dict` and the JAX package's
+    `load_torch_gfs_checkpoint` read."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({"epoch": int(epoch), "state_dict": _host_state_dict(sd),
+                "optimizer": {}, "max_iou": float(max_iou)}, path)
+
+
+def save_torch_coding(coding: np.ndarray, path: str) -> None:
+    """Write a base-class coding as the reference's
+    base_class_gp_coding_energy={e}.pth (a torch.save of the float32
+    (n_base, num_gw) tensor, reference train.py:563)."""
+    torch.save(torch.from_numpy(np.asarray(coding, np.float32)), path)
+
+
+def save_torch_fewshot_checkpoint(sd: Mapping, out_dir: str,
+                                  iteration: int = 0, iou: float = 0.0,
+                                  loss: float = 0.0) -> str:
+    """Write a `ProtoNet` / `MPTI` state dict as `out_dir/checkpoint.tar`
+    in the reference's episodic-baseline format ({'iteration',
+    'model_state_dict', 'loss', 'IoU'}, pretrain/runs/proto_train.py:72-78).
+    Returns the path."""
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "checkpoint.tar")
-    torch.save({"iteration": int(iteration), "model_state_dict": sd,
+    torch.save({"iteration": int(iteration),
+                "model_state_dict": _host_state_dict(sd),
                 "loss": float(loss), "IoU": float(iou)}, path)
     return path
 
 
-def load_torch_fewshot_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+def load_torch_fewshot_tar(path: str) -> Dict[str, Any]:
     """A reference episodic-baseline checkpoint, given as its directory
-    (the reference appends `checkpoint.tar`) or the file -> its model
-    state dict. A pre-training tar ({'params': encoder}) is refused: it
-    belongs to `pretrain_checkpoint_path`."""
+    (the reference appends `checkpoint.tar`) or the file, as saved. A
+    pre-training tar ({'params': encoder}) is refused: it belongs to
+    `pretrain_checkpoint_path`."""
     p = path if path.endswith(".tar") else os.path.join(path,
                                                         "checkpoint.tar")
     ckpt = torch_load(p)
@@ -345,71 +490,25 @@ def load_torch_fewshot_checkpoint(path: str) -> Dict[str, torch.Tensor]:
                 "episodic-baseline model checkpoint")
         raise ValueError(f"{p} has no 'model_state_dict' key; not an "
                          "episodic-baseline checkpoint.tar")
-    return dict(ckpt["model_state_dict"])
+    return ckpt
 
 
-def _model_encoder_layout(model) -> List[_Entry]:
-    enc = model.encoder
-    return _encoder_layout([len(b.widths) for b in enc.edge_convs],
-                           len(enc.conv.layer) // 3)
+def load_torch_fewshot_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The model state dict of `load_torch_fewshot_tar(path)`."""
+    return dict(load_torch_fewshot_tar(path)["model_state_dict"])
 
 
-def save_torch_pretrain_checkpoint(model, out_dir: str) -> str:
-    """Write `out_dir/checkpoint.tar` = {"params": encoder state dict} in
-    the reference layout (JAX: save_torch_pretrain_checkpoint). Returns the
+def save_torch_pretrain_checkpoint(sd: Mapping, out_dir: str) -> str:
+    """Write the `encoder.` keys of a `DGCNNSeg` (or any model's) state
+    dict as `out_dir/checkpoint.tar` = {"params": encoder state dict}, the
+    reference layout (JAX: save_torch_pretrain_checkpoint). Returns the
     path."""
-    sd = {k[len("encoder."):]: v.detach().cpu().clone()
-          for k, v in model.state_dict().items() if k.startswith("encoder.")}
+    enc = {k[len("encoder."):]: v for k, v in sd.items()
+           if k.startswith("encoder.")}
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "checkpoint.tar")
-    torch.save({"params": sd}, path)
+    torch.save({"params": _host_state_dict(enc)}, path)
     return path
-
-
-def save_pretrain_npz(model, path: str, meta: Optional[Dict] = None) -> None:
-    """Write a `DGCNNSeg` as the JAX package's `checkpoint.npz`: flat
-    `params/...` and `batch_stats/...` arrays plus a JSON `__meta__`, the
-    layout its `save_checkpoint` writes and `restore_into` reads."""
-    _save_npz(model, _model_encoder_layout(model) + _SEGMENTER_LAYOUT, (),
-              path, meta)
-
-
-def save_gfs_npz(model, path: str, meta: Optional[Dict] = None) -> None:
-    """Write a `GWCAPL` in the JAX package's flat checkpoint layout (the
-    inverse of `state_dict_from_jax`): the JAX package's `load_checkpoint`
-    + `restore_into` read it into its GWCAPL, and so does the port's
-    `load_checkpoint` + `state_dict_from_jax`."""
-    layout = (_model_encoder_layout(model)
-              + _head_layout(len(model.base_learner.convs)) + _FUSION_LAYOUT)
-    _save_npz(model, layout, _PROTOS, path, meta)
-
-
-def _save_npz(model, layout: Sequence[_Entry], extra: Sequence[str],
-              path: str, meta: Optional[Dict]) -> None:
-    """Write `model`'s state dict through `layout` (plus the parameters
-    named in `extra`, kept at the top level) as flat npz arrays."""
-    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
-    flat: Dict[str, np.ndarray] = {f"params/{name}": sd[name]
-                                   for name in extra}
-    for key, path_, kind, has_bias in layout:
-        if kind == "bn":
-            flat[f"params/{path_}/scale"] = sd[key + ".weight"]
-            flat[f"params/{path_}/bias"] = sd[key + ".bias"]
-            flat[f"batch_stats/{path_}/mean"] = sd[key + ".running_mean"]
-            flat[f"batch_stats/{path_}/var"] = sd[key + ".running_var"]
-            continue
-        w = sd[key + ".weight"]
-        flat[f"params/{path_}"] = np.ascontiguousarray(
-            w.reshape(w.shape[0], w.shape[1]).T)
-        if has_bias:
-            flat[f"params/{path_.rsplit('/', 1)[0]}/bias"] = sd[key + ".bias"]
-    flat["__meta__"] = np.frombuffer(json.dumps(meta or {}).encode(),
-                                     dtype=np.uint8)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **flat)
-    os.replace(tmp, path)
 
 
 # --------------------------------------------------------------------------- #
@@ -425,13 +524,9 @@ def load_pretrained_encoder(path: str) -> Dict[str, torch.Tensor]:
     if os.path.isdir(path):
         path = os.path.join(path, "checkpoint.tar")
     if path.endswith(".npz"):
-        flat, _ = load_checkpoint(path)
-        tree = _unflatten(flat)
-        params, stats = tree["params"], tree["batch_stats"]
-        sd: Dict[str, torch.Tensor] = {}
-        _put_layout(sd, _encoder_layout(*_jax_encoder_depths(
-            params["encoder"])), params, stats)
-        return {k[len("encoder."):]: v for k, v in sd.items()}
+        sd = pretrain_state_dict_from_jax(load_checkpoint(path)[0])
+        return {k[len("encoder."):]: v for k, v in sd.items()
+                if k.startswith("encoder.")}
     return torch_load(path)["params"]
 
 

@@ -1,6 +1,8 @@
 """PyTorch port, the slice as a whole: `evaluate_gfs` of the port (CPU,
 plain kernels) against the JAX package's `evaluate_gfs` on one tiny
-synthetic dataset, one basis and one reference-layout `.pth`."""
+synthetic dataset, one basis and one reference-layout `.pth`, at the S3DIS
+setup and at the ScanNet setup (21 classes, class 0 left out of every
+aggregate)."""
 import os
 import pickle
 
@@ -10,6 +12,7 @@ import pytest
 import jax
 
 from gfs3dseg_gws_tpu.data import make_synthetic_blocks
+from gfs3dseg_gws_tpu.data.registry import SCANNET_CLASSNAMES
 from gfs3dseg_gws_tpu.pipelines import gfs as jax_gfs
 from gfs3dseg_gws_tpu.utils.checkpoint import save_torch_gfs_checkpoint
 from gfs3dseg_gws_tpu.utils.config import (DataConfig as JaxDataConfig,
@@ -30,27 +33,33 @@ WIDTHS = dict(edgeconv_widths=TINY["edgeconv_widths"],
 MIOU_TOL = 2e-3
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def evaluate_both(root, dataset, n_train, n_test, points, classnames=None):
+    """`evaluate_gfs` of both packages on one synthetic dataset of
+    `dataset`'s layout, one basis and one reference-layout `.pth`; the
+    JAX package's per-seed metrics from its own registration and sweep."""
     set_fp32()
-    root = str(tmp_path_factory.mktemp("gfs_eval"))
+    n_classes = len(classnames) if classnames else 13
     train_dir, test_dir = make_synthetic_blocks(
-        root, n_train_blocks=20, n_test_blocks=13, points_per_block=600,
-        seed=21)
+        root, dataset=dataset, n_train_blocks=n_train, n_test_blocks=n_test,
+        points_per_block=points, n_classes=n_classes, seed=21,
+        classnames=classnames)
     basis = np.random.default_rng(22).standard_normal((NUM_GW, 24)).astype(
         np.float32)
     basis_path = os.path.join(root, "basis.pkl")
     with open(basis_path, "wb") as f:
         pickle.dump(basis, f)
-    _, variables = jax_capl(num_gw=NUM_GW, npts=NPTS, seed=3)
+    base_num = {"s3dis": 7, "scannet": 15}[dataset]
+    _, variables = jax_capl(num_gw=NUM_GW, npts=NPTS, seed=3,
+                            classes=n_classes, base_num=base_num)
     pth = os.path.join(root, "ckpt", "model.pth")
     save_torch_gfs_checkpoint(jax.device_get(variables["params"]),
                               jax.device_get(variables["batch_stats"]), pth)
 
     common = dict(basis_path=basis_path, model_checkpoint_path=pth,
                   only_evaluate=True, eval_weight=1.2, batch_size=8)
-    data = dict(dataset="s3dis", cvfold=0, data_path=train_dir,
-                testing_data_path=test_dir, pc_npts=NPTS, k_shot=K_SHOT)
+    data = dict(dataset=dataset, cvfold=0, data_path=train_dir,
+                testing_data_path=test_dir, pc_npts=NPTS, k_shot=K_SHOT,
+                total_classes=n_classes)
 
     jax_cfgs = (JaxModelConfig(use_pallas=False, **WIDTHS),
                 JaxDataConfig(**data),
@@ -71,7 +80,8 @@ def runs(tmp_path_factory):
     jax_seeds = jax_gfs.validate_multi(
         setup.model, variables, setup.gp, setup.val_dataset, jax_geneds,
         jax_base, jax_novel, setup.all_learning_order,
-        setup.test_class_names, 13, batch_size=8)
+        setup.test_class_names, n_classes, batch_size=8,
+        scannet=dataset == "scannet")
 
     port = port_gfs.evaluate_gfs(
         ModelConfig(**WIDTHS), DataConfig(**data),
@@ -79,7 +89,23 @@ def runs(tmp_path_factory):
                     **common))
     return dict(jax_avg=jax_avg, jax_base=jax_base, jax_geneds=jax_geneds,
                 jax_novel=jax_novel,
-                jax_seeds=np.asarray([m[:4] for m in jax_seeds]), port=port)
+                jax_seeds=np.asarray([m[:4] for m in jax_seeds]), port=port,
+                train_classes=list(setup.train_class_names))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return evaluate_both(str(tmp_path_factory.mktemp("gfs_eval")), "s3dis",
+                         20, 13, 600)
+
+
+@pytest.fixture(scope="module")
+def scannet_runs(tmp_path_factory):
+    """The ScanNet setup: 21 classes with class 0 ("unannotated") a base
+    class that every aggregate leaves out (reference runs/eval.py:79-106),
+    15 base and 6 novel classes (fold 0)."""
+    return evaluate_both(str(tmp_path_factory.mktemp("gfs_eval_scannet")),
+                         "scannet", 30, 19, 1200, SCANNET_CLASSNAMES)
 
 
 def test_base_codings_identical(runs):
@@ -111,3 +137,35 @@ def test_seed_averaged_miou_agrees(runs):
     np.testing.assert_allclose(port["per_class"], ref["per_class"], rtol=0,
                                atol=MIOU_TOL)
     assert port["n_blocks"] == 13
+
+
+def test_scannet_every_seed_miou_agrees(scannet_runs):
+    port = scannet_runs["port"]["per_seed"]
+    assert port.shape == (5, 4) and np.isfinite(port).all()
+    np.testing.assert_allclose(port, scannet_runs["jax_seeds"], rtol=0,
+                               atol=MIOU_TOL)
+    ref = scannet_runs["jax_avg"]
+    for key in ("mean_iou", "base_iou", "novel_iou", "hm_iou"):
+        assert abs(scannet_runs["port"][key] - ref[key]) <= MIOU_TOL, key
+    np.testing.assert_array_equal(scannet_runs["port"]["base_coding"],
+                                  scannet_runs["jax_base"])
+
+
+def test_scannet_leaves_class_0_out(scannet_runs):
+    """per_class holds classes 1-20 only, and the mean, base and novel
+    mIoUs are their means (base: the 14 base classes other than 0)."""
+    port = scannet_runs["port"]
+    per_class = port["per_class"]
+    assert per_class.shape == (20,) and np.isfinite(per_class).all()
+    np.testing.assert_allclose(per_class, scannet_runs["jax_avg"]
+                               ["per_class"], rtol=0, atol=MIOU_TOL)
+    base = [c for c in scannet_runs["train_classes"] if c != 0]
+    novel = [c for c in range(1, 21) if c not in base]
+    assert 0 in scannet_runs["train_classes"] and len(base) == 14
+    assert len(novel) == 6
+    assert abs(port["mean_iou"] - per_class.mean()) <= 1e-12
+    assert abs(port["base_iou"] - per_class[[c - 1 for c in base]].mean()
+               ) <= 1e-12
+    assert abs(port["novel_iou"] - per_class[[c - 1 for c in novel]].mean()
+               ) <= 1e-12
+    assert port["n_blocks"] == 19

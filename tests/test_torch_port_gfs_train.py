@@ -423,7 +423,7 @@ def gfs_data(tmp_path_factory):
                    mlp_widths=WIDTHS["dgcnn_mlp_widths"], k=WIDTHS["dgcnn_k"],
                    generator=torch.Generator().manual_seed(33))
     pre_dir = os.path.join(root, "pretrain")
-    save_torch_pretrain_checkpoint(seg, pre_dir)
+    save_torch_pretrain_checkpoint(seg.state_dict(), pre_dir)
     save_pretrain_npz(seg, os.path.join(pre_dir, "checkpoint.npz"))
     return dict(root=root, train_dir=train_dir, test_dir=test_dir,
                 basis_path=basis_path, pre_dir=pre_dir, encoder=seg.encoder)

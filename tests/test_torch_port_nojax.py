@@ -1,9 +1,9 @@
 """The port must import and start on a host without JAX (the GPU host has
 none), and without any module of the JAX package: every module of
 gfs3dseg_gws_tpu_torch imports (the training slices' kernels, models,
-optimizers, pipelines and CLIs among them, geometric-word extraction and
-the few-shot baselines), `chip_smoke` imports, and the three CLIs answer
---help, in a subprocess where importing jax, flax or gfs3dseg_gws_tpu
+optimizers, pipelines and CLIs among them, geometric-word extraction,
+the few-shot baselines, preprocessing and the checkpoint converter),
+`chip_smoke` imports, and the five CLIs answer --help, in a subprocess where importing jax, flax or gfs3dseg_gws_tpu
 (even its numpy-only modules) fails, and h5py too (the GPU host has
 none)."""
 import os
@@ -30,11 +30,16 @@ for name in ("ops.knn", "ops.fused_edgeconv_train", "ops.attention_train",
              "ops.kmeans", "ops.linalg", "pipelines.basis", "cli.basis_cli",
              "ops.fused_edgeconv", "ops.attention_kernel", "ops._ext",
              "data.episodes", "ops.metrics", "ops.fps", "models.protonet",
-             "models.mpti", "pipelines.baselines", "parallel.steps"):
+             "models.mpti", "pipelines.baselines", "parallel.steps",
+             "cli.preprocess_cli", "cli.convert_checkpoint",
+             "data.preprocess", "utils.visual"):
     assert "gfs3dseg_gws_tpu_torch." + name in names, name
 import chip_smoke
-from gfs3dseg_gws_tpu_torch.cli import basis_cli, pretrain_cli, train_cli
-for cli in (train_cli, pretrain_cli, basis_cli):
+from gfs3dseg_gws_tpu_torch.cli import (basis_cli, convert_checkpoint,
+                                        preprocess_cli, pretrain_cli,
+                                        train_cli)
+for cli in (train_cli, pretrain_cli, basis_cli, preprocess_cli,
+            convert_checkpoint):
     try:
         cli.main(["--help"])
     except SystemExit as e:
@@ -56,6 +61,7 @@ def test_port_imports_and_starts_without_jax():
     assert "--only_evaluate" in res.stdout and "--device" in res.stdout
     assert "--pretrain_weight_decay" in res.stdout
     assert "--num_cnt" in res.stdout
+    assert "room2blocks" in res.stdout and "npz-to-fewshot" in res.stdout
     assert res.stdout.rstrip().endswith("ok")
     n = int(res.stdout.split("imported ")[1].split()[0])
     assert n >= 20

@@ -558,18 +558,39 @@ def test_pretrain_cli_refuses_what_it_cannot_run(monkeypatch, tmp_path, argv,
     assert not any(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("cli", ["pretrain_cli", "train_cli", "basis_cli"])
+def _parsers(parser: argparse.ArgumentParser, name: str = ""):
+    """{name: parser} of a parser and, recursively, its subcommands."""
+    out = {name: parser}
+    for a in parser._actions:
+        if isinstance(a, argparse._SubParsersAction):
+            for sub, p in a.choices.items():
+                out.update(_parsers(p, f"{name}/{sub}"))
+    return out
+
+
+# where each port CLI takes `--device` (its parser or subcommand)
+DEVICE_AT = {"pretrain_cli": "", "train_cli": "", "basis_cli": "",
+             "preprocess_cli": "/room2blocks"}
+
+
+@pytest.mark.parametrize("cli", ["pretrain_cli", "train_cli", "basis_cli",
+                                 "preprocess_cli"])
 def test_cli_flags_match_jax(cli):
-    """Every flag of the JAX CLI parses in the port's with the same action,
-    default, type, choices and destination; the port adds `--device` only
-    (and `-h`)."""
+    """Every flag of the JAX CLI (and of each of its subcommands) parses in
+    the port's with the same action, default, type, choices and
+    destination; the port adds `--device` only (and `-h`), on the parser
+    that does the device work (preprocess_cli: room2blocks)."""
     import importlib
 
-    ours = _flags(importlib.import_module(
+    ours = _parsers(importlib.import_module(
         f"gfs3dseg_gws_tpu_torch.cli.{cli}").build_parser())
-    ref = _flags(importlib.import_module(
+    refs = _parsers(importlib.import_module(
         f"gfs3dseg_gws_tpu.cli.{cli}").build_parser())
-    assert set(ours) - set(ref) == {"--device"}
-    assert set(ref) <= set(ours)
-    for opt, spec in ref.items():
-        assert ours[opt] == spec, (opt, ours[opt], spec)
+    assert set(ours) == set(refs)
+    for name, parser in refs.items():
+        ref, mine = _flags(parser), _flags(ours[name])
+        added = {"--device"} if name == DEVICE_AT[cli] else set()
+        assert set(mine) - set(ref) == added, name
+        assert set(ref) <= set(mine)
+        for opt, spec in ref.items():
+            assert mine[opt] == spec, (name, opt, mine[opt], spec)
