@@ -81,6 +81,8 @@ GRAPH_TIE = 1e-4                  # ... card graph rows the CPU's own graph
 MAX_TIE = 1e-4                    # ... and global-max points it differs on:
                                   # |max - value there| / |max| at most this
 ATTN_RATE = 0.1                   # K5: the model's attention dropout
+K5_OFFSET = 8                     # K5 also at this batch_offset (a data-
+                                  # parallel rank's first global row)
 K5_FWD_TOL, K5_BWD_TOL = 1e-5, 1e-4  # K5a / K5b: max |diff| / max |twin|
 GFS_BLOCKS, GFS_EPOCHS = 256, 2   # GFS training data and epochs
 DEFAULT_WIDTHS = "[[64,64],[64,64],[64,64]]"
@@ -831,7 +833,9 @@ def check_attention_train(dev, gen: torch.Generator, d: int = 64,
     (K5a) and dq, dk, dv (K5b, on the twin's m, den and Delta) are held to
     K5_FWD_TOL / K5_BWD_TOL of the twin's largest entry, and so are dq, dk,
     dv of the card's chain (K5b on K5a's m, den and out) against the twins'
-    chain; the keep share must lie within 5 sigma of 1 - rate. Times at
+    chain; the same at ATTN_RATE with batch_offset K5_OFFSET (the mask of
+    a data-parallel rank's rows); the keep share must lie within 5 sigma
+    of 1 - rate. Times at
     ATTN_RATE, the main path's; beside them, as a yardstick only, fp32
     scaled_dot_product_attention forward and backward at dropout 0 (the
     port never calls it)."""
@@ -842,26 +846,28 @@ def check_attention_train(dev, gen: torch.Generator, d: int = 64,
     seed = torch.tensor([SEED + 77], dtype=torch.int32, device=dev)
     temp = d ** 0.5
     errs = {}
-    for rate in (0.0, ATTN_RATE):
-        got = atr._fwd(q, k, v, seed, temp, rate)
-        ref = atr._fwd_plain(q, k, v, seed, temp, rate)
+    for rate, off in ((0.0, 0), (ATTN_RATE, 0), (ATTN_RATE, K5_OFFSET)):
+        got = atr._fwd(q, k, v, seed, temp, rate, off)
+        ref = atr._fwd_plain(q, k, v, seed, temp, rate, off)
         delta = (dy * ref[0]).sum(-1)
-        bwd_args = (q, k, v, seed, ref[1], ref[2], delta, dy, temp, rate)
+        bwd_args = (q, k, v, seed, ref[1], ref[2], delta, dy, temp, rate,
+                    off)
         got_b, ref_b = atr._bwd(*bwd_args), atr._bwd_plain(*bwd_args)
         chain = atr._bwd(q, k, v, seed, got[1], got[2],
-                         (dy * got[0]).sum(-1), dy, temp, rate)
+                         (dy * got[0]).sum(-1), dy, temp, rate, off)
         torch.cuda.synchronize()
-        errs[rate] = dict(
+        key = rate if off == 0 else "offset"
+        errs[key] = dict(
             fwd=max(rel_err(g, r) for g, r in zip(got, ref)),
             bwd=max(rel_err(g, r) for g, r in zip(got_b, ref_b)),
             chain=max(rel_err(g, r) for g, r in zip(chain, ref_b)),
             fwd_abs=(got[0] - ref[0]).abs().max().item(),
             bwd_abs=max((g - r).abs().max().item()
                         for g, r in zip(got_b, ref_b)))
-        if (errs[rate]["fwd"] > K5_FWD_TOL or errs[rate]["bwd"] > K5_BWD_TOL
-                or errs[rate]["chain"] > K5_BWD_TOL):
-            raise AssertionError(f"K5 at rate {rate} off its twin: "
-                                 f"{errs[rate]}")
+        if (errs[key]["fwd"] > K5_FWD_TOL or errs[key]["bwd"] > K5_BWD_TOL
+                or errs[key]["chain"] > K5_BWD_TOL):
+            raise AssertionError(f"K5 at rate {rate}, batch_offset {off} "
+                                 f"off its twin: {errs[key]}")
         del got, ref, got_b, ref_b, chain
     keep = atr.dropout_keep_mask(seed, B, N, ATTN_RATE)
     share = keep.double().mean().item()
@@ -904,7 +910,11 @@ def check_attention_train(dev, gen: torch.Generator, d: int = 64,
           k5_chain_rel_err=errs[ATTN_RATE]["chain"],
           k5a_rel_err_rate0=errs[0.0]["fwd"],
           k5b_rel_err_rate0=errs[0.0]["bwd"],
-          k5_chain_rel_err_rate0=errs[0.0]["chain"], keep_share=share,
+          k5_chain_rel_err_rate0=errs[0.0]["chain"],
+          k5a_rel_err_offset=errs["offset"]["fwd"],
+          k5b_rel_err_offset=errs["offset"]["bwd"],
+          k5_chain_rel_err_offset=errs["offset"]["chain"],
+          batch_offset=K5_OFFSET, keep_share=share,
           keep_sigma=sigma, k5a_bound_ms=k5a_bound[0],
           k5a_bound_fp32_ms=k5a_fp32, k5b_bound_ms=k5b_bound[0],
           k5b_bound_fp32_ms=k5b_fp32, **times)
@@ -1609,6 +1619,348 @@ def check_train_step_vs_cpu(dev, root: str, widths: str = DEFAULT_WIDTHS,
         dev,
         lambda model, device: cross_entropy(model(pts.to(device)),
                                             lbl.to(device)))
+
+
+# --------------------------------------------------------------------------- #
+# data parallelism (parallel/mesh.py)
+# --------------------------------------------------------------------------- #
+
+DP_RANKS, DP_STEPS = 2, 3         # dp phase: gloo ranks on the one card
+DP_RTOL, DP_COS = 1e-5, 0.99999   # ... loss and running statistics; the
+                                  # gradient cosine (noise pairs: NOISE_GRAD)
+DP_NORM = 5e-3                    # ... and | |g| / |ref| - 1 |: the relative
+                                  # change DP_COS admits, sqrt(2(1 - DP_COS))
+DP_TRAJ_RTOL = 1e-3               # ... one process's own DP_STEPS steps vs
+                                  # the ranks' losses: Adam's first steps
+                                  # are +-lr for each weight, so a weight
+                                  # whose gradient sign the card's rounding
+                                  # and near-tie flips decide moves by 2 lr
+DP_MIOU_TOL = 1e-6                # ... evaluate_gfs over the ranks, per seed
+
+
+class Recorder:
+    """Stands in for a kernel's stage wrapper (e.g. ops/
+    fused_edgeconv_train.py::_gsf) while a check records its outputs:
+    calls `fn`, hands the result to `sink`, returns it. Its `launches` is
+    `fn`'s, so the wrapper's own count (which it reads by its module name)
+    goes on counting while it is swapped."""
+
+    def __init__(self, fn, sink):
+        self.fn, self.sink = fn, sink
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        self.sink(args, out)
+        return out
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.launches = value
+
+
+def dp_rank(mesh, *args):
+    """One rank of the dp phase's `dryrun_multichip`: `gfs_ranks` (its
+    arguments), recording the kNN graphs of the training EdgeConvs (K3)
+    and K4a's max and min neighbour slots, of this rank's rows. Adds them
+    to its result as "graphs" / "slots", a list of the blocks' per step."""
+    from gfs3dseg_gws_tpu_torch.models import dgcnn
+    from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
+    from gfs3dseg_gws_tpu_torch.parallel.dryrun import gfs_ranks
+
+    graphs, slots = [], []
+    knn, gsf = dgcnn.knn_with_stats, fet._gsf
+
+    def knn_rec(*a):
+        res = knn(*a)
+        graphs.append(res[0].cpu())
+        return res
+
+    def gsf_rec(a, res):
+        k = a[2].shape[-1]                      # the slots lie in [0, k)
+        slots.append(torch.stack(res[3:5]).to(
+            torch.uint8 if k <= 256 else torch.int32).cpu())
+
+    dgcnn.knn_with_stats, fet._gsf = knn_rec, Recorder(gsf, gsf_rec)
+    try:
+        out = gfs_ranks(mesh, *args)
+    finally:
+        dgcnn.knn_with_stats, fet._gsf = knn, gsf
+    steps = len(out["loss"])
+    if len(graphs) % steps or len(slots) != len(graphs):
+        raise AssertionError(f"dp rank {mesh.rank}: {len(graphs)} graphs "
+                             f"and {len(slots)} K4a calls in {steps} steps")
+    n = len(graphs) // steps
+    return dict(out, graphs=[graphs[i * n:(i + 1) * n] for i in range(steps)],
+                slots=[slots[i * n:(i + 1) * n] for i in range(steps)])
+
+
+def dp_evaluate_rank(mesh, model_cfg, data_cfg, train_cfg):
+    """One rank of `evaluate_gfs` over the mesh (`train_cli
+    --only_evaluate` data-parallel); returns its result."""
+    from gfs3dseg_gws_tpu_torch.pipelines.gfs import evaluate_gfs
+
+    return evaluate_gfs(model_cfg, data_cfg, train_cfg, mesh=mesh)
+
+
+def one_process_steps(out, dev, **model_kwargs):
+    """The GFS train steps of a dryrun_multichip run (`out`) taken by one
+    process on the global batch from the ranks' starting state, with the
+    generator seeded as theirs. Returns (losses, step walls on the host
+    clock). The states are not held to the ranks': a bias before a
+    BatchNorm has a gradient of rounding noise, which Adam turns into a
+    step of +-lr either way."""
+    from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
+    from gfs3dseg_gws_tpu_torch.parallel.optim import make_gfs_optimizer
+    from gfs3dseg_gws_tpu_torch.parallel.steps import gfs_train_step
+    from gfs3dseg_gws_tpu_torch.pipelines.gfs import step_seed
+
+    one = GWCAPL(device=dev, **model_kwargs)
+    one.load_state_dict(out["init"])
+    opt, sched = make_gfs_optimizer(one, 0.01, 10, 50, 0.5)
+    points, labels, gp = (a.to(dev) for a in out["inputs"])
+    gen = torch.Generator(device=dev)
+    losses, seconds = [], []
+    for step in range(len(out["loss"])):
+        gen.manual_seed(step_seed(SEED, step))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        losses.append(gfs_train_step(one, opt, points, labels, gp, gen,
+                                     sched)[0].item())
+        seconds.append(time.perf_counter() - t1)
+    return losses, seconds
+
+
+def replay_dp_step(model, out, step: int, dev):
+    """One process's GFS train pass of step `step` of a dryrun_multichip
+    run (ranks running `dp_rank`) on the same card: the ranks' state
+    before the step, the global
+    batch, the generator seeded as theirs (so the same fake classes and
+    attention masks), forward and backward. Each EdgeConv replays the
+    ranks' kNN graph (K3's), rows in rank order, after counting the rows
+    where its own K3 graph differs as a set; K4a's max/min neighbour slots
+    are compared with the ranks' (slot flips). Returns (loss, grads,
+    running statistics after, graph rows differing, slot flips)."""
+    from gfs3dseg_gws_tpu_torch.models import dgcnn
+    from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
+    from gfs3dseg_gws_tpu_torch.ops.knn import neighbor_stats_plain
+    from gfs3dseg_gws_tpu_torch.pipelines.gfs import step_seed
+
+    graphs = [torch.cat(layer) for layer in zip(
+        *(r["graphs"][step] for r in out["ranks"]))]
+    slots = [torch.cat(layer, dim=1) for layer in zip(
+        *(r["slots"][step] for r in out["ranks"]))]
+    rows, flips = [], []
+    knn, gsf = dgcnn.knn_with_stats, fet._gsf
+
+    def replay(x, btab, k):
+        own = knn(x, btab, k)[0]
+        idx = graphs[len(rows)].to(dev)
+        rows.append(int((own.sort(-1).values != idx.sort(-1).values)
+                        .any(-1).sum()))
+        return (idx,) + neighbor_stats_plain(idx, btab)
+
+    def gsf_rec(args, res):
+        flips.append(int((torch.stack(res[3:5]).cpu().long()
+                          != slots[len(flips)].long()).sum()))
+
+    model.load_state_dict(out["states"][step])
+    model.train()
+    model.zero_grad(set_to_none=True)
+    points, labels, gp = (a.to(dev) for a in out["inputs"])
+    gen = torch.Generator(device=dev).manual_seed(step_seed(SEED, step))
+    dgcnn.knn_with_stats, fet._gsf = replay, Recorder(gsf, gsf_rec)
+    try:
+        _, loss = model(points, labels, gp, gen)
+        loss.backward()
+    finally:
+        dgcnn.knn_with_stats, fet._gsf = knn, gsf
+    grads = {n: p.grad.detach().cpu().double().flatten()
+             for n, p in model.named_parameters()}
+    stats = {n: b.detach().cpu().double() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    return loss.item(), grads, stats, rows, flips
+
+
+def check_dp(dev, root: str, eval_inputs, eval_res, gw_path: str,
+             pre_ckpt: str):
+    """Data parallelism on the one card (correctness and collective
+    overhead, not scaling: two ranks share one H100).
+
+    1. `dryrun_multichip(DP_RANKS, cuda:0, "gloo")`: DP_STEPS GFS train
+       steps of the full-width GWCAPL (attention dropout ATTN_RATE) on a
+       global batch of B blocks of N points, then the coding step, the
+       ranks recording their K3 graphs and K4a slots (`dp_rank`). Each
+       step is replayed by one process on the card from the ranks' state
+       (`replay_dp_step`): the loss and the running statistics after it
+       within DP_RTOL, each gradient's cosine with the ranks' summed one
+       >= DP_COS and its norm within DP_NORM of theirs; graph rows and K4a
+       slots that differ are counted. One process then takes the same
+       DP_STEPS steps from the same start (`one_process_steps`: the summed
+       gradients and the Adam updates end to end; Adam is blind to a
+       gradient's uniform scale, which the norm check holds), its losses
+       within DP_TRAJ_RTOL of the ranks'. The ranks' launches of K3-K5 are
+       checked per step; the collectives a step, their bytes and the step
+       walls (2 ranks; one process on the same batch) are printed.
+    2. `evaluate_gfs` over the ranks on phase 4's inputs (the coding sweep
+       and the static_test sweep split, registration replicated) against
+       one process at the ranks' batch (B / DP_RANKS: the same blocks in
+       each call), every seed's mIoUs within DP_MIOU_TOL and the base
+       codings equal; the difference from phase 4's one process at batch
+       B is printed beside it (the card's GEMMs round by batch size).
+    3. `torchrun --nproc_per_node 1 -m ...cli.train_cli` on NCCL: one
+       epoch through the normal entry point, which builds its mesh on the
+       card (its log names the mesh)."""
+    import ast
+
+    from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
+    from gfs3dseg_gws_tpu_torch.parallel import dryrun
+    from gfs3dseg_gws_tpu_torch.pipelines import gfs as port_gfs
+    from gfs3dseg_gws_tpu_torch.utils.config import (DataConfig, ModelConfig,
+                                                     TrainConfig, replace)
+
+    card = f"cuda:{dev.index or 0}"
+    kw = dict(num_gw=NUM_GW, attn_dropout=ATTN_RATE)
+    t0 = time.perf_counter()
+    out = dryrun.dryrun_multichip(DP_RANKS, card, "gloo", steps=DP_STEPS,
+                                  batch=B, npts=N, seed=SEED,
+                                  rank_fn=dp_rank, **kw)
+    dp_seconds = time.perf_counter() - t0
+    blocks = len(ast.literal_eval(DEFAULT_WIDTHS))
+    per_rank = {"k3": blocks * DP_STEPS, "k4a": blocks * DP_STEPS,
+                "k4b": blocks * DP_STEPS, "k5a": DP_STEPS, "k5b": DP_STEPS}
+    rank_launches = [r["launches"] for r in out["ranks"]]
+    for r, launched in enumerate(rank_launches):
+        check_launches(f"dp rank {r}", launched, per_rank)
+
+    model = GWCAPL(device=dev, **kw)
+    losses, worst, norms, noise, rows, flips, stat_errs = \
+        [], [], [], [], [], [], []
+    for step in range(DP_STEPS):
+        loss, grads, stats, r, f = replay_dp_step(model, out, step, dev)
+        after = (out["states"][step + 1] if step + 1 < DP_STEPS
+                 else out["final_state"])
+        stat_errs.append(max(
+            ((v - after[n].double()).abs()
+             / after[n].double().abs().clamp_min(1.0)).max().item()
+            for n, v in stats.items()))
+        ref = {n: g.double().flatten() for n, g in out["grads"][step].items()}
+        floor = NOISE_GRAD * max(g.norm().item() for g in ref.values())
+        cos, ratio, quiet = {}, {}, 0
+        for n, g in grads.items():
+            if g.norm() < floor and ref[n].norm() < floor:
+                quiet += 1
+                continue
+            cos[n] = (g @ ref[n] / (g.norm() * ref[n].norm())
+                      .clamp_min(1e-300)).item()
+            ratio[n] = (g.norm() / ref[n].norm().clamp_min(1e-300)).item()
+        w = min(cos, key=cos.get)
+        off = max(ratio, key=lambda n: abs(ratio[n] - 1.0))
+        losses.append((out["loss"][step], loss,
+                       abs(out["loss"][step] - loss) / abs(loss)))
+        worst.append((w, cos[w]))
+        norms.append((off, ratio[off]))
+        noise.append(quiet)
+        rows.append(r)
+        flips.append(f)
+
+    # one process's steps on the same global batch, from the same start
+    one_loss, one_seconds = one_process_steps(out, dev, **kw)
+    traj_errs = [abs(a - b) / abs(b) for a, b in zip(out["loss"], one_loss)]
+    phase(f"dp train steps ({DP_RANKS} gloo ranks on one card vs one "
+          "process; correctness and collective overhead, not scaling)",
+          batch=B, steps=DP_STEPS,
+          dp_loss=[x[0] for x in losses], replay_loss=[x[1] for x in losses],
+          loss_rel_err=[x[2] for x in losses],
+          one_process_loss=one_loss, one_process_loss_rel_err=traj_errs,
+          running_stat_err=stat_errs,
+          worst_grad=[x[0] for x in worst],
+          worst_grad_cosine=[x[1] for x in worst],
+          worst_norm_grad=[x[0] for x in norms],
+          worst_grad_norm_ratio=[x[1] for x in norms], noise_grads=noise,
+          graph_rows_differing=rows, k4a_slots_differing=flips,
+          collectives_per_step=out["collectives"],
+          collective_bytes_per_step=out["collective_bytes"],
+          dp_step_seconds=out["seconds"], one_step_seconds=one_seconds,
+          dp_accuracy=out["accuracy"], rank_launches=rank_launches,
+          dryrun_wall_seconds=dp_seconds)
+    if max(x[2] for x in losses) > DP_RTOL or max(stat_errs) > DP_RTOL \
+            or max(traj_errs) > DP_TRAJ_RTOL:
+        raise AssertionError("data-parallel and one-process steps disagree")
+    if min(x[1] for x in worst) < DP_COS or \
+            max(abs(x[1] - 1.0) for x in norms) > DP_NORM:
+        raise AssertionError(f"data-parallel gradients off one process's: "
+                             f"{worst} {norms}")
+
+    # evaluate_gfs over the ranks against one process at their batch
+    train_dir, test_dir, basis_path, pth = eval_inputs
+    cfgs = (ModelConfig(),
+            DataConfig(data_path=train_dir, testing_data_path=test_dir,
+                       pc_npts=N, k_shot=5),
+            TrainConfig(batch_size=B, eval_weight=1.2, energy=0.9,
+                        basis_path=basis_path, model_checkpoint_path=pth,
+                        save_path=os.path.join(root, "dp_eval"),
+                        only_evaluate=True, device="cuda"))
+    t0 = time.perf_counter()
+    ranks = dryrun.run_ranks(dp_evaluate_rank, DP_RANKS, card, "gloo", cfgs)
+    eval_seconds = time.perf_counter() - t0
+    one = port_gfs.evaluate_gfs(*cfgs[:2], replace(
+        cfgs[2], batch_size=B // DP_RANKS,
+        save_path=os.path.join(root, "dp_eval_one")))
+    diffs = [float(np.abs(r["per_seed"] - one["per_seed"]).max())
+             for r in ranks]
+    phase(f"dp evaluate_gfs ({DP_RANKS} gloo ranks vs one process at "
+          f"batch {B // DP_RANKS})",
+          blocks=ranks[0]["n_blocks"], coding_sweep=ranks[0]["coding_sweep"],
+          per_seed_miou=[round(float(v), 6) for v in
+                         ranks[0]["per_seed"][:, 0]],
+          max_abs_diff=diffs,
+          base_coding_equal=[np.array_equal(r["base_coding"],
+                                            one["base_coding"])
+                             for r in ranks],
+          one_at_batch_b_max_abs_diff=float(np.abs(
+              one["per_seed"] - eval_res["per_seed"]).max()),
+          sweep_seconds=ranks[0]["sweep_seconds"],
+          wall_seconds=eval_seconds)
+    if max(diffs) > DP_MIOU_TOL or not all(
+            np.array_equal(r["base_coding"], one["base_coding"])
+            for r in ranks):
+        raise AssertionError("data-parallel evaluation differs from one "
+                             "process")
+
+    # the normal entry point under torchrun, NCCL, one rank
+    save = os.path.join(root, "dp_torchrun")
+    data = os.path.join(root, "gfs_train_data", "blocks_bs1.0_s1.0")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "1", "--standalone", "-m", "gfs3dseg_gws_tpu_torch.cli.train_cli",
+         "--dataset", "s3dis", "--cvfold", "0", "--data_path", data,
+         "--testing_data_path", test_dir, "--basis_path", gw_path,
+         "--pc_npts", str(N), "--k_shot", "5", "--batch_size", str(B),
+         "--seed", str(SEED), "--epochs", "1", "--pc_augm",
+         "--use_pretrain_weight", "--pretrain_checkpoint_path", pre_ckpt,
+         "--save_path", save, "--mesh", "data", "--device", "cuda"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    log = ""
+    if os.path.exists(os.path.join(save, "log_train.txt")):
+        log = open(os.path.join(save, "log_train.txt")).read()
+    mesh_line = next((line for line in log.splitlines()
+                      if "data mesh" in line), "")
+    phase("dp torchrun train_cli (NCCL, 1 rank)", rc=res.returncode,
+          wall_seconds=wall, mesh=mesh_line.strip("- "),
+          epoch_line=next((line for line in log.splitlines()
+                           if line.startswith("Train result")), ""))
+    if res.returncode != 0 or "over nccl" not in mesh_line or \
+            "Train result at epoch [0/1]" not in log:
+        raise AssertionError(f"torchrun train_cli failed ({res.returncode}):"
+                             f"\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
 
 
 # --------------------------------------------------------------------------- #
@@ -2818,6 +3170,12 @@ def main() -> int:
         timed("gfs_learning_check", check_gfs_learning, dev, gfs, gp)
         timed("gfs_step", check_gfs_step, dev, gfs, gp)
         timed("card_vs_cpu_gfs_step", check_gfs_step_vs_cpu, dev, gfs, gp)
+
+        # ---- phase 13a: data parallelism (parallel/mesh.py): 2 gloo ranks
+        # on the card against one process (train steps, evaluate_gfs), and
+        # train_cli under torchrun on NCCL
+        timed("dp", check_dp, dev, root,
+              (train_dir, test_dir, basis_path, pth), res, gw_path, pre_ckpt)
 
         # ---- phase 13b: the few-shot baselines (prototrain, protoeval,
         # mptitrain, mptieval, mptigfs, finetune) from the pre-trained

@@ -3,6 +3,7 @@ package's cli/common.py; flags mirror reference train.py:733-817)."""
 from __future__ import annotations
 
 import argparse
+import os
 
 from gfs3dseg_gws_tpu_torch.utils.config import (DataConfig, ModelConfig,
                                                  parse_widths)
@@ -84,9 +85,31 @@ def add_dispatch_args(p: argparse.ArgumentParser):
 def add_tpu_compat_args(p: argparse.ArgumentParser):
     """`add_dispatch_args` plus the device-mesh flags of the GFS CLI."""
     g = add_dispatch_args(p)
-    g.add_argument("--mesh", type=str, default="data",
-                   choices=["data", "dxp"], dest="mesh_shape")
-    g.add_argument("--mesh_sp", type=int, default=2)
+    p.add_argument("--mesh", type=str, default="data",
+                   choices=["data", "dxp"], dest="mesh_shape",
+                   help="the mesh of a run over several ranks (torchrun): "
+                        "'data' = data parallelism; 'dxp' (data x points) "
+                        "is not ported yet and raises")
+    g.add_argument("--mesh_sp", type=int, default=2,
+                   help="the JAX dxp mesh's points axis; ignored until dxp "
+                        "is ported (ROADMAP.md §8b)")
+
+
+def mesh_from_env(device: str, mesh_shape: str = "data"):
+    """The data-parallel mesh (parallel/mesh.py) of a run that torchrun
+    launched (WORLD_SIZE is set), as the JAX pipelines build theirs when
+    jax.device_count() > 1; None for one process. NCCL on `device` cuda
+    (a card a rank), gloo on the CPU. The 2-D data x points mesh (`--mesh
+    dxp`) raises under more than one rank: it is not ported yet."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    if mesh_shape == "dxp" and int(os.environ["WORLD_SIZE"]) > 1:
+        raise NotImplementedError(
+            "--mesh dxp (the data x points mesh) is not ported to "
+            "PyTorch/CUDA yet (ROADMAP.md §8b); use --mesh data")
+    from gfs3dseg_gws_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(device=device)
 
 
 def model_config_from_args(args) -> ModelConfig:

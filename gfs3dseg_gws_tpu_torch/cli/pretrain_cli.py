@@ -10,7 +10,10 @@ cli/pretrain_cli.py; reference pretrain/main.py:14-136).
         --data_path <blocks> --save_path <dir>/ --pretrain_checkpoint_path \
         <log_pretrain dir> --n_way 2 --k_shot 1 --use_attention
 
-Same flags as the JAX CLI, plus `--device`. Phases: `pretrain` (backbone
+Same flags as the JAX CLI, plus `--device`. Launched by torchrun,
+`--phase pretrain` runs data-parallel, one rank a process (NCCL on
+`--device cuda`, gloo on `--device cpu`); the baseline phases run on one
+process. Phases: `pretrain` (backbone
 pre-training), `prototrain` / `mptitrain` (episodic training of the
 ProtoNet / MPTI baselines), `protoeval` / `mptieval` (their test banks
 from `--model_checkpoint_path`), `mptigfs` (MPTI in the GFS setting,
@@ -28,6 +31,7 @@ from gfs3dseg_gws_tpu_torch.cli.common import (
     add_model_args,
     add_pc_args,
     data_config_from_args,
+    mesh_from_env,
     disable_tf32,
     model_config_from_args,
 )
@@ -107,7 +111,18 @@ def main(argv=None, **limits):
             step_size=args.pretrain_step_size, gamma=args.pretrain_gamma,
             eval_interval=args.eval_interval, seed=args.seed,
             log_dir=log_dir, device=args.device)
-        return pretrain(model_cfg, data_cfg, pre_cfg, **limits)
+        from gfs3dseg_gws_tpu_torch.parallel.mesh import close_mesh
+
+        mesh = mesh_from_env(args.device)
+        try:
+            return pretrain(model_cfg, data_cfg, pre_cfg, mesh=mesh,
+                            **limits)
+        finally:
+            close_mesh(mesh)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            f"--phase {args.phase} runs on one process; of pretrain_cli "
+            "only --phase pretrain runs data-parallel")
 
     from gfs3dseg_gws_tpu_torch.pipelines.baselines import (
         FewShotConfig, episodic_eval, episodic_train, finetune,

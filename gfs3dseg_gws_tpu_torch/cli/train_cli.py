@@ -12,7 +12,11 @@ cli/train_cli.py; reference train.py:733-831).
 
 Same flags as the JAX CLI, plus `--device`. Without --only_evaluate it
 trains (`pipelines/gfs.py::train_gfs`), with it it evaluates
-(`evaluate_gfs`).
+(`evaluate_gfs`). Launched by torchrun it runs data-parallel, one rank a
+process (`--mesh data`; NCCL on `--device cuda`, one card a rank; gloo on
+`--device cpu`):
+
+    torchrun --nproc_per_node 2 -m gfs3dseg_gws_tpu_torch.cli.train_cli ...
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from gfs3dseg_gws_tpu_torch.cli.common import (
     add_tpu_compat_args,
     data_config_from_args,
     disable_tf32,
+    mesh_from_env,
     model_config_from_args,
 )
 from gfs3dseg_gws_tpu_torch.utils.config import TrainConfig, replace
@@ -119,11 +124,17 @@ def main(argv=None, **overrides):
                                                       resolve_device,
                                                       train_gfs)
 
+    from gfs3dseg_gws_tpu_torch.parallel.mesh import close_mesh
+
     resolve_device(args.device)     # fail before any data is touched
-    if args.only_evaluate:
-        return evaluate_gfs(model_cfg, data_cfg, train_cfg)
-    return train_gfs(model_cfg, data_cfg, train_cfg,
-                     max_steps_per_epoch=max_steps)
+    mesh = mesh_from_env(args.device, args.mesh_shape)
+    try:
+        if args.only_evaluate:
+            return evaluate_gfs(model_cfg, data_cfg, train_cfg, mesh=mesh)
+        return train_gfs(model_cfg, data_cfg, train_cfg,
+                         max_steps_per_epoch=max_steps, mesh=mesh)
+    finally:
+        close_mesh(mesh)
 
 
 if __name__ == "__main__":

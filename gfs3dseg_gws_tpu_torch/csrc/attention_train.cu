@@ -66,6 +66,9 @@
 // multiply-low only), keep iff (h >> 8) >= thr, thr = ceil(rate 2^24),
 // i.e. u = (h >> 8) / 2^24 >= rate. K5a, K5b and the plain twin
 // (ops/attention_train.py, in int64 arithmetic) draw bit-identical masks.
+// b is the global batch index, blockIdx.y + batch_offset: a data-parallel
+// rank holding rows [o, o + B) of the global batch passes o, and its mask
+// is the single process's for those rows.
 // At rate 0 (thr == 0) the hash is skipped.
 //
 // What bounds them: the products. At B=16, N=2048, D=64, K5a does 2 B N^2
@@ -178,7 +181,8 @@ attn_train_fwd_wide_kernel(const float* __restrict__ q,
                            const int* __restrict__ seed_ptr,
                            float* __restrict__ out, float* __restrict__ m_out,
                            float* __restrict__ den_out, int n, int d,
-                           float inv_temp, uint32_t thr, float keep_scale) {
+                           float inv_temp, uint32_t thr, float keep_scale,
+                           int batch_offset) {
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                  // [query][kPad], scaled by 1/temp
   float* k_s = q_s + kTile * kPad;    // [key][kPad]
@@ -201,7 +205,7 @@ attn_train_fwd_wide_kernel(const float* __restrict__ q,
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
-    rkey[i] = row_key(seed, batch, q_base + qg + 16 * i);
+    rkey[i] = row_key(seed, batch + batch_offset, q_base + qg + 16 * i);
 #pragma unroll
     for (int j = 0; j < 8; ++j) o[i][j] = 0.f;
   }
@@ -313,7 +317,8 @@ attn_train_bwd_wide_kernel(const float* __restrict__ q,
                            const float* __restrict__ dy,
                            float* __restrict__ dq, float* __restrict__ dk,
                            float* __restrict__ dv, int n, int d,
-                           float inv_temp, uint32_t thr, float keep_scale) {
+                           float inv_temp, uint32_t thr, float keep_scale,
+                           int batch_offset) {
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                  // [key][kPad], this block's keys
   float* v_s = k_s + kTile * kPad;    // [key][kPad]
@@ -377,7 +382,7 @@ attn_train_bwd_wide_kernel(const float* __restrict__ q,
     for (int i = 0; i < 4; ++i) {
       const int r = rg + 16 * i;
       const float mi = m_s[r], idn = id_s[r], dli = dl_s[r];
-      const uint32_t rkey = row_key(seed, batch, q_base + r);
+      const uint32_t rkey = row_key(seed, batch + batch_offset, q_base + r);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int key = k_base + cg + 8 * j;
@@ -487,7 +492,8 @@ attn_train_fwd_mma_kernel(const float* __restrict__ q,
                           const int* __restrict__ seed_ptr,
                           float* __restrict__ out, float* __restrict__ m_out,
                           float* __restrict__ den_out, int n, int d,
-                          float inv_temp, uint32_t thr, float keep_scale) {
+                          float inv_temp, uint32_t thr, float keep_scale,
+                          int batch_offset) {
   constexpr int kS = DP + 4;          // row stride: 4 mod 32 banks
   constexpr int kNt = KT / 8;         // key n-tiles of S
   constexpr int kDt = DP / 8;         // channel tiles
@@ -511,8 +517,8 @@ attn_train_fwd_mma_kernel(const float* __restrict__ q,
   const int row0 = q_base + 16 * warp + g;
   const float* qa = q_s + (16 * warp + g) * kS;
   const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
-  const uint32_t rkey[2] = {row_key(seed, batch, row0),
-                            row_key(seed, batch, row0 + 8)};
+  const uint32_t rkey[2] = {row_key(seed, batch + batch_offset, row0),
+                            row_key(seed, batch + batch_offset, row0 + 8)};
   float o[kDt][4];
 #pragma unroll
   for (int j = 0; j < kDt; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -651,7 +657,7 @@ template <int DP, int KT>
 cudaError_t launch_fwd_mma(const float* q, const float* k, const float* v,
                            const int* seed, float* out, float* m, float* den,
                            int batch, int n, int d, float inv_temp,
-                           uint32_t thr, float keep_scale,
+                           uint32_t thr, float keep_scale, int batch_offset,
                            cudaStream_t stream) {
   constexpr size_t smem = fwd_mma_smem<DP, KT>();
   const cudaError_t err = cudaFuncSetAttribute(
@@ -660,7 +666,8 @@ cudaError_t launch_fwd_mma(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kFwdQ - 1) / kFwdQ, batch);
   attn_train_fwd_mma_kernel<DP, KT><<<grid, 32 * kFwdWarps, smem, stream>>>(
-      q, k, v, seed, out, m, den, n, d, inv_temp, thr, keep_scale);
+      q, k, v, seed, out, m, den, n, d, inv_temp, thr, keep_scale,
+      batch_offset);
   return cudaGetLastError();
 }
 
@@ -691,7 +698,7 @@ attn_train_bwd_mma_kernel(const float* __restrict__ q,
                           const float* __restrict__ dy, float* __restrict__ dq,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int n, int d, float inv_temp, uint32_t thr,
-                          float keep_scale) {
+                          float keep_scale, int batch_offset) {
   constexpr int kS = DP + 4;        // [row][channel] stride: 4 mod 32 banks
   constexpr int kT = QT + 4;        // dS^T stride: rows 2t apart 8 mod 32
   constexpr int kQt = QT / 8;       // query tiles of S^T and dA^T
@@ -800,7 +807,7 @@ attn_train_bwd_mma_kernel(const float* __restrict__ q,
         const int col = 8 * j + 2 * t + e, qi = q_base + col;
         const float mi = rs[col], dli = rs[2 * QT + col];
         const float idn = qi < n ? 1.f / rs[QT + col] : 0.f;
-        const uint32_t rkey = row_key(seed, batch, qi);
+        const uint32_t rkey = row_key(seed, batch + batch_offset, qi);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int key = key0 + 8 * h;
@@ -903,7 +910,7 @@ cudaError_t launch_bwd_mma(const float* q, const float* k, const float* v,
                            const float* delta, const float* dy, float* dq,
                            float* dk, float* dv, int batch, int n, int d,
                            float inv_temp, uint32_t thr, float keep_scale,
-                           cudaStream_t stream) {
+                           int batch_offset, cudaStream_t stream) {
   constexpr size_t smem = bwd_mma_smem<DP, QT>();
   const cudaError_t err = cudaFuncSetAttribute(
       attn_train_bwd_mma_kernel<DP, QT>,
@@ -912,13 +919,13 @@ cudaError_t launch_bwd_mma(const float* q, const float* k, const float* v,
   const dim3 grid((n + kBwdKeys - 1) / kBwdKeys, batch);
   attn_train_bwd_mma_kernel<DP, QT><<<grid, 32 * kBwdWarps, smem, stream>>>(
       q, k, v, seed, m, den, delta, dy, dq, dk, dv, n, d, inv_temp, thr,
-      keep_scale);
+      keep_scale, batch_offset);
   return cudaGetLastError();
 }
 
-bool bad_shape(int batch, int n, int d, int thr) {
+bool bad_shape(int batch, int n, int d, int thr, int batch_offset) {
   return batch < 1 || batch > 65535 || n < 1 || d < 4 || d % 4 || thr < 0 ||
-         thr > (1 << 24);
+         thr > (1 << 24) || batch_offset < 0;
 }
 
 // the wide kernels' grid (past D = 128): 64 rows x 64 output channels a
@@ -931,15 +938,16 @@ dim3 grid_of(int n, int batch, int d) {
 
 // q, k, v, out: (B, N, D) contiguous fp32 on one device, 16-byte aligned,
 // D a multiple of 4; seed: one int32 on the device; m, den:
-// (B, N). thr = ceil(rate 2^24), keep_scale = 1 / (1 - rate). Returns a
-// cudaError_t.
+// (B, N). thr = ceil(rate 2^24), keep_scale = 1 / (1 - rate); the mask
+// hashes batch index b + batch_offset (a data-parallel rank's first global
+// row; 0 on one process). Returns a cudaError_t.
 GFS_EXPORT int gfs_attention_train_fwd(const void* q, const void* k,
                                        const void* v, const void* seed,
                                        void* out, void* m, void* den,
                                        int batch, int n, int d, float inv_temp,
                                        int thr, float keep_scale,
-                                       void* stream) {
-  if (bad_shape(batch, n, d, thr))
+                                       int batch_offset, void* stream) {
+  if (bad_shape(batch, n, d, thr, batch_offset))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
@@ -952,19 +960,20 @@ GFS_EXPORT int gfs_attention_train_fwd(const void* q, const void* k,
   const auto s = static_cast<cudaStream_t>(stream);
   if (d <= 32)
     return launch_fwd_mma<32, 64>(qf, kf, vf, sd, of, mf, df, batch, n, d,
-                                  inv_temp, th, keep_scale, s);
+                                  inv_temp, th, keep_scale, batch_offset, s);
   if (d <= 64)
     return launch_fwd_mma<64, 64>(qf, kf, vf, sd, of, mf, df, batch, n, d,
-                                  inv_temp, th, keep_scale, s);
+                                  inv_temp, th, keep_scale, batch_offset, s);
   if (d <= 128)
     return launch_fwd_mma<128, 16>(qf, kf, vf, sd, of, mf, df, batch, n, d,
-                                   inv_temp, th, keep_scale, s);
+                                   inv_temp, th, keep_scale, batch_offset, s);
   const cudaError_t err = cudaFuncSetAttribute(
       attn_train_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemFwd));
   if (err != cudaSuccess) return static_cast<int>(err);
   attn_train_fwd_wide_kernel<<<grid_of(n, batch, d), kThreads, kSmemFwd, s>>>(
-      qf, kf, vf, sd, of, mf, df, n, d, inv_temp, th, keep_scale);
+      qf, kf, vf, sd, of, mf, df, n, d, inv_temp, th, keep_scale,
+      batch_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -976,8 +985,9 @@ GFS_EXPORT int gfs_attention_train_bwd(const void* q, const void* k,
                                        const void* delta, const void* dy,
                                        void* dq, void* dk, void* dv, int batch,
                                        int n, int d, float inv_temp, int thr,
-                                       float keep_scale, void* stream) {
-  if (bad_shape(batch, n, d, thr))
+                                       float keep_scale, int batch_offset,
+                                       void* stream) {
+  if (bad_shape(batch, n, d, thr, batch_offset))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
@@ -995,21 +1005,21 @@ GFS_EXPORT int gfs_attention_train_bwd(const void* q, const void* k,
   if (d <= 32)
     return launch_bwd_mma<32, 32>(qf, kf, vf, sd, mf, df, lf, yf, dqf, dkf,
                                   dvf, batch, n, d, inv_temp, th, keep_scale,
-                                  s);
+                                  batch_offset, s);
   if (d <= 64)
     return launch_bwd_mma<64, 32>(qf, kf, vf, sd, mf, df, lf, yf, dqf, dkf,
                                   dvf, batch, n, d, inv_temp, th, keep_scale,
-                                  s);
+                                  batch_offset, s);
   if (d <= 128)
     return launch_bwd_mma<128, 16>(qf, kf, vf, sd, mf, df, lf, yf, dqf, dkf,
                                    dvf, batch, n, d, inv_temp, th,
-                                   keep_scale, s);
+                                   keep_scale, batch_offset, s);
   const cudaError_t err = cudaFuncSetAttribute(
       attn_train_bwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBwd));
   if (err != cudaSuccess) return static_cast<int>(err);
   attn_train_bwd_wide_kernel<<<grid_of(n, batch, d), kThreads, kSmemBwd, s>>>(
       qf, kf, vf, sd, mf, df, lf, yf, dqf, dkf, dvf, n, d, inv_temp, th,
-      keep_scale);
+      keep_scale, batch_offset);
   return static_cast<int>(cudaGetLastError());
 }

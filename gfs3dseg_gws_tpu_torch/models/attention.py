@@ -5,7 +5,10 @@ Bias-free Q, K, V 1x1 convs and temperature sqrt(out_channels). In eval
 mode the weights stay on chip in the fused kernel K2
 (ops/attention_kernel.py); in training dropout (rate `attn_dropout`) acts
 on the normalised weights inside K5a/K5b (ops/attention_train.py), with a
-per-step seed drawn from the caller's generator.
+per-step seed drawn from the caller's generator. With a mesh
+(parallel/mesh.py) every rank draws the same seed and passes its first
+global row as the mask's batch offset, so the ranks draw the single
+process's mask.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from torch import nn
 from gfs3dseg_gws_tpu_torch.models.layers import Conv1x1
 from gfs3dseg_gws_tpu_torch.ops.attention_kernel import fused_attention
 from gfs3dseg_gws_tpu_torch.ops.attention_train import attention_train
+from gfs3dseg_gws_tpu_torch.parallel.mesh import Mesh
 
 
 def draw_seed(generator: Optional[torch.Generator],
@@ -29,6 +33,8 @@ def draw_seed(generator: Optional[torch.Generator],
 
 
 class SelfAttention(nn.Module):
+    mesh: Optional[Mesh] = None
+
     def __init__(self, in_features: int, out_channels: int = 64,
                  attn_dropout: float = 0.1,
                  device: Optional[torch.device] = None):
@@ -47,5 +53,6 @@ class SelfAttention(nn.Module):
         q, k, v = self.q_map(x), self.k_map(x), self.v_map(x)
         if not self.training:
             return fused_attention(q, k, v, temperature)
+        offset = 0 if self.mesh is None else self.mesh.rank * x.shape[0]
         return attention_train(q, k, v, draw_seed(generator, x.device),
-                               temperature, self.attn_dropout)
+                               temperature, self.attn_dropout, offset)

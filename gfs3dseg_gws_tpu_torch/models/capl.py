@@ -11,6 +11,12 @@ model/capl.py:21-433).
     transductive prototype refinement (eqn.6); loss = 0.5 CE1 + 0.5 CE2.
   * Evaluation: transductively refined base + registered novel prototypes,
     logits re-weighted by geometric-word multi-hot agreement (x eval_weight).
+
+With a mesh (parallel/mesh.py, set by models/layers.py::use_mesh) the
+training pass keeps the single-process semantics on the global batch: the
+fake half is the global batch's second half, its class counts and sums are
+all-reduced, and each cross-entropy is this rank's share over the global
+count. Evaluation is per block and needs no mesh.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ from gfs3dseg_gws_tpu_torch.models.layers import (BatchNorm, Conv1x1,
                                                   LeakyReLU, cross_entropy,
                                                   l2norm, random_init_,
                                                   train_init_)
+from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
+                                                  reduce_sum)
 
 IGNORE_INDEX = 255  # labels the training loss leaves out (reference capl.py)
 
@@ -42,6 +50,8 @@ class GWCAPL(nn.Module):
     and BatchNorm statistic is drawn from it (`random_init_`); a model to be
     trained takes the JAX package's initialisers instead (`train_init`).
     """
+
+    mesh: Optional[Mesh] = None
 
     def __init__(self, classes: int = 13, base_num: int = 7,
                  num_gw: int = 150, main_dim: int = 128, energy: float = 0.9,
@@ -199,11 +209,13 @@ class GWCAPL(nn.Module):
         to one draw); otherwise `n_present // 2` present classes are drawn
         uniformly with `generator` (on feats' device), without a host
         round trip: the distribution of JAX's noise-argsort, not its bits.
+        With a mesh, feats and y are this rank's rows of the global second
+        half (possibly none): the counts and class sums are all-reduced.
         Returns (new_proto (cls, C), fake_row (cls,) in {0., 1.}).
         """
         n_cls = main_proto.shape[0]
         onehot = _one_hot(y, n_cls + 1, feats.dtype)          # (B2, N, cls+1)
-        counts = torch.sum(onehot, dim=(0, 1))
+        counts = all_reduce_sum(torch.sum(onehot, dim=(0, 1)), self.mesh)
         present = counts[1:] > 0
         if fake_row is None:
             novel_num = torch.sum(present) // 2
@@ -213,7 +225,8 @@ class GWCAPL(nn.Module):
             rank = torch.argsort(torch.argsort(-score))         # descending
             fake_row = present & (rank < novel_num)
         fake_row = fake_row.to(device=feats.device, dtype=feats.dtype)
-        class_sums = torch.einsum("bnk,bnc->kc", onehot, l2norm(feats))
+        class_sums = reduce_sum(torch.einsum("bnk,bnc->kc", onehot,
+                                             l2norm(feats)), self.mesh)
         class_means = class_sums[1:] / (counts[1:, None] + 1e-12)
         new_proto = ((1.0 - fake_row[:, None]) * l2norm(main_proto)
                      + fake_row[:, None] * class_means)
@@ -234,14 +247,22 @@ class GWCAPL(nn.Module):
         The second half of the batch builds the fake-novel prototypes;
         `generator` draws them and the attention's dropout seed, `fake_row`
         pins the former. Returns (pred (B, N), loss = 0.5 CE2 + 0.5 CE1).
+        With a mesh, x and y are this rank's rows and the loss is its share
+        of the global loss (the shares of the ranks add up to it).
         """
         point_feat, _, _ = self.get_features(x, gp, generator)
         fake_num = x.shape[0] // 2
+        if self.mesh is not None:
+            # the global second half: this rank's rows at or past B/2
+            first = self.mesh.rank * x.shape[0]
+            fake_num = min(max(x.shape[0] * self.mesh.size // 2 - first, 0),
+                           x.shape[0])
         ori_proto, _ = self.generate_fake_proto(
             point_feat[fake_num:], y[fake_num:], self.main_proto, generator,
             fake_row)
         x_pre_1 = self.get_pred(point_feat, ori_proto, use_bg_proto=True)
-        loss_ce_1 = cross_entropy(x_pre_1, y, ignore_index=IGNORE_INDEX)
+        loss_ce_1 = cross_entropy(x_pre_1, y, ignore_index=IGNORE_INDEX,
+                                  mesh=self.mesh)
 
         refine = self.post_refine_proto(self.main_proto, point_feat,
                                         use_bg_proto=True)    # (B, cls, C)
@@ -253,7 +274,8 @@ class GWCAPL(nn.Module):
                                           refine.shape[2]),
         ], dim=1)
         x_pre_2 = self.get_pred(point_feat, post, use_bg_proto=True)
-        loss_ce_2 = cross_entropy(x_pre_2, y, ignore_index=IGNORE_INDEX)
+        loss_ce_2 = cross_entropy(x_pre_2, y, ignore_index=IGNORE_INDEX,
+                                  mesh=self.mesh)
         return (torch.argmax(x_pre_2, dim=-1),
                 0.5 * loss_ce_2 + 0.5 * loss_ce_1)
 

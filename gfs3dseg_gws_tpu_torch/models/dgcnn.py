@@ -21,6 +21,10 @@ third block is one layer deep) builds its graph with K6
 (ops/knn.py::knn_indices) and gathers the neighbour table with
 ops/edgeconv.py::gather_neighbors, whose backward is K7; its layers are
 torch ops on the (B, N, K, W) edge tensor, in eval and in training.
+
+With a mesh (parallel/mesh.py, set by models/layers.py::use_mesh) a
+training block's BatchNorm statistics are the global batch's: the fused
+Function and the BatchNorm modules all-reduce them.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import fused_edgeconv_infer
 from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv_train import (
     fused_edgeconv_train)
 from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices, knn_with_stats
+from gfs3dseg_gws_tpu_torch.parallel.mesh import Mesh
 
 
 class EdgeConvBlock(nn.Module):
@@ -44,6 +49,8 @@ class EdgeConvBlock(nn.Module):
     `layer` is the reference Sequential; its first conv has weight
     (widths[0], 2 * C_in, 1, 1) over the [x_j - x_i, x_i] channel concat.
     """
+
+    mesh: Optional[Mesh] = None
 
     def __init__(self, in_features: int, widths: Sequence[int], k: int = 20,
                  device: Optional[torch.device] = None):
@@ -67,8 +74,10 @@ class EdgeConvBlock(nn.Module):
                                            b_tab.detach(), self.k)
             out, mu1, var1, mu2, var2 = fused_edgeconv_train(
                 a_tab, b_tab, bn1.weight, bn1.bias, conv2.kernel,
-                bn2.weight, bn2.bias, idx, cnt, scb)
+                bn2.weight, bn2.bias, idx, cnt, scb, mesh=self.mesh)
             n_stats = idx.numel()          # statistics over (B, N, K)
+            if self.mesh is not None:
+                n_stats *= self.mesh.size  # ... of the global batch
             bn1.record_batch_stats(mu1, var1, n_stats)
             bn2.record_batch_stats(mu2, var2, n_stats)
             return out

@@ -11,6 +11,13 @@ BatchNorm has torch semantics (eps 1e-5, momentum 0.1): in training it
 normalises with the biased batch variance and moves the running variance
 towards the UNBIASED one (x n/(n-1)), as the JAX package's BatchNorm and
 ManualBN do; in eval mode it uses the running statistics.
+
+Data parallelism (parallel/mesh.py): `use_mesh(model, mesh)` sets the mesh
+on every module that reduces over the batch (each has a `mesh` attribute,
+None by default). Then a train-mode BatchNorm normalises with the
+statistics of the global batch, `cross_entropy` returns this rank's share
+of the global mean and `dropout` takes this rank's rows of the global
+batch's mask.
 """
 from __future__ import annotations
 
@@ -19,6 +26,9 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
+                                                  local_rows, reduce_sum)
 
 LEAKY_SLOPE = 0.2  # the reference uses LeakyReLU(0.2) everywhere
 
@@ -63,9 +73,13 @@ class BatchNorm(nn.Module):
     """BatchNorm over the trailing channel axis, with the parameter and
     buffer names of torch's BatchNorm1d/2d. In training the statistics
     reduce over every other axis (for an edge tensor (B, N, K, C) that is
-    B*N*K elements per channel)."""
+    B*N*K elements per channel). With a mesh the statistics are the
+    global batch's: one all-reduce of the packed (sum x, sum x^2) through
+    `AllReduceSum`, whose backward gives SyncBatchNorm's (the all-reduce of
+    the two sums of the incoming gradient)."""
 
     momentum = 0.1     # weight of the batch in the running averages
+    mesh: Optional[Mesh] = None
 
     def __init__(self, features: int, eps: float = 1e-5,
                  device: Optional[torch.device] = None):
@@ -104,10 +118,20 @@ class BatchNorm(nn.Module):
             inv = torch.rsqrt(self.running_var + self.eps)
             return (x - self.running_mean) * (inv * self.weight) + self.bias
         axes = tuple(range(x.dim() - 1))
-        mean = torch.mean(x, axes)
+        n = x.numel() // x.shape[-1]
+        if self.mesh is None:
+            mean = torch.mean(x, axes)
+            ex2 = torch.mean(x * x, axes)
+        else:
+            # every rank holds as many rows, so the global count is static
+            n *= self.mesh.size
+            sums = reduce_sum(torch.stack([torch.sum(x, axes),
+                                           torch.sum(x * x, axes)]),
+                              self.mesh) / n
+            mean, ex2 = sums[0], sums[1]
         # E[x^2] - E[x]^2, clamped: the JAX package's formula
-        var = torch.clamp_min(torch.mean(x * x, axes) - mean * mean, 0.0)
-        self.record_batch_stats(mean, var, x.numel() // x.shape[-1])
+        var = torch.clamp_min(ex2 - mean * mean, 0.0)
+        self.record_batch_stats(mean, var, n)
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
 
@@ -120,12 +144,21 @@ class LeakyReLU(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Inverted dropout whose mask comes from `generator` (a generator on
-    x's device). Its stream is not flax's: tests compare at rate 0."""
+    x's device). Its stream is not flax's: tests compare at rate 0. With a
+    mesh, x holds this rank's rows of the global batch: the mask is drawn
+    for the global batch and this rank keeps its rows, so every rank's
+    generator moves in step and the masks are the single process's."""
     if rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    shape = x.shape
+    if mesh is not None:
+        shape = (x.shape[0] * mesh.size,) + tuple(x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    if mesh is not None:
+        keep = keep[local_rows(shape[0], mesh)]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -133,28 +166,53 @@ class Dropout(nn.Module):
     """Parameter-free slot in the reference Sequentials; active in training
     only. The caller passes the generator (see `dropout`)."""
 
+    mesh: Optional[Mesh] = None
+
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return dropout(x, self.rate, generator) if self.training else x
+        if not self.training:
+            return x
+        return dropout(x, self.rate, generator, self.mesh)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_index: Optional[int] = None) -> torch.Tensor:
+                  ignore_index: Optional[int] = None,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Mean CE over points; logits (..., C), labels (...,) int. Matches
-    torch nn.CrossEntropyLoss(ignore_index=...) (JAX: layers.cross_entropy)."""
+    torch nn.CrossEntropyLoss(ignore_index=...) (JAX: layers.cross_entropy).
+    With a mesh, this rank's share: its sum of NLL over the GLOBAL count,
+    so that the shares of the ranks add up to the global mean."""
     logp = torch.log_softmax(logits, dim=-1)
     labels = labels.long()
-    if ignore_index is None:
+    if ignore_index is None and mesh is None:
         return -torch.gather(logp, -1, labels[..., None]).mean()
+    if ignore_index is None:
+        nll = -torch.gather(logp, -1, labels[..., None])
+        return torch.sum(nll) / (nll.numel() * mesh.size)
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     v = valid.to(nll.dtype)
-    return torch.sum(nll * v) / torch.clamp_min(torch.sum(v), 1.0)
+    return torch.sum(nll * v) / torch.clamp_min(
+        all_reduce_sum(torch.sum(v), mesh), 1.0)
+
+
+def use_mesh(module: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
+    """Set `mesh` on every submodule that reduces over the batch (those with
+    a `mesh` attribute: BatchNorm, Dropout, the EdgeConv blocks, the
+    self-attention, GWCAPL), in the manner of
+    nn.SyncBatchNorm.convert_sync_batchnorm, and on `module` itself, where
+    the train steps (parallel/steps.py) read it; None restores one
+    process."""
+    for mod in module.modules():
+        if hasattr(mod, "mesh"):
+            mod.mesh = mesh
+    module.mesh = mesh
+    return module
 
 
 def conv_bn_stack(in_features: int, widths, conv2d: bool = False,

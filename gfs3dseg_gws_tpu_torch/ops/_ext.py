@@ -63,10 +63,11 @@ _SIGNATURES = {
     "gfs_edgeconv_train_bwd": (_P,) * 11 + (_I,) * 5 + (_F, _P),
     # q, k, v, seed, out, m, den, batch, n, d, inv_temperature, thr,
     # keep_scale, stream
-    "gfs_attention_train_fwd": (_P,) * 7 + (_I, _I, _I, _F, _I, _F, _P),
+    "gfs_attention_train_fwd": (_P,) * 7 + (_I, _I, _I, _F, _I, _F, _I, _P),
     # q, k, v, seed, m, den, delta, dy, dq, dk, dv, batch, n, d,
     # inv_temperature, thr, keep_scale, stream
-    "gfs_attention_train_bwd": (_P,) * 11 + (_I, _I, _I, _F, _I, _F, _P),
+    "gfs_attention_train_bwd": (_P,) * 11 + (_I, _I, _I, _F, _I, _F, _I,
+                                             _P),
 }
 
 

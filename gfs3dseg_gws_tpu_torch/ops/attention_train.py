@@ -14,7 +14,10 @@ them, regenerates the dropout mask and takes Delta = rowsum(dy * out).
 The mask is a counter-based hash of (seed, batch, query, key) that the
 kernels compute in uint32 and `dropout_keep_mask` computes in int64 torch
 arithmetic: both draw the same bits, whatever the tiling, so the kernels
-are held to their plain twins exactly at any rate. It is not the TPU
+are held to their plain twins exactly at any rate. `batch_offset` is
+added to the batch index before hashing: a data-parallel rank holding rows
+[o, o + B) of the global batch passes o and draws the single process's
+mask for those rows (offset 0 is the mask of one process). It is not the TPU
 kernel's stream (its in-core random bits cannot be reproduced), nor
 flax's; the tests compare with JAX at rate 0 and check the mask's
 statistics at rate > 0.
@@ -72,10 +75,11 @@ def keep_threshold(rate: float) -> int:
 
 
 def dropout_keep_mask(seed, batch: int, n: int, rate: float,
-                      device=None) -> torch.Tensor:
+                      device=None, batch_offset: int = 0) -> torch.Tensor:
     """The (batch, n, n) bool keep mask of `seed` (an int or a one-element
     integer tensor): h = mix(mix(mix(seed + b G) + i G) + j G), keep iff
-    (h >> 8) >= keep_threshold(rate), as the kernels draw it."""
+    (h >> 8) >= keep_threshold(rate), as the kernels draw it, for the batch
+    indices b = batch_offset .. batch_offset + batch - 1."""
     thr = keep_threshold(rate)
     if isinstance(seed, torch.Tensor):
         device = seed.device if device is None else device
@@ -83,7 +87,8 @@ def dropout_keep_mask(seed, batch: int, n: int, rate: float,
     else:
         s = torch.tensor([int(seed)], dtype=torch.int64, device=device)
     s = s & MASK32
-    b = torch.arange(batch, dtype=torch.int64, device=s.device)
+    b = torch.arange(batch_offset, batch_offset + batch, dtype=torch.int64,
+                     device=s.device)
     cols = _mul32(torch.arange(n, dtype=torch.int64, device=s.device),
                   _GOLDEN)
     bkey = _mix32((s + _mul32(b, _GOLDEN)) & MASK32)              # (B,)
@@ -93,15 +98,15 @@ def dropout_keep_mask(seed, batch: int, n: int, rate: float,
 
 
 def attention_train_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          seed, temperature: float, rate: float
-                          ) -> torch.Tensor:
+                          seed, temperature: float, rate: float,
+                          batch_offset: int = 0) -> torch.Tensor:
     """The plain twin of the whole op, under autograd (JAX: the XLA
     composition of models/attention.py with the kernels' mask)."""
     attn = torch.einsum("bmc,bnc->bmn", q * (1.0 / temperature), k)
     attn = torch.softmax(attn, dim=-1)
     if rate > 0.0:
         keep = dropout_keep_mask(seed, q.shape[0], q.shape[1], rate,
-                                 q.device)
+                                 q.device, batch_offset)
         attn = torch.where(keep, attn * (1.0 / (1.0 - rate)),
                            torch.zeros_like(attn))
     return torch.einsum("bmn,bnc->bmc", attn, v)
@@ -111,7 +116,8 @@ def attention_train_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # K5a: the forward
 # --------------------------------------------------------------------------- #
 
-def _fwd_plain(q, k, v, seed, temperature: float, rate: float):
+def _fwd_plain(q, k, v, seed, temperature: float, rate: float,
+               batch_offset: int = 0):
     """Plain twin of K5a. Returns (out (B,N,D), m (B,N), den (B,N))."""
     s = torch.einsum("bmc,bnc->bmn", q * (1.0 / temperature), k)
     m = torch.amax(s, dim=-1, keepdim=True)
@@ -120,17 +126,18 @@ def _fwd_plain(q, k, v, seed, temperature: float, rate: float):
     a = p * (1.0 / den)
     if rate > 0.0:
         keep = dropout_keep_mask(seed, q.shape[0], q.shape[1], rate,
-                                 q.device)
+                                 q.device, batch_offset)
         a = torch.where(keep, a * (1.0 / (1.0 - rate)), torch.zeros_like(a))
     return torch.einsum("bmn,bnc->bmc", a, v), m[..., 0], den[..., 0]
 
 
-def _fwd(q, k, v, seed, temperature: float, rate: float):
+def _fwd(q, k, v, seed, temperature: float, rate: float,
+         batch_offset: int = 0):
     """K5a on a CUDA tensor, its plain twin on a CPU tensor."""
     if q.device.type == "cpu":
-        return _fwd_plain(q, k, v, seed, temperature, rate)
+        return _fwd_plain(q, k, v, seed, temperature, rate, batch_offset)
     name = "attention_train forward (K5a)"
-    thr = _check(name, q, k, v, seed, rate)
+    thr = _check(name, q, k, v, seed, rate, batch_offset)
     d_true = q.shape[-1]
     q, k, v = pad_head(q, k, v)
     b, n, d = q.shape
@@ -142,7 +149,7 @@ def _fwd(q, k, v, seed, temperature: float, rate: float):
         code = lib.gfs_attention_train_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(),
             out.data_ptr(), m.data_ptr(), den.data_ptr(), b, n, d,
-            1.0 / temperature, thr, 1.0 / (1.0 - rate),
+            1.0 / temperature, thr, 1.0 / (1.0 - rate), batch_offset,
             _ext.current_stream(q.device))
     _ext.check(code, name)
     _fwd.launches += 1
@@ -159,7 +166,7 @@ _fwd.launches = 0
 # --------------------------------------------------------------------------- #
 
 def _bwd_plain(q, k, v, seed, m, den, delta, dy, temperature: float,
-               rate: float):
+               rate: float, batch_offset: int = 0):
     """Plain twin of K5b: P from the saved m and den, the mask regenerated
     from the seed. Returns (dq, dk, dv)."""
     inv_t = 1.0 / temperature
@@ -168,7 +175,7 @@ def _bwd_plain(q, k, v, seed, m, den, delta, dy, temperature: float,
     da = torch.einsum("bmc,bnc->bmn", dy, v)
     if rate > 0.0:
         keep = dropout_keep_mask(seed, q.shape[0], q.shape[1], rate,
-                                 q.device)
+                                 q.device, batch_offset)
         scale = 1.0 / (1.0 - rate)
         a = torch.where(keep, p * scale, torch.zeros_like(p))
         dp = torch.where(keep, da * scale, torch.zeros_like(da))
@@ -181,15 +188,16 @@ def _bwd_plain(q, k, v, seed, m, den, delta, dy, temperature: float,
     return dq, dk, dv
 
 
-def _bwd(q, k, v, seed, m, den, delta, dy, temperature: float, rate: float):
+def _bwd(q, k, v, seed, m, den, delta, dy, temperature: float, rate: float,
+         batch_offset: int = 0):
     """K5b on a CUDA tensor, its plain twin on a CPU tensor. dk and dv are
     summed in registers in a fixed order; dq is added across blocks with
     float atomics, so its last bits vary from run to run."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, seed, m, den, delta, dy, temperature,
-                          rate)
+                          rate, batch_offset)
     name = "attention_train backward (K5b)"
-    thr = _check(name, q, k, v, seed, rate, dy=dy)
+    thr = _check(name, q, k, v, seed, rate, batch_offset, dy=dy)
     d_true = q.shape[-1]
     q, k, v, dy = pad_head(q, k, v, dy)
     b, n, d = q.shape
@@ -206,7 +214,7 @@ def _bwd(q, k, v, seed, m, den, delta, dy, temperature: float, rate: float):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(),
             m.data_ptr(), den.data_ptr(), delta.data_ptr(), dy.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, d,
-            1.0 / temperature, thr, 1.0 / (1.0 - rate),
+            1.0 / temperature, thr, 1.0 / (1.0 - rate), batch_offset,
             _ext.current_stream(q.device))
     _ext.check(code, name)
     _bwd.launches += 1
@@ -218,7 +226,7 @@ def _bwd(q, k, v, seed, m, den, delta, dy, temperature: float, rate: float):
 _bwd.launches = 0
 
 
-def _check(name, q, k, v, seed, rate, **more) -> int:
+def _check(name, q, k, v, seed, rate, batch_offset, **more) -> int:
     """Raise unless the kernels take these inputs; returns the threshold."""
     _ext.check_tensors(name, q=q, k=k, v=v, **more)
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape or any(
@@ -232,6 +240,9 @@ def _check(name, q, k, v, seed, rate, **more) -> int:
     if (seed.dtype != torch.int32 or seed.numel() != 1
             or seed.device != q.device):
         raise ValueError(f"{name}: seed must be one int32 on {q.device}")
+    if not 0 <= batch_offset < 2 ** 31:
+        raise ValueError(f"{name}: batch_offset {batch_offset} must lie in "
+                         "[0, 2^31)")
     return keep_threshold(rate)
 
 
@@ -243,10 +254,11 @@ class _AttentionTrain(torch.autograd.Function):
     """JAX: `_attn_train` with `_attn_vjp_fwd` / `_attn_vjp_bwd`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, temperature, rate):
-        out, m, den = _fwd(q, k, v, seed, temperature, rate)
+    def forward(ctx, q, k, v, seed, temperature, rate, batch_offset):
+        out, m, den = _fwd(q, k, v, seed, temperature, rate, batch_offset)
         ctx.save_for_backward(q, k, v, seed, out, m, den)
         ctx.temperature, ctx.rate = temperature, rate
+        ctx.batch_offset = batch_offset
         return out
 
     @staticmethod
@@ -255,23 +267,26 @@ class _AttentionTrain(torch.autograd.Function):
         dy = dy.contiguous()
         delta = torch.sum(dy * out, dim=-1)         # = rowsum(dP * P)
         dq, dk, dv = _bwd(q, k, v, seed, m, den, delta, dy, ctx.temperature,
-                          ctx.rate)
-        return dq, dk, dv, None, None, None
+                          ctx.rate, ctx.batch_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    seed, temperature: float, rate: float = 0.1
-                    ) -> torch.Tensor:
+                    seed, temperature: float, rate: float = 0.1,
+                    batch_offset: int = 0) -> torch.Tensor:
     """Dropout-softmax attention, (B, N, D) -> (B, N, D), differentiable in
     q, k and v.
 
     seed: the per-step dropout seed, an int or a one-element integer tensor
     (a device tensor keeps the step free of host synchronisation). On the
     CUDA device the stages run K5a and K5b (any D, contiguous fp32); on
-    the CPU their plain twins.
+    the CPU their plain twins. `batch_offset`: the global index of q's
+    first row (a data-parallel rank's first row; the mask hashes
+    batch + batch_offset).
     """
     keep_threshold(rate)
     if not isinstance(seed, torch.Tensor):
         seed = torch.tensor([int(seed)], dtype=torch.int32)
     seed = seed.reshape(1).to(device=q.device, dtype=torch.int32)
-    return _AttentionTrain.apply(q, k, v, seed, temperature, rate)
+    return _AttentionTrain.apply(q, k, v, seed, temperature, rate,
+                                 int(batch_offset))

@@ -37,6 +37,15 @@ sums of the tiles are added here. Each device stage has a plain twin
 tensor, so on the CPU the Function runs all of its glue on the twins.
 `fused_edgeconv_train_plain` is the unfused composition under autograd
 (JAX: fused_edgeconv_train_xla), the reference both are tested against.
+
+With a mesh (parallel/mesh.py) each rank holds its rows of the global batch
+and the Function normalises with the global statistics: four all-reduces
+between the kernel launches, none inside a kernel. Forward: the bn1 sums
+before s1/t1 (they feed K4a) and K4a's `stats` before the bn2 moments;
+backward: the two sums behind c1/c2 before K4b (pk feeds it) and K4b's
+bn1 sums before gd1/gd2. The gradients of the BN scales and shifts stay
+this rank's local parts, as every other parameter's: the caller's
+gradient all-reduce (`allreduce_grads`) sums them.
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ import torch
 from gfs3dseg_gws_tpu_torch.ops import _ext
 from gfs3dseg_gws_tpu_torch.ops.edgeconv import gather_neighbors_plain
 from gfs3dseg_gws_tpu_torch.ops.knn import neighbor_stats_plain
+from gfs3dseg_gws_tpu_torch.parallel.mesh import all_reduce_sum
 
 EPS = 1e-5  # torch BatchNorm eps
 
@@ -291,23 +301,27 @@ class _FusedEdgeConvTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b, gamma1, beta1, w2, gamma2, beta2, idx, cnt, scb,
-                neg_slope):
+                neg_slope, mesh):
         w2 = w2.contiguous()
         bsz, n, _ = a.shape
         k = idx.shape[-1]
-        e = bsz * n * k
+        e = bsz * n * k * (1 if mesh is None else mesh.size)   # global edges
         cnt0 = cnt[:, 0]
         # e0 batch statistics before any gather
         sum_e0 = torch.einsum("bn,bnc->c", cnt0, a) + k * b.sum((0, 1))
         sum_e02 = (torch.einsum("bn,bnc->c", cnt0, a * a)
                    + 2.0 * torch.einsum("bnc,bnc->c", scb, a)
                    + k * (b * b).sum((0, 1)))
+        if mesh is not None:
+            sum_e0, sum_e02 = all_reduce_sum(torch.stack([sum_e0, sum_e02]),
+                                             mesh)
         mu1 = sum_e0 / e
         var1 = torch.clamp_min(sum_e02 / e - mu1 * mu1, 0.0)
         s1, t1, _ = _affines(gamma1, beta1, mu1, var1)
 
         snbr, zmax, zmin, kmax, kmin, stats = _gsf(
             a, b, idx, s1.contiguous(), t1.contiguous(), w2, neg_slope)
+        stats = all_reduce_sum(stats, mesh)
         mu2, ez2 = _bn2_moments(stats, w2, e)
         var2 = torch.clamp_min(ez2 - mu2 * mu2, 0.0)
         s2a, t2, _ = _affines(gamma2, beta2, mu2, var2)
@@ -318,7 +332,7 @@ class _FusedEdgeConvTrain(torch.autograd.Function):
         out = _leaky(z1sel * s2a + t2, neg_slope)
         ctx.save_for_backward(a, b, idx, w2, gamma1, beta1, gamma2, mu1,
                               var1, mu2, var2, z1sel, ksel, out, snbr, cnt)
-        ctx.neg_slope = neg_slope
+        ctx.neg_slope, ctx.mesh = neg_slope, mesh
         ctx.mark_non_differentiable(mu1, var1, mu2, var2)
         return out, mu1, var1, mu2, var2
 
@@ -326,34 +340,42 @@ class _FusedEdgeConvTrain(torch.autograd.Function):
     def backward(ctx, gout, *_stat_cotangents):
         (a, b, idx, w2, g1, beta1, g2, mu1, var1, mu2, var2, z1sel, ksel,
          out, snbr, cnt) = ctx.saved_tensors
-        slope = ctx.neg_slope
+        slope, mesh = ctx.neg_slope, ctx.mesh
         bsz, n, c = a.shape
         k = idx.shape[-1]
-        e = bsz * n * k
+        e = bsz * n * k * (1 if mesh is None else mesh.size)   # global edges
 
         s1, t1, inv1 = _affines(g1, beta1, mu1, var1)
         inv2 = torch.rsqrt(var2 + EPS)
         g2s = g2 * inv2
         g1s = g1 * inv1
         gsel = torch.where(out >= 0, gout, slope * gout).contiguous()
-        c1 = gsel.sum((0, 1)) / e
-        c2 = (gsel * (z1sel - mu2) * inv2).sum((0, 1)) / e
+        # this rank's sums: the gradients of beta2 and gamma2
+        dbeta2 = gsel.sum((0, 1))
+        dgamma2 = (gsel * (z1sel - mu2) * inv2).sum((0, 1))
+        if mesh is None:
+            c1, c2 = dbeta2 / e, dgamma2 / e
+            dbeta2, dgamma2 = c1 * e, c2 * e    # as one process always had
+        else:
+            c1, c2 = all_reduce_sum(torch.stack([dbeta2, dgamma2]), mesh) / e
 
         p1 = torch.stack([s1, t1, mu1, inv1, g1s]).contiguous()
         pk = torch.stack([g2s, c1, c2, mu2, inv2]).contiguous()
         scat, psum, dw2, sums = _bwd(a, b, idx, p1, w2, gsel,
                                      ksel.contiguous(), pk, slope)
-        gd1 = g1s * sums[0] / e
-        gd2 = g1s * sums[1] / e
+        # sums (this rank's): the gradients of beta1 and gamma1
+        tot = all_reduce_sum(sums, mesh)
+        gd1 = g1s * tot[0] / e
+        gd2 = g1s * tot[1] / e
         da = scat[..., :c] - gd1 * cnt[:, 0, :, None] - gd2 * scat[..., c:]
         db = psum - k * gd1 - gd2 * ((snbr + k * b - k * mu1) * inv1)
-        return (da, db, sums[1], sums[0], dw2, c2 * e, c1 * e, None, None,
-                None, None)
+        return (da, db, sums[1], sums[0], dw2, dgamma2, dbeta2, None, None,
+                None, None, None)
 
 
 def fused_edgeconv_train(a, b, gamma1, beta1, w2, gamma2, beta2, idx,
-                         cnt=None, scb=None, neg_slope: float = 0.2
-                         ) -> Tuple[torch.Tensor, ...]:
+                         cnt=None, scb=None, neg_slope: float = 0.2,
+                         mesh=None) -> Tuple[torch.Tensor, ...]:
     """Fused train-mode EdgeConv block.
 
     Args:
@@ -370,10 +392,11 @@ def fused_edgeconv_train(a, b, gamma1, beta1, w2, gamma2, beta2, idx,
 
     On the CUDA device the stages run K4a and K4b (any C and W1,
     1 <= k <= N); on the CPU their plain twins. Ties in the max over k send the gradient
-    to the first slot.
+    to the first slot. With a `mesh` (parallel/mesh.py) the tables hold this
+    rank's rows and the statistics are the global batch's.
     """
     if cnt is None or scb is None:
         cnt, scb = neighbor_stats_plain(idx, b.detach())
     return _FusedEdgeConvTrain.apply(a, b, gamma1, beta1, w2, gamma2, beta2,
                                      idx, cnt.detach(), scb.detach(),
-                                     neg_slope)
+                                     neg_slope, mesh)

@@ -8,6 +8,15 @@ Plain functions; each returns device tensors and never synchronises, so a
 loop can queue steps back to back and read the results later. The JAX
 package's multi-step `lax.scan` dispatch and packed host-to-device batches
 are TPU workarounds and have no counterpart here.
+
+Data parallelism (parallel/mesh.py): the train steps run over the model's
+mesh, the one models/layers.py::use_mesh set on it and on every module
+that reduces over the batch, so that the model and the step cannot
+disagree on it. Each rank backwards its
+share of the global loss, the gradients are summed over the ranks and
+every rank takes the same optimizer step; the loss and accuracy returned
+are the global batch's. The eval steps run per block on this rank's rows
+and return sums and confusion counts that the caller all-reduces.
 """
 from __future__ import annotations
 
@@ -17,6 +26,28 @@ import torch
 
 from gfs3dseg_gws_tpu_torch.models.layers import cross_entropy
 from gfs3dseg_gws_tpu_torch.ops.metrics import confusion_matrix
+from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
+                                                  allreduce_grads)
+
+
+def _update(model, opt, loss: torch.Tensor, sched,
+            mesh: Optional[Mesh]) -> None:
+    """Backward (this rank's share of the loss under a mesh), the gradient
+    all-reduce, the optimizer step and the per-step LR schedule."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    allreduce_grads(model.parameters(), mesh)
+    opt.step()
+    if sched is not None:
+        sched.step()
+
+
+def _global(mesh: Optional[Mesh], *values: torch.Tensor):
+    """Per-rank shares summed over the ranks, in one all-reduce."""
+    if mesh is None:
+        return values
+    return tuple(all_reduce_sum(torch.stack([v.detach() for v in values]),
+                                mesh))
 
 
 def gfs_train_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
@@ -28,16 +59,18 @@ def gfs_train_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
     GWCAPL forward (fake-novel prototypes, 0.5 CE2 + 0.5 CE1), backward,
     optimizer step, then the per-step LR schedule. `generator` (on the
     device) draws the fake classes and the attention's dropout seed.
-    Returns (loss, accuracy = mean(pred == labels)) as device tensors."""
+    Returns (loss, accuracy = mean(pred == labels)) as device tensors; with
+    a mesh (the model's), this rank's rows in, the global batch's loss and
+    accuracy out."""
+    mesh = getattr(model, "mesh", None)
     model.train()
     pred, loss = model(points, labels, gp, generator, fake_row)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    opt.step()
-    if sched is not None:
-        sched.step()
+    _update(model, opt, loss, sched, mesh)
     accuracy = torch.mean((pred == labels).to(torch.float32))
-    return loss.detach(), accuracy
+    if mesh is not None:
+        accuracy = accuracy / mesh.size     # every rank holds as many rows
+    loss, accuracy = _global(mesh, loss.detach(), accuracy)
+    return loss, accuracy
 
 
 def pretrain_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
@@ -47,15 +80,13 @@ def pretrain_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
     """One supervised segmentation step (reference pre_train.py:144-159):
     train-mode forward, mean cross-entropy, backward, optimizer step, then
     the per-step LR schedule. `generator` draws the dropout masks. Returns
-    the loss as a device tensor (the caller reads it when it likes)."""
+    the loss as a device tensor (the caller reads it when it likes); with a
+    mesh (the model's), the global batch's."""
+    mesh = getattr(model, "mesh", None)
     model.train()
-    loss = cross_entropy(model(points, generator), labels)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    opt.step()
-    if sched is not None:
-        sched.step()
-    return loss.detach()
+    loss = cross_entropy(model(points, generator), labels, mesh=mesh)
+    _update(model, opt, loss, sched, mesh)
+    return _global(mesh, loss.detach())[0]
 
 
 def fewshot_train_step(model, opt: torch.optim.Optimizer, support_x,
@@ -69,11 +100,7 @@ def fewshot_train_step(model, opt: torch.optim.Optimizer, support_x,
     (loss, accuracy of the query argmax) as device tensors."""
     model.train()
     logits, loss = model(support_x, support_y, query_x, query_y, generator)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    opt.step()
-    if sched is not None:
-        sched.step()
+    _update(model, opt, loss, sched, None)
     pred = torch.argmax(logits.detach(), dim=-1)
     return loss.detach(), torch.mean((pred == query_y).to(torch.float32))
 

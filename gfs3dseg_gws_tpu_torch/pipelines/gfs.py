@@ -17,6 +17,12 @@ through `gfs_train_step`, validates on support seed 0 every
 
 The host data layer (datasets, registry, native C++ loader) is the port's
 own copy of the JAX package's numpy-only one (`gfs3dseg_gws_tpu_torch.data`).
+
+Both entry points take a `mesh` (parallel/mesh.py) for data parallelism,
+as the JAX pipelines take theirs: every rank reads the same global
+batches and keeps its rows, the sweeps' sums and confusion counts are
+all-reduced, and only rank 0 logs, writes metrics and saves. The global
+batch (and the sweeps' batch) must divide by the number of ranks.
 """
 from __future__ import annotations
 
@@ -38,9 +44,13 @@ from gfs3dseg_gws_tpu_torch.data import (
     native_loader,
 )
 from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
-from gfs3dseg_gws_tpu_torch.models.layers import l2norm
+from gfs3dseg_gws_tpu_torch.models.layers import l2norm, use_mesh
 from gfs3dseg_gws_tpu_torch.ops.coding import energy_multihot
 from gfs3dseg_gws_tpu_torch.ops.metrics import gfs_miou
+from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
+                                                  is_main, local_rows,
+                                                  local_valid, main_first,
+                                                  replicate, shard_batch)
 from gfs3dseg_gws_tpu_torch.parallel.optim import make_gfs_optimizer
 from gfs3dseg_gws_tpu_torch.parallel.steps import (coding_step, fg_feat_step,
                                                    gfs_eval_multi_step,
@@ -57,7 +67,7 @@ from gfs3dseg_gws_tpu_torch.utils.checkpoint import (
     state_dict_from_jax,
 )
 from gfs3dseg_gws_tpu_torch.utils.logging import (AverageMeter, IOStream,
-                                                  init_logger)
+                                                  Silent, init_logger)
 from gfs3dseg_gws_tpu_torch.utils.observability import MetricsWriter
 
 _log = logging.getLogger(__name__)
@@ -85,6 +95,19 @@ def _env_flag(name: str) -> bool:
 
 def _to(device: torch.device, array) -> torch.Tensor:
     return torch.from_numpy(np.array(array)).to(device)
+
+
+def run_logs(log_dir: str, phase: str, logger: Optional[IOStream],
+             mesh: Optional[Mesh]):
+    """(logger, metrics writer) of a run: the log file and metrics.jsonl
+    under `log_dir` on rank 0 (or the only process), `Silent` on the other
+    ranks, which write nothing there."""
+    if not is_main(mesh):
+        return Silent(), Silent()
+    logger = logger or init_logger(log_dir, phase=phase)
+    if mesh is not None:
+        logger.cprint(f"---- {mesh} ----")
+    return logger, MetricsWriter(log_dir)
 
 
 # --------------------------------------------------------------------------- #
@@ -236,25 +259,38 @@ def train_batches(dataset, batch_size: int, seed: int, epoch: int):
 
 def collect_base_codings(model, gp: torch.Tensor, dataset, n_base: int,
                          energy: float, batch_size: int = 16,
-                         seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+                         seed: int = 0, mesh: Optional[Mesh] = None
+                         ) -> Tuple[np.ndarray, np.ndarray]:
     """Reference train.py:156-218: one sweep over the no-augmentation train
     set. Returns (base_class_coding (n_base, K) multi-hot,
-    bg_class_coding (K,))."""
+    bg_class_coding (K,)). With a mesh each rank codes its rows of every
+    batch that lie before the batch's `valid`, and the sums are
+    all-reduced."""
     device = gp.device
     k = gp.shape[0]
     sums = torch.zeros((n_base, k), dtype=torch.float64, device=device)
     counts = torch.zeros((n_base,), dtype=torch.float64, device=device)
     bg_sum = torch.zeros((k,), dtype=torch.float64, device=device)
     bg_blocks = torch.zeros((), dtype=torch.float64, device=device)
+    rows = local_rows(batch_size, mesh)
     for batch in _coding_batches(dataset, batch_size, seed):
-        valid = int(batch[-1])
-        points, labels = batch[0][:valid], batch[1][:valid]
+        valid = local_valid(int(batch[-1]), batch_size, mesh)
+        if valid == 0:       # this rank's rows are all padding (no step
+            continue         # of this sweep has a collective)
+        points = batch[0][rows][:valid]
+        labels = batch[1][rows][:valid]
         s, c, b, nb = coding_step(model, _to(device, points),
                                   _to(device, labels), gp, n_base)
         sums += s.double()
         counts += c.double()
         bg_sum += b.double()
         bg_blocks += nb.double()
+    if mesh is not None:
+        flat = all_reduce_sum(torch.cat([sums.reshape(-1), counts, bg_sum,
+                                         bg_blocks[None]]), mesh)
+        sums, counts, bg_sum, bg_blocks = torch.split(
+            flat, [sums.numel(), n_base, k, 1])
+        sums, bg_blocks = sums.reshape(n_base, k), bg_blocks[0]
     means = (sums / torch.clamp_min(counts[:, None], 1.0)).cpu().numpy()
     coding = energy_multihot(torch.from_numpy(means).float(), energy)
     # the reference means a random 2000-subset of the per-block bg features
@@ -347,12 +383,17 @@ def validate_multi(model, gp: torch.Tensor, val_dataset,
                    gened_protos: np.ndarray, base_coding: np.ndarray,
                    novel_codings: np.ndarray, all_learning_order,
                    novel_class_names, num_classes: int, batch_size: int = 16,
-                   scannet: bool = False, logger: Optional[IOStream] = None):
+                   scannet: bool = False, logger: Optional[IOStream] = None,
+                   mesh: Optional[Mesh] = None):
     """One static_test sweep evaluating S prototype sets at once.
     Returns a list of S (mean, base, novel, hm, iou_list) tuples.
 
     The confusion counts and gp accuracies stay on the device until the
-    sweep ends, so no batch waits on a host round trip.
+    sweep ends, so no batch waits on a host round trip. With a mesh each
+    rank scores its rows of every batch (rows past `valid` count nowhere)
+    and the counts are all-reduced at the end; so are the numerators and
+    point counts of each batch's gp accuracies, which are divided after
+    the reduction, so that the log reads what one process logs.
     """
     device = gp.device
     n_seeds = gened_protos.shape[0]
@@ -363,15 +404,26 @@ def validate_multi(model, gp: torch.Tensor, val_dataset,
                      device=device)
     accs = []
     for points, labels, valid in eval_batches(val_dataset, batch_size):
+        valid = local_valid(valid, batch_size, mesh)
+        labels = shard_batch(np.asarray(labels), mesh)
         c, gp_acc, gp_nacc = gfs_eval_multi_step(
-            model, _to(device, points), _to(device, labels), gp, protos, base,
-            novel, valid, num_classes)
+            model, _to(device, shard_batch(points, mesh)),
+            _to(device, labels), gp, protos, base, novel, valid, num_classes)
         cm += c.double()
-        accs.append(torch.stack([gp_acc.mean(), gp_nacc.mean()]))
-    cm = cm.cpu().numpy()
+        acc = torch.stack([gp_acc.mean(), gp_nacc.mean()])
+        if mesh is not None:      # numerators and counts: all points, novel
+            real = labels[:valid]
+            n = acc.new_tensor([real.size, np.sum(real >= model.base_num)])
+            acc = torch.cat([acc * n, n])
+        accs.append(acc)
+    cm = all_reduce_sum(cm, mesh).cpu().numpy()
+    accs = torch.stack(accs)
+    if mesh is not None:
+        accs = all_reduce_sum(accs, mesh)
+        accs = accs[:, :2] / torch.clamp_min(accs[:, 2:], 1.0)
     if logger:
         gp_acc_m, gp_nacc_m = AverageMeter(), AverageMeter()
-        for a, na in torch.stack(accs).cpu().tolist():
+        for a, na in accs.cpu().tolist():
             gp_acc_m.update(a)
             gp_nacc_m.update(na)
         logger.cprint(f"---------- gp acc: {gp_acc_m.avg:.4f}, "
@@ -428,9 +480,12 @@ def load_base_coding(save_path: str, energy: float,
 # --------------------------------------------------------------------------- #
 
 def evaluate_gfs(model_cfg, data_cfg, train_cfg,
-                 logger: Optional[IOStream] = None) -> Dict:
+                 logger: Optional[IOStream] = None,
+                 mesh: Optional[Mesh] = None) -> Dict:
     """--only_evaluate: the 4 metrics averaged over the support seeds
-    (reference train.py:459-499), on `train_cfg.device`.
+    (reference train.py:459-499), on `train_cfg.device` (with a `mesh`,
+    its device: the sweeps split over the ranks, the registration of the
+    support shots replicated, as in JAX).
 
     Returns the averaged metrics (`mean_iou`, `base_iou`, `novel_iou`,
     `hm_iou`, `per_class`) and what produced them: `per_seed` (S x 4),
@@ -439,11 +494,19 @@ def evaluate_gfs(model_cfg, data_cfg, train_cfg,
     the base coding was computed by a sweep over the training blocks (no
     saved coding was found).
     """
-    device = resolve_device(train_cfg.device)
+    device = resolve_device(train_cfg.device) if mesh is None else \
+        mesh.device
     basis = load_basis(train_cfg.basis_path)
-    setup = build_setup(model_cfg, data_cfg, train_cfg, basis, device)
-    logger = logger or init_logger(train_cfg.save_path, phase="test")
+    with main_first(mesh):       # it may write the data's caches
+        setup = build_setup(model_cfg, data_cfg, train_cfg, basis, device)
+    if is_main(mesh):
+        logger = logger or init_logger(train_cfg.save_path, phase="test")
+        if mesh is not None:
+            logger.cprint(f"---- {mesh} ----")
+    else:
+        logger = Silent()
     load_model_weights(setup.model, train_cfg.model_checkpoint_path)
+    replicate(setup.model, mesh)
 
     n_base = len(setup.train_class_names)
     ckpt_name = os.path.basename(train_cfg.model_checkpoint_path)
@@ -458,12 +521,13 @@ def evaluate_gfs(model_cfg, data_cfg, train_cfg,
                       f"energy={train_cfg.energy} ----")
         base_coding, _ = collect_base_codings(
             setup.model, setup.gp, setup.train_data_noaug, n_base,
-            train_cfg.energy, train_cfg.batch_size)
-        os.makedirs(train_cfg.save_path, exist_ok=True)
-        np.savez(os.path.join(
-            train_cfg.save_path,
-            f"base_class_gp_coding_energy={train_cfg.energy}.npz"),
-            coding=base_coding)
+            train_cfg.energy, train_cfg.batch_size, mesh=mesh)
+        if is_main(mesh):
+            os.makedirs(train_cfg.save_path, exist_ok=True)
+            np.savez(os.path.join(
+                train_cfg.save_path,
+                f"base_class_gp_coding_energy={train_cfg.energy}.npz"),
+                coding=base_coding)
 
     scannet = len(setup.all_learning_order) > 13
     main_proto = setup.model.main_proto.detach().cpu().numpy()
@@ -483,7 +547,7 @@ def evaluate_gfs(model_cfg, data_cfg, train_cfg,
         setup.model, setup.gp, setup.val_dataset, geneds, base_coding,
         novel_codings, setup.all_learning_order, setup.test_class_names,
         len(setup.all_class_names), _eval_batch_size(train_cfg), scannet,
-        logger)
+        logger, mesh)
     sweep_seconds = time.perf_counter() - t0
     per_seed = np.asarray([m[:4] for m in metrics], np.float64)
     sums = per_seed.mean(axis=0)
@@ -506,7 +570,7 @@ def evaluate_gfs(model_cfg, data_cfg, train_cfg,
 # --------------------------------------------------------------------------- #
 
 
-def _step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int) -> int:
     """The device generator's seed for optimizer step `step`: a function of
     (seed, step) alone (JAX: fold_in(rng, step)), so that a resumed run
     draws what an uninterrupted one would."""
@@ -515,9 +579,11 @@ def _step_seed(seed: int, step: int) -> int:
 
 def train_gfs(model_cfg, data_cfg, train_cfg,
               logger: Optional[IOStream] = None,
-              max_steps_per_epoch: Optional[int] = None) -> Dict:
+              max_steps_per_epoch: Optional[int] = None,
+              mesh: Optional[Mesh] = None) -> Dict:
     """Base-stage training (reference train.py:503-588; JAX
-    pipelines/gfs.py::train_gfs) on `train_cfg.device`.
+    pipelines/gfs.py::train_gfs) on `train_cfg.device`, or data-parallel
+    over `mesh` on its device.
 
     The model starts from the JAX initialisers (seed `train_cfg.seed`),
     then, in order: the pre-trained encoder (`use_pretrain_weight`), a warm
@@ -530,12 +596,15 @@ def train_gfs(model_cfg, data_cfg, train_cfg,
     has one entry per epoch with its mean loss and accuracy, steps and
     seconds, plus the validation mIoUs where it validated.
     """
-    device = resolve_device(train_cfg.device)
+    device = resolve_device(train_cfg.device) if mesh is None else \
+        mesh.device
+    local_rows(train_cfg.batch_size, mesh)          # B must divide over R
+    local_rows(_eval_batch_size(train_cfg), mesh)
     basis = load_basis(train_cfg.basis_path)
-    setup = build_setup(model_cfg, data_cfg, train_cfg, basis, device)
-    logger = logger or init_logger(train_cfg.save_path, phase="train")
-    writer = MetricsWriter(train_cfg.save_path)
-    model = init_model(setup, train_cfg.seed)
+    with main_first(mesh):       # it may write the data's caches
+        setup = build_setup(model_cfg, data_cfg, train_cfg, basis, device)
+    logger, writer = run_logs(train_cfg.save_path, "train", logger, mesh)
+    model = use_mesh(init_model(setup, train_cfg.seed), mesh)
 
     if train_cfg.use_pretrain_weight and train_cfg.pretrain_checkpoint_path:
         logger.cprint("----- loading pretrain weight of feature extractor ----")
@@ -557,6 +626,7 @@ def train_gfs(model_cfg, data_cfg, train_cfg,
         logger.cprint("----- resuming from checkpoint -----")
         load_model_weights(model, train_cfg.model_checkpoint_path)
         step = load_train_state(train_cfg.model_checkpoint_path, opt, sched)
+    replicate(model, mesh)
     gen = torch.Generator(device=device)
 
     scannet = len(setup.all_learning_order) > 13
@@ -570,7 +640,7 @@ def train_gfs(model_cfg, data_cfg, train_cfg,
                 epoch % train_cfg.coding_interval == 0:
             base_coding, _ = collect_base_codings(
                 model, setup.gp, setup.train_data_noaug, n_base,
-                train_cfg.energy, train_cfg.batch_size)
+                train_cfg.energy, train_cfg.batch_size, mesh=mesh)
 
         loss_m, acc_m = AverageMeter(), AverageMeter()
         pending: List = []
@@ -588,11 +658,14 @@ def train_gfs(model_cfg, data_cfg, train_cfg,
                 epoch=epoch)):
             if max_steps_per_epoch and i >= max_steps_per_epoch:
                 break
-            gen.manual_seed(_step_seed(train_cfg.seed, step))
+            # every rank draws the same global batch and keeps its rows
+            gen.manual_seed(step_seed(train_cfg.seed, step))
             pending.append(gfs_train_step(
-                model, opt, _to(device, np.asarray(batch[0], np.float32)),
-                _to(device, np.asarray(batch[1], np.int64)), setup.gp, gen,
-                sched))
+                model, opt,
+                _to(device, shard_batch(np.asarray(batch[0], np.float32),
+                                        mesh)),
+                _to(device, shard_batch(np.asarray(batch[1], np.int64),
+                                        mesh)), setup.gp, gen, sched))
             step += 1
             steps += 1
             if steps % train_cfg.print_freq == 0:
@@ -624,7 +697,7 @@ def train_gfs(model_cfg, data_cfg, train_cfg,
                 model, setup.gp, setup.val_dataset, gened[None], base_coding,
                 novel_coding[None], setup.all_learning_order,
                 setup.test_class_names, len(setup.all_class_names),
-                _eval_batch_size(train_cfg), scannet, logger)[0]
+                _eval_batch_size(train_cfg), scannet, logger, mesh)[0]
             logger.cprint(f"Epoch: {epoch}, Final mIoU: {mean_iou}, BASE: "
                           f"{base_iou}, NOVEL: {novel_iou}, hm: {hm}")
             entry.update(mean_iou=mean_iou, base_iou=base_iou,
@@ -635,7 +708,7 @@ def train_gfs(model_cfg, data_cfg, train_cfg,
             writer.scalar("Val/hm_mIoU", hm, epoch)
             _maybe_save(model, opt, sched, step, base_coding, train_cfg,
                         logger, best, epoch, mean_iou, base_iou, novel_iou,
-                        hm)
+                        hm, write=is_main(mesh))
 
     writer.close()
     return {"best": best, "history": history, "model": model, "step": step,
@@ -643,13 +716,17 @@ def train_gfs(model_cfg, data_cfg, train_cfg,
 
 
 def _maybe_save(model, opt, sched, step, base_coding, train_cfg, logger,
-                best, epoch, mean_iou, base_iou, novel_iou, hm) -> None:
+                best, epoch, mean_iou, base_iou, novel_iou, hm,
+                write: bool = True) -> None:
     """Keep the best checkpoints by validation mIoU (before and after epoch
     100) and by harmonic mean, each with its coding file, under the JAX
-    package's names (reference train.py:546-588)."""
+    package's names (reference train.py:546-588). Every rank updates
+    `best`; only a rank with `write` saves."""
     meta = {"epoch": epoch, "max_iou": float(mean_iou)}
 
     def save(name, coding_prefix=""):
+        if not write:
+            return
         path = os.path.join(train_cfg.save_path, name)
         logger.cprint("Saving best checkpoint to: " + path)
         save_gfs_npz(model, path, meta)

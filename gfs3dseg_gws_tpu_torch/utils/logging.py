@@ -20,6 +20,20 @@ class IOStream:
         self.f.close()
 
 
+class Silent:
+    """Stands in for the log and the metrics sink on a data-parallel rank
+    other than 0 (parallel/mesh.py): prints and writes nothing."""
+
+    def cprint(self, text: str):
+        pass
+
+    def scalar(self, tag: str, value: float, step: int):
+        pass
+
+    def close(self):
+        pass
+
+
 def init_logger(log_dir: str, args=None, phase: str = "train") -> IOStream:
     os.makedirs(log_dir, exist_ok=True)
     logger = IOStream(os.path.join(log_dir, f"log_{phase}.txt"))

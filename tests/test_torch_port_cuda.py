@@ -659,6 +659,34 @@ def test_attention_train_kernel_chain_matches_plain_chain(dev, b, n, d, rate):
         assert _rel(g, w) <= 1e-4
 
 
+@pytest.mark.parametrize("offset", [8, 1000])
+@pytest.mark.parametrize("b,n,d", [(8, 2048, 64), (2, 300, 30),
+                                   (2, 300, 192)])
+def test_attention_train_kernels_at_a_batch_offset(dev, b, n, d, offset):
+    """K5a and K5b at a batch_offset (a data-parallel rank's first global
+    row) against their twins at that offset (out, m, den within 1e-5; dq,
+    dk, dv within 1e-4 of the largest entry); the kernel's forward at the
+    offset is the forward of the global batch's rows there."""
+    r = np.random.default_rng(n + d + offset)
+    q, k, v, dy = (_randn(r, b, n, d).to(dev) for _ in range(4))
+    seed = torch.tensor([99], dtype=torch.int32, device=dev)
+    temp = d ** 0.5
+    got = atr._fwd(q, k, v, seed, temp, 0.1, offset)
+    ref = atr._fwd_plain(q, k, v, seed, temp, 0.1, offset)
+    delta = (dy * ref[0]).sum(-1)
+    args = (q, k, v, seed, ref[1], ref[2], delta, dy, temp, 0.1, offset)
+    got_b, ref_b = atr._bwd(*args), atr._bwd_plain(*args)
+    pad = torch.zeros((offset,) + q.shape[1:], device=dev)
+    whole = atr._fwd(*(torch.cat([pad, x]) for x in (q, k, v)), seed, temp,
+                     0.1)[0][offset:]
+    torch.cuda.synchronize()
+    for g, w in zip(got, ref):
+        assert _rel(g, w) <= 1e-5
+    for g, w in zip(got_b, ref_b):
+        assert _rel(g, w) <= 1e-4
+    assert torch.equal(whole, got[0])
+
+
 def test_attention_train_wrappers_refuse_what_they_cannot_take(dev):
     seed = torch.zeros(1, dtype=torch.int32, device=dev)
     a = torch.zeros((1, 16, 8), device=dev)
@@ -672,6 +700,8 @@ def test_attention_train_wrappers_refuse_what_they_cannot_take(dev):
         atr._fwd(t_, t_, t_, seed, 1.0, 0.1)
     with pytest.raises(ValueError, match="seed"):
         atr._fwd(a, a, a, seed.long(), 1.0, 0.1)
+    with pytest.raises(ValueError, match="batch_offset"):
+        atr._fwd(a, a, a, seed, 1.0, 0.1, -1)
 
 
 def test_gwcapl_train_step_on_card_agrees_with_cpu(dev, monkeypatch):

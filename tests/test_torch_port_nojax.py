@@ -2,7 +2,8 @@
 none), and without any module of the JAX package: every module of
 gfs3dseg_gws_tpu_torch imports (the training slices' kernels, models,
 optimizers, pipelines and CLIs among them, geometric-word extraction,
-the few-shot baselines, preprocessing and the checkpoint converter),
+the few-shot baselines, preprocessing, the checkpoint converter and
+data parallelism: parallel/mesh.py and parallel/dryrun.py),
 `chip_smoke` imports, and the five CLIs answer --help, in a subprocess where importing jax, flax or gfs3dseg_gws_tpu
 (even its numpy-only modules) fails, and h5py too (the GPU host has
 none)."""
@@ -32,9 +33,12 @@ for name in ("ops.knn", "ops.fused_edgeconv_train", "ops.attention_train",
              "data.episodes", "ops.metrics", "ops.fps", "models.protonet",
              "models.mpti", "pipelines.baselines", "parallel.steps",
              "cli.preprocess_cli", "cli.convert_checkpoint",
-             "data.preprocess", "utils.visual"):
+             "data.preprocess", "utils.visual", "parallel.mesh",
+             "parallel.dryrun"):
     assert "gfs3dseg_gws_tpu_torch." + name in names, name
 import chip_smoke
+from gfs3dseg_gws_tpu_torch.parallel import dryrun, mesh
+assert callable(mesh.make_mesh) and callable(dryrun.dryrun_multichip)
 from gfs3dseg_gws_tpu_torch.cli import (basis_cli, convert_checkpoint,
                                         preprocess_cli, pretrain_cli,
                                         train_cli)
