@@ -193,6 +193,12 @@ def timed(name: str, fn, *args):
     return out
 
 
+def sync(dev: torch.device) -> None:
+    """Wait for `dev` (a CUDA device; nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def cuda_ms(fn, reps: int = 20) -> float:
     """Median CUDA-event time of one call, after warm-up."""
     for _ in range(3):
@@ -223,6 +229,11 @@ def check_edgeconv(dev, c: int, gen: torch.Generator, w0: int = 64,
             randn(w0, w1, scale=w0 ** -0.5), randn(w1, scale=0.1))
     got = fused_edgeconv_infer(*args, k)
     ref = fused_edgeconv_plain(*args, k)
+    # local queries (a data x points rank): the second half of the points
+    # against all of them, the rows of the full call bit for bit
+    h = N // 2
+    local = (args[0], args[1], args[2][:, h:].contiguous()) + args[3:]
+    got_local = fused_edgeconv_infer(*local, k, q_offset=h)
     torch.cuda.synchronize()
     diff = (got - ref).abs()
     row_ok = (diff <= EC_TOL[0] + EC_TOL[1] * ref.abs()).all(-1)   # (B, N)
@@ -231,9 +242,14 @@ def check_edgeconv(dev, c: int, gen: torch.Generator, w0: int = 64,
     if share < EC_ROWS:
         raise AssertionError(f"{label}: only {share:.6f} of rows within "
                              f"tolerance")
+    if not torch.equal(got_local, got[:, h:]):
+        raise AssertionError(f"{label}: local queries differ from the full "
+                             "call's rows")
     bad = (~row_ok).nonzero().tolist()
     near_tie_rows(args[0], bad, label, k=k)
     ms = cuda_ms(lambda: fused_edgeconv_infer(*args, k), reps)
+    local_ms = cuda_ms(lambda: fused_edgeconv_infer(*local, k, q_offset=h),
+                       reps)
     plain_ms = cuda_ms(lambda: fused_edgeconv_plain(*args, k), reps)
     max_err = diff.max().item()
     # FMAs: the kNN distances (b N^2 c, fp32) and the edge layer (b N k w0
@@ -246,10 +262,12 @@ def check_edgeconv(dev, c: int, gen: torch.Generator, w0: int = 64,
                           else bound(knn_flops + edge_flops, nbytes))
     phase(label, max_abs_err=max_err,
           rows_within_tol=share, near_tie_rows=len(bad), kernel_ms=ms,
-          plain_ms=plain_ms, bound_ms=bound_ms, bound_fp32_ms=fp32_ms)
+          plain_ms=plain_ms, bound_ms=bound_ms, bound_fp32_ms=fp32_ms,
+          local_queries="rows of the full call, bit for bit",
+          local_ms=local_ms)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                bound_fp32_ms=fp32_ms)
+                bound_fp32_ms=fp32_ms, local_ms=local_ms)
 
 
 def check_attention(dev, gen: torch.Generator, d: int = 64, reps: int = 20):
@@ -263,7 +281,14 @@ def check_attention(dev, gen: torch.Generator, d: int = 64, reps: int = 20):
     got = fused_attention(q, k, v, temp)
     ref = attention_plain(q, k, v, temp)
     torch.testing.assert_close(got, ref, **ATTN_TOL)
+    # local queries (a data x points rank): the second half of q against
+    # every key, the rows of the full call bit for bit
+    q_half = q[:, N // 2:].contiguous()
+    if not torch.equal(fused_attention(q_half, k, v, temp), got[:, N // 2:]):
+        raise AssertionError(f"K2 fused_attention ({B},{N},{d}): local "
+                             "queries differ from the full call's rows")
     ms = cuda_ms(lambda: fused_attention(q, k, v, temp), reps)
+    local_ms = cuda_ms(lambda: fused_attention(q_half, k, v, temp), reps)
     plain_ms = cuda_ms(lambda: attention_plain(q, k, v, temp), reps)
     # yardstick only: the port never calls it (its default scale is
     # 1/sqrt(d), the same)
@@ -277,10 +302,12 @@ def check_attention(dev, gen: torch.Generator, d: int = 64, reps: int = 20):
     fp32_ms = bound(flops, nbytes)[0]
     phase(f"K2 fused_attention ({B},{N},{d})", max_abs_err=max_err,
           kernel_ms=ms, plain_ms=plain_ms, sdpa_fp32_ms=library_ms,
-          bound_ms=bound_ms, bound_fp32_ms=fp32_ms)
+          bound_ms=bound_ms, bound_fp32_ms=fp32_ms,
+          local_queries="rows of the full call, bit for bit",
+          local_ms=local_ms)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                bound_fp32_ms=fp32_ms)
+                bound_fp32_ms=fp32_ms, local_ms=local_ms)
 
 
 def rel_err(got, ref) -> float:
@@ -360,19 +387,28 @@ def check_knn_indices(dev, c: int, gen: torch.Generator, k: int = K,
     x = torch.randn((b, N, c), generator=gen).to(dev)
     idx = knn_indices(x, k)
     ref = knn_indices_plain(x, k)
+    h = N // 2           # local queries: the second half against every key
+    idx_local = knn_indices(x, k, h, N - h)
     torch.cuda.synchronize()
     label = f"K6 knn_indices ({b},{N},{c}) k={k}"
+    if not torch.equal(idx_local, idx[:, h:]):
+        raise AssertionError(f"{label}: local queries differ from the full "
+                             "call's rows")
     share, order, bad = graph_agreement(x, idx, ref, label, k)
     max_err = slot_dist_err(x, idx, ref)
     ms = cuda_ms(lambda: knn_indices(x, k), reps)
+    local_ms = cuda_ms(lambda: knn_indices(x, k, h, N - h), reps)
     plain_ms = cuda_ms(lambda: knn_indices_plain(x, k), reps)
     # FMAs: the kNN distances (b N^2 c)
     bound_ms, bound_by = bound(2.0 * b * N * N * c, size_of(x, idx))
     phase(label, sets_agree=share,
           order_agree=order, near_tie_rows=len(bad), max_abs_err=max_err,
-          kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+          kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+          local_queries="rows of the full call, bit for bit",
+          local_ms=local_ms)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                local_ms=local_ms)
 
 
 def slot_dist_err(x, idx, ref) -> float:
@@ -1505,12 +1541,12 @@ def compare_train_step(label: str, cpu_model, card_model, dev, run):
         graphs.append(out[0].cpu())
         return out
 
-    def record_idx(x, k):
-        idx = knn_indices(x, k)
+    def record_idx(x, k, **local):
+        idx = knn_indices(x, k, **local)
         graphs.append(idx.cpu())
         return idx
 
-    def replay_idx(x, k):
+    def replay_idx(x, k, **local):
         idx = graphs.pop(0)
         differing.append(check_replayed_graph(
             x, idx, k, f"card graph {len(differing)}"))
@@ -1636,6 +1672,15 @@ DP_TRAJ_RTOL = 1e-3               # ... one process's own DP_STEPS steps vs
                                   # whose gradient sign the card's rounding
                                   # and near-tie flips decide moves by 2 lr
 DP_MIOU_TOL = 1e-6                # ... evaluate_gfs over the ranks, per seed
+DXP_RANKS, DXP_SP = 4, 2          # dxp phase: a 2 x 2 data x points mesh of
+                                  # gloo ranks on the one card
+DXP_MIOU_TOL = 1e-4               # ... evaluate_gfs over it vs one process
+                                  # at its data rows' batch, per seed: the
+                                  # card's GEMMs on N/2 rows and the split
+                                  # softmax sums round otherwise
+DXP_LONG_N, DXP_LONG_B = 16384, 2  # ... a batch of long blocks over 1 x 2
+DXP_AGREE = 0.999                 # ... its argmax vs one process's
+DXP_REPS = 5                      # ... timed steps (median)
 
 
 class Recorder:
@@ -1931,6 +1976,7 @@ def check_dp(dev, root: str, eval_inputs, eval_res, gw_path: str,
             for r in ranks):
         raise AssertionError("data-parallel evaluation differs from one "
                              "process")
+    dp_one = one
 
     # the normal entry point under torchrun, NCCL, one rank
     save = os.path.join(root, "dp_torchrun")
@@ -1961,6 +2007,199 @@ def check_dp(dev, root: str, eval_inputs, eval_res, gw_path: str,
             "Train result at epoch [0/1]" not in log:
         raise AssertionError(f"torchrun train_cli failed ({res.returncode}):"
                              f"\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return dp_one
+
+
+def dxp_evaluate_rank(mesh, model_cfg, data_cfg, train_cfg):
+    """One rank of `evaluate_gfs` over the data x points mesh; returns its
+    result, its kernel launches and its points all-gathers (calls, bytes)
+    and all collectives."""
+    from gfs3dseg_gws_tpu_torch.parallel import mesh as pmesh
+    from gfs3dseg_gws_tpu_torch.pipelines.gfs import evaluate_gfs
+
+    read = reset_launches()
+    gathers, total = pmesh.gathers(), pmesh.collectives()
+    out = evaluate_gfs(model_cfg, data_cfg, train_cfg, mesh=mesh)
+    sync(mesh.device)
+    now, now_total = pmesh.gathers(), pmesh.collectives()
+    return dict(out, launches=read(),
+                gathers=(now[0] - gathers[0], now[1] - gathers[1]),
+                collectives=(now_total[0] - total[0],
+                             now_total[1] - total[1]))
+
+
+def dxp_long_rank(mesh, state, points, labels, gp, heads):
+    """One rank of the dxp phase's long blocks: its rows and points of the
+    batch through gfs_eval_multi_step under the points split (one warm-up,
+    then the median host-clock ms of DXP_REPS calls, each waited for), and
+    the argmax of the same pass (GWCAPL.evaluate_multi)."""
+    from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
+    from gfs3dseg_gws_tpu_torch.parallel import mesh as pmesh
+    from gfs3dseg_gws_tpu_torch.parallel.steps import gfs_eval_multi_step
+
+    dev = mesh.device
+    model = GWCAPL(num_gw=NUM_GW, device=dev)
+    model.load_state_dict(state)
+    pmesh.replicate(model, mesh)
+    x, y = (pmesh.shard_points(pmesh.shard_batch(t, mesh), mesh).to(dev)
+            for t in (points, labels))
+    gp, heads = gp.to(dev), [h.to(dev) for h in heads]
+    with pmesh.points_split(model, mesh):
+        return _timed_long_pass(model, x, y, gp, heads,
+                                gfs_eval_multi_step)
+
+
+def _timed_long_pass(model, x, y, gp, heads, step):
+    """(argmax (S, B, N) on the host, median ms of `step` on the batch,
+    K1/K2 launches of one step)."""
+    read = reset_launches()
+    step(model, x, y, gp, *heads, x.shape[0], 13)
+    launched = read()
+    seconds = []
+    for _ in range(DXP_REPS):
+        sync(x.device)
+        t0 = time.perf_counter()
+        step(model, x, y, gp, *heads, x.shape[0], 13)
+        sync(x.device)
+        seconds.append(time.perf_counter() - t0)
+    with torch.inference_mode():
+        logits = model.evaluate_multi(x, gp, *heads)[0]
+    return (torch.argmax(logits, -1).cpu(), 1e3 * statistics.median(seconds),
+            {k: launched[k] for k in ("k1", "k2")})
+
+
+def check_dxp(dev, root: str, eval_inputs, dp_one, model, basis, heads):
+    """The data x points mesh (`--mesh dxp`, parallel/mesh.py::
+    make_mesh_dxp) on the one card (correctness and collective overhead,
+    not scaling):
+
+    1. `evaluate_gfs` over a 2 x 2 mesh of DXP_RANKS gloo ranks on
+       phase 4's inputs (S3DIS defaults, N = 2048, batch 16: each rank 8
+       blocks x 1,024 points) against one process at batch 8 (the dp
+       phase's run, `dp_one`): every seed's mIoUs within DXP_MIOU_TOL, the
+       base codings equal; each rank's K1/K2 launches as one process's
+       forwards; the points all-gathers a batch, their bytes.
+    2. One batch of DXP_LONG_B synthetic blocks of DXP_LONG_N points
+       through gfs_eval_multi_step over a 1 x 2 mesh against one process on
+       the card: argmax agreement >= DXP_AGREE; each rank's ms and one
+       process's.
+    3. `torchrun --nproc_per_node 1 train_cli --only_evaluate --mesh dxp
+       --mesh_sp 1` on NCCL: rc 0, and the mesh in its log."""
+    from gfs3dseg_gws_tpu_torch.parallel import dryrun
+    from gfs3dseg_gws_tpu_torch.parallel.steps import gfs_eval_multi_step
+    from gfs3dseg_gws_tpu_torch.utils.config import (DataConfig, ModelConfig,
+                                                     TrainConfig)
+
+    card = f"cuda:{dev.index or 0}"
+    train_dir, test_dir, basis_path, pth = eval_inputs
+    cfgs = (ModelConfig(),
+            DataConfig(data_path=train_dir, testing_data_path=test_dir,
+                       pc_npts=N, k_shot=5),
+            TrainConfig(batch_size=B, eval_weight=1.2, energy=0.9,
+                        basis_path=basis_path, model_checkpoint_path=pth,
+                        save_path=os.path.join(root, "dxp_eval"),
+                        only_evaluate=True, device="cuda"))
+    t0 = time.perf_counter()
+    ranks = dryrun.run_ranks(dxp_evaluate_rank, DXP_RANKS, card, "gloo",
+                             cfgs, sp=DXP_SP)
+    wall = time.perf_counter() - t0
+    setup = gfs_setup(train_dir, test_dir)
+    forwards = eval_forwards(setup, ranks[0]["coding_sweep"])
+    split = forwards - len(setup.supp_datasets)     # the split sweeps' batches
+    want = expected_launches(DEFAULT_WIDTHS, 0, forwards, True)
+    for r, out in enumerate(ranks):
+        check_launches(f"dxp rank {r}", out["launches"], want)
+    diffs = [float(np.abs(r["per_seed"] - dp_one["per_seed"]).max())
+             for r in ranks]
+    codings = [np.array_equal(r["base_coding"], dp_one["base_coding"])
+               for r in ranks]
+    log = open(os.path.join(root, "dxp_eval", "log_test.txt")).read()
+    mesh_line = next((line for line in log.splitlines()
+                      if "data x points mesh" in line), "")
+    phase(f"dxp evaluate_gfs ({DXP_RANKS // DXP_SP} x {DXP_SP} gloo ranks "
+          f"on one card vs one process at batch {B // (DXP_RANKS // DXP_SP)};"
+          " correctness and collective overhead, not scaling)",
+          mesh=mesh_line.strip("- "), blocks=ranks[0]["n_blocks"],
+          coding_sweep=ranks[0]["coding_sweep"],
+          per_seed_miou=[round(float(v), 6)
+                         for v in ranks[0]["per_seed"][:, 0]],
+          max_abs_diff=diffs, tol=DXP_MIOU_TOL, base_coding_equal=codings,
+          split_batches=split,
+          gathers_per_batch=ranks[0]["gathers"][0] / split,
+          gather_bytes_per_batch=ranks[0]["gathers"][1] / split,
+          collectives_per_batch=ranks[0]["collectives"][0] / split,
+          collective_bytes_per_batch=ranks[0]["collectives"][1] / split,
+          rank_launches=[r["launches"]["k1"] for r in ranks],
+          sweep_seconds=[r["sweep_seconds"] for r in ranks],
+          one_process_sweep_seconds=dp_one["sweep_seconds"],
+          wall_seconds=wall)
+    if "{'data': 2, 'points': 2}" not in mesh_line or \
+            max(diffs) > DXP_MIOU_TOL or not all(codings):
+        raise AssertionError("data x points evaluation differs from one "
+                             "process")
+
+    # a batch of long blocks over 1 x 2 against one process on the card
+    r = np.random.default_rng(SEED + 18)
+    xyz = r.random((DXP_LONG_B, DXP_LONG_N, 3)).astype(np.float32)
+    points = torch.from_numpy(np.concatenate(
+        [xyz, r.random((DXP_LONG_B, DXP_LONG_N, 3)).astype(np.float32),
+         xyz / xyz.max(axis=1, keepdims=True)], -1))
+    labels = torch.from_numpy(r.integers(0, 13, (DXP_LONG_B, DXP_LONG_N)))
+    gp = torch.from_numpy(np.asarray(basis, np.float32))
+    heads = [torch.from_numpy(np.asarray(h)) for h in heads]
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    long_ranks = dryrun.run_ranks(dxp_long_rank, DXP_SP, card, "gloo",
+                                  (state, points, labels, gp, heads),
+                                  sp=DXP_SP)
+    long_wall = time.perf_counter() - t0
+    pred = torch.cat([lr[0] for lr in long_ranks], dim=2)
+    one_pred, one_ms, one_launches = _timed_long_pass(
+        model, points.to(dev), labels.to(dev), gp.to(dev),
+        [h.to(dev) for h in heads], gfs_eval_multi_step)
+    agree = (pred == one_pred).double().mean().item()
+    phase(f"dxp gfs_eval_multi_step ({DXP_LONG_B}, {DXP_LONG_N}) over 1 x "
+          f"{DXP_SP} gloo ranks vs one process",
+          argmax_agree=agree, rank_ms=[lr[1] for lr in long_ranks],
+          one_process_ms=one_ms,
+          rank_launches=[lr[2] for lr in long_ranks],
+          one_process_launches=one_launches, wall_seconds=long_wall)
+    if pred.shape != one_pred.shape or agree < DXP_AGREE:
+        raise AssertionError(f"long blocks over the data x points mesh "
+                             f"agree with one process on {agree}")
+
+    # the normal entry point under torchrun, NCCL, one rank
+    save = os.path.join(root, "dxp_torchrun")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "1", "--standalone", "-m", "gfs3dseg_gws_tpu_torch.cli.train_cli",
+         "--phase", "test", "--only_evaluate", "--dataset", "s3dis",
+         "--cvfold", "0", "--data_path", train_dir,
+         "--testing_data_path", test_dir, "--basis_path", basis_path,
+         "--model_checkpoint_path", pth, "--save_path", save,
+         "--pc_npts", str(N), "--k_shot", "5", "--eval_weight", "1.2",
+         "--energy", "0.9", "--batch_size", str(B), "--mesh", "dxp",
+         "--mesh_sp", "1", "--device", "cuda"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    log = ""
+    if os.path.exists(os.path.join(save, "log_test.txt")):
+        log = open(os.path.join(save, "log_test.txt")).read()
+    mesh_line = next((line for line in log.splitlines()
+                      if "data x points mesh" in line), "")
+    phase("dxp torchrun train_cli --only_evaluate --mesh dxp --mesh_sp 1 "
+          "(NCCL, 1 rank)", rc=res.returncode, wall_seconds=wall,
+          mesh=mesh_line.strip("- "),
+          eval_line=next((line for line in log.splitlines()
+                          if line.startswith("Eval result")), ""))
+    if res.returncode != 0 or "{'data': 1, 'points': 1}" not in mesh_line \
+            or "over nccl" not in mesh_line or "Eval result" not in log:
+        raise AssertionError(f"torchrun train_cli --mesh dxp failed "
+                             f"({res.returncode}):\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+
 
 
 # --------------------------------------------------------------------------- #
@@ -3174,8 +3413,16 @@ def main() -> int:
         # ---- phase 13a: data parallelism (parallel/mesh.py): 2 gloo ranks
         # on the card against one process (train steps, evaluate_gfs), and
         # train_cli under torchrun on NCCL
-        timed("dp", check_dp, dev, root,
-              (train_dir, test_dir, basis_path, pth), res, gw_path, pre_ckpt)
+        dp_one = timed("dp", check_dp, dev, root,
+                       (train_dir, test_dir, basis_path, pth), res, gw_path,
+                       pre_ckpt)
+
+        # ---- phase 13c: the data x points mesh (--mesh dxp): evaluate_gfs
+        # over 2 x 2 gloo ranks on the card against one process, a batch
+        # of 16,384-point blocks over 1 x 2, train_cli under torchrun
+        timed("dxp", check_dxp, dev, root,
+              (train_dir, test_dir, basis_path, pth), dp_one, gpu_model,
+              basis_np, heads)
 
         # ---- phase 13b: the few-shot baselines (prototrain, protoeval,
         # mptitrain, mptieval, mptigfs, finetune) from the pre-trained

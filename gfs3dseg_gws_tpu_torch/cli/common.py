@@ -84,31 +84,34 @@ def add_dispatch_args(p: argparse.ArgumentParser):
 
 def add_tpu_compat_args(p: argparse.ArgumentParser):
     """`add_dispatch_args` plus the device-mesh flags of the GFS CLI."""
-    g = add_dispatch_args(p)
+    add_dispatch_args(p)
     p.add_argument("--mesh", type=str, default="data",
                    choices=["data", "dxp"], dest="mesh_shape",
                    help="the mesh of a run over several ranks (torchrun): "
-                        "'data' = data parallelism; 'dxp' (data x points) "
-                        "is not ported yet and raises")
-    g.add_argument("--mesh_sp", type=int, default=2,
-                   help="the JAX dxp mesh's points axis; ignored until dxp "
-                        "is ported (ROADMAP.md §8b)")
+                        "'data' = data parallelism; 'dxp' = data x points, "
+                        "the evaluation also splits each block's points "
+                        "over --mesh_sp ranks (sequence parallelism; "
+                        "training runs the data mesh)")
+    p.add_argument("--mesh_sp", type=int, default=2,
+                   help="ranks along the points axis of the dxp mesh (the "
+                        "number of ranks must divide by it)")
 
 
-def mesh_from_env(device: str, mesh_shape: str = "data"):
-    """The data-parallel mesh (parallel/mesh.py) of a run that torchrun
-    launched (WORLD_SIZE is set), as the JAX pipelines build theirs when
-    jax.device_count() > 1; None for one process. NCCL on `device` cuda
-    (a card a rank), gloo on the CPU. The 2-D data x points mesh (`--mesh
-    dxp`) raises under more than one rank: it is not ported yet."""
+def mesh_from_env(device: str, mesh_shape: str = "data",
+                  mesh_sp: int = 2):
+    """The mesh (parallel/mesh.py) of a run that torchrun launched
+    (WORLD_SIZE is set), as the JAX pipelines build theirs when
+    jax.device_count() > 1; None for one process. `mesh_shape` "data":
+    the 1-D data mesh; "dxp": the 2-D data x points mesh with `mesh_sp`
+    ranks along points (a world size that does not divide by it raises
+    ValueError). NCCL on `device` cuda (a card a rank), gloo on the
+    CPU."""
     if "WORLD_SIZE" not in os.environ:
         return None
-    if mesh_shape == "dxp" and int(os.environ["WORLD_SIZE"]) > 1:
-        raise NotImplementedError(
-            "--mesh dxp (the data x points mesh) is not ported to "
-            "PyTorch/CUDA yet (ROADMAP.md §8b); use --mesh data")
-    from gfs3dseg_gws_tpu_torch.parallel.mesh import make_mesh
+    from gfs3dseg_gws_tpu_torch.parallel.mesh import make_mesh, make_mesh_dxp
 
+    if mesh_shape == "dxp":
+        return make_mesh_dxp(mesh_sp, device=device)
     return make_mesh(device=device)
 
 

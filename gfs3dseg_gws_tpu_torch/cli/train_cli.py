@@ -17,6 +17,14 @@ process (`--mesh data`; NCCL on `--device cuda`, one card a rank; gloo on
 `--device cpu`):
 
     torchrun --nproc_per_node 2 -m gfs3dseg_gws_tpu_torch.cli.train_cli ...
+
+`--mesh dxp --mesh_sp S` lays the ranks out as a data x points mesh: the
+evaluation splits the blocks over R / S ranks and each block's points
+over S (sequence parallelism; N and the rank count must divide by S);
+training runs the data mesh of all the ranks, as in JAX:
+
+    torchrun --nproc_per_node 4 -m gfs3dseg_gws_tpu_torch.cli.train_cli \
+        --only_evaluate --mesh dxp --mesh_sp 2 ...
 """
 from __future__ import annotations
 
@@ -127,7 +135,7 @@ def main(argv=None, **overrides):
     from gfs3dseg_gws_tpu_torch.parallel.mesh import close_mesh
 
     resolve_device(args.device)     # fail before any data is touched
-    mesh = mesh_from_env(args.device, args.mesh_shape)
+    mesh = mesh_from_env(args.device, args.mesh_shape, args.mesh_sp)
     try:
         if args.only_evaluate:
             return evaluate_gfs(model_cfg, data_cfg, train_cfg, mesh=mesh)

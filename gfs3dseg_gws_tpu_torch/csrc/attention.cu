@@ -37,6 +37,13 @@
 // N score -inf (weight 0), queries past N run on zeros and are never
 // stored.
 //
+// Queries and keys are counted apart: q and out are (B, nq, D), k and v
+// (B, nk, D). A sequence-parallel rank passes its own queries against the
+// block's all-gathered keys. Key tiles start at key 0 whatever nq is, and
+// a query's row of out depends on its own row of q and the keys alone, so
+// a call on some of the queries gives their rows of the call on all of
+// them, bit for bit.
+//
 // Past D = 128 (attention_wide_kernel, the fp32 pipe): blockIdx.z takes the
 // output channels c_out .. c_out + 63 (c_out = 64 z). The scores need all of
 // D, so each key tile streams q and k through q_s and k_s 64 channels at a
@@ -103,7 +110,7 @@ __device__ __forceinline__ void score_tile(const float* q_s, const float* k_s,
 __global__ void __launch_bounds__(kThreads)
 attention_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
-                      int n, int d, float inv_temp) {
+                      int nq, int nk, int d, float inv_temp) {
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                  // [query][kPad], scaled by 1/temp
   float* k_s = q_s + 64 * kPad;       // [key][kPad]
@@ -115,7 +122,8 @@ attention_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int batch = blockIdx.y;
   const int q_base = blockIdx.x * kTileQ;
   const int qg = tid / 8, cg = tid % 8;   // 8 lanes per query group
-  const size_t off = static_cast<size_t>(batch) * n * d;
+  const size_t q_off = static_cast<size_t>(batch) * nq * d;   // q, out
+  const size_t kv_off = static_cast<size_t>(batch) * nk * d;  // k, v
   const int c_out = blockIdx.z * kMaxD;
 
   float o[4][8];
@@ -128,7 +136,7 @@ attention_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < 8; ++j) o[i][j] = 0.f;
   }
 
-  for (int base = 0; base < n; base += kTileK) {
+  for (int base = 0; base < nk; base += kTileK) {
     // scores of queries qg + 16i against keys base + cg + 8j
     float s[4][8];
 #pragma unroll
@@ -137,20 +145,20 @@ attention_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
     for (int c0 = 0; c0 < d; c0 += kMaxD) {
       __syncthreads();  // every thread is done with q_s, k_s (and v_s)
-      stage_cols(q + off, q_s, kPad, q_base, n, d, inv_temp, c0);
-      stage_cols(k + off, k_s, kPad, base, n, d, 1.f, c0);
+      stage_cols(q + q_off, q_s, kPad, q_base, nq, d, inv_temp, c0);
+      stage_cols(k + kv_off, k_s, kPad, base, nk, d, 1.f, c0);
       __syncthreads();
       score_tile(q_s, k_s, qg, cg, s);
     }
     // read after the barrier that publishes p_s below
-    stage_cols(v + off, v_s, kMaxD, base, n, d, 1.f, c_out);
-    // online softmax; key base + cg exists (base < n), so m_new is finite
+    stage_cols(v + kv_off, v_s, kMaxD, base, nk, d, 1.f, c_out);
+    // online softmax; key base + cg exists (base < nk), so m_new is finite
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float rmax = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        if (base + cg + 8 * j >= n) s[i][j] = -INFINITY;
+        if (base + cg + 8 * j >= nk) s[i][j] = -INFINITY;
         rmax = fmaxf(rmax, s[i][j]);
       }
 #pragma unroll
@@ -196,8 +204,8 @@ attention_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q_base + qg + 16 * i;
-    if (qi >= n) continue;
-    float* orow = out + off + static_cast<size_t>(qi) * d + c_out;
+    if (qi >= nq) continue;
+    float* orow = out + q_off + static_cast<size_t>(qi) * d + c_out;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = 4 * cg + 32 * h;
@@ -227,7 +235,7 @@ template <int DP, int KT>
 __global__ void __launch_bounds__(32 * kMmaWarps, 2)
 attention_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int n, int d, float inv_temp) {
+                     int nq, int nk, int d, float inv_temp) {
   constexpr int kS = DP + 4;          // row stride: 4 mod 32 banks
   constexpr int kNt = KT / 8;         // key n-tiles of S
   constexpr int kDt = DP / 8;         // channel tiles
@@ -239,12 +247,13 @@ attention_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane / 4, t = lane % 4;
   const int batch = blockIdx.y;
   const int q_base = blockIdx.x * kMmaQ;
-  const size_t off = static_cast<size_t>(batch) * n * d;
-  const int tiles = (n + KT - 1) / KT;
+  const size_t q_off = static_cast<size_t>(batch) * nq * d;   // q, out
+  const size_t kv_off = static_cast<size_t>(batch) * nk * d;  // k, v
+  const int tiles = (nk + KT - 1) / KT;
 
-  gfs::stage_async<DP>(q + off, q_s, kMmaQ, kS, q_base, n, d);
-  gfs::stage_async<DP>(k + off, kv_s, KT, kS, 0, n, d);
-  gfs::stage_async<DP>(v + off, kv_s + KT * kS, KT, kS, 0, n, d);
+  gfs::stage_async<DP>(q + q_off, q_s, kMmaQ, kS, q_base, nq, d);
+  gfs::stage_async<DP>(k + kv_off, kv_s, KT, kS, 0, nk, d);
+  gfs::stage_async<DP>(v + kv_off, kv_s + KT * kS, KT, kS, 0, nk, d);
   gfs::cp_async_commit();
 
   // rows g and g + 8 of this warp's 16 queries
@@ -258,10 +267,10 @@ attention_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* k_s = kv_s + (tile & 1) * 2 * KT * kS;
     const float* v_s = k_s + KT * kS;
     if (tile + 1 < tiles) {
-      float* nk = kv_s + ((tile + 1) & 1) * 2 * KT * kS;
-      gfs::stage_async<DP>(k + off, nk, KT, kS, (tile + 1) * KT, n, d);
-      gfs::stage_async<DP>(v + off, nk + KT * kS, KT, kS, (tile + 1) * KT, n,
-                           d);
+      float* nxt = kv_s + ((tile + 1) & 1) * 2 * KT * kS;
+      gfs::stage_async<DP>(k + kv_off, nxt, KT, kS, (tile + 1) * KT, nk, d);
+      gfs::stage_async<DP>(v + kv_off, nxt + KT * kS, KT, kS, (tile + 1) * KT,
+                           nk, d);
       gfs::cp_async_commit();
       gfs::cp_async_wait<1>();
     } else {
@@ -299,7 +308,7 @@ attention_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int e = 0; e < 2; ++e) {
           const int key = tile * KT + 8 * j + 2 * t + e;
           float& x = s[j][2 * h + e];
-          x = key < n ? x * inv_temp : -INFINITY;
+          x = key < nk ? x * inv_temp : -INFINITY;
           rmax = fmaxf(rmax, x);
         }
       rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
@@ -346,9 +355,9 @@ attention_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qi = q_base + 16 * warp + g + 8 * h;
-    if (qi >= n) continue;
+    if (qi >= nq) continue;
     const float inv_l = 1.f / l[h];
-    float* orow = out + off + static_cast<size_t>(qi) * d;
+    float* orow = out + q_off + static_cast<size_t>(qi) * d;
 #pragma unroll
     for (int j = 0; j < kDt; ++j) {
       const int c = 8 * j + 2 * t;
@@ -361,27 +370,28 @@ attention_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DP, int KT>
 cudaError_t launch_mma(const float* q, const float* k, const float* v,
-                       float* out, int batch, int n, int d, float inv_temp,
-                       cudaStream_t stream) {
+                       float* out, int batch, int nq, int nk, int d,
+                       float inv_temp, cudaStream_t stream) {
   constexpr size_t smem = mma_smem<DP, KT>();
   const cudaError_t err = cudaFuncSetAttribute(
       attention_mma_kernel<DP, KT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kMmaQ - 1) / kMmaQ, batch);
+  const dim3 grid((nq + kMmaQ - 1) / kMmaQ, batch);
   attention_mma_kernel<DP, KT><<<grid, 32 * kMmaWarps, smem, stream>>>(
-      q, k, v, out, n, d, inv_temp);
+      q, k, v, out, nq, nk, d, inv_temp);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, out: (B, N, D) contiguous fp32 on one device, 16-byte aligned,
-// D a multiple of 4. Returns a cudaError_t.
+// q and out (B, nq, D), k and v (B, nk, D): contiguous fp32 on one device,
+// 16-byte aligned, D a multiple of 4. Returns a cudaError_t.
 GFS_EXPORT int gfs_fused_attention(const void* q, const void* k,
-                                   const void* v, void* out, int batch, int n,
-                                   int d, float inv_temp, void* stream) {
-  if (batch < 1 || batch > 65535 || n < 1 || d < 4 || d % 4)
+                                   const void* v, void* out, int batch,
+                                   int nq, int nk, int d, float inv_temp,
+                                   void* stream) {
+  if (batch < 1 || batch > 65535 || nq < 1 || nk < 1 || d < 4 || d % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
@@ -389,17 +399,19 @@ GFS_EXPORT int gfs_fused_attention(const void* q, const void* k,
   auto* of = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   if (d <= 32)
-    return launch_mma<32, 64>(qf, kf, vf, of, batch, n, d, inv_temp, s);
+    return launch_mma<32, 64>(qf, kf, vf, of, batch, nq, nk, d, inv_temp, s);
   if (d <= 64)
-    return launch_mma<64, 64>(qf, kf, vf, of, batch, n, d, inv_temp, s);
+    return launch_mma<64, 64>(qf, kf, vf, of, batch, nq, nk, d, inv_temp, s);
   if (d <= 128)
-    return launch_mma<128, 16>(qf, kf, vf, of, batch, n, d, inv_temp, s);
+    return launch_mma<128, 16>(qf, kf, vf, of, batch, nq, nk, d, inv_temp,
+                               s);
   const cudaError_t err = cudaFuncSetAttribute(
       attention_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kTileQ - 1) / kTileQ, batch, (d + kMaxD - 1) / kMaxD);
-  attention_wide_kernel<<<grid, kThreads, kSmem, s>>>(qf, kf, vf, of, n, d,
-                                                      inv_temp);
+  const dim3 grid((nq + kTileQ - 1) / kTileQ, batch,
+                  (d + kMaxD - 1) / kMaxD);
+  attention_wide_kernel<<<grid, kThreads, kSmem, s>>>(qf, kf, vf, of, nq, nk,
+                                                      d, inv_temp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,20 +24,22 @@ __device__ __forceinline__ float sq_dist(float qq, float kk, float dot) {
   return fmaxf(qq + kk - 2.f * dot, 0.f);
 }
 
-// K8's selection (csrc/knn_fold.cu) on x (B, N, C): idx (B, N, k) nearest
-// first; with btab, also K3's neighbour statistics into the zeroed cnt
-// (B, N) and scb (B, N, cb). k <= 256 runs the streaming selection
-// (knn_stream_kernel), past it the fold-merge tournament; folds is 2, 4 or
-// 8 (4 with btab), the tournament's. scratch holds knn_fold_scratch_bytes
-// bytes (may be null when that is 0).
-cudaError_t launch_knn_fold(const float* x, int* idx, int batch, int n, int c,
-                            int k, int folds, const float* btab, float* cnt,
-                            float* scb, int cb, void* scratch,
-                            cudaStream_t s);
+// K8's selection (csrc/knn_fold.cu) on x (B, N, C) for the nq queries of
+// rows q_off .. q_off + nq - 1 (0 and N: all): idx (B, nq, k) nearest
+// first, indices into all N rows; with btab (nq = N), also K3's neighbour
+// statistics into the zeroed cnt (B, N) and scb (B, N, cb). k <= 256 runs
+// the streaming selection (knn_stream_kernel), past it the fold-merge
+// tournament; folds is 2, 4 or 8 (4 with btab), the tournament's. scratch
+// holds knn_fold_scratch_bytes bytes (may be null when that is 0).
+cudaError_t launch_knn_fold(const float* x, int* idx, int batch, int n,
+                            int nq, int q_off, int c, int k, int folds,
+                            const float* btab, float* cnt, float* scb, int cb,
+                            void* scratch, cudaStream_t s);
 
-// the scratch launch_knn_fold needs at this shape on the current device: 0
-// unless k > 256 and one query's key row does not fit in shared memory
-cudaError_t knn_fold_scratch_bytes(int batch, int n, int c, int k, int folds,
-                                   long long* bytes);
+// the scratch launch_knn_fold needs for nq queries against n keys on the
+// current device: 0 unless k > 256 and one query's key row does not fit in
+// shared memory
+cudaError_t knn_fold_scratch_bytes(int batch, int n, int nq, int c, int k,
+                                   int folds, long long* bytes);
 
 }  // namespace gfs

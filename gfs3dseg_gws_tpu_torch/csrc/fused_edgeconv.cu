@@ -67,6 +67,17 @@
 // Ragged N is masked here, not by the caller: key rows past N are never
 // inserted, and queries past N are computed on zeros and never stored.
 //
+// Local queries (K1 and K6): the queries may be nq rows of x from row
+// q_off, against all N rows as keys; idx, b_table and out then hold nq
+// rows, a_table N. A rank of the `data x points` mesh (parallel/mesh.py)
+// runs its N / S rows of a block so against the block's all-gathered x.
+// Every variant (knn_split_kernel, knn_kernel, K8's knn_stream_kernel and
+// knn_fold_kernel; edge_mma_kernel, edge_mlp_wide_kernel) tiles its grid
+// over the nq queries and streams the keys from row 0 as before, and a
+// query's list and edge rows depend on its own row and the keys alone, so
+// a local call gives the rows of the call over all N queries bit for bit.
+// K3 takes every row (q_off = 0, nq = N).
+//
 // K3: knn_split_kernel<CP, KMAX, true> (and knn_kernel<CP, KMAX, true> past
 // the fast path) is the training path's kNN with neighbour statistics,
 // replacing the TPU kernel gfs3dseg_gws_tpu/ops/knn.py::knn_with_stats (its
@@ -141,9 +152,9 @@ constexpr size_t kMlpSmem =
 // into cnt (B, N) and scb (B, N, cb), which the caller has zeroed (K3)
 template <int CP, int KMAX, bool kStats>
 __global__ void __launch_bounds__(kTileQ)
-knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
-           int k, const float* __restrict__ btab, float* __restrict__ cnt,
-           float* __restrict__ scb, int cb) {
+knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int nq,
+           int q_off, int c, int k, const float* __restrict__ btab,
+           float* __restrict__ cnt, float* __restrict__ scb, int cb) {
   constexpr bool kWide = CP == 0;
   constexpr int QW = kWide ? kMaxC : CP;   // channels held at once
   // with k <= 32 (C > 64 here) the lists wait here for the statistics; the
@@ -158,21 +169,22 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
 
   const int tid = threadIdx.x;
   const int batch = blockIdx.y;
-  const int qi = blockIdx.x * kTileQ + tid;
-  const bool active = qi < n;
+  const int qi = blockIdx.x * kTileQ + tid;   // the query, of nq
+  const bool active = qi < nq;
   const float* xb = x + static_cast<size_t>(batch) * n * c;
+  const size_t qrow = static_cast<size_t>(q_off) + qi;   // its row of x
 
   float q[QW];
   float qq = 0.f;
   if constexpr (kWide) {
     for (int ch = 0; ch < c; ++ch) {
-      const float v = active ? xb[static_cast<size_t>(qi) * c + ch] : 0.f;
+      const float v = active ? xb[qrow * c + ch] : 0.f;
       qq = fmaf(v, v, qq);
     }
   } else {
 #pragma unroll
     for (int ch = 0; ch < CP; ++ch) {
-      q[ch] = (active && ch < c) ? xb[static_cast<size_t>(qi) * c + ch] : 0.f;
+      q[ch] = (active && ch < c) ? xb[qrow * c + ch] : 0.f;
       qq = fmaf(q[ch], q[ch], qq);
     }
   }
@@ -243,9 +255,7 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
         }
 #pragma unroll
         for (int ch = 0; ch < kMaxC; ++ch)
-          q[ch] = (active && c0 + ch < c)
-                      ? xb[static_cast<size_t>(qi) * c + c0 + ch]
-                      : 0.f;
+          q[ch] = (active && c0 + ch < c) ? xb[qrow * c + c0 + ch] : 0.f;
         __syncthreads();
         {
           float s = c0 == 0 ? 0.f : kk_s[tid];   // row tid (kTileK == kTileQ)
@@ -314,7 +324,7 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
     }
   }
   if (active) {
-    int* row = idx + (static_cast<size_t>(batch) * n + qi) * k;
+    int* row = idx + (static_cast<size_t>(batch) * nq + qi) * k;
 #pragma unroll
     for (int t = 0; t < KMAX; ++t) {
       if (t < k) {
@@ -327,10 +337,10 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
     __syncthreads();  // the block's idx rows (or nbr_s) are complete
     const int lane = tid % 32, warp = tid / 32;
     const int q0 = blockIdx.x * kTileQ;
-    const int pairs = min(kTileQ, n - q0) * k;
+    const int pairs = min(kTileQ, nq - q0) * k;
     const float* b_b = btab + static_cast<size_t>(batch) * n * cb;
     float* scb_b = scb + static_cast<size_t>(batch) * n * cb;
-    const int* idx_b = idx + (static_cast<size_t>(batch) * n + q0) * k;
+    const int* idx_b = idx + (static_cast<size_t>(batch) * nq + q0) * k;
     for (int pr = warp; pr < pairs; pr += kTileQ / 32) {
       const int q = pr / k;
       int j;
@@ -338,7 +348,7 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int c,
         j = nbr_s[q][pr - q * k];
       else
         j = idx_b[pr];
-      const float* brow = b_b + static_cast<size_t>(q0 + q) * cb;
+      const float* brow = b_b + (static_cast<size_t>(q_off) + q0 + q) * cb;
       float* srow = scb_b + static_cast<size_t>(j) * cb;
       for (int ch = lane; ch < cb; ch += 32) atomicAdd(srow + ch, brow[ch]);
       if (lane == 0) atomicAdd(cnt + static_cast<size_t>(batch) * n + j, 1.f);
@@ -423,8 +433,9 @@ __device__ __forceinline__ void split_stage(const float* __restrict__ xb,
 template <int CP, int KMAX, int S, bool kStats>
 __global__ void __launch_bounds__(kSplitThreads, 2)
 knn_split_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
-                 int c, int k, const float* __restrict__ btab,
-                 float* __restrict__ cnt, float* __restrict__ scb, int cb) {
+                 int nq, int q_off, int c, int k,
+                 const float* __restrict__ btab, float* __restrict__ cnt,
+                 float* __restrict__ scb, int cb) {
   constexpr int PK = split_stride(CP);
   constexpr int Q = Split<S>::Q, V = Split<S>::V, PV = Split<S>::PV;
   constexpr int kDot = Split<S>::kDot;
@@ -442,7 +453,8 @@ knn_split_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int batch = blockIdx.y;
-  const int q0 = blockIdx.x * Q;
+  const int q0 = blockIdx.x * Q;   // the block's first query, of nq (row
+                                   // q_off + q0 of x)
   const float* xb = x + static_cast<size_t>(batch) * n * c;
   const bool vec =
       c % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
@@ -451,7 +463,7 @@ knn_split_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
   // distances: queries qg + 16 v by keys kg + 16 u
   const int kg = lane % 8 + 8 * (warp % 2), qg = lane / 8 + 4 * (warp / 2);
 
-  split_stage<CP, PK>(xb, q_s, Q, q0, n, c, vec);
+  split_stage<CP, PK>(xb, q_s, Q, q_off + q0, q_off + nq, c, vec);
   split_stage<CP, PK>(xb, keys_s, kTileK, 0, n, c, vec);
   gfs::cp_async_commit();
   gfs::cp_async_wait<0>();
@@ -602,7 +614,7 @@ knn_split_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
     }
   }
   __syncthreads();
-  if (s == 0 && q0 + sq < n) {
+  if (s == 0 && q0 + sq < nq) {
     float hd[S];
     int hi[S], pos[S];
 #pragma unroll
@@ -611,7 +623,7 @@ knn_split_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
       hi[u] = mrg_i[u * k * Q + sq];
       pos[u] = 0;
     }
-    int* row = idx + (static_cast<size_t>(batch) * n + q0 + sq) * k;
+    int* row = idx + (static_cast<size_t>(batch) * nq + q0 + sq) * k;
     for (int t = 0; t < k; ++t) {
       float bd = hd[0];
       int bi = hi[0], bu = 0;
@@ -639,13 +651,13 @@ knn_split_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
   }
   if constexpr (kStats) {
     __syncthreads();  // nbr_s is complete
-    const int pairs = min(Q, n - q0) * k;
+    const int pairs = min(Q, nq - q0) * k;
     const float* b_b = btab + static_cast<size_t>(batch) * n * cb;
     float* scb_b = scb + static_cast<size_t>(batch) * n * cb;
     for (int pr = warp; pr < pairs; pr += kSplitThreads / 32) {
       const int q = pr / k;
       const int j = nbr_s[q * KMAX + pr - q * k];
-      const float* brow = b_b + static_cast<size_t>(q0 + q) * cb;
+      const float* brow = b_b + (static_cast<size_t>(q_off) + q0 + q) * cb;
       float* srow = scb_b + static_cast<size_t>(j) * cb;
       for (int ch = lane; ch < cb; ch += 32) atomicAdd(srow + ch, brow[ch]);
       if (lane == 0) atomicAdd(cnt + static_cast<size_t>(batch) * n + j, 1.f);
@@ -713,8 +725,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
 edge_mma_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
                 const float* __restrict__ b_table,
                 const float* __restrict__ w2, const float* __restrict__ bias2,
-                float* __restrict__ out, int n, int w0, int w1, int k,
-                float neg_slope, bool vec16) {
+                float* __restrict__ out, int n, int nq, int w0, int w1,
+                int k, float neg_slope, bool vec16) {
   extern __shared__ __align__(16) float smem[];
   uint4* w2f = reinterpret_cast<uint4*>(smem);   // [kk][j][lane]: hi0 hi1
                                                  // lo0 lo1
@@ -727,8 +739,8 @@ edge_mma_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
   const int batch = blockIdx.y;
   const int q0 = (blockIdx.x * kMmaWarps + warp) * kMmaRows;
   const float* a_b = a_table + static_cast<size_t>(batch) * n * w0;
-  const float* b_b = b_table + static_cast<size_t>(batch) * n * w0;
-  const int* idx_b = idx + static_cast<size_t>(batch) * n * k;
+  const float* b_b = b_table + static_cast<size_t>(batch) * nq * w0;
+  const int* idx_b = idx + static_cast<size_t>(batch) * nq * k;
 
   // W2's B fragments, split once: k-step kk takes channels 16 (kk / 2) +
   // 4 t + 2 (kk % 2) + {0, 1} at k-positions t, t + 4
@@ -768,12 +780,12 @@ edge_mma_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
       }
     }
   };
-  // idx of slots s0 .. s0 + kMmaSlots - 1 of the warp's queries (-1 past n
-  // or k)
+  // idx of slots s0 .. s0 + kMmaSlots - 1 of the warp's queries (-1 past
+  // nq or k)
   auto load_idx = [&](int s0) {
     for (int e = lane; e < kMmaRows * kMmaSlots; e += 32) {
       const int q = q0 + e / kMmaSlots, s = s0 + e % kMmaSlots;
-      idx_s[e] = q < n && s < k ? idx_b[static_cast<size_t>(q) * k + s] : -1;
+      idx_s[e] = q < nq && s < k ? idx_b[static_cast<size_t>(q) * k + s] : -1;
     }
     __syncwarp();
   };
@@ -781,7 +793,7 @@ edge_mma_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
     return [=](int r) { return idx_s[r * kMmaSlots + s % kMmaSlots]; };
   };
 
-  stage(b_s, b_b, [&](int r) { return q0 + r < n ? q0 + r : -1; });
+  stage(b_s, b_b, [&](int r) { return q0 + r < nq ? q0 + r : -1; });
   load_idx(0);
   stage(a_s, a_b, slot_rows(0));
   gfs::cp_async_commit();
@@ -864,8 +876,8 @@ edge_mma_kernel(const int* __restrict__ idx, const float* __restrict__ a_table,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + g + 8 * (i / 2), col = 8 * j + 2 * t + i % 2;
-      if (qi < n && col < w1)
-        out[(static_cast<size_t>(batch) * n + qi) * w1 + col] =
+      if (qi < nq && col < w1)
+        out[(static_cast<size_t>(batch) * nq + qi) * w1 + col] =
             gfs::leaky(mx[j][i] + bias_s[col], neg_slope);
     }
   }
@@ -880,8 +892,8 @@ edge_mlp_wide_kernel(const int* __restrict__ idx,
                      const float* __restrict__ b_table,
                      const float* __restrict__ w2,
                      const float* __restrict__ bias2,
-                     float* __restrict__ out, int n, int w0, int w1, int k,
-                     float neg_slope) {
+                     float* __restrict__ out, int n, int nq, int w0, int w1,
+                     int k, float neg_slope) {
   extern __shared__ __align__(16) float smem[];
   float* e_s = smem;                       // [kMaxW][kRows]: e_s[ch*kRows+r]
   float* w2_s = e_s + kMaxW * kRows;       // [kMaxW][kMaxW], zero padded
@@ -902,12 +914,12 @@ edge_mlp_wide_kernel(const int* __restrict__ idx,
   // neighbour slot r % kChunk of the step
   const int r_own = tid;
   const int q_own = q_base + r_own / kChunk;
-  const bool q_own_ok = q_own < n;
+  const bool q_own_ok = q_own < nq;
   const float* b_row =
-      b_table + (static_cast<size_t>(batch) * n + (q_own_ok ? q_own : 0)) * w0;
+      b_table + (static_cast<size_t>(batch) * nq + (q_own_ok ? q_own : 0)) * w0;
   const float* a_b = a_table + static_cast<size_t>(batch) * n * w0;
   const int* idx_row =
-      idx + (static_cast<size_t>(batch) * n + (q_own_ok ? q_own : 0)) * k;
+      idx + (static_cast<size_t>(batch) * nq + (q_own_ok ? q_own : 0)) * k;
 
   float mx[2][8];
 #pragma unroll
@@ -956,30 +968,36 @@ edge_mlp_wide_kernel(const int* __restrict__ idx,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qi = q_base + 2 * p + i;
-    if (qi >= n) continue;
-    float* orow = out + (static_cast<size_t>(batch) * n + qi) * w1 + col0;
+    if (qi >= nq) continue;
+    float* orow = out + (static_cast<size_t>(batch) * nq + qi) * w1 + col0;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       if (col0 + 8 * cg + j < w1) orow[8 * cg + j] = mx[i][j];
   }
 }
 
+// The launchers below take the kNN's queries as nq rows of x from row q_off
+// (q_off = 0, nq = n: every row): idx (B, nq, k) holds their neighbours
+// among all n rows, as indices in [0, n). A sequence-parallel rank passes
+// its own rows of the block against the block's all-gathered x; each
+// query's list depends on its own row and the keys alone, so its row of
+// idx is the one the call over all n queries gives, bit for bit.
 template <int CP, int KMAX, bool kStats>
-cudaError_t run_knn(const float* x, int* idx, int batch, int n, int c, int k,
-                    const float* btab, float* cnt, float* scb, int cb,
-                    cudaStream_t s) {
-  const dim3 grid((n + kTileQ - 1) / kTileQ, batch);
-  knn_kernel<CP, KMAX, kStats><<<grid, kTileQ, 0, s>>>(x, idx, n, c, k, btab,
-                                                       cnt, scb, cb);
+cudaError_t run_knn(const float* x, int* idx, int batch, int n, int nq,
+                    int q_off, int c, int k, const float* btab, float* cnt,
+                    float* scb, int cb, cudaStream_t s) {
+  const dim3 grid((nq + kTileQ - 1) / kTileQ, batch);
+  knn_kernel<CP, KMAX, kStats><<<grid, kTileQ, 0, s>>>(
+      x, idx, n, nq, q_off, c, k, btab, cnt, scb, cb);
   return cudaGetLastError();
 }
 
 // S threads a query: 2 (128 queries a block), but 4 for K3 at C > 16,
 // where S = 2 ran slower on the H100 (PERF.md)
 template <int CP, int KMAX, bool kStats>
-cudaError_t run_knn_split(const float* x, int* idx, int batch, int n, int c,
-                          int k, const float* btab, float* cnt, float* scb,
-                          int cb, cudaStream_t s) {
+cudaError_t run_knn_split(const float* x, int* idx, int batch, int n, int nq,
+                          int q_off, int c, int k, const float* btab,
+                          float* cnt, float* scb, int cb, cudaStream_t s) {
   constexpr int S = kStats && CP == kMaxC ? 4 : 2;
   const auto kernel = knn_split_kernel<CP, KMAX, S, kStats>;
   const size_t smem = split_smem_bytes<CP, KMAX, S, kStats>(k);
@@ -987,89 +1005,92 @@ cudaError_t run_knn_split(const float* x, int* idx, int batch, int n, int c,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + Split<S>::Q - 1) / Split<S>::Q, batch);
-  kernel<<<grid, kSplitThreads, smem, s>>>(x, idx, n, c, k, btab, cnt, scb,
-                                           cb);
+  const dim3 grid((nq + Split<S>::Q - 1) / Split<S>::Q, batch);
+  kernel<<<grid, kSplitThreads, smem, s>>>(x, idx, n, nq, q_off, c, k, btab,
+                                           cnt, scb, cb);
   return cudaGetLastError();
 }
 
 // the list's length: exactly k for the model's k, else kMaxK slots
 template <int CP, bool kStats>
 cudaError_t run_knn_split_k(const float* x, int* idx, int batch, int n,
-                            int c, int k, const float* btab, float* cnt,
-                            float* scb, int cb, cudaStream_t s) {
+                            int nq, int q_off, int c, int k,
+                            const float* btab, float* cnt, float* scb,
+                            int cb, cudaStream_t s) {
   if (k == kModelK)
-    return run_knn_split<CP, kModelK, kStats>(x, idx, batch, n, c, k, btab,
-                                              cnt, scb, cb, s);
-  return run_knn_split<CP, kMaxK, kStats>(x, idx, batch, n, c, k, btab, cnt,
-                                          scb, cb, s);
+    return run_knn_split<CP, kModelK, kStats>(x, idx, batch, n, nq, q_off, c,
+                                              k, btab, cnt, scb, cb, s);
+  return run_knn_split<CP, kMaxK, kStats>(x, idx, batch, n, nq, q_off, c, k,
+                                          btab, cnt, scb, cb, s);
 }
 
 // the variant by width: the fast path's split selection for c <= 64 (CP =
 // 12, 16 or 64) and k <= 32, else one thread per query
 template <int KMAX, bool kStats>
-cudaError_t run_knn_c(const float* x, int* idx, int batch, int n, int c,
-                      int k, const float* btab, float* cnt, float* scb,
-                      int cb, cudaStream_t s) {
+cudaError_t run_knn_c(const float* x, int* idx, int batch, int n, int nq,
+                      int q_off, int c, int k, const float* btab, float* cnt,
+                      float* scb, int cb, cudaStream_t s) {
   if constexpr (KMAX == kMaxK) {
     if (c <= 12)
-      return run_knn_split_k<12, kStats>(x, idx, batch, n, c, k, btab, cnt,
-                                         scb, cb, s);
+      return run_knn_split_k<12, kStats>(x, idx, batch, n, nq, q_off, c, k,
+                                         btab, cnt, scb, cb, s);
     if (c <= 16)
-      return run_knn_split_k<16, kStats>(x, idx, batch, n, c, k, btab, cnt,
-                                         scb, cb, s);
+      return run_knn_split_k<16, kStats>(x, idx, batch, n, nq, q_off, c, k,
+                                         btab, cnt, scb, cb, s);
     if (c <= kMaxC)
-      return run_knn_split_k<64, kStats>(x, idx, batch, n, c, k, btab, cnt,
-                                         scb, cb, s);
+      return run_knn_split_k<64, kStats>(x, idx, batch, n, nq, q_off, c, k,
+                                         btab, cnt, scb, cb, s);
   } else {
     if (c <= 16)
-      return run_knn<16, KMAX, kStats>(x, idx, batch, n, c, k, btab, cnt,
-                                       scb, cb, s);
+      return run_knn<16, KMAX, kStats>(x, idx, batch, n, nq, q_off, c, k,
+                                       btab, cnt, scb, cb, s);
     if (c <= kMaxC)
-      return run_knn<64, KMAX, kStats>(x, idx, batch, n, c, k, btab, cnt,
-                                       scb, cb, s);
+      return run_knn<64, KMAX, kStats>(x, idx, batch, n, nq, q_off, c, k,
+                                       btab, cnt, scb, cb, s);
   }
-  return run_knn<0, KMAX, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
-                                  s);
+  return run_knn<0, KMAX, kStats>(x, idx, batch, n, nq, q_off, c, k, btab,
+                                  cnt, scb, cb, s);
 }
 
-// the kNN stage over (batch, n, c): idx (B, N, k), nearest first; with btab
-// also the neighbour statistics (K3). The variant follows c and k.
-cudaError_t launch_knn(const float* x, int* idx, int batch, int n, int c,
-                       int k, void* scratch, cudaStream_t s,
+// the kNN stage over (batch, n, c) for queries [q_off, q_off + nq): idx
+// (B, nq, k), nearest first; with btab (nq = n) also the neighbour
+// statistics (K3). The variant follows c and k.
+cudaError_t launch_knn(const float* x, int* idx, int batch, int n, int nq,
+                       int q_off, int c, int k, void* scratch, cudaStream_t s,
                        const float* btab = nullptr, float* cnt = nullptr,
                        float* scb = nullptr, int cb = 0) {
   const bool stats = btab != nullptr;
   if (k <= kMaxK)
-    return stats ? run_knn_c<kMaxK, true>(x, idx, batch, n, c, k, btab, cnt,
-                                          scb, cb, s)
-                 : run_knn_c<kMaxK, false>(x, idx, batch, n, c, k, btab, cnt,
-                                           scb, cb, s);
+    return stats ? run_knn_c<kMaxK, true>(x, idx, batch, n, nq, q_off, c, k,
+                                          btab, cnt, scb, cb, s)
+                 : run_knn_c<kMaxK, false>(x, idx, batch, n, nq, q_off, c, k,
+                                           btab, cnt, scb, cb, s);
   if (k <= kWideK)
-    return stats ? run_knn_c<kWideK, true>(x, idx, batch, n, c, k, btab, cnt,
-                                           scb, cb, s)
-                 : run_knn_c<kWideK, false>(x, idx, batch, n, c, k, btab,
-                                            cnt, scb, cb, s);
-  return gfs::launch_knn_fold(x, idx, batch, n, c, k, kFolds, btab, cnt, scb,
-                              cb, scratch, s);
+    return stats ? run_knn_c<kWideK, true>(x, idx, batch, n, nq, q_off, c, k,
+                                           btab, cnt, scb, cb, s)
+                 : run_knn_c<kWideK, false>(x, idx, batch, n, nq, q_off, c,
+                                            k, btab, cnt, scb, cb, s);
+  return gfs::launch_knn_fold(x, idx, batch, n, nq, q_off, c, k, kFolds, btab,
+                              cnt, scb, cb, scratch, s);
 }
 
-// the edge stage on given indices: out (B, N, w1). W0, W1 <= 64 on the
-// tensor cores (edge_mma_kernel), wider tables on edge_mlp_wide_kernel
+// the edge stage on given indices: out (B, nq, w1) from idx and b_table of
+// nq rows and a_table of n. W0, W1 <= 64 on the tensor cores
+// (edge_mma_kernel), wider tables on edge_mlp_wide_kernel
 cudaError_t launch_edge_mlp(const int* idx, const float* a_table,
                             const float* b_table, const float* w2,
                             const float* bias2, float* out, int batch, int n,
-                            int w0, int w1, int k, float neg_slope,
+                            int nq, int w0, int w1, int k, float neg_slope,
                             cudaStream_t s) {
   if (w0 > kMaxW || w1 > kMaxW) {
     cudaError_t err = cudaFuncSetAttribute(
         edge_mlp_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kMlpSmem));
     if (err != cudaSuccess) return err;
-    const dim3 grid((n + kTileQ - 1) / kTileQ, batch,
+    const dim3 grid((nq + kTileQ - 1) / kTileQ, batch,
                     (w1 + kMaxW - 1) / kMaxW);
     edge_mlp_wide_kernel<<<grid, kMlpThreads, kMlpSmem, s>>>(
-        idx, a_table, b_table, w2, bias2, out, n, w0, w1, k, neg_slope);
+        idx, a_table, b_table, w2, bias2, out, n, nq, w0, w1, k, neg_slope);
     return cudaGetLastError();
   }
   cudaError_t err = cudaFuncSetAttribute(
@@ -1080,9 +1101,9 @@ cudaError_t launch_edge_mlp(const int* idx, const float* a_table,
   const bool vec16 = w0 % 4 == 0 &&
                      reinterpret_cast<uintptr_t>(a_table) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(b_table) % 16 == 0;
-  edge_mma_kernel<<<dim3((n + rows - 1) / rows, batch), kMmaWarps * 32,
+  edge_mma_kernel<<<dim3((nq + rows - 1) / rows, batch), kMmaWarps * 32,
                     kMmaSmem, s>>>(idx, a_table, b_table, w2, bias2, out, n,
-                                   w0, w1, k, neg_slope, vec16);
+                                   nq, w0, w1, k, neg_slope, vec16);
   return cudaGetLastError();
 }
 
@@ -1090,13 +1111,17 @@ bool bad_sizes(int batch, int n, int k) {
   return batch < 1 || batch > 65535 || n < 1 || k < 1 || k > n;
 }
 
+bool bad_queries(int n, int nq, int q_off) {
+  return nq < 1 || q_off < 0 || q_off > n - nq;
+}
+
 }  // namespace
 
 // The bytes of scratch that K1, K3 and K6 (folds 0) or K8 (folds 2, 4, 8)
-// need at this shape on the current device, into *bytes: 0 unless the
-// kNN runs K8's tournament in chunks (k > 256 and a key row too long for
-// shared memory). Returns a cudaError_t.
-GFS_EXPORT int gfs_knn_scratch_bytes(int batch, int n, int c, int k,
+// need for nq queries against n keys on the current device, into *bytes: 0
+// unless the kNN runs K8's tournament in chunks (k > 256 and a key row too
+// long for shared memory). Returns a cudaError_t.
+GFS_EXPORT int gfs_knn_scratch_bytes(int batch, int n, int nq, int c, int k,
                                      int folds, long long* bytes) {
   *bytes = 0;
   if (folds == 0) {
@@ -1104,44 +1129,48 @@ GFS_EXPORT int gfs_knn_scratch_bytes(int batch, int n, int c, int k,
     folds = kFolds;
   }
   return static_cast<int>(
-      gfs::knn_fold_scratch_bytes(batch, n, c, k, folds, bytes));
+      gfs::knn_fold_scratch_bytes(batch, n, nq, c, k, folds, bytes));
 }
 
-// K1. x (B, N, C), a_table and b_table (B, N, W0), w2 (W0, W1), bias2 (W1),
-// out (B, N, W1) fp32 and the scratch idx (B, N, k) int32: contiguous, on
-// one device; scratch: gfs_knn_scratch_bytes(..., 0) bytes, or null when
-// that is 0 (likewise for K6 and K3 below). Returns a cudaError_t.
+// K1. x (B, N, C) and a_table (B, N, W0), b_table (B, nq, W0), w2 (W0, W1),
+// bias2 (W1), out (B, nq, W1) fp32 and the scratch idx (B, nq, k) int32:
+// contiguous, on one device; the queries are rows q_off .. q_off + nq - 1
+// of x (0 and N: all of them), b_table and out are theirs. scratch:
+// gfs_knn_scratch_bytes(..., 0) bytes, or null when that is 0 (likewise
+// for K6 and K3 below). Returns a cudaError_t.
 GFS_EXPORT int gfs_fused_edgeconv_infer(const void* x, const void* a_table,
                                         const void* b_table, const void* w2,
                                         const void* bias2, void* idx,
                                         void* scratch, void* out, int batch,
-                                        int n, int c,
+                                        int n, int nq, int q_off, int c,
                                         int w0, int w1, int k,
                                         float neg_slope, void* stream) {
-  if (bad_sizes(batch, n, k) || c < 1 || w0 < 1 || w1 < 1)
+  if (bad_sizes(batch, n, k) || bad_queries(n, nq, q_off) || c < 1 ||
+      w0 < 1 || w1 < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   auto* ix = static_cast<int*>(idx);
-  cudaError_t err =
-      launch_knn(static_cast<const float*>(x), ix, batch, n, c, k, scratch,
-                 s);
+  cudaError_t err = launch_knn(static_cast<const float*>(x), ix, batch, n,
+                               nq, q_off, c, k, scratch, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_edge_mlp(
       ix, static_cast<const float*>(a_table),
       static_cast<const float*>(b_table), static_cast<const float*>(w2),
       static_cast<const float*>(bias2), static_cast<float*>(out), batch, n,
-      w0, w1, k, neg_slope, s));
+      nq, w0, w1, k, neg_slope, s));
 }
 
-// K6: K1's first stage alone. x (B, N, C) fp32, idx (B, N, k) int32:
-// contiguous, on one device. Returns a cudaError_t.
+// K6: K1's first stage alone. x (B, N, C) fp32, idx (B, nq, k) int32 (the
+// neighbours of rows q_off .. q_off + nq - 1 among all N): contiguous, on
+// one device. Returns a cudaError_t.
 GFS_EXPORT int gfs_knn_indices(const void* x, void* idx, void* scratch,
-                               int batch, int n, int c, int k, void* stream) {
-  if (bad_sizes(batch, n, k) || c < 1)
+                               int batch, int n, int nq, int q_off, int c,
+                               int k, void* stream) {
+  if (bad_sizes(batch, n, k) || bad_queries(n, nq, q_off) || c < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_knn(static_cast<const float*>(x),
-                                     static_cast<int*>(idx), batch, n, c, k,
-                                     scratch,
+                                     static_cast<int*>(idx), batch, n, nq,
+                                     q_off, c, k, scratch,
                                      static_cast<cudaStream_t>(stream)));
 }
 
@@ -1160,12 +1189,12 @@ GFS_EXPORT int gfs_gather_conv(const void* idx, const void* a_table,
       static_cast<const int*>(idx), static_cast<const float*>(a_table),
       static_cast<const float*>(b_table), static_cast<const float*>(w2),
       static_cast<const float*>(bias2), static_cast<float*>(out), batch, n,
-      w0, w1, k, neg_slope, static_cast<cudaStream_t>(stream)));
+      n, w0, w1, k, neg_slope, static_cast<cudaStream_t>(stream)));
 }
 
 // K3. x (B, N, C) and btab (B, N, Cb) fp32, idx (B, N, k) int32, cnt (B, N)
 // and scb (B, N, Cb) fp32 zeroed by the caller: contiguous, on one device.
-// Returns a cudaError_t.
+// Every row is a query. Returns a cudaError_t.
 GFS_EXPORT int gfs_knn_with_stats(const void* x, const void* btab, void* idx,
                                   void* cnt, void* scb, void* scratch,
                                   int batch, int n, int c, int cb, int k,
@@ -1173,8 +1202,8 @@ GFS_EXPORT int gfs_knn_with_stats(const void* x, const void* btab, void* idx,
   if (bad_sizes(batch, n, k) || c < 1 || cb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_knn(
-      static_cast<const float*>(x), static_cast<int*>(idx), batch, n, c, k,
-      scratch, static_cast<cudaStream_t>(stream),
+      static_cast<const float*>(x), static_cast<int*>(idx), batch, n, n, 0, c,
+      k, scratch, static_cast<cudaStream_t>(stream),
       static_cast<const float*>(btab), static_cast<float*>(cnt),
       static_cast<float*>(scb), cb));
 }

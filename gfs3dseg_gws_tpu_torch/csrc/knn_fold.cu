@@ -62,12 +62,14 @@
 //    N ~ 27,000 (at eight warps: 3,328 keys each, four folds) the row is
 //    streamed in chunks that fit: each chunk runs the same fold-merge, and
 //    its pops are merged with the query's running k best, a sorted list of
-//    k keys kept in a global scratch (B, N, 2, k) (the merge writes the
+//    k keys kept in a global scratch (B, nq, 2, k) (the merge writes the
 //    other half of the pair and the two swap). A row that fits runs in one
 //    chunk and pops straight into idx, with no scratch.
 //
 // launch_knn_fold also serves K1, K3 and K6 for k > 64 (csrc/
-// fused_edgeconv.cu), with K3's neighbour statistics added from each
+// fused_edgeconv.cu), for their nq queries from row q_off (a sequence-
+// parallel rank's own rows against all N keys; K8's own entry takes every
+// row), with K3's neighbour statistics added from each
 // query's final list: the lanes add the query's btab row into scb[j], lane
 // 0 adds 1 to cnt[j]. `folds` chooses the tournament's layout and nothing
 // else: the indices never depend on it. What bounds K8: the B N^2 C
@@ -202,8 +204,9 @@ __device__ __noinline__ fold_key merge_queue(fold_key* list,
 template <int CP, bool kStats>
 __global__ void __launch_bounds__(kSelThreads, 2)
 knn_stream_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
-                  int c, int k, int kl, const float* __restrict__ btab,
-                  float* __restrict__ cnt, float* __restrict__ scb, int cb) {
+                  int nq, int q_off, int c, int k, int kl,
+                  const float* __restrict__ btab, float* __restrict__ cnt,
+                  float* __restrict__ scb, int cb) {
   constexpr bool kWide = CP == 0;
   constexpr int QW = kWide ? 64 : CP;         // channels a step
   constexpr int PK = sel_stride(QW);
@@ -218,7 +221,8 @@ knn_stream_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int batch = blockIdx.y;
-  const int q0 = blockIdx.x * kSelQ;
+  const int q0 = blockIdx.x * kSelQ;   // of nq (row q_off + q0 of x)
+  const int qr0 = q_off + q0, qend = q_off + nq;
   const float* xb = x + static_cast<size_t>(batch) * n * c;
   const bool vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   // distances: queries qg + 16 v by keys kg + 16 u
@@ -239,7 +243,7 @@ knn_stream_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
   float qq = 0.f, kk = 0.f;
   float acc[V][4];
 
-  stream_stage<QW, PK>(xb, q_s, kSelQ, q0, 0, n, c, vec);
+  stream_stage<QW, PK>(xb, q_s, kSelQ, qr0, 0, qend, c, vec);
   stream_stage<QW, PK>(xb, keys_s, kTile, 0, 0, n, c, vec);
   gfs::cp_async_commit();
   for (int st = 0; st < steps; ++st) {
@@ -253,7 +257,7 @@ knn_stream_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
                            nt * kTile, nc * QW, n, c, vec);
       if constexpr (kWide)
         stream_stage<QW, PK>(xb, q_s + ((st + 1) % 2) * kSelQ * PK, kSelQ,
-                             q0, nc * QW, n, c, vec);
+                             qr0, nc * QW, qend, c, vec);
     }
     gfs::cp_async_commit();
     gfs::cp_async_wait<1>();
@@ -337,7 +341,7 @@ knn_stream_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
         const float d = gfs::sq_dist(qv, kk_s[r], dot_s[ql * kDot + r]);
         key[o][h] = (static_cast<fold_key>(__float_as_uint(d) & 0x7fffffffu)
                      << 32) | static_cast<unsigned>(j);
-        ok[o][h] = j < n && q0 + ql < n;
+        ok[o][h] = j < n && q0 + ql < nq;
       }
       m0[o] = __ballot_sync(0xffffffffu, ok[o][0] && key[o][0] < thr[o]);
       m1[o] = __ballot_sync(0xffffffffu, ok[o][1] && key[o][1] < thr[o]);
@@ -372,16 +376,17 @@ knn_stream_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
 #pragma unroll
   for (int o = 0; o < kOwn; ++o) {
     const int ql = kOwn * warp + o, qi = q0 + ql;
-    if (qi >= n) break;
+    if (qi >= nq) break;
     fold_key* list = lists + ql * kl;
     if (fill[o] > 0)
       merge_queue(list, queues + ql * kQueue, fill[o], kl, k, lane);
     __syncwarp();
-    int* row = idx + (static_cast<size_t>(batch) * n + qi) * k;
+    int* row = idx + (static_cast<size_t>(batch) * nq + qi) * k;
     for (int r = lane; r < k; r += 32)
       row[r] = static_cast<int>(list[r] & 0xffffffffu);
     if constexpr (kStats) {
-      const float* brow = btab + (static_cast<size_t>(batch) * n + qi) * cb;
+      const float* brow =
+          btab + (static_cast<size_t>(batch) * n + q_off + qi) * cb;
       for (int r = 0; r < k; ++r) {
         const int j = static_cast<int>(list[r] & 0xffffffffu);
         float* srow = scb + (static_cast<size_t>(batch) * n + j) * cb;
@@ -401,9 +406,9 @@ int stream_list(int k) {
 }
 
 template <int CP, bool kStats>
-cudaError_t run_stream(const float* x, int* idx, int batch, int n, int c,
-                       int k, const float* btab, float* cnt, float* scb,
-                       int cb, cudaStream_t s) {
+cudaError_t run_stream(const float* x, int* idx, int batch, int n, int nq,
+                       int q_off, int c, int k, const float* btab, float* cnt,
+                       float* scb, int cb, cudaStream_t s) {
   const auto kernel = knn_stream_kernel<CP, kStats>;
   const int kl = stream_list(k);
   const size_t smem = stream_smem_bytes<CP>(kl);
@@ -411,28 +416,29 @@ cudaError_t run_stream(const float* x, int* idx, int batch, int n, int c,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kSelQ - 1) / kSelQ, batch);
-  kernel<<<grid, kSelThreads, smem, s>>>(x, idx, n, c, k, kl, btab, cnt, scb,
-                                         cb);
+  const dim3 grid((nq + kSelQ - 1) / kSelQ, batch);
+  kernel<<<grid, kSelThreads, smem, s>>>(x, idx, n, nq, q_off, c, k, kl, btab,
+                                         cnt, scb, cb);
   return cudaGetLastError();
 }
 
 // the variant by width: CP = 12, 16 or 64 (C zero-padded), or 64-channel
 // chunks past 64
 template <bool kStats>
-cudaError_t run_stream_c(const float* x, int* idx, int batch, int n, int c,
-                         int k, const float* btab, float* cnt, float* scb,
-                         int cb, cudaStream_t s) {
+cudaError_t run_stream_c(const float* x, int* idx, int batch, int n, int nq,
+                         int q_off, int c, int k, const float* btab,
+                         float* cnt, float* scb, int cb, cudaStream_t s) {
   if (c <= 12)
-    return run_stream<12, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
-                                  s);
+    return run_stream<12, kStats>(x, idx, batch, n, nq, q_off, c, k, btab,
+                                  cnt, scb, cb, s);
   if (c <= 16)
-    return run_stream<16, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
-                                  s);
+    return run_stream<16, kStats>(x, idx, batch, n, nq, q_off, c, k, btab,
+                                  cnt, scb, cb, s);
   if (c <= 64)
-    return run_stream<64, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
-                                  s);
-  return run_stream<0, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb, s);
+    return run_stream<64, kStats>(x, idx, batch, n, nq, q_off, c, k, btab,
+                                  cnt, scb, cb, s);
+  return run_stream<0, kStats>(x, idx, batch, n, nq, q_off, c, k, btab, cnt,
+                               scb, cb, s);
 }
 
 // ---- 2. knn_fold_kernel (k > kCap)
@@ -472,8 +478,9 @@ __device__ __forceinline__ void sort_column<8>(fold_key (&f)[8]) {
 template <int CP, int F, bool kStats>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 knn_fold_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
-                int c, int k, int w, const float* __restrict__ btab,
-                float* __restrict__ cnt, float* __restrict__ scb, int cb,
+                int nq, int q_off, int c, int k, int w,
+                const float* __restrict__ btab, float* __restrict__ cnt,
+                float* __restrict__ scb, int cb,
                 fold_key* __restrict__ scratch) {
   constexpr bool kWide = CP == 0;
   constexpr int QW = kWide ? 64 : CP;     // channels held at once
@@ -485,19 +492,21 @@ knn_fold_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int batch = blockIdx.y;
-  const int qi = blockIdx.x * (blockDim.x / 32) + warp;
-  const bool active = qi < n;
+  const int qi = blockIdx.x * (blockDim.x / 32) + warp;   // of nq
+  const bool active = qi < nq;
+  const size_t qrow = static_cast<size_t>(q_off) + qi;    // its row of x
   const float* xb = x + static_cast<size_t>(batch) * n * c;
   fold_key* my = keys + static_cast<size_t>(warp) * F * w;
   const int span = F * w;                  // keys of one chunk
   const bool one_chunk = span >= n;
-  int* row = idx + (static_cast<size_t>(batch) * n + qi) * k;
+  int* row = idx + (static_cast<size_t>(batch) * nq + qi) * k;
   const float* brow =
-      kStats ? btab + (static_cast<size_t>(batch) * n + qi) * cb : nullptr;
+      kStats ? btab + (static_cast<size_t>(batch) * n + qrow) * cb : nullptr;
   // the running k best (sorted) and the merge's output, when chunked
-  fold_key* run = one_chunk || !active
-                      ? nullptr
-                      : scratch + (static_cast<size_t>(batch) * n + qi) * 2 * k;
+  fold_key* run =
+      one_chunk || !active
+          ? nullptr
+          : scratch + (static_cast<size_t>(batch) * nq + qi) * 2 * k;
   fold_key* merged = run == nullptr ? nullptr : run + k;
   int have = 0;
 
@@ -506,13 +515,13 @@ knn_fold_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
   float qq = 0.f;
   if constexpr (kWide) {
     for (int ch = 0; ch < c; ++ch) {
-      const float v = active ? xb[static_cast<size_t>(qi) * c + ch] : 0.f;
+      const float v = active ? xb[qrow * c + ch] : 0.f;
       qq = fmaf(v, v, qq);
     }
   } else {
 #pragma unroll
     for (int ch = 0; ch < CP; ++ch) {
-      q[ch] = (active && ch < c) ? xb[static_cast<size_t>(qi) * c + ch] : 0.f;
+      q[ch] = (active && ch < c) ? xb[qrow * c + ch] : 0.f;
       qq = fmaf(q[ch], q[ch], qq);
     }
   }
@@ -535,9 +544,7 @@ knn_fold_kernel(const float* __restrict__ x, int* __restrict__ idx, int n,
         if constexpr (kWide) {
 #pragma unroll
           for (int ch = 0; ch < QW; ++ch)
-            q[ch] = (active && c0 + ch < c)
-                        ? xb[static_cast<size_t>(qi) * c + c0 + ch]
-                        : 0.f;
+            q[ch] = (active && c0 + ch < c) ? xb[qrow * c + c0 + ch] : 0.f;
         }
         __syncthreads();
         for (int r = threadIdx.x; r < kTile; r += blockDim.x) {
@@ -707,9 +714,9 @@ cudaError_t plan_fold(int n, int c, int folds, FoldPlan* plan) {
 }
 
 template <int CP, int F, bool kStats>
-cudaError_t run_fold(const float* x, int* idx, int batch, int n, int c,
-                     int k, const float* btab, float* cnt, float* scb, int cb,
-                     void* scratch, cudaStream_t s) {
+cudaError_t run_fold(const float* x, int* idx, int batch, int n, int nq,
+                     int q_off, int c, int k, const float* btab, float* cnt,
+                     float* scb, int cb, void* scratch, cudaStream_t s) {
   FoldPlan plan;
   cudaError_t err = plan_fold(n, c, F, &plan);
   if (err != cudaSuccess) return err;
@@ -718,68 +725,70 @@ cudaError_t run_fold(const float* x, int* idx, int batch, int n, int c,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(plan.smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + plan.warps - 1) / plan.warps, batch);
+  const dim3 grid((nq + plan.warps - 1) / plan.warps, batch);
   knn_fold_kernel<CP, F, kStats><<<grid, plan.warps * 32, plan.smem, s>>>(
-      x, idx, n, c, k, plan.w, btab, cnt, scb, cb,
+      x, idx, n, nq, q_off, c, k, plan.w, btab, cnt, scb, cb,
       static_cast<fold_key*>(scratch));
   return cudaGetLastError();
 }
 
 template <int F, bool kStats>
-cudaError_t run_fold_c(const float* x, int* idx, int batch, int n, int c,
-                       int k, const float* btab, float* cnt, float* scb,
-                       int cb, void* scratch, cudaStream_t s) {
+cudaError_t run_fold_c(const float* x, int* idx, int batch, int n, int nq,
+                       int q_off, int c, int k, const float* btab,
+                       float* cnt, float* scb, int cb, void* scratch,
+                       cudaStream_t s) {
   if (c <= 16)
-    return run_fold<16, F, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
-                                   scratch, s);
+    return run_fold<16, F, kStats>(x, idx, batch, n, nq, q_off, c, k, btab,
+                                   cnt, scb, cb, scratch, s);
   if (c <= 64)
-    return run_fold<64, F, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
-                                   scratch, s);
-  return run_fold<0, F, kStats>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
-                                scratch, s);
+    return run_fold<64, F, kStats>(x, idx, batch, n, nq, q_off, c, k, btab,
+                                   cnt, scb, cb, scratch, s);
+  return run_fold<0, F, kStats>(x, idx, batch, n, nq, q_off, c, k, btab, cnt,
+                                scb, cb, scratch, s);
 }
 
 }  // namespace
 
 namespace gfs {
 
-cudaError_t launch_knn_fold(const float* x, int* idx, int batch, int n, int c,
-                            int k, int folds, const float* btab, float* cnt,
-                            float* scb, int cb, void* scratch,
-                            cudaStream_t s) {
+cudaError_t launch_knn_fold(const float* x, int* idx, int batch, int n,
+                            int nq, int q_off, int c, int k, int folds,
+                            const float* btab, float* cnt, float* scb, int cb,
+                            void* scratch, cudaStream_t s) {
   if (batch < 1 || batch > 65535 || n < 1 || c < 1 || k < 1 || k > n ||
+      nq < 1 || q_off < 0 || q_off > n - nq ||
       (folds != 2 && folds != 4 && folds != 8))
     return cudaErrorInvalidValue;
   if (btab != nullptr && cb < 1) return cudaErrorInvalidValue;
   if (k <= kCap)  // the streaming selection (folds: validated, unused)
     return btab != nullptr
-               ? run_stream_c<true>(x, idx, batch, n, c, k, btab, cnt, scb,
-                                    cb, s)
-               : run_stream_c<false>(x, idx, batch, n, c, k, nullptr,
-                                     nullptr, nullptr, 0, s);
+               ? run_stream_c<true>(x, idx, batch, n, nq, q_off, c, k, btab,
+                                    cnt, scb, cb, s)
+               : run_stream_c<false>(x, idx, batch, n, nq, q_off, c, k,
+                                     nullptr, nullptr, nullptr, 0, s);
   if (btab != nullptr) {  // K3 for k > kCap: four folds
     if (folds != 4) return cudaErrorInvalidValue;
-    return run_fold_c<4, true>(x, idx, batch, n, c, k, btab, cnt, scb, cb,
-                               scratch, s);
+    return run_fold_c<4, true>(x, idx, batch, n, nq, q_off, c, k, btab, cnt,
+                               scb, cb, scratch, s);
   }
   switch (folds) {
     case 2:
-      return run_fold_c<2, false>(x, idx, batch, n, c, k, nullptr, nullptr,
-                                  nullptr, 0, scratch, s);
+      return run_fold_c<2, false>(x, idx, batch, n, nq, q_off, c, k, nullptr,
+                                  nullptr, nullptr, 0, scratch, s);
     case 4:
-      return run_fold_c<4, false>(x, idx, batch, n, c, k, nullptr, nullptr,
-                                  nullptr, 0, scratch, s);
+      return run_fold_c<4, false>(x, idx, batch, n, nq, q_off, c, k, nullptr,
+                                  nullptr, nullptr, 0, scratch, s);
     case 8:
-      return run_fold_c<8, false>(x, idx, batch, n, c, k, nullptr, nullptr,
-                                  nullptr, 0, scratch, s);
+      return run_fold_c<8, false>(x, idx, batch, n, nq, q_off, c, k, nullptr,
+                                  nullptr, nullptr, 0, scratch, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t knn_fold_scratch_bytes(int batch, int n, int c, int k, int folds,
-                                   long long* bytes) {
-  if (batch < 1 || n < 1 || c < 1 || k < 1 || k > n ||
+cudaError_t knn_fold_scratch_bytes(int batch, int n, int nq, int c, int k,
+                                   int folds, long long* bytes) {
+  if (batch < 1 || n < 1 || nq < 1 || nq > n || c < 1 || k < 1 || k > n ||
       (folds != 2 && folds != 4 && folds != 8))
     return cudaErrorInvalidValue;
   *bytes = 0;
@@ -787,7 +796,7 @@ cudaError_t knn_fold_scratch_bytes(int batch, int n, int c, int k, int folds,
   FoldPlan plan;
   const cudaError_t err = plan_fold(n, c, folds, &plan);
   if (err != cudaSuccess) return err;
-  *bytes = plan.chunked ? static_cast<long long>(batch) * n * 2 * k *
+  *bytes = plan.chunked ? static_cast<long long>(batch) * nq * 2 * k *
                               static_cast<long long>(sizeof(fold_key))
                         : 0;
   return cudaSuccess;
@@ -803,8 +812,8 @@ GFS_EXPORT int gfs_knn_fold(const void* x, void* idx, void* scratch,
                             int batch, int n, int c, int k, int folds,
                             void* stream) {
   return static_cast<int>(gfs::launch_knn_fold(
-      static_cast<const float*>(x), static_cast<int*>(idx), batch, n, c, k,
-      folds, nullptr, nullptr, nullptr, 0, scratch,
+      static_cast<const float*>(x), static_cast<int*>(idx), batch, n, n, 0, c,
+      k, folds, nullptr, nullptr, nullptr, 0, scratch,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -8,7 +8,10 @@ on the normalised weights inside K5a/K5b (ops/attention_train.py), with a
 per-step seed drawn from the caller's generator. With a mesh
 (parallel/mesh.py) every rank draws the same seed and passes its first
 global row as the mask's batch offset, so the ranks draw the single
-process's mask.
+process's mask. Under the `data x points` mesh (`points_mesh`, eval only)
+x holds this rank's points of each block: k and v are all-gathered over
+the points group, q stays local, and K2 takes the local queries against
+every key.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from torch import nn
 from gfs3dseg_gws_tpu_torch.models.layers import Conv1x1
 from gfs3dseg_gws_tpu_torch.ops.attention_kernel import fused_attention
 from gfs3dseg_gws_tpu_torch.ops.attention_train import attention_train
-from gfs3dseg_gws_tpu_torch.parallel.mesh import Mesh
+from gfs3dseg_gws_tpu_torch.parallel.mesh import Mesh, all_gather_points
 
 
 def draw_seed(generator: Optional[torch.Generator],
@@ -34,6 +37,7 @@ def draw_seed(generator: Optional[torch.Generator],
 
 class SelfAttention(nn.Module):
     mesh: Optional[Mesh] = None
+    points_mesh: Optional[Mesh] = None
 
     def __init__(self, in_features: int, out_channels: int = 64,
                  attn_dropout: float = 0.1,
@@ -52,6 +56,9 @@ class SelfAttention(nn.Module):
         temperature = float(self.out_channels) ** 0.5
         q, k, v = self.q_map(x), self.k_map(x), self.v_map(x)
         if not self.training:
+            if self.points_mesh is not None:
+                k = all_gather_points(k, self.points_mesh)
+                v = all_gather_points(v, self.points_mesh)
             return fused_attention(q, k, v, temperature)
         offset = 0 if self.mesh is None else self.mesh.rank * x.shape[0]
         return attention_train(q, k, v, draw_seed(generator, x.device),

@@ -16,7 +16,13 @@ With a mesh (parallel/mesh.py, set by models/layers.py::use_mesh) the
 training pass keeps the single-process semantics on the global batch: the
 fake half is the global batch's second half, its class counts and sums are
 all-reduced, and each cross-entropy is this rank's share over the global
-count. Evaluation is per block and needs no mesh.
+count. Evaluation is per block and needs no data mesh. Under the `data x
+points` mesh (`points_mesh`, set by parallel/mesh.py::points_split for the
+sweeps) a rank holds N/S points of each block: the encoder all-gathers
+what needs every point (models/dgcnn.py, models/attention.py), the heads
+are per point, and the prototype refinement's softmax over points spans
+the ranks (`post_refine_proto`). `get_fg_feat` (the support shots) stays
+replicated at full N.
 """
 from __future__ import annotations
 
@@ -31,8 +37,9 @@ from gfs3dseg_gws_tpu_torch.models.layers import (BatchNorm, Conv1x1,
                                                   LeakyReLU, cross_entropy,
                                                   l2norm, random_init_,
                                                   train_init_)
-from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
-                                                  reduce_sum)
+from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_gather_points,
+                                                  all_reduce_points,
+                                                  all_reduce_sum, reduce_sum)
 
 IGNORE_INDEX = 255  # labels the training loss leaves out (reference capl.py)
 
@@ -52,6 +59,7 @@ class GWCAPL(nn.Module):
     """
 
     mesh: Optional[Mesh] = None
+    points_mesh: Optional[Mesh] = None
 
     def __init__(self, classes: int = 13, base_num: int = 7,
                  num_gw: int = 150, main_dim: int = 128, energy: float = 0.9,
@@ -175,11 +183,23 @@ class GWCAPL(nn.Module):
         The per-class softmax runs over POINTS (dim 1), not classes; each
         refined prototype is blended with the learned one by their clamped
         cosine agreement. proto: (cls, C); point_feat: (B, N, C) ->
-        (B, cls, C).
+        (B, cls, C). Under the points split point_feat holds this rank's
+        points: the softmax takes the global max of each (block, class)
+        from the ranks' maxima, and [sum exp, sum exp * feat] summed over
+        the points group in one all-reduce, before the division.
         """
         pred = self.get_pred(point_feat, proto, use_bg_proto)  # (B, N, cls*)
-        pred = torch.softmax(pred, dim=1)                      # over points
-        pred_proto = torch.einsum("bnk,bnc->bkc", pred, point_feat)
+        pm = self.points_mesh
+        if pm is None:
+            pred = torch.softmax(pred, dim=1)                  # over points
+            pred_proto = torch.einsum("bnk,bnc->bkc", pred, point_feat)
+        else:
+            top = all_gather_points(pred.amax(dim=1, keepdim=True), pm)
+            e = torch.exp(pred - top.amax(dim=1, keepdim=True))
+            sums = all_reduce_points(torch.cat(
+                [torch.sum(e, dim=1)[..., None],
+                 torch.einsum("bnk,bnc->bkc", e, point_feat)], dim=-1), pm)
+            pred_proto = sums[..., 1:] / sums[..., :1]
         if use_bg_proto:
             pred_proto = pred_proto[:, 1:, :]
         w = torch.sum(l2norm(pred_proto) * l2norm(proto)[None], dim=-1,

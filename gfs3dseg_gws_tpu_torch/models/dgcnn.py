@@ -25,6 +25,14 @@ torch ops on the (B, N, K, W) edge tensor, in eval and in training.
 With a mesh (parallel/mesh.py, set by models/layers.py::use_mesh) a
 training block's BatchNorm statistics are the global batch's: the fused
 Function and the BatchNorm modules all-reduce them.
+
+Under the `data x points` mesh (`points_mesh`, set by
+parallel/mesh.py::points_split for the evaluation sweeps) an eval block
+holds this rank's N/S points of each block. It all-gathers x over the
+points group, builds the neighbour table a from the whole x (the kNN
+needs that x anyway, and at C = 9 it is narrower than a) and the centre
+table b from its own rows, and takes its rows' neighbours among all N
+points: K1 (or K6) with the query offset points_index x N/S.
 """
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import fused_edgeconv_infer
 from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv_train import (
     fused_edgeconv_train)
 from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices, knn_with_stats
-from gfs3dseg_gws_tpu_torch.parallel.mesh import Mesh
+from gfs3dseg_gws_tpu_torch.parallel.mesh import Mesh, all_gather_points
 
 
 class EdgeConvBlock(nn.Module):
@@ -51,6 +59,7 @@ class EdgeConvBlock(nn.Module):
     """
 
     mesh: Optional[Mesh] = None
+    points_mesh: Optional[Mesh] = None
 
     def __init__(self, in_features: int, widths: Sequence[int], k: int = 20,
                  device: Optional[torch.device] = None):
@@ -81,20 +90,28 @@ class EdgeConvBlock(nn.Module):
             bn1.record_batch_stats(mu1, var1, n_stats)
             bn2.record_batch_stats(mu2, var2, n_stats)
             return out
+        # keys: every point of the block; queries: x, this rank's rows of
+        # it from `q_offset` under the points split (every row without)
+        keys, local = x, {}
+        if self.points_mesh is not None and not self.training:
+            keys = all_gather_points(x, self.points_mesh)
+            local = {"q_offset": self.points_mesh.points_index * x.shape[1]}
         if len(self.widths) == 2:
             s1, t1 = bn1.affine()
-            a_table = (x @ wd) * s1
+            a_table = (keys @ wd) * s1
             b_table = (x @ (wc - wd)) * s1 + t1
             conv2, bn2 = self.layer[3], self.layer[4]
             s2, t2 = bn2.affine()
             w2f = conv2.kernel * s2[None, :]
-            return fused_edgeconv_infer(x.contiguous(), a_table, b_table,
-                                        w2f.contiguous(), t2, self.k)
+            return fused_edgeconv_infer(keys.contiguous(), a_table, b_table,
+                                        w2f.contiguous(), t2, self.k,
+                                        **local)
         # blocks of other depths (JAX dgcnn.py:126-134): the kNN indices
         # (K6), the gather whose backward is K7, then the layers as torch
         # ops, in training with batch statistics over (B, N, K)
-        idx = knn_indices(x.detach().contiguous(), self.k)  # (B, N, K)
-        h = gather_neighbors(x @ wd, idx) + (x @ (wc - wd))[:, :, None, :]
+        idx = knn_indices(keys.detach().contiguous(), self.k,
+                          nq=x.shape[1], **local)            # (B, nq, K)
+        h = gather_neighbors(keys @ wd, idx) + (x @ (wc - wd))[:, :, None, :]
         h = leaky_relu(bn1(h))
         for j in range(1, len(self.widths)):
             h = leaky_relu(self.layer[3 * j + 1](self.layer[3 * j](h)))

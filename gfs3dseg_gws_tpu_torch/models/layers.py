@@ -207,7 +207,12 @@ def use_mesh(module: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
     self-attention, GWCAPL), in the manner of
     nn.SyncBatchNorm.convert_sync_batchnorm, and on `module` itself, where
     the train steps (parallel/steps.py) read it; None restores one
-    process."""
+    process. A `data x points` mesh is refused: training takes its data
+    mesh (`Mesh.data_mesh`); the points axis splits evaluation only
+    (parallel/mesh.py::points_split)."""
+    if mesh is not None and mesh.sp > 1:
+        raise ValueError("use_mesh: a data x points mesh splits evaluation "
+                         "only; train on mesh.data_mesh()")
     for mod in module.modules():
         if hasattr(mod, "mesh"):
             mod.mesh = mesh

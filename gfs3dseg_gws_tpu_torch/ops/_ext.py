@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -35,18 +36,18 @@ _F = ctypes.c_float
 # C signatures of the entry points in csrc/*.cu
 _SIGNATURES = {
     # x, a_table, b_table, w2, bias2, idx (scratch), kNN scratch, out,
-    # batch, n, c, w0, w1, k, neg_slope, stream
-    "gfs_fused_edgeconv_infer": (_P,) * 8 + (_I,) * 6 + (_F, _P),
-    # q, k, v, out, batch, n, d, inv_temperature, stream
-    "gfs_fused_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # batch, n, nq, q_offset, c, w0, w1, k, neg_slope, stream
+    "gfs_fused_edgeconv_infer": (_P,) * 8 + (_I,) * 8 + (_F, _P),
+    # q, k, v, out, batch, nq, nk, d, inv_temperature, stream
+    "gfs_fused_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # x, btab, idx, cnt, scb, scratch, batch, n, c, cb, k, stream
     "gfs_knn_with_stats": (_P,) * 6 + (_I,) * 5 + (_P,),
-    # x, idx, scratch, batch, n, c, k, stream
-    "gfs_knn_indices": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # x, idx, scratch, batch, n, nq, q_offset, c, k, stream
+    "gfs_knn_indices": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, idx, scratch, batch, n, c, k, folds, stream
     "gfs_knn_fold": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # batch, n, c, k, folds (0: the K1/K3/K6 route), bytes out
-    "gfs_knn_scratch_bytes": (_I, _I, _I, _I, _I,
+    # batch, n, nq, c, k, folds (0: the K1/K3/K6 route), bytes out
+    "gfs_knn_scratch_bytes": (_I, _I, _I, _I, _I, _I,
                               ctypes.POINTER(ctypes.c_longlong)),
     # no arguments: the streaming kNN selection's longest k
     "gfs_knn_stream_cap": (),
@@ -173,15 +174,18 @@ def current_stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def knn_scratch(name: str, x: torch.Tensor, k: int, folds: int = 0):
-    """The scratch the kNN selection needs for x (B, N, C) and k on x's
-    device (folds 0: K1, K3 and K6; 2, 4 or 8: K8), or None: only K8's
-    fold-merge tournament on a key row too long for shared memory (k > 256,
-    N past ~27,000) takes one, (B, N, 2, k) 64-bit keys."""
+def knn_scratch(name: str, x: torch.Tensor, k: int, folds: int = 0,
+                nq: Optional[int] = None):
+    """The scratch the kNN selection needs for nq queries (default: every
+    row) against x (B, N, C) and k on x's device (folds 0: K1, K3 and K6;
+    2, 4 or 8: K8), or None: only K8's fold-merge tournament on a key row
+    too long for shared memory (k > 256, N past ~27,000) takes one,
+    (B, nq, 2, k) 64-bit keys."""
     b, n, c = x.shape
     nbytes = ctypes.c_longlong(0)
     with torch.cuda.device(x.device):
-        check(library().gfs_knn_scratch_bytes(b, n, c, k, folds,
+        check(library().gfs_knn_scratch_bytes(b, n, n if nq is None else nq,
+                                               c, k, folds,
                                                ctypes.byref(nbytes)), name)
     if nbytes.value == 0:
         return None

@@ -23,13 +23,15 @@ from gfs3dseg_gws_tpu_torch.ops import _ext
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     temperature: float) -> torch.Tensor:
+    """q (B, Nq, D), k and v (B, Nk, D) -> (B, Nq, D); a query's row
+    depends on its own row of q and on k, v alone."""
     attn = torch.einsum("bmc,bnc->bmn", q / temperature, k)
     attn = torch.softmax(attn, dim=-1)
     return torch.einsum("bmn,bnc->bmc", attn, v)
 
 
 def pad_head(*tensors: torch.Tensor) -> tuple:
-    """The (B, N, D) tensors with D zero-padded to a multiple of 4 (the
+    """The (B, ·, D) tensors with D zero-padded to a multiple of 4 (the
     kernels' float4 rows); unchanged when it is one already."""
     extra = -tensors[0].shape[-1] % 4
     if extra == 0:
@@ -39,30 +41,36 @@ def pad_head(*tensors: torch.Tensor) -> tuple:
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     temperature: float) -> torch.Tensor:
-    """softmax(q kᵀ / temperature) v for q, k, v (B, N, D), any D.
+    """softmax(q kᵀ / temperature) v for q (B, Nq, D) and k, v (B, Nk, D),
+    any D: Nq = Nk = N for a whole block, or a rank's own queries against
+    the block's all-gathered keys under the `data x points` mesh, which
+    gives the rows of the whole call bit for bit.
 
-    Returns (B, N, D) float32. A CPU tensor goes to `attention_plain`; a CUDA
-    tensor to the kernel, which raises on dtypes or layouts it does not
-    take.
+    Returns (B, Nq, D) float32. A CPU tensor goes to `attention_plain`; a
+    CUDA tensor to the kernel, which raises on dtypes or layouts it does
+    not take.
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, temperature)
     name = "fused_attention"
     _ext.check_tensors(name, q=q, k=k, v=v)
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} must all be (B, N, D)")
+    if (q.dim() != 3 or k.dim() != 3 or v.shape != k.shape
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]):
+        raise ValueError(f"{name}: q {tuple(q.shape)} must be (B, Nq, D) "
+                         f"and k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         f"(B, Nk, D)")
     d_true = q.shape[-1]
     q, k, v = pad_head(q, k, v)
-    b, n, d = q.shape
+    b, nq, d = q.shape
+    nk = k.shape[1]
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     lib = _ext.library()
     with torch.cuda.device(q.device):
         code = lib.gfs_fused_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, d,
-            1.0 / temperature, _ext.current_stream(q.device))
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq,
+            nk, d, 1.0 / temperature, _ext.current_stream(q.device))
     _ext.check(code, name)
     fused_attention.launches += 1
     return out if d == d_true else out[..., :d_true].contiguous()

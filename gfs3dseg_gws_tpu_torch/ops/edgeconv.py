@@ -32,11 +32,11 @@ def _flat_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 def gather_neighbors_plain(x: torch.Tensor, idx: torch.Tensor
                            ) -> torch.Tensor:
-    """x (B, N, C) point features, idx (B, N, K) indices into the N axis ->
-    (B, N, K, C) neighbour features; autograd differentiates the indexing."""
+    """x (B, N, C) point features, idx (B, M, K) indices into the N axis ->
+    (B, M, K, C) neighbour features (M = N, or a rank's own queries);
+    autograd differentiates the indexing."""
     b, n, c = x.shape
-    k = idx.shape[-1]
-    return x.reshape(b * n, c)[_flat_rows(idx, n)].reshape(b, n, k, c)
+    return x.reshape(b * n, c)[_flat_rows(idx, n)].reshape(*idx.shape, c)
 
 
 def scatter_bwd_plain(idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -98,9 +98,12 @@ def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     Args:
       x:   (B, N, C) point features.
-      idx: (B, N, K) indices into the N axis (int32 or int64).
+      idx: (B, M, K) indices into the N axis (int32 or int64); M = N, or
+           in evaluation a rank's own queries under the `data x points`
+           mesh.
     Returns:
-      (B, N, K, C) neighbour features. The gradient with respect to x is
-      the scatter-add of K7 on the card, `scatter_bwd_plain` on the CPU.
+      (B, M, K, C) neighbour features. The gradient with respect to x (M
+      = N) is the scatter-add of K7 on the card, `scatter_bwd_plain` on
+      the CPU.
     """
     return _GatherNeighbors.apply(x, idx)

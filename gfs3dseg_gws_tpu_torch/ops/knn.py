@@ -6,7 +6,9 @@ layers deep the kNN graph is built inside the fused EdgeConv kernel
 (ops/fused_edgeconv.py).
 
 `knn_indices` (K6) gives the indices alone, for EdgeConv blocks that are not
-two layers deep (models/dgcnn.py) and for the split eval EdgeConv. It
+two layers deep (models/dgcnn.py) and for the split eval EdgeConv; like K1
+it takes a range of query rows against every row as keys (`q_offset`,
+`nq`: a rank's own points of a block under the `data x points` mesh). It
 replaces the JAX package's TPU kernel ops/knn.py::knn_indices (`_knn_pallas`,
 body `_knn_kernel`) with K1's kNN stage launched alone
 (`knn_split_kernel<CP, KMAX, S, false>` in csrc/fused_edgeconv.cu: each
@@ -40,7 +42,7 @@ model path calls it.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,19 +58,37 @@ def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return xx - 2.0 * xy + yy.transpose(-1, -2)
 
 
-def knn_indices_plain(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Plain twin of K6: x (B, N, C) -> neighbour indices (B, N, k) int32,
-    nearest first, ties to the lower index (JAX: _knn_xla, whose lax.top_k
-    breaks ties so; torch.topk's tie order is neither, hence a stable
-    sort)."""
-    score = -pairwise_sq_dists(x, x)
+def knn_indices_plain(x: torch.Tensor, k: int, q_offset: int = 0,
+                      nq: Optional[int] = None) -> torch.Tensor:
+    """Plain twin of K6: x (B, N, C) -> neighbour indices (B, nq, k) int32
+    of the query rows [q_offset, q_offset + nq) (default: every row) among
+    all N rows, nearest first, ties to the lower index (JAX: _knn_xla,
+    whose lax.top_k breaks ties so; torch.topk's tie order is neither,
+    hence a stable sort). A query's row depends on its own row of x and the
+    keys alone, so a local call gives the rows of the full call."""
+    nq = query_rows("knn_indices_plain", x.shape[1], q_offset, nq)
+    score = -pairwise_sq_dists(x[:, q_offset:q_offset + nq], x)
     order = torch.sort(score, dim=-1, descending=True, stable=True).indices
     return order[..., :k].to(torch.int32)
 
 
-def knn_indices(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Neighbour indices (B, N, k) int32 of x (B, N, C), nearest first, self
-    included.
+def query_rows(name: str, n: int, q_offset: int, nq: Optional[int]) -> int:
+    """nq (None: the rows from q_offset to N), after checking that the
+    query rows [q_offset, q_offset + nq) lie in [0, N)."""
+    nq = n - q_offset if nq is None else nq
+    if nq < 1 or q_offset < 0 or q_offset + nq > n:
+        raise ValueError(f"{name}: query rows [{q_offset}, {q_offset + nq}) "
+                         f"do not lie in [0, {n})")
+    return nq
+
+
+def knn_indices(x: torch.Tensor, k: int, q_offset: int = 0,
+                nq: Optional[int] = None) -> torch.Tensor:
+    """Neighbour indices (B, nq, k) int32 of the query rows [q_offset,
+    q_offset + nq) of x (B, N, C) (default: every row) among all N rows,
+    as indices in [0, N), nearest first, self included. A sequence-
+    parallel rank passes its own rows of a block against the block's
+    all-gathered x (models/dgcnn.py).
 
     A CPU tensor goes to `knn_indices_plain`; a CUDA tensor to K6 (any C,
     1 <= k <= N; k > N raises, as in JAX). Ties at equal distance go to the
@@ -76,18 +96,19 @@ def knn_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     detached: the graph carries no gradient.
     """
     if x.device.type == "cpu":
-        return knn_indices_plain(x, k)
+        return knn_indices_plain(x, k, q_offset, nq)
     name = "knn_indices"
     _ext.check_tensors(name, x=x)
     b, n, c = x.shape
     _check_k(name, k, n)
-    idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
-    scratch = _ext.knn_scratch(name, x, k)
+    nq = query_rows(name, n, q_offset, nq)
+    idx = torch.empty((b, nq, k), device=x.device, dtype=torch.int32)
+    scratch = _ext.knn_scratch(name, x, k, nq=nq)
     lib = _ext.library()
     with torch.cuda.device(x.device):
         code = lib.gfs_knn_indices(x.data_ptr(), idx.data_ptr(),
-                                   _ext.ptr(scratch), b, n, c, k,
-                                   _ext.current_stream(x.device))
+                                   _ext.ptr(scratch), b, n, nq, q_offset, c,
+                                   k, _ext.current_stream(x.device))
     _ext.check(code, name)
     knn_indices.launches += 1
     return idx

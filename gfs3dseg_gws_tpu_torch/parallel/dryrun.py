@@ -5,10 +5,12 @@ the JAX package's `__graft_entry__.py::dryrun_multichip`).
 parent such as chip_smoke.py has CUDA initialised, so `fork` is wrong)
 that meet through a file under a fresh directory, calls `fn(mesh, *args)`
 on each and returns every rank's result. A rank that raises fails the
-call. `dryrun_multichip` runs GFS train steps and the coding step of the
-base-class codings over such a mesh (`gfs_ranks` on each rank) and returns
-their numbers, so that a caller can hold them to one process on the global
-batch.
+call; `sp` > 1 gives the ranks a `data x points` mesh. `dryrun_multichip`
+runs GFS train steps and the coding step of the base-class codings over
+such a mesh (`gfs_ranks` on each rank) and returns their numbers, so that
+a caller can hold them to one process on the global batch; for an even
+number of ranks from 4 it also runs JAX's step 2, an evaluation pass on a
+2-way `data x points` mesh (`dxp_evaluate`).
 """
 from __future__ import annotations
 
@@ -23,14 +25,16 @@ import torch
 
 def _rank(rank: int, fn: Callable, n_ranks: int, device: str,
           backend: Optional[str], workdir: str, threads: Optional[int],
-          args: Sequence) -> None:
-    from gfs3dseg_gws_tpu_torch.parallel.mesh import close_mesh, make_mesh
+          args: Sequence, sp: int) -> None:
+    from gfs3dseg_gws_tpu_torch.parallel.mesh import (close_mesh, make_mesh,
+                                                      make_mesh_dxp)
 
     if threads is not None:
         torch.set_num_threads(threads)
-    mesh = make_mesh(backend, device,
-                     init_method="file://" + os.path.join(workdir, "rdv"),
-                     rank=rank, world_size=n_ranks)
+    join = dict(init_method="file://" + os.path.join(workdir, "rdv"),
+                rank=rank, world_size=n_ranks)
+    mesh = (make_mesh(backend, device, **join) if sp == 1
+            else make_mesh_dxp(sp, backend, device, **join))
     try:
         out = fn(mesh, *args)
         torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
@@ -40,13 +44,15 @@ def _rank(rank: int, fn: Callable, n_ranks: int, device: str,
 
 def run_ranks(fn: Callable, n_ranks: int, device: str = "cpu",
               backend: Optional[str] = None, args: Sequence = (),
-              threads: Optional[int] = None) -> List:
+              threads: Optional[int] = None, sp: int = 1) -> List:
     """fn(mesh, *args) on `n_ranks` spawned processes, each on `device`
     (parallel/mesh.py::make_mesh: `backend` None is NCCL on CUDA, gloo on
-    the CPU; two ranks on one card need backend="gloo"). `fn` and `args`
-    must pickle (a module-level function, CPU tensors); each child sets
-    `threads` intra-op threads where given. Returns the ranks' results in
-    rank order; a rank that fails raises here."""
+    the CPU; two ranks on one card need backend="gloo"), on the data mesh,
+    or with `sp` > 1 on the `data x points` mesh of `sp` ranks along points
+    (make_mesh_dxp). `fn` and `args` must pickle (a module-level function,
+    CPU tensors); each child sets `threads` intra-op threads where given.
+    Returns the ranks' results in rank order; a rank that fails raises
+    here."""
     import torch.multiprocessing as mp
 
     if torch.device(device).type == "cuda":
@@ -55,7 +61,7 @@ def run_ranks(fn: Callable, n_ranks: int, device: str = "cpu",
         _ext.build()        # once, before the ranks could race on it
     with tempfile.TemporaryDirectory(prefix="gfs_ranks_") as workdir:
         mp.start_processes(_rank, args=(fn, n_ranks, device, backend,
-                                        workdir, threads, tuple(args)),
+                                        workdir, threads, tuple(args), sp),
                            nprocs=n_ranks, join=True, start_method="spawn")
         return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
                            weights_only=False) for r in range(n_ranks)]
@@ -129,6 +135,57 @@ def gfs_ranks(mesh, model_kwargs: Dict, state: Dict, points, labels, gp,
     return out
 
 
+# ranks along points in `dryrun_multichip`'s dxp pass (JAX step 2:
+# `make_mesh_dxp(2)`)
+DXP_SP = 2
+
+
+def dxp_eval_ranks(mesh, model_kwargs: Dict, state: Dict, points, gp,
+                   gened, base_coding, novel_coding) -> torch.Tensor:
+    """One rank of `dxp_evaluate`: the GWCAPL eval pass (`evaluate`, one
+    prototype set) on this rank's rows and points of the global batch,
+    under the points split. Returns its argmax (B / D, N / S) on the
+    host."""
+    from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
+    from gfs3dseg_gws_tpu_torch.parallel import mesh as pmesh
+
+    dev = mesh.device
+    model = GWCAPL(device=dev, **model_kwargs)
+    model.load_state_dict(state)
+    pmesh.replicate(model, mesh)
+    x = pmesh.shard_points(pmesh.shard_batch(points, mesh), mesh).to(dev)
+    with torch.inference_mode(), pmesh.points_split(model, mesh):
+        logits, _, _ = model.evaluate(x, gp.to(dev), gened.to(dev),
+                                      base_coding.to(dev),
+                                      novel_coding.to(dev))
+    return torch.argmax(logits, dim=-1).cpu()
+
+
+def dxp_evaluate(n_ranks: int, device: str, backend: Optional[str],
+                 model_kwargs: Dict, state: Dict, points, gp, seed: int = 0,
+                 threads: Optional[int] = None) -> torch.Tensor:
+    """JAX `__graft_entry__.py::dryrun_multichip` step 2: an evaluation pass
+    of the GWCAPL (`state`) on a `data x points` mesh of `n_ranks` ranks,
+    `DXP_SP` along points (`make_mesh_dxp(2)`); the registered prototypes
+    standard normal from numpy with `seed`, the codings all ones, as
+    there. Returns the predictions put back together in rank order,
+    (B, N)."""
+    from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
+
+    shape = GWCAPL(**model_kwargs)
+    r = np.random.default_rng(seed)
+    gened = torch.from_numpy(r.standard_normal(
+        (shape.classes, shape.main_proto.shape[1])).astype(np.float32))
+    base = torch.ones((shape.base_num, shape.num_gw))
+    novel = torch.ones((shape.classes - shape.base_num, shape.num_gw))
+    preds = run_ranks(dxp_eval_ranks, n_ranks, device, backend,
+                      (model_kwargs, state, points, gp, gened, base, novel),
+                      threads, DXP_SP)
+    rows = [torch.cat(preds[d * DXP_SP:(d + 1) * DXP_SP], dim=1)
+            for d in range(n_ranks // DXP_SP)]
+    return torch.cat(rows, dim=0)
+
+
 def dryrun_multichip(n_ranks: int, device: str = "cpu",
                      backend: Optional[str] = None, *, steps: int = 1,
                      batch: Optional[int] = None, npts: int = 64,
@@ -145,7 +202,10 @@ def dryrun_multichip(n_ranks: int, device: str = "cpu",
     module-level function that calls it and adds to its result (as a check
     that records kernel outputs does). Returns rank 0's result plus
     "inputs" (points, labels, gp), "init" (the starting state) and "ranks"
-    (every rank's result, rank order)."""
+    (every rank's result, rank order); for an even `n_ranks` >= 4 also
+    "dxp_pred", the (B, N) predictions of `dxp_evaluate` on a 2-way
+    `data x points` mesh from the starting state (the batch must divide
+    by n_ranks / 2 and npts by 2)."""
     from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
 
     model = GWCAPL(**model_kwargs)
@@ -167,4 +227,12 @@ def dryrun_multichip(n_ranks: int, device: str = "cpu",
             if not all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
                        for a, b in zip(ranks[0][key], other[key])):
                 raise AssertionError(f"ranks disagree on {key}")
-    return dict(ranks[0], inputs=inputs, init=state, ranks=ranks)
+    out = dict(ranks[0], inputs=inputs, init=state, ranks=ranks)
+    if n_ranks % DXP_SP == 0 and n_ranks >= 2 * DXP_SP:
+        pred = dxp_evaluate(n_ranks, device, backend, model_kwargs, state,
+                            inputs[0], inputs[2], seed + 2, threads)
+        if pred.shape != (batch, npts):
+            raise AssertionError(f"dxp evaluation gave {tuple(pred.shape)}, "
+                                 f"not {(batch, npts)}")
+        out["dxp_pred"] = pred
+    return out

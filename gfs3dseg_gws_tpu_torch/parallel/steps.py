@@ -16,7 +16,11 @@ disagree on it. Each rank backwards its
 share of the global loss, the gradients are summed over the ranks and
 every rank takes the same optimizer step; the loss and accuracy returned
 are the global batch's. The eval steps run per block on this rank's rows
-and return sums and confusion counts that the caller all-reduces.
+and return sums and confusion counts that the caller all-reduces; under
+the `data x points` mesh (the model's `points_mesh`, parallel/mesh.py::
+points_split) on this rank's points of those rows, and `coding_step`
+reduces each block's background count and sum over the points group
+first.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import torch
 
 from gfs3dseg_gws_tpu_torch.models.layers import cross_entropy
 from gfs3dseg_gws_tpu_torch.ops.metrics import confusion_matrix
-from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
+from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_reduce_points,
+                                                  all_reduce_sum,
                                                   allreduce_grads)
 
 
@@ -171,8 +176,15 @@ def coding_step(model, points: torch.Tensor, labels: torch.Tensor,
 
     Returns (cls_sums (num_base, K), cls_counts (num_base,),
              bg_mean_sum (K,), bg_block_count ()).
+
+    Under the points split (the model's `points_mesh`) points and labels
+    are this rank's points of each block: a block's background count and
+    sum are summed over its points group before the division and before
+    `has_bg`, and only points index 0 returns the per-block terms, so that
+    the caller's sum over every rank counts each block once.
     """
     model.eval()
+    pm = getattr(model, "points_mesh", None)
     _, _, gw = model.get_features(points, gp)                # (B, N, K)
     onehot = torch.nn.functional.one_hot(labels.long(), num_base + 1).to(
         gw.dtype)
@@ -181,10 +193,17 @@ def coding_step(model, points: torch.Tensor, labels: torch.Tensor,
     bg_mask = onehot[..., 0]                                 # (B, N)
     bg_cnt = torch.sum(bg_mask, dim=1)                       # (B,)
     bg_sum = torch.einsum("bn,bnk->bk", bg_mask, gw)
+    if pm is not None:
+        both = all_reduce_points(torch.cat([bg_cnt[:, None], bg_sum], 1), pm)
+        bg_cnt, bg_sum = both[:, 0], both[:, 1:]
     has_bg = (bg_cnt > 0).to(gw.dtype)
     bg_means = bg_sum / torch.clamp_min(bg_cnt, 1.0)[:, None]
     bg_mean_sum = torch.einsum("b,bk->k", has_bg, bg_means)
-    return sums[1:], counts[1:], bg_mean_sum, torch.sum(has_bg)
+    bg_blocks = torch.sum(has_bg)
+    if pm is not None and pm.points_index != 0:
+        bg_mean_sum = torch.zeros_like(bg_mean_sum)
+        bg_blocks = torch.zeros_like(bg_blocks)
+    return sums[1:], counts[1:], bg_mean_sum, bg_blocks
 
 
 @torch.inference_mode()

@@ -22,7 +22,13 @@ Both entry points take a `mesh` (parallel/mesh.py) for data parallelism,
 as the JAX pipelines take theirs: every rank reads the same global
 batches and keeps its rows, the sweeps' sums and confusion counts are
 all-reduced, and only rank 0 logs, writes metrics and saves. The global
-batch (and the sweeps' batch) must divide by the number of ranks.
+batch (and the sweeps' batch) must divide by the number of ranks along
+`data`. On a `data x points` mesh (`--mesh dxp --mesh_sp S`) the two
+sweeps of the evaluation (`collect_base_codings`, `validate_multi`) also
+cut every block's points S ways (`shard_points`, `points_split`); the
+registration of the support shots stays replicated at full N, as in JAX,
+and `train_gfs` runs on the data mesh of all the ranks, as JAX's ignores
+the mesh shape.
 """
 from __future__ import annotations
 
@@ -50,7 +56,8 @@ from gfs3dseg_gws_tpu_torch.ops.metrics import gfs_miou
 from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
                                                   is_main, local_rows,
                                                   local_valid, main_first,
-                                                  replicate, shard_batch)
+                                                  points_split, replicate,
+                                                  shard_batch, shard_points)
 from gfs3dseg_gws_tpu_torch.parallel.optim import make_gfs_optimizer
 from gfs3dseg_gws_tpu_torch.parallel.steps import (coding_step, fg_feat_step,
                                                    gfs_eval_multi_step,
@@ -264,8 +271,9 @@ def collect_base_codings(model, gp: torch.Tensor, dataset, n_base: int,
     """Reference train.py:156-218: one sweep over the no-augmentation train
     set. Returns (base_class_coding (n_base, K) multi-hot,
     bg_class_coding (K,)). With a mesh each rank codes its rows of every
-    batch that lie before the batch's `valid`, and the sums are
-    all-reduced."""
+    batch that lie before the batch's `valid` (on a `data x points` mesh
+    its points of them: the ranks of a points group share their rows and
+    skip a batch together), and the sums are all-reduced."""
     device = gp.device
     k = gp.shape[0]
     sums = torch.zeros((n_base, k), dtype=torch.float64, device=device)
@@ -273,18 +281,19 @@ def collect_base_codings(model, gp: torch.Tensor, dataset, n_base: int,
     bg_sum = torch.zeros((k,), dtype=torch.float64, device=device)
     bg_blocks = torch.zeros((), dtype=torch.float64, device=device)
     rows = local_rows(batch_size, mesh)
-    for batch in _coding_batches(dataset, batch_size, seed):
-        valid = local_valid(int(batch[-1]), batch_size, mesh)
-        if valid == 0:       # this rank's rows are all padding (no step
-            continue         # of this sweep has a collective)
-        points = batch[0][rows][:valid]
-        labels = batch[1][rows][:valid]
-        s, c, b, nb = coding_step(model, _to(device, points),
-                                  _to(device, labels), gp, n_base)
-        sums += s.double()
-        counts += c.double()
-        bg_sum += b.double()
-        bg_blocks += nb.double()
+    with points_split(model, mesh):
+        for batch in _coding_batches(dataset, batch_size, seed):
+            valid = local_valid(int(batch[-1]), batch_size, mesh)
+            if valid == 0:   # this rank's rows are all padding (no step of
+                continue     # this sweep reaches a rank of another row)
+            points = shard_points(batch[0][rows][:valid], mesh)
+            labels = shard_points(batch[1][rows][:valid], mesh)
+            s, c, b, nb = coding_step(model, _to(device, points),
+                                      _to(device, labels), gp, n_base)
+            sums += s.double()
+            counts += c.double()
+            bg_sum += b.double()
+            bg_blocks += nb.double()
     if mesh is not None:
         flat = all_reduce_sum(torch.cat([sums.reshape(-1), counts, bg_sum,
                                          bg_blocks[None]]), mesh)
@@ -390,10 +399,11 @@ def validate_multi(model, gp: torch.Tensor, val_dataset,
 
     The confusion counts and gp accuracies stay on the device until the
     sweep ends, so no batch waits on a host round trip. With a mesh each
-    rank scores its rows of every batch (rows past `valid` count nowhere)
-    and the counts are all-reduced at the end; so are the numerators and
-    point counts of each batch's gp accuracies, which are divided after
-    the reduction, so that the log reads what one process logs.
+    rank scores its rows of every batch (rows past `valid` count nowhere;
+    on a `data x points` mesh its points of them) and the counts are
+    all-reduced at the end; so are the numerators and point counts of
+    each batch's gp accuracies, which are divided after the reduction, so
+    that the log reads what one process logs.
     """
     device = gp.device
     n_seeds = gened_protos.shape[0]
@@ -403,19 +413,23 @@ def validate_multi(model, gp: torch.Tensor, val_dataset,
     cm = torch.zeros((n_seeds, num_classes, num_classes), dtype=torch.float64,
                      device=device)
     accs = []
-    for points, labels, valid in eval_batches(val_dataset, batch_size):
-        valid = local_valid(valid, batch_size, mesh)
-        labels = shard_batch(np.asarray(labels), mesh)
-        c, gp_acc, gp_nacc = gfs_eval_multi_step(
-            model, _to(device, shard_batch(points, mesh)),
-            _to(device, labels), gp, protos, base, novel, valid, num_classes)
-        cm += c.double()
-        acc = torch.stack([gp_acc.mean(), gp_nacc.mean()])
-        if mesh is not None:      # numerators and counts: all points, novel
-            real = labels[:valid]
-            n = acc.new_tensor([real.size, np.sum(real >= model.base_num)])
-            acc = torch.cat([acc * n, n])
-        accs.append(acc)
+    with points_split(model, mesh):
+        for points, labels, valid in eval_batches(val_dataset, batch_size):
+            valid = local_valid(valid, batch_size, mesh)
+            labels = shard_points(shard_batch(np.asarray(labels), mesh),
+                                  mesh)
+            points = shard_points(shard_batch(points, mesh), mesh)
+            c, gp_acc, gp_nacc = gfs_eval_multi_step(
+                model, _to(device, points), _to(device, labels), gp, protos,
+                base, novel, valid, num_classes)
+            cm += c.double()
+            acc = torch.stack([gp_acc.mean(), gp_nacc.mean()])
+            if mesh is not None:  # numerators and counts: all points, novel
+                real = labels[:valid]
+                n = acc.new_tensor([real.size,
+                                    np.sum(real >= model.base_num)])
+                acc = torch.cat([acc * n, n])
+            accs.append(acc)
     cm = all_reduce_sum(cm, mesh).cpu().numpy()
     accs = torch.stack(accs)
     if mesh is not None:
@@ -484,8 +498,9 @@ def evaluate_gfs(model_cfg, data_cfg, train_cfg,
                  mesh: Optional[Mesh] = None) -> Dict:
     """--only_evaluate: the 4 metrics averaged over the support seeds
     (reference train.py:459-499), on `train_cfg.device` (with a `mesh`,
-    its device: the sweeps split over the ranks, the registration of the
-    support shots replicated, as in JAX).
+    its device: the sweeps split over the ranks, on a `data x points` mesh
+    each block's points too, the registration of the support shots
+    replicated, as in JAX).
 
     Returns the averaged metrics (`mean_iou`, `base_iou`, `novel_iou`,
     `hm_iou`, `per_class`) and what produced them: `per_seed` (S x 4),
@@ -583,7 +598,8 @@ def train_gfs(model_cfg, data_cfg, train_cfg,
               mesh: Optional[Mesh] = None) -> Dict:
     """Base-stage training (reference train.py:503-588; JAX
     pipelines/gfs.py::train_gfs) on `train_cfg.device`, or data-parallel
-    over `mesh` on its device.
+    over `mesh` on its device (a `data x points` mesh trains, and
+    validates, on the data mesh of all its ranks, as JAX's does).
 
     The model starts from the JAX initialisers (seed `train_cfg.seed`),
     then, in order: the pre-trained encoder (`use_pretrain_weight`), a warm
@@ -596,6 +612,8 @@ def train_gfs(model_cfg, data_cfg, train_cfg,
     has one entry per epoch with its mean loss and accuracy, steps and
     seconds, plus the validation mIoUs where it validated.
     """
+    if mesh is not None:
+        mesh = mesh.data_mesh()
     device = resolve_device(train_cfg.device) if mesh is None else \
         mesh.device
     local_rows(train_cfg.batch_size, mesh)          # B must divide over R

@@ -120,6 +120,74 @@ def test_fused_attention_kernel_matches_plain(dev, b, n, d):
                                rtol=1e-4, atol=1e-5)
 
 
+def _parts(n, sp):
+    """(q_offset, nq) of sp consecutive query ranges covering [0, n)."""
+    return [(p * n // sp, (p + 1) * n // sp - p * n // sp)
+            for p in range(sp)]
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("b,n,c,w0,w1,k", [
+    (2, 2048, 9, 64, 64, 20),     # the first block at full N
+    (2, 2048, 64, 64, 64, 20),    # the model's widths at full N
+    (2, 300, 128, 128, 128, 40),  # knn_kernel (wide C), edge_mlp_wide_kernel
+    (1, 200, 9, 72, 130, 70),     # k > 64: knn_stream_kernel
+    (1, 600, 9, 8, 8, 300),       # k > 256: knn_fold_kernel
+    (1, 2047, 9, 64, 64, 20),     # ragged N and ragged query ranges
+])
+def test_local_queries_equal_rows_of_the_full_call(dev, b, n, c, w0, w1, k,
+                                                   sp):
+    """K1 and K6 on query rows [q0, q0 + nq) against every row (a rank of
+    the data x points mesh): the rows of the call over every query, bit
+    for bit, at every variant the kNN and edge stages take."""
+    r = np.random.default_rng(n + c + k)
+    x, a, bt = (_randn(r, b, n, cc).to(dev) for cc in (c, w0, w0))
+    w2, bias2 = (_randn(r, w0, w1, scale=0.3).to(dev),
+                 _randn(r, w1, scale=0.1).to(dev))
+    full1 = fused_edgeconv_infer(x, a, bt, w2, bias2, k)
+    full6 = knn_indices(x, k)
+    for q0, nq in _parts(n, sp):
+        before = (fused_edgeconv_infer.launches, knn_indices.launches)
+        got1 = fused_edgeconv_infer(x, a, bt[:, q0:q0 + nq].contiguous(), w2,
+                                    bias2, k, q_offset=q0)
+        got6 = knn_indices(x, k, q0, nq)
+        torch.cuda.synchronize()
+        assert (fused_edgeconv_infer.launches, knn_indices.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(got1, full1[:, q0:q0 + nq]), (q0, nq)
+        assert torch.equal(got6, full6[:, q0:q0 + nq]), (q0, nq)
+
+
+def test_local_queries_past_one_shared_key_row(dev):
+    """K6 at (1, 30000, 9), k = 257: K8's tournament merges chunks of the
+    row through a scratch sized by the local queries."""
+    r = np.random.default_rng(30001)
+    x = _randn(r, 1, 30000, 9).to(dev)
+    k = _ext.knn_stream_cap() + 1
+    full = knn_indices(x, k)
+    got = knn_indices(x, k, 20000, 10000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, full[:, 20000:])
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("b,n,d", [(2, 2048, 64), (1, 33, 64), (2, 300, 30),
+                                   (2, 300, 128), (2, 300, 192)])
+def test_attention_local_queries_equal_rows_of_the_full_call(dev, b, n, d,
+                                                             sp):
+    """K2 with q of nq rows against all n keys and values: the rows of the
+    call over every query, bit for bit (attention_mma_kernel up to D = 128,
+    attention_wide_kernel past it)."""
+    r = np.random.default_rng(n + d + 1)
+    q, k, v = (_randn(r, b, n, d).to(dev) for _ in range(3))
+    full = fused_attention(q, k, v, d ** 0.5)
+    for q0, nq in _parts(n, sp):
+        got = fused_attention(q[:, q0:q0 + nq].contiguous(), k, v, d ** 0.5)
+        torch.cuda.synchronize()
+        assert got.shape == (b, nq, d)
+        assert torch.equal(got, full[:, q0:q0 + nq]), (q0, nq)
+
+
 def test_kernel_wrappers_refuse_what_they_cannot_take(dev):
     """Only what JAX also rejects (k > N) and malformed tensors: any width
     runs (see the wide cases above)."""
@@ -300,12 +368,12 @@ def test_dgcnnseg_train_step_on_card_agrees_with_cpu(dev, monkeypatch,
         own_rows_differ(idx, x, k)
         return (idx,) + neighbor_stats_plain(idx, btab)
 
-    def record_idx(x, k):
-        idx = knn_indices(x, k)
+    def record_idx(x, k, **local):
+        idx = knn_indices(x, k, **local)
         graphs.append(idx.cpu())
         return idx
 
-    def replay_idx(x, k):
+    def replay_idx(x, k, **local):
         idx = graphs.pop(0)
         own_rows_differ(idx, x, k)
         return idx

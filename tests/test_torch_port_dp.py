@@ -621,12 +621,17 @@ def test_train_cli_under_torchrun_trains_data_parallel(gfs_data, tmp_path):
     assert log.count("Train result") == 1          # one writer: rank 0
 
 
-def test_mesh_dxp_under_two_ranks_raises(monkeypatch):
+def test_mesh_dxp_over_ranks_that_do_not_divide_raises(monkeypatch):
+    """`--mesh dxp --mesh_sp 2` under three ranks: the world does not
+    divide by the points axis, which raises before any rendezvous (JAX
+    make_mesh_dxp raises ValueError likewise)."""
     from gfs3dseg_gws_tpu_torch.cli.common import mesh_from_env
 
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="§8b"):
-        mesh_from_env("cpu", "dxp")
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(ValueError, match="not divisible by mesh_sp=2"):
+        mesh_from_env("cpu", "dxp", 2)
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("device", ["cuda", "cuda:1"])

@@ -15,7 +15,9 @@ W0 = 30 -> W1 = 40, whose rows take 4-byte copies, `k9_w30`; K7 at
 C = 256, `k7_wide`; K8 also at C = 9, `k8_c9`, and at k = 80 on
 (4, 2048, 64), `k8_k80`, beside K3 there, `k3_k80`; K6, K3 and K8 at
 k = 80 on one row of 30,000 points, C = 9, `k6_long`, `k3_long`,
-`k8_long`) on inputs drawn
+`k8_long`; where the checkout's K1, K6 and K2 take local queries, also
+at nq = 1,024 queries from row 1,024 of the 2,048, `k1_c64_local`,
+`k6_c64_local`, `k2_local`) on inputs drawn
 from a fixed seed, prints one JSON line of CUDA-event times (ms) beside the
 card's name and power limit, and saves the outputs. K5b takes m and den
 from K5a's plain twin on the card, so that its inputs do not depend on the
@@ -26,7 +28,8 @@ card's time alone). The second form prints, for each named output of each
 kernel (K1's out, K3's idx, cnt and scb, ...), whether the runs agree bit
 for bit, their largest difference and the first run's largest magnitude
 beside it, and for index outputs (K3, K6 and K8's idx) on how many rows
-they differ. Where two
+they differ. An entry that only some runs have (a local one, against a
+checkout without local queries) is compared across those runs. Where two
 runs' outputs differ in width only (K4b's scat (B, N, 2C) against a
 variant that leaves its yhat1 half to a closed form, (B, N, C)), the first
 columns they share are compared, and the entry says so. Run the checkouts in turns (A,
@@ -42,6 +45,7 @@ one JSON line.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import re
@@ -53,6 +57,8 @@ import tempfile
 import torch
 
 B, N, K = 16, 2048, 20
+# the local-query entries, which a checkout without `q_offset` lacks
+LOCAL = ("k1_c64_local", "k6_c64_local", "k2_local")
 
 
 def cuda_ms(fn, reps: int = 30) -> float:
@@ -186,11 +192,25 @@ def run(out: str, only=None) -> None:
         "k4b_wide": lambda: fet._bwd(a128, b128, idx128, p1w, w128, gselw,
                                      kselw, pkw, 0.2),
     }
+    if "q_offset" in inspect.signature(knn_indices).parameters:
+        # local queries (the `data x points` mesh): the second half of the
+        # points against all of them; a checkout without them skips these
+        h = N // 2
+        calls.update({
+            "k1_c64_local": lambda: fused_edgeconv_infer(
+                x64, a, b[:, h:].contiguous(), w2, bias2, K, q_offset=h),
+            "k6_c64_local": lambda: knn_indices(x64, K, q_offset=h, nq=h),
+            "k2_local": lambda: fused_attention(q[:, h:].contiguous(), k, v,
+                                                8.0)})
     names = {"k3": ("idx", "cnt", "scb"), "k4a": ("snbr", "zmax", "zmin",
                                                   "kmax", "kmin"),
              "k4b": ("scat", "psum", "dw2", "sums")}
-    if only:
-        calls = {name: calls[name] for name in only}
+    if only:     # (the local entries are left out where the checkout
+        # lacks local queries; any other unknown name raises)
+        unknown = sorted(set(only) - set(calls) - set(LOCAL))
+        if unknown:
+            raise KeyError(f"no such entries: {unknown}")
+        calls = {name: calls[name] for name in only if name in calls}
     outputs = {name: fn() for name, fn in calls.items()}
     torch.cuda.synchronize()
     times = {name: cuda_ms(fn) for name, fn in calls.items()}
@@ -218,10 +238,16 @@ def run(out: str, only=None) -> None:
 def compare(paths) -> None:
     runs = [torch.load(p) for p in paths]
     report = {}
-    for name in runs[0]:
-        first = runs[0][name]
+    for name in dict.fromkeys(n for run in runs for n in run):
+        # each entry against the first run that has it: the local entries,
+        # which a checkout without local queries lacks, are compared across
+        # the runs that have them; any other entry must be in every run
+        have = [(run, path) for run, path in zip(runs, paths) if name in run]
+        if len(have) < len(runs) and name not in LOCAL:
+            raise KeyError(f"{name} is missing from a run")
+        first = have[0][0][name]
         entry = {}
-        for run, path in zip(runs[1:], paths[1:]):
+        for run, path in have[1:]:
             other = run[name]
             res = {}
             for key, x in first.items():
