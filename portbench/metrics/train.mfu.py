@@ -1,0 +1,16 @@
+"""The whole train step's share of the card's TF32 peak: the training
+pass's products a block (counts/train_block.py: forward, backward at
+twice the forward's products, no recomputation) x blocks stepped in the
+traced stretch / its seconds / the peak, in %."""
+import os
+
+from tracer import HERE, load_module, load_peaks
+
+
+def read(s):
+    if not s.blocks or s.window_s <= 0:
+        return None
+    block = load_module(os.path.join(HERE, "counts", "train_block.py"),
+                        "counts_train_block")
+    flops = block.flops(s.cfg, s.cfg["pc_npts"]) * s.blocks
+    return 100.0 * flops / s.window_s / load_peaks()["tf32_flops_per_s"]
