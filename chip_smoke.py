@@ -29,7 +29,7 @@ host's byte for byte) into blocks that `train_cli --only_evaluate`
 evaluates; and takes what the main path wrote through the checkpoint
 converter (`cli/convert_checkpoint.py`, round trips bit for bit, the GFS
 `.pth` evaluated to the npz's mIoU) and the GFS step through the port's
-`trace` and `StepTimer`. Every phase prints
+`trace`. Every phase prints
 one line of numbers; any failure raises and the script exits non-zero. The
 line before the last lists every kernel with its launches on the main
 paths, error against its plain version, time, plain time, bound and
@@ -132,7 +132,7 @@ SCANNET_RAW = (
     "bookshelf", "couch", "sink", "bathtub", "toilet", "curtain", "counter",
     "door", "window", "shower curtain", "refrigerator", "picture", "cabinet",
     "trash can")
-TRACE_STEPS, TIMER_STEPS = 3, 6   # gfs_train_steps under trace / StepTimer
+TRACE_STEPS = 3                   # gfs_train_steps under trace
 # kernel groups of the step's profile: the first group whose pattern is in a
 # kernel's name takes it
 KERNEL_GROUPS = (
@@ -1223,25 +1223,21 @@ def pretrain_dataset(root: str, mode: str, split_ratio: float = 0.1):
                                 split_ratio=split_ratio)
 
 
-def reset_launches():
-    """Set every kernel's launch count to 0; returns a reader of them."""
-    from gfs3dseg_gws_tpu_torch.ops import attention_train as atr
-    from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
-    from gfs3dseg_gws_tpu_torch.ops.attention_kernel import fused_attention
-    from gfs3dseg_gws_tpu_torch.ops.edgeconv import scatter_bwd
-    from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (
-        fused_edgeconv_infer, gather_conv)
-    from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices,
-                                                knn_indices_fold,
-                                                knn_with_stats)
+KERNELS = ("k1", "k2", "k3", "k4a", "k4b", "k5a", "k5b", "k6", "k7", "k8",
+           "k9")
 
-    fns = {"k1": fused_edgeconv_infer, "k2": fused_attention,
-           "k3": knn_with_stats, "k4a": fet._gsf, "k4b": fet._bwd,
-           "k5a": atr._fwd, "k5b": atr._bwd, "k6": knn_indices,
-           "k7": scatter_bwd, "k8": knn_indices_fold, "k9": gather_conv}
-    for fn in fns.values():
-        fn.launches = 0
-    return lambda: {name: fn.launches for name, fn in fns.items()}
+
+def reset_launches():
+    """A reader of every kernel's launches from now on: the calls of its
+    op span (`op.k1` ...) since this call."""
+    from gfs3dseg_gws_tpu_torch.utils.observability import calls, snapshot
+
+    def launches():
+        snap = snapshot()
+        return {k: calls("op." + k, snap) for k in KERNELS}
+
+    before = launches()
+    return lambda: {k: n - before[k] for k, n in launches().items()}
 
 
 def expected_launches(widths: str, steps: int = 0, forwards: int = 0,
@@ -1686,9 +1682,7 @@ DXP_REPS = 5                      # ... timed steps (median)
 class Recorder:
     """Stands in for a kernel's stage wrapper (e.g. ops/
     fused_edgeconv_train.py::_gsf) while a check records its outputs:
-    calls `fn`, hands the result to `sink`, returns it. Its `launches` is
-    `fn`'s, so the wrapper's own count (which it reads by its module name)
-    goes on counting while it is swapped."""
+    calls `fn`, hands the result to `sink`, returns it."""
 
     def __init__(self, fn, sink):
         self.fn, self.sink = fn, sink
@@ -1697,14 +1691,6 @@ class Recorder:
         out = self.fn(*args)
         self.sink(args, out)
         return out
-
-    @property
-    def launches(self) -> int:
-        return self.fn.launches
-
-    @launches.setter
-    def launches(self, value: int) -> None:
-        self.fn.launches = value
 
 
 def dp_rank(mesh, *args):
@@ -3052,7 +3038,7 @@ def check_raw_scannet(dev, root: str, basis_path: str):
 
 
 # --------------------------------------------------------------------------- #
-# the checkpoint converter, trace and StepTimer
+# the checkpoint converter and trace
 # --------------------------------------------------------------------------- #
 
 def npz_round_trip(src: str, modes, tmp: str, carried=(),
@@ -3151,8 +3137,7 @@ def check_trace(dev, root: str, step):
     """TRACE_STEPS calls of `step` (default-width gfs_train_steps) inside
     the port's `trace`: its Chrome-trace JSON must hold device time under
     the kernel symbols of K3, K4a, K4b, K5a and K5b (ms a step, beside
-    profile_groups' figure for as many further steps). Returns the traced
-    kernel ms a step."""
+    profile_groups' figure for as many further steps)."""
     from gfs3dseg_gws_tpu_torch.utils.observability import trace
 
     step()
@@ -3194,41 +3179,6 @@ def check_trace(dev, root: str, step):
     if missing:
         raise AssertionError(f"the trace holds no device time under "
                              f"{missing}")
-    return sum(traced.values())
-
-
-def check_step_timer(dev, step, traced_ms: float):
-    """TIMER_STEPS calls of `step` under `StepTimer(warmup=1, device=cuda)`,
-    each also timed by CUDA events inside the timed block: a wall that
-    waits for the device is no shorter than the device's time of the same
-    steps, nor than their traced kernel time; an unsynchronised timer
-    (device=cpu) measures the launches only."""
-    from gfs3dseg_gws_tpu_torch.utils.observability import StepTimer
-
-    timer, unsynced = StepTimer(warmup=1, device=dev), StepTimer(
-        warmup=1, device="cpu")
-    device_ms = []
-    for _ in range(TIMER_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with timer:
-            start.record()
-            step()
-            end.record()
-        device_ms.append(start.elapsed_time(end))
-    for _ in range(TIMER_STEPS):
-        with unsynced:
-            step()
-    torch.cuda.synchronize()
-    event_ms = statistics.mean(device_ms[1:])
-    phase("StepTimer gfs_train_step", steps=TIMER_STEPS, warmup=1,
-          timer_ms=1e3 * timer.mean, cuda_event_ms=event_ms,
-          traced_kernel_ms=traced_ms,
-          unsynchronised_timer_ms=1e3 * unsynced.mean)
-    if not 1e3 * timer.mean >= max(event_ms, traced_ms):
-        raise AssertionError(f"StepTimer {1e3 * timer.mean} ms < the "
-                             f"device's {event_ms} ms (kernels "
-                             f"{traced_ms} ms)")
 
 
 def main() -> int:
@@ -3467,7 +3417,7 @@ def main() -> int:
               seconds=time.perf_counter() - t0)
 
         # ---- phases 23-24: the checkpoint converter on what the main path
-        # wrote, trace and StepTimer around the default-width GFS step
+        # wrote, trace around the default-width GFS step
         timed("converter", check_converter, dev, root, gfs_run,
               {"default": pre_ckpt, "semseg": seg_ckpt},
               os.path.join(root, "baselines",
@@ -3475,8 +3425,7 @@ def main() -> int:
               os.path.join(root, "eval",
                            "base_class_gp_coding_energy=0.9.npz"))
         step = gfs_step_fn(dev, gfs, gp)
-        traced_ms = timed("trace", check_trace, dev, root, step)
-        timed("step_timer", check_step_timer, dev, step, traced_ms)
+        timed("trace", check_trace, dev, root, step)
 
     # launches of one main-path run each: K1/K2 in the evaluation
     # (train_cli --only_evaluate), K3-K5 in GFS training at the default

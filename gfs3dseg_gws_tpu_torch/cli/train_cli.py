@@ -10,7 +10,9 @@ cli/train_cli.py; reference train.py:733-831).
         --basis_path gw.pkl --data_path ... --testing_data_path ... \\
         --eval_weight 1.2 --device cuda
 
-Same flags as the JAX CLI, plus `--device`. Without --only_evaluate it
+Same flags as the JAX CLI, plus `--device` and `--trace_dir` (a profiler
+trace of the first epoch's steps LOSS_LAG ... LOSS_LAG + 23, or of the
+evaluation sweep; README, "Tracing"). Without --only_evaluate it
 trains (`pipelines/gfs.py::train_gfs`), with it it evaluates
 (`evaluate_gfs`). Launched by torchrun it runs data-parallel, one rank a
 process (`--mesh data`; NCCL on `--device cuda`, one card a rank; gloo on
@@ -88,6 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (the CUDA kernels) or cpu (their "
                         "plain PyTorch versions); cuda without a GPU raises")
+    p.add_argument("--trace_dir", type=str, default="",
+                   help="write a profiler trace (Chrome-trace JSON, with the "
+                        "port's gfs3d.* spans) of training steps 16-39 of "
+                        "the first epoch, or of the evaluation sweep, here")
     add_tpu_compat_args(p)
     return p
 
@@ -124,6 +130,7 @@ def main(argv=None, **overrides):
         model_checkpoint_path=args.model_checkpoint_path,
         basis_path=args.basis_path,
         device=args.device,
+        trace_dir=args.trace_dir,
     )
     max_steps = overrides.pop("max_steps_per_epoch", None)
     train_cfg = replace(train_cfg, **overrides)

@@ -20,6 +20,8 @@ from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
+from gfs3dseg_gws_tpu_torch.utils.observability import span
+
 # the loader's source sits at the root of the checkout, beside both packages
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -197,11 +199,12 @@ class NativeBatchPool:
             pts = np.empty((b, n, 9), np.float32)
             lbl = np.empty((b, n), np.int64)
             seg = np.empty((b, n), np.float32)
-            valid = self._lib.bl_pool_get(
-                self._pool, i,
-                pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                lbl.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-                seg.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+            with span("pool.get"):          # the wait on the pool's queue
+                valid = self._lib.bl_pool_get(
+                    self._pool, i,
+                    pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                    lbl.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                    seg.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
             if valid == -2:
                 # fail loudly like the Python path (np.load raises) rather
                 # than serving zero-filled stand-in rows as training data

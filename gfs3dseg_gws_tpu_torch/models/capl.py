@@ -40,6 +40,7 @@ from gfs3dseg_gws_tpu_torch.models.layers import (BatchNorm, Conv1x1,
 from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_gather_points,
                                                   all_reduce_points,
                                                   all_reduce_sum, reduce_sum)
+from gfs3dseg_gws_tpu_torch.utils.observability import span
 
 IGNORE_INDEX = 255  # labels the training loss leaves out (reference capl.py)
 
@@ -399,14 +400,18 @@ class GWCAPL(nn.Module):
 
         gened_protos: (S, cls, main_dim); novel_codings: (S, n_novel, num_gw).
         Returns (logits (S, B, N, cls), gp_acc (S,), gp_novel_acc (S,)).
+        Spans: `features` (the encoder), `heads` (the rest).
         """
-        point_feat, _, gw_onehot = self.get_features(x, gp)
-        refine = self.post_refine_proto(self.main_proto, point_feat)
-        x_pre = self.get_pred(point_feat, self._merge(refine, gened_protos))
-        s = gened_protos.shape[0]
-        gp_coding = torch.cat([base_coding.expand(s, *base_coding.shape),
-                               novel_codings], dim=1)         # (S, cls, K)
-        weight, gp_acc, gp_novel_acc = self.gp_weight(
-            gp_coding, gw_onehot, th=self.eval_weight, y=y,
-            mask=self._row_mask(x, valid))
-        return x_pre * weight, gp_acc, gp_novel_acc
+        with span("features"):
+            point_feat, _, gw_onehot = self.get_features(x, gp)
+        with span("heads"):
+            refine = self.post_refine_proto(self.main_proto, point_feat)
+            x_pre = self.get_pred(point_feat,
+                                  self._merge(refine, gened_protos))
+            s = gened_protos.shape[0]
+            gp_coding = torch.cat([base_coding.expand(s, *base_coding.shape),
+                                   novel_codings], dim=1)     # (S, cls, K)
+            weight, gp_acc, gp_novel_acc = self.gp_weight(
+                gp_coding, gw_onehot, th=self.eval_weight, y=y,
+                mask=self._row_mask(x, valid))
+            return x_pre * weight, gp_acc, gp_novel_acc

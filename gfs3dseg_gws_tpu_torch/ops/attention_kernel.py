@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from gfs3dseg_gws_tpu_torch.ops import _ext
+from gfs3dseg_gws_tpu_torch.utils.observability import span
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,28 +53,26 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, temperature)
-    name = "fused_attention"
-    _ext.check_tensors(name, q=q, k=k, v=v)
-    if (q.dim() != 3 or k.dim() != 3 or v.shape != k.shape
-            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]):
-        raise ValueError(f"{name}: q {tuple(q.shape)} must be (B, Nq, D) "
-                         f"and k {tuple(k.shape)}, v {tuple(v.shape)} "
-                         f"(B, Nk, D)")
-    d_true = q.shape[-1]
-    q, k, v = pad_head(q, k, v)
-    b, nq, d = q.shape
-    nk = k.shape[1]
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
-    out = torch.empty_like(q)
-    lib = _ext.library()
-    with torch.cuda.device(q.device):
-        code = lib.gfs_fused_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq,
-            nk, d, 1.0 / temperature, _ext.current_stream(q.device))
-    _ext.check(code, name)
-    fused_attention.launches += 1
-    return out if d == d_true else out[..., :d_true].contiguous()
+    with span("op.k2"):
+        name = "fused_attention"
+        _ext.check_tensors(name, q=q, k=k, v=v)
+        if (q.dim() != 3 or k.dim() != 3 or v.shape != k.shape
+                or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]):
+            raise ValueError(f"{name}: q {tuple(q.shape)} must be (B, Nq, D) "
+                             f"and k {tuple(k.shape)}, v {tuple(v.shape)} "
+                             f"(B, Nk, D)")
+        d_true = q.shape[-1]
+        q, k, v = pad_head(q, k, v)
+        b, nq, d = q.shape
+        nk = k.shape[1]
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
+        out = torch.empty_like(q)
+        lib = _ext.library()
+        with torch.cuda.device(q.device):
+            code = lib.gfs_fused_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                nq, nk, d, 1.0 / temperature, _ext.current_stream(q.device))
+        _ext.check(code, name)
+        return out if d == d_true else out[..., :d_true].contiguous()
 
-
-fused_attention.launches = 0

@@ -43,6 +43,7 @@ import torch
 
 from gfs3dseg_gws_tpu_torch.ops import _ext
 from gfs3dseg_gws_tpu_torch.ops.attention_kernel import pad_head
+from gfs3dseg_gws_tpu_torch.utils.observability import span
 
 MASK32 = 0xFFFFFFFF
 _MIX1, _MIX2, _GOLDEN = 0x7FEB352D, 0x846CA68B, 0x9E3779B9
@@ -136,29 +137,26 @@ def _fwd(q, k, v, seed, temperature: float, rate: float,
     """K5a on a CUDA tensor, its plain twin on a CPU tensor."""
     if q.device.type == "cpu":
         return _fwd_plain(q, k, v, seed, temperature, rate, batch_offset)
-    name = "attention_train forward (K5a)"
-    thr = _check(name, q, k, v, seed, rate, batch_offset)
-    d_true = q.shape[-1]
-    q, k, v = pad_head(q, k, v)
-    b, n, d = q.shape
-    out = torch.empty_like(q)
-    m = torch.empty((b, n), device=q.device)
-    den = torch.empty_like(m)
-    lib = _ext.library()
-    with torch.cuda.device(q.device):
-        code = lib.gfs_attention_train_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(),
-            out.data_ptr(), m.data_ptr(), den.data_ptr(), b, n, d,
-            1.0 / temperature, thr, 1.0 / (1.0 - rate), batch_offset,
-            _ext.current_stream(q.device))
-    _ext.check(code, name)
-    _fwd.launches += 1
-    if d != d_true:
-        out = out[..., :d_true].contiguous()
-    return out, m, den
-
-
-_fwd.launches = 0
+    with span("op.k5a"):
+        name = "attention_train forward (K5a)"
+        thr = _check(name, q, k, v, seed, rate, batch_offset)
+        d_true = q.shape[-1]
+        q, k, v = pad_head(q, k, v)
+        b, n, d = q.shape
+        out = torch.empty_like(q)
+        m = torch.empty((b, n), device=q.device)
+        den = torch.empty_like(m)
+        lib = _ext.library()
+        with torch.cuda.device(q.device):
+            code = lib.gfs_attention_train_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(),
+                out.data_ptr(), m.data_ptr(), den.data_ptr(), b, n, d,
+                1.0 / temperature, thr, 1.0 / (1.0 - rate), batch_offset,
+                _ext.current_stream(q.device))
+        _ext.check(code, name)
+        if d != d_true:
+            out = out[..., :d_true].contiguous()
+        return out, m, den
 
 
 # --------------------------------------------------------------------------- #
@@ -196,34 +194,31 @@ def _bwd(q, k, v, seed, m, den, delta, dy, temperature: float, rate: float,
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, seed, m, den, delta, dy, temperature,
                           rate, batch_offset)
-    name = "attention_train backward (K5b)"
-    thr = _check(name, q, k, v, seed, rate, batch_offset, dy=dy)
-    d_true = q.shape[-1]
-    q, k, v, dy = pad_head(q, k, v, dy)
-    b, n, d = q.shape
-    _ext.check_tensors(name, m=m, den=den, delta=delta)
-    if m.shape != (b, n) or den.shape != (b, n) or delta.shape != (b, n):
-        raise ValueError(f"{name}: m, den and delta must be (B, N) = "
-                         f"{(b, n)}")
-    dq = torch.zeros_like(q)
-    dk = torch.empty_like(q)
-    dv = torch.empty_like(q)
-    lib = _ext.library()
-    with torch.cuda.device(q.device):
-        code = lib.gfs_attention_train_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(),
-            m.data_ptr(), den.data_ptr(), delta.data_ptr(), dy.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, d,
-            1.0 / temperature, thr, 1.0 / (1.0 - rate), batch_offset,
-            _ext.current_stream(q.device))
-    _ext.check(code, name)
-    _bwd.launches += 1
-    if d != d_true:
-        dq, dk, dv = (t[..., :d_true].contiguous() for t in (dq, dk, dv))
-    return dq, dk, dv
-
-
-_bwd.launches = 0
+    with span("op.k5b"):
+        name = "attention_train backward (K5b)"
+        thr = _check(name, q, k, v, seed, rate, batch_offset, dy=dy)
+        d_true = q.shape[-1]
+        q, k, v, dy = pad_head(q, k, v, dy)
+        b, n, d = q.shape
+        _ext.check_tensors(name, m=m, den=den, delta=delta)
+        if m.shape != (b, n) or den.shape != (b, n) or delta.shape != (b, n):
+            raise ValueError(f"{name}: m, den and delta must be (B, N) = "
+                             f"{(b, n)}")
+        dq = torch.zeros_like(q)
+        dk = torch.empty_like(q)
+        dv = torch.empty_like(q)
+        lib = _ext.library()
+        with torch.cuda.device(q.device):
+            code = lib.gfs_attention_train_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(),
+                m.data_ptr(), den.data_ptr(), delta.data_ptr(), dy.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, d,
+                1.0 / temperature, thr, 1.0 / (1.0 - rate), batch_offset,
+                _ext.current_stream(q.device))
+        _ext.check(code, name)
+        if d != d_true:
+            dq, dk, dv = (t[..., :d_true].contiguous() for t in (dq, dk, dv))
+        return dq, dk, dv
 
 
 def _check(name, q, k, v, seed, rate, batch_offset, **more) -> int:

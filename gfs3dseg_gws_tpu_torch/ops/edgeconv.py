@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from gfs3dseg_gws_tpu_torch.ops import _ext
+from gfs3dseg_gws_tpu_torch.utils.observability import span
 
 
 def _flat_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -57,26 +58,23 @@ def scatter_bwd(idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     to run."""
     if g.device.type == "cpu":
         return scatter_bwd_plain(idx, g)
-    name = "gather_neighbors backward (K7)"
-    _ext.check_tensors(name, g=g)
-    b, n, k, c = g.shape
-    if (idx.shape != (b, n, k) or idx.dtype != torch.int32
-            or not idx.is_contiguous() or idx.device != g.device):
-        raise ValueError(f"{name}: idx {tuple(idx.shape)} {idx.dtype} must be "
-                         f"contiguous int32 (B, N, K) on g's device; g "
-                         f"{tuple(g.shape)}")
-    out = torch.zeros((b, n, c), device=g.device, dtype=torch.float32)
-    lib = _ext.library()
-    with torch.cuda.device(g.device):
-        code = lib.gfs_edgeconv_scatter(idx.data_ptr(), g.data_ptr(),
-                                        out.data_ptr(), b, n, k, c,
-                                        _ext.current_stream(g.device))
-    _ext.check(code, name)
-    scatter_bwd.launches += 1
-    return out
-
-
-scatter_bwd.launches = 0
+    with span("op.k7"):
+        name = "gather_neighbors backward (K7)"
+        _ext.check_tensors(name, g=g)
+        b, n, k, c = g.shape
+        if (idx.shape != (b, n, k) or idx.dtype != torch.int32
+                or not idx.is_contiguous() or idx.device != g.device):
+            raise ValueError(f"{name}: idx {tuple(idx.shape)} {idx.dtype} "
+                             f"must be contiguous int32 (B, N, K) on g's "
+                             f"device; g {tuple(g.shape)}")
+        out = torch.zeros((b, n, c), device=g.device, dtype=torch.float32)
+        lib = _ext.library()
+        with torch.cuda.device(g.device):
+            code = lib.gfs_edgeconv_scatter(idx.data_ptr(), g.data_ptr(),
+                                            out.data_ptr(), b, n, k, c,
+                                            _ext.current_stream(g.device))
+        _ext.check(code, name)
+        return out
 
 
 class _GatherNeighbors(torch.autograd.Function):
@@ -104,6 +102,9 @@ def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Returns:
       (B, M, K, C) neighbour features. The gradient with respect to x (M
       = N) is the scatter-add of K7 on the card, `scatter_bwd_plain` on
-      the CPU.
+      the CPU. On the card the call is the span `op.gather`.
     """
-    return _GatherNeighbors.apply(x, idx)
+    if x.device.type == "cpu":
+        return _GatherNeighbors.apply(x, idx)
+    with span("op.gather"):
+        return _GatherNeighbors.apply(x, idx)

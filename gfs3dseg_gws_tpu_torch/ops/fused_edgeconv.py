@@ -29,6 +29,7 @@ from gfs3dseg_gws_tpu_torch.ops import _ext
 from gfs3dseg_gws_tpu_torch.ops.edgeconv import gather_neighbors_plain
 from gfs3dseg_gws_tpu_torch.ops.knn import (_check_k, knn_indices,
                                             knn_indices_plain, query_rows)
+from gfs3dseg_gws_tpu_torch.utils.observability import span
 
 
 def fused_edgeconv_plain(x: torch.Tensor, a_table: torch.Tensor,
@@ -86,31 +87,28 @@ def fused_edgeconv_infer(x: torch.Tensor, a_table: torch.Tensor,
     if x.device.type == "cpu":
         return fused_edgeconv_plain(x, a_table, b_table, w2, bias2, k,
                                     neg_slope, q_offset)
-    name = "fused_edgeconv_infer"
-    _ext.check_tensors(name, x=x, a_table=a_table, b_table=b_table, w2=w2,
-                       bias2=bias2)
-    b, n, c = x.shape
-    nq = b_table.shape[1]
-    w0, w1 = w2.shape
-    _check_tables(name, (b, n), a_table, b_table, w2, bias2, nq)
-    _check_k(name, k, n)
-    query_rows(name, n, q_offset, nq)
-    out = torch.empty((b, nq, w1), device=x.device, dtype=torch.float32)
-    idx = torch.empty((b, nq, k), device=x.device, dtype=torch.int32)
-    scratch = _ext.knn_scratch(name, x, k, nq=nq)
-    lib = _ext.library()
-    with torch.cuda.device(x.device):
-        code = lib.gfs_fused_edgeconv_infer(
-            x.data_ptr(), a_table.data_ptr(), b_table.data_ptr(),
-            w2.data_ptr(), bias2.data_ptr(), idx.data_ptr(),
-            _ext.ptr(scratch), out.data_ptr(), b, n, nq, q_offset, c, w0, w1,
-            k, neg_slope, _ext.current_stream(x.device))
-    _ext.check(code, name)
-    fused_edgeconv_infer.launches += 1
-    return out
-
-
-fused_edgeconv_infer.launches = 0
+    with span("op.k1"):
+        name = "fused_edgeconv_infer"
+        _ext.check_tensors(name, x=x, a_table=a_table, b_table=b_table, w2=w2,
+                           bias2=bias2)
+        b, n, c = x.shape
+        nq = b_table.shape[1]
+        w0, w1 = w2.shape
+        _check_tables(name, (b, n), a_table, b_table, w2, bias2, nq)
+        _check_k(name, k, n)
+        query_rows(name, n, q_offset, nq)
+        out = torch.empty((b, nq, w1), device=x.device, dtype=torch.float32)
+        idx = torch.empty((b, nq, k), device=x.device, dtype=torch.int32)
+        scratch = _ext.knn_scratch(name, x, k, nq=nq)
+        lib = _ext.library()
+        with torch.cuda.device(x.device):
+            code = lib.gfs_fused_edgeconv_infer(
+                x.data_ptr(), a_table.data_ptr(), b_table.data_ptr(),
+                w2.data_ptr(), bias2.data_ptr(), idx.data_ptr(),
+                _ext.ptr(scratch), out.data_ptr(), b, n, nq, q_offset, c, w0,
+                w1, k, neg_slope, _ext.current_stream(x.device))
+        _ext.check(code, name)
+        return out
 
 
 def _check_tables(name, bn, a_table, b_table, w2, bias2, nq=None):
@@ -141,30 +139,28 @@ def gather_conv(idx: torch.Tensor, a_table: torch.Tensor,
     """
     if a_table.device.type == "cpu":
         return gather_conv_plain(idx, a_table, b_table, w2, bias2, neg_slope)
-    name = "gather_conv"
-    _ext.check_tensors(name, a_table=a_table, b_table=b_table, w2=w2,
-                       bias2=bias2)
-    b, n, k = idx.shape
-    w0, w1 = w2.shape
-    _check_tables(name, (b, n), a_table, b_table, w2, bias2)
-    if (idx.dtype != torch.int32 or not idx.is_contiguous()
-            or idx.device != a_table.device):
-        raise ValueError(f"{name}: idx must be contiguous int32 on the "
-                         f"tables' device, got {idx.dtype} on {idx.device}")
-    _check_k(name, k, n)
-    out = torch.empty((b, n, w1), device=idx.device, dtype=torch.float32)
-    lib = _ext.library()
-    with torch.cuda.device(idx.device):
-        code = lib.gfs_gather_conv(
-            idx.data_ptr(), a_table.data_ptr(), b_table.data_ptr(),
-            w2.data_ptr(), bias2.data_ptr(), out.data_ptr(), b, n, w0, w1, k,
-            neg_slope, _ext.current_stream(idx.device))
-    _ext.check(code, name)
-    gather_conv.launches += 1
-    return out
-
-
-gather_conv.launches = 0
+    with span("op.k9"):
+        name = "gather_conv"
+        _ext.check_tensors(name, a_table=a_table, b_table=b_table, w2=w2,
+                           bias2=bias2)
+        b, n, k = idx.shape
+        w0, w1 = w2.shape
+        _check_tables(name, (b, n), a_table, b_table, w2, bias2)
+        if (idx.dtype != torch.int32 or not idx.is_contiguous()
+                or idx.device != a_table.device):
+            raise ValueError(f"{name}: idx must be contiguous int32 on the "
+                             f"tables' device, got {idx.dtype} on "
+                             f"{idx.device}")
+        _check_k(name, k, n)
+        out = torch.empty((b, n, w1), device=idx.device, dtype=torch.float32)
+        lib = _ext.library()
+        with torch.cuda.device(idx.device):
+            code = lib.gfs_gather_conv(
+                idx.data_ptr(), a_table.data_ptr(), b_table.data_ptr(),
+                w2.data_ptr(), bias2.data_ptr(), out.data_ptr(), b, n, w0, w1,
+                k, neg_slope, _ext.current_stream(idx.device))
+        _ext.check(code, name)
+        return out
 
 
 def fused_edgeconv_infer_split(x: torch.Tensor, a_table: torch.Tensor,

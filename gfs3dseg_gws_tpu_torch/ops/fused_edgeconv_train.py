@@ -57,6 +57,7 @@ from gfs3dseg_gws_tpu_torch.ops import _ext
 from gfs3dseg_gws_tpu_torch.ops.edgeconv import gather_neighbors_plain
 from gfs3dseg_gws_tpu_torch.ops.knn import neighbor_stats_plain
 from gfs3dseg_gws_tpu_torch.parallel.mesh import all_reduce_sum
+from gfs3dseg_gws_tpu_torch.utils.observability import span
 
 EPS = 1e-5  # torch BatchNorm eps
 
@@ -165,35 +166,32 @@ def _gsf(a, b, idx, s1, t1, w2, neg_slope):
     run."""
     if a.device.type == "cpu":
         return _gsf_plain(a, b, idx, s1, t1, w2, neg_slope)
-    name = "fused_edgeconv_train forward (K4a)"
-    _ext.check_tensors(name, a=a, b=b, s1=s1, t1=t1, w2=w2)
-    bsz, n, c = a.shape
-    w1 = w2.shape[1]
-    k = idx.shape[-1]
-    _check_shapes(name, a, b, idx, w2)
-    tiles = (n + 63) // 64
-    wide = _wide(c, w1)
-    snbr = torch.zeros_like(a) if wide else torch.empty_like(a)
-    zmax = torch.empty((bsz, n, w1), device=a.device)
-    zmin = torch.empty_like(zmax)
-    kmax = torch.empty((bsz, n, w1), device=a.device, dtype=torch.int32)
-    kmin = torch.empty_like(kmax)
-    part = torch.empty((bsz * tiles, 2 * w1 if wide else c + c * c),
-                       device=a.device)
-    lib = _ext.library()
-    with torch.cuda.device(a.device):
-        code = lib.gfs_edgeconv_train_fwd(
-            a.data_ptr(), b.data_ptr(), idx.data_ptr(), s1.data_ptr(),
-            t1.data_ptr(), w2.data_ptr(), snbr.data_ptr(), zmax.data_ptr(),
-            zmin.data_ptr(), kmax.data_ptr(), kmin.data_ptr(),
-            part.data_ptr(), bsz, n, c, w1, k, neg_slope,
-            _ext.current_stream(a.device))
-    _ext.check(code, name)
-    _gsf.launches += 1
-    return snbr, zmax, zmin, kmax, kmin, part.sum(0)
-
-
-_gsf.launches = 0
+    with span("op.k4a"):
+        name = "fused_edgeconv_train forward (K4a)"
+        _ext.check_tensors(name, a=a, b=b, s1=s1, t1=t1, w2=w2)
+        bsz, n, c = a.shape
+        w1 = w2.shape[1]
+        k = idx.shape[-1]
+        _check_shapes(name, a, b, idx, w2)
+        tiles = (n + 63) // 64
+        wide = _wide(c, w1)
+        snbr = torch.zeros_like(a) if wide else torch.empty_like(a)
+        zmax = torch.empty((bsz, n, w1), device=a.device)
+        zmin = torch.empty_like(zmax)
+        kmax = torch.empty((bsz, n, w1), device=a.device, dtype=torch.int32)
+        kmin = torch.empty_like(kmax)
+        part = torch.empty((bsz * tiles, 2 * w1 if wide else c + c * c),
+                           device=a.device)
+        lib = _ext.library()
+        with torch.cuda.device(a.device):
+            code = lib.gfs_edgeconv_train_fwd(
+                a.data_ptr(), b.data_ptr(), idx.data_ptr(), s1.data_ptr(),
+                t1.data_ptr(), w2.data_ptr(), snbr.data_ptr(), zmax.data_ptr(),
+                zmin.data_ptr(), kmax.data_ptr(), kmin.data_ptr(),
+                part.data_ptr(), bsz, n, c, w1, k, neg_slope,
+                _ext.current_stream(a.device))
+        _ext.check(code, name)
+        return snbr, zmax, zmin, kmax, kmin, part.sum(0)
 
 
 # --------------------------------------------------------------------------- #
@@ -239,39 +237,38 @@ def _bwd(a, b, idx, p1, w2, gsel, ksel, pk, neg_slope):
     is added with float atomics, so its last bits vary from run to run."""
     if a.device.type == "cpu":
         return _bwd_plain(a, b, idx, p1, w2, gsel, ksel, pk, neg_slope)
-    name = "fused_edgeconv_train backward (K4b)"
-    _ext.check_tensors(name, a=a, b=b, p1=p1, w2=w2, gsel=gsel, pk=pk)
-    bsz, n, c = a.shape
-    w1 = w2.shape[1]
-    k = idx.shape[-1]
-    _check_shapes(name, a, b, idx, w2)
-    if (ksel.dtype != torch.int32 or not ksel.is_contiguous()
-            or ksel.shape != (bsz, n, w1) or gsel.shape != (bsz, n, w1)):
-        raise ValueError(f"{name}: gsel/ksel must be (B, N, W1), ksel "
-                         "contiguous int32")
-    tiles = (n + 63) // 64
-    # past C, W1 <= 64 each of the OT column tiles leaves its own psum and
-    # bn1 sums, added below
-    n_ot = -(-w1 // 64) if _wide(c, w1) else 1
-    scat = torch.zeros((bsz, n, 2 * c), device=a.device)
-    psum = torch.empty((n_ot, bsz, n, c), device=a.device)
-    part = torch.empty((bsz * tiles, c * w1 + n_ot * 2 * c), device=a.device)
-    lib = _ext.library()
-    with torch.cuda.device(a.device):
-        code = lib.gfs_edgeconv_train_bwd(
-            a.data_ptr(), b.data_ptr(), idx.data_ptr(), p1.data_ptr(),
-            w2.data_ptr(), gsel.data_ptr(), ksel.data_ptr(), pk.data_ptr(),
-            scat.data_ptr(), psum.data_ptr(), part.data_ptr(), bsz, n, c, w1,
-            k, neg_slope, _ext.current_stream(a.device))
-    _ext.check(code, name)
-    _bwd.launches += 1
-    tot = part.sum(0)
-    sums = tot[c * w1:].reshape(n_ot, 2, c)
-    return (scat, psum[0] if n_ot == 1 else psum.sum(0),
-            tot[:c * w1].reshape(c, w1), sums[0] if n_ot == 1 else sums.sum(0))
-
-
-_bwd.launches = 0
+    with span("op.k4b"):
+        name = "fused_edgeconv_train backward (K4b)"
+        _ext.check_tensors(name, a=a, b=b, p1=p1, w2=w2, gsel=gsel, pk=pk)
+        bsz, n, c = a.shape
+        w1 = w2.shape[1]
+        k = idx.shape[-1]
+        _check_shapes(name, a, b, idx, w2)
+        if (ksel.dtype != torch.int32 or not ksel.is_contiguous()
+                or ksel.shape != (bsz, n, w1) or gsel.shape != (bsz, n, w1)):
+            raise ValueError(f"{name}: gsel/ksel must be (B, N, W1), ksel "
+                             "contiguous int32")
+        tiles = (n + 63) // 64
+        # past C, W1 <= 64 each of the OT column tiles leaves its own psum and
+        # bn1 sums, added below
+        n_ot = -(-w1 // 64) if _wide(c, w1) else 1
+        scat = torch.zeros((bsz, n, 2 * c), device=a.device)
+        psum = torch.empty((n_ot, bsz, n, c), device=a.device)
+        part = torch.empty((bsz * tiles, c * w1 + n_ot * 2 * c),
+                           device=a.device)
+        lib = _ext.library()
+        with torch.cuda.device(a.device):
+            code = lib.gfs_edgeconv_train_bwd(
+                a.data_ptr(), b.data_ptr(), idx.data_ptr(), p1.data_ptr(),
+                w2.data_ptr(), gsel.data_ptr(), ksel.data_ptr(), pk.data_ptr(),
+                scat.data_ptr(), psum.data_ptr(), part.data_ptr(), bsz, n, c,
+                w1, k, neg_slope, _ext.current_stream(a.device))
+        _ext.check(code, name)
+        tot = part.sum(0)
+        sums = tot[c * w1:].reshape(n_ot, 2, c)
+        return (scat, psum[0] if n_ot == 1 else psum.sum(0),
+                tot[:c * w1].reshape(c, w1),
+                sums[0] if n_ot == 1 else sums.sum(0))
 
 
 def _check_shapes(name, a, b, idx, w2):

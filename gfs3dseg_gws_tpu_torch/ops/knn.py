@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 import torch
 
 from gfs3dseg_gws_tpu_torch.ops import _ext
+from gfs3dseg_gws_tpu_torch.utils.observability import span
 
 
 def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -97,24 +98,21 @@ def knn_indices(x: torch.Tensor, k: int, q_offset: int = 0,
     """
     if x.device.type == "cpu":
         return knn_indices_plain(x, k, q_offset, nq)
-    name = "knn_indices"
-    _ext.check_tensors(name, x=x)
-    b, n, c = x.shape
-    _check_k(name, k, n)
-    nq = query_rows(name, n, q_offset, nq)
-    idx = torch.empty((b, nq, k), device=x.device, dtype=torch.int32)
-    scratch = _ext.knn_scratch(name, x, k, nq=nq)
-    lib = _ext.library()
-    with torch.cuda.device(x.device):
-        code = lib.gfs_knn_indices(x.data_ptr(), idx.data_ptr(),
-                                   _ext.ptr(scratch), b, n, nq, q_offset, c,
-                                   k, _ext.current_stream(x.device))
-    _ext.check(code, name)
-    knn_indices.launches += 1
-    return idx
-
-
-knn_indices.launches = 0
+    with span("op.k6"):
+        name = "knn_indices"
+        _ext.check_tensors(name, x=x)
+        b, n, c = x.shape
+        _check_k(name, k, n)
+        nq = query_rows(name, n, q_offset, nq)
+        idx = torch.empty((b, nq, k), device=x.device, dtype=torch.int32)
+        scratch = _ext.knn_scratch(name, x, k, nq=nq)
+        lib = _ext.library()
+        with torch.cuda.device(x.device):
+            code = lib.gfs_knn_indices(x.data_ptr(), idx.data_ptr(),
+                                       _ext.ptr(scratch), b, n, nq, q_offset,
+                                       c, k, _ext.current_stream(x.device))
+        _ext.check(code, name)
+        return idx
 
 
 def _check_k(name: str, k: int, n: int) -> None:
@@ -171,25 +169,22 @@ def knn_indices_fold(x: torch.Tensor, k: int, folds: int = 4) -> torch.Tensor:
     """
     if x.device.type == "cpu":
         return knn_indices_fold_plain(x, k, folds)
-    name = "knn_indices_fold"
-    _ext.check_tensors(name, x=x)
-    b, n, c = x.shape
-    _check_k(name, k, n)
-    if folds not in (2, 4, 8):
-        raise ValueError(f"{name}: folds must be 2, 4 or 8, got {folds}")
-    idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
-    scratch = _ext.knn_scratch(name, x, k, folds)
-    lib = _ext.library()
-    with torch.cuda.device(x.device):
-        code = lib.gfs_knn_fold(x.data_ptr(), idx.data_ptr(),
-                                _ext.ptr(scratch), b, n, c, k, folds,
-                                _ext.current_stream(x.device))
-    _ext.check(code, name)
-    knn_indices_fold.launches += 1
-    return idx
-
-
-knn_indices_fold.launches = 0
+    with span("op.k8"):
+        name = "knn_indices_fold"
+        _ext.check_tensors(name, x=x)
+        b, n, c = x.shape
+        _check_k(name, k, n)
+        if folds not in (2, 4, 8):
+            raise ValueError(f"{name}: folds must be 2, 4 or 8, got {folds}")
+        idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
+        scratch = _ext.knn_scratch(name, x, k, folds)
+        lib = _ext.library()
+        with torch.cuda.device(x.device):
+            code = lib.gfs_knn_fold(x.data_ptr(), idx.data_ptr(),
+                                    _ext.ptr(scratch), b, n, c, k, folds,
+                                    _ext.current_stream(x.device))
+        _ext.check(code, name)
+        return idx
 
 
 def neighbor_stats_plain(idx: torch.Tensor, btab: torch.Tensor
@@ -237,27 +232,25 @@ def knn_with_stats(x: torch.Tensor, btab: torch.Tensor, k: int
     """
     if x.device.type == "cpu":
         return knn_with_stats_plain(x, btab, k)
-    name = "knn_with_stats"
-    _ext.check_tensors(name, x=x, btab=btab)
-    b, n, c = x.shape
-    cb = btab.shape[-1]
-    if btab.shape[:2] != (b, n):
-        raise ValueError(f"{name}: x {tuple(x.shape)} and btab "
-                         f"{tuple(btab.shape)} do not agree")
-    _check_k(name, k, n)
-    idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
-    cnt = torch.zeros((b, 1, n), device=x.device, dtype=torch.float32)
-    scb = torch.zeros((b, n, cb), device=x.device, dtype=torch.float32)
-    scratch = _ext.knn_scratch(name, x, k)
-    lib = _ext.library()
-    with torch.cuda.device(x.device):
-        code = lib.gfs_knn_with_stats(
-            x.data_ptr(), btab.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
-            scb.data_ptr(), _ext.ptr(scratch), b, n, c, cb, k,
-            _ext.current_stream(x.device))
-    _ext.check(code, name)
-    knn_with_stats.launches += 1
-    return idx, cnt, scb
+    with span("op.k3"):
+        name = "knn_with_stats"
+        _ext.check_tensors(name, x=x, btab=btab)
+        b, n, c = x.shape
+        cb = btab.shape[-1]
+        if btab.shape[:2] != (b, n):
+            raise ValueError(f"{name}: x {tuple(x.shape)} and btab "
+                             f"{tuple(btab.shape)} do not agree")
+        _check_k(name, k, n)
+        idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
+        cnt = torch.zeros((b, 1, n), device=x.device, dtype=torch.float32)
+        scb = torch.zeros((b, n, cb), device=x.device, dtype=torch.float32)
+        scratch = _ext.knn_scratch(name, x, k)
+        lib = _ext.library()
+        with torch.cuda.device(x.device):
+            code = lib.gfs_knn_with_stats(
+                x.data_ptr(), btab.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
+                scb.data_ptr(), _ext.ptr(scratch), b, n, c, cb, k,
+                _ext.current_stream(x.device))
+        _ext.check(code, name)
+        return idx, cnt, scb
 
-
-knn_with_stats.launches = 0

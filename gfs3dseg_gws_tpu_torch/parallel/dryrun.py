@@ -76,18 +76,16 @@ def gfs_ranks(mesh, model_kwargs: Dict, state: Dict, points, labels, gp,
     Returns per step the loss and accuracy (the global batch's), the wall
     seconds (host clock, waited for), the collectives issued and their
     bytes; the launches of the training kernels over the steps (K3, K4a,
-    K4b, K5a, K5b); rank 0 also returns each step's state before it, the
+    K4b, K5a, K5b: their op spans' calls); rank 0 also returns each step's state before it, the
     summed gradients and the state after the last step."""
     from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
     from gfs3dseg_gws_tpu_torch.models.layers import use_mesh
-    from gfs3dseg_gws_tpu_torch.ops import attention_train as atr
-    from gfs3dseg_gws_tpu_torch.ops import fused_edgeconv_train as fet
-    from gfs3dseg_gws_tpu_torch.ops import knn as knn_mod
     from gfs3dseg_gws_tpu_torch.parallel import mesh as pmesh
     from gfs3dseg_gws_tpu_torch.parallel.optim import make_gfs_optimizer
     from gfs3dseg_gws_tpu_torch.parallel.steps import (coding_step,
                                                        gfs_train_step)
     from gfs3dseg_gws_tpu_torch.pipelines.gfs import step_seed
+    from gfs3dseg_gws_tpu_torch.utils import observability
 
     dev = mesh.device
     model = GWCAPL(device=dev, **model_kwargs)
@@ -100,9 +98,8 @@ def gfs_ranks(mesh, model_kwargs: Dict, state: Dict, points, labels, gp,
     gen = torch.Generator(device=dev)
     out = {"loss": [], "accuracy": [], "seconds": [], "collectives": [],
            "collective_bytes": [], "states": [], "grads": []}
-    kernels = {"k3": knn_mod.knn_with_stats, "k4a": fet._gsf,
-               "k4b": fet._bwd, "k5a": atr._fwd, "k5b": atr._bwd}
-    launched = {k: fn.launches for k, fn in kernels.items()}
+    kernels = ("k3", "k4a", "k4b", "k5a", "k5b")
+    launched = {k: observability.calls("op." + k) for k in kernels}
     for step in range(steps):
         if mesh.is_main:
             out["states"].append({k: v.detach().cpu().clone()
@@ -123,8 +120,8 @@ def gfs_ranks(mesh, model_kwargs: Dict, state: Dict, points, labels, gp,
         if mesh.is_main:
             out["grads"].append({n: p.grad.detach().cpu().clone()
                                  for n, p in model.named_parameters()})
-    out["launches"] = {k: fn.launches - launched[k]
-                       for k, fn in kernels.items()}
+    out["launches"] = {k: observability.calls("op." + k) - launched[k]
+                       for k in kernels}
     if mesh.is_main:
         out["final_state"] = {k: v.detach().cpu().clone()
                               for k, v in model.state_dict().items()}

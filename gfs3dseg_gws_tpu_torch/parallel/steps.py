@@ -33,18 +33,22 @@ from gfs3dseg_gws_tpu_torch.ops.metrics import confusion_matrix
 from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_reduce_points,
                                                   all_reduce_sum,
                                                   allreduce_grads)
+from gfs3dseg_gws_tpu_torch.utils.observability import span
 
 
 def _update(model, opt, loss: torch.Tensor, sched,
             mesh: Optional[Mesh]) -> None:
-    """Backward (this rank's share of the loss under a mesh), the gradient
-    all-reduce, the optimizer step and the per-step LR schedule."""
+    """Backward (this rank's share of the loss under a mesh; span
+    `backward`), the gradient all-reduce, the optimizer step and the
+    per-step LR schedule (span `optimizer`)."""
     opt.zero_grad(set_to_none=True)
-    loss.backward()
+    with span("backward"):
+        loss.backward()
     allreduce_grads(model.parameters(), mesh)
-    opt.step()
-    if sched is not None:
-        sched.step()
+    with span("optimizer"):
+        opt.step()
+        if sched is not None:
+            sched.step()
 
 
 def _global(mesh: Optional[Mesh], *values: torch.Tensor):
@@ -66,16 +70,19 @@ def gfs_train_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
     device) draws the fake classes and the attention's dropout seed.
     Returns (loss, accuracy = mean(pred == labels)) as device tensors; with
     a mesh (the model's), this rank's rows in, the global batch's loss and
-    accuracy out."""
-    mesh = getattr(model, "mesh", None)
-    model.train()
-    pred, loss = model(points, labels, gp, generator, fake_row)
-    _update(model, opt, loss, sched, mesh)
-    accuracy = torch.mean((pred == labels).to(torch.float32))
-    if mesh is not None:
-        accuracy = accuracy / mesh.size     # every rank holds as many rows
-    loss, accuracy = _global(mesh, loss.detach(), accuracy)
-    return loss, accuracy
+    accuracy out. Spans: `train_step` around it, `forward` around the
+    model call."""
+    with span("train_step"):
+        mesh = getattr(model, "mesh", None)
+        model.train()
+        with span("forward"):
+            pred, loss = model(points, labels, gp, generator, fake_row)
+        _update(model, opt, loss, sched, mesh)
+        accuracy = torch.mean((pred == labels).to(torch.float32))
+        if mesh is not None:
+            accuracy = accuracy / mesh.size  # every rank holds as many rows
+        loss, accuracy = _global(mesh, loss.detach(), accuracy)
+        return loss, accuracy
 
 
 def pretrain_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
@@ -148,17 +155,22 @@ def gfs_eval_multi_step(model, points: torch.Tensor, labels: torch.Tensor,
     sweep (GWCAPL.evaluate_multi). Rows at or past `valid` (padding of a
     final short batch) stay out of the confusion counts and gp_acc.
 
-    Returns (cm (S, C, C), gp_acc (S,), gp_novel_acc (S,)).
+    Returns (cm (S, C, C), gp_acc (S,), gp_novel_acc (S,)). Spans:
+    `eval_step` around it, `counts` around the argmax and the counts.
     """
-    model.eval()
-    logits, gp_acc, gp_nacc = model.evaluate_multi(
-        points, gp, gened_protos, base_coding, novel_codings, labels, valid)
-    pred = torch.argmax(logits, dim=-1)                      # (S, B, N)
-    rows = torch.arange(points.shape[0], device=points.device) < valid
-    mask = rows[:, None].expand(labels.shape)
-    cm = torch.stack([confusion_matrix(p, labels, num_classes, mask)
-                      for p in pred])
-    return cm, gp_acc, gp_nacc
+    with span("eval_step"):
+        model.eval()
+        logits, gp_acc, gp_nacc = model.evaluate_multi(
+            points, gp, gened_protos, base_coding, novel_codings, labels,
+            valid)
+        with span("counts"):
+            pred = torch.argmax(logits, dim=-1)              # (S, B, N)
+            rows = torch.arange(points.shape[0],
+                                device=points.device) < valid
+            mask = rows[:, None].expand(labels.shape)
+            cm = torch.stack([confusion_matrix(p, labels, num_classes, mask)
+                              for p in pred])
+        return cm, gp_acc, gp_nacc
 
 
 @torch.inference_mode()

@@ -32,6 +32,7 @@ the mesh shape.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -75,13 +76,16 @@ from gfs3dseg_gws_tpu_torch.utils.checkpoint import (
 )
 from gfs3dseg_gws_tpu_torch.utils.logging import (AverageMeter, IOStream,
                                                   Silent, init_logger)
-from gfs3dseg_gws_tpu_torch.utils.observability import MetricsWriter
+from gfs3dseg_gws_tpu_torch.utils.observability import (MetricsWriter,
+                                                        count, span, trace)
 
 _log = logging.getLogger(__name__)
 
 # training losses stay on the device this many steps before the host reads
 # them, so reading one never waits for the step just queued (JAX: drain(16))
 LOSS_LAG = 16
+# steps of the first epoch under `trace_dir`'s profiler, from step LOSS_LAG
+TRACE_STEPS = 24
 
 
 def resolve_device(name: str) -> torch.device:
@@ -101,7 +105,13 @@ def _env_flag(name: str) -> bool:
 
 
 def _to(device: torch.device, array) -> torch.Tensor:
-    return torch.from_numpy(np.array(array)).to(device)
+    """A host array copied to `device` (span `h2d`, its bytes counted as
+    `h2d_bytes`)."""
+    with span("h2d"):
+        host = np.array(array)
+        out = torch.from_numpy(host).to(device)
+    count("h2d_bytes", host.nbytes)
+    return out
 
 
 def run_logs(log_dir: str, phase: str, logger: Optional[IOStream],
@@ -405,45 +415,53 @@ def validate_multi(model, gp: torch.Tensor, val_dataset,
     each batch's gp accuracies, which are divided after the reduction, so
     that the log reads what one process logs.
     """
-    device = gp.device
-    n_seeds = gened_protos.shape[0]
-    protos = _to(device, gened_protos)
-    base = _to(device, base_coding)
-    novel = _to(device, novel_codings)
-    cm = torch.zeros((n_seeds, num_classes, num_classes), dtype=torch.float64,
-                     device=device)
-    accs = []
-    with points_split(model, mesh):
-        for points, labels, valid in eval_batches(val_dataset, batch_size):
-            valid = local_valid(valid, batch_size, mesh)
-            labels = shard_points(shard_batch(np.asarray(labels), mesh),
-                                  mesh)
-            points = shard_points(shard_batch(points, mesh), mesh)
-            c, gp_acc, gp_nacc = gfs_eval_multi_step(
-                model, _to(device, points), _to(device, labels), gp, protos,
-                base, novel, valid, num_classes)
-            cm += c.double()
-            acc = torch.stack([gp_acc.mean(), gp_nacc.mean()])
-            if mesh is not None:  # numerators and counts: all points, novel
-                real = labels[:valid]
-                n = acc.new_tensor([real.size,
-                                    np.sum(real >= model.base_num)])
-                acc = torch.cat([acc * n, n])
-            accs.append(acc)
-    cm = all_reduce_sum(cm, mesh).cpu().numpy()
-    accs = torch.stack(accs)
-    if mesh is not None:
-        accs = all_reduce_sum(accs, mesh)
-        accs = accs[:, :2] / torch.clamp_min(accs[:, 2:], 1.0)
-    if logger:
-        gp_acc_m, gp_nacc_m = AverageMeter(), AverageMeter()
-        for a, na in accs.cpu().tolist():
-            gp_acc_m.update(a)
-            gp_nacc_m.update(na)
-        logger.cprint(f"---------- gp acc: {gp_acc_m.avg:.4f}, "
-                      f"gp_novel_acc: {gp_nacc_m.avg:.4f} ----------")
-    return [gfs_miou(cm[s], all_learning_order, novel_class_names,
-                     scannet=scannet) for s in range(n_seeds)]
+    with span("sweep"):
+        device = gp.device
+        n_seeds = gened_protos.shape[0]
+        protos = _to(device, gened_protos)
+        base = _to(device, base_coding)
+        novel = _to(device, novel_codings)
+        cm = torch.zeros((n_seeds, num_classes, num_classes),
+                         dtype=torch.float64, device=device)
+        accs = []
+        batches = eval_batches(val_dataset, batch_size)
+        with points_split(model, mesh):
+            while True:
+                with span("sweep.load"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                points, labels, valid = batch
+                valid = local_valid(valid, batch_size, mesh)
+                labels = shard_points(shard_batch(np.asarray(labels), mesh),
+                                      mesh)
+                points = shard_points(shard_batch(points, mesh), mesh)
+                c, gp_acc, gp_nacc = gfs_eval_multi_step(
+                    model, _to(device, points), _to(device, labels), gp,
+                    protos, base, novel, valid, num_classes)
+                cm += c.double()
+                acc = torch.stack([gp_acc.mean(), gp_nacc.mean()])
+                if mesh is not None:  # numerators, counts: all, novel
+                    real = labels[:valid]
+                    n = acc.new_tensor([real.size,
+                                        np.sum(real >= model.base_num)])
+                    acc = torch.cat([acc * n, n])
+                accs.append(acc)
+        with span("sweep.tail"):   # counts to the host, mIoU
+            cm = all_reduce_sum(cm, mesh).cpu().numpy()
+            accs = torch.stack(accs)
+            if mesh is not None:
+                accs = all_reduce_sum(accs, mesh)
+                accs = accs[:, :2] / torch.clamp_min(accs[:, 2:], 1.0)
+            if logger:
+                gp_acc_m, gp_nacc_m = AverageMeter(), AverageMeter()
+                for a, na in accs.cpu().tolist():
+                    gp_acc_m.update(a)
+                    gp_nacc_m.update(na)
+                logger.cprint(f"---------- gp acc: {gp_acc_m.avg:.4f}, "
+                              f"gp_novel_acc: {gp_nacc_m.avg:.4f} ----------")
+            return [gfs_miou(cm[s], all_learning_order, novel_class_names,
+                             scannet=scannet) for s in range(n_seeds)]
 
 
 def _eval_batch_size(train_cfg) -> int:
@@ -507,7 +525,8 @@ def evaluate_gfs(model_cfg, data_cfg, train_cfg,
     `base_coding`, `gened_protos`, `novel_codings`, plus `n_blocks` and
     `sweep_seconds` of the static_test sweep and `coding_sweep`: whether
     the base coding was computed by a sweep over the training blocks (no
-    saved coding was found).
+    saved coding was found). With `train_cfg.trace_dir` the static_test
+    sweep runs under a profiler whose trace is written there.
     """
     device = resolve_device(train_cfg.device) if mesh is None else \
         mesh.device
@@ -558,11 +577,12 @@ def evaluate_gfs(model_cfg, data_cfg, train_cfg,
     geneds, novel_codings = np.stack(geneds), np.stack(novel_codings)
 
     t0 = time.perf_counter()
-    metrics = validate_multi(
-        setup.model, setup.gp, setup.val_dataset, geneds, base_coding,
-        novel_codings, setup.all_learning_order, setup.test_class_names,
-        len(setup.all_class_names), _eval_batch_size(train_cfg), scannet,
-        logger, mesh)
+    with trace(train_cfg.trace_dir):
+        metrics = validate_multi(
+            setup.model, setup.gp, setup.val_dataset, geneds, base_coding,
+            novel_codings, setup.all_learning_order, setup.test_class_names,
+            len(setup.all_class_names), _eval_batch_size(train_cfg), scannet,
+            logger, mesh)
     sweep_seconds = time.perf_counter() - t0
     per_seed = np.asarray([m[:4] for m in metrics], np.float64)
     sums = per_seed.mean(axis=0)
@@ -606,7 +626,10 @@ def train_gfs(model_cfg, data_cfg, train_cfg,
     start from `model_checkpoint_path` at `start_epoch == 0` (weights only,
     a fresh optimizer), or a resume at `start_epoch > 0` (weights, optimizer
     moments, schedule and step count from the port's own train state beside
-    the checkpoint). `max_steps_per_epoch` cuts epochs short.
+    the checkpoint). `max_steps_per_epoch` cuts epochs short. With
+    `train_cfg.trace_dir`, steps LOSS_LAG ... LOSS_LAG + TRACE_STEPS - 1 of
+    the first epoch run under a profiler whose trace is written there
+    (utils/observability.py::trace).
 
     Returns {"best", "history", "model", "step", "base_coding"}; `history`
     has one entry per epoch with its mean loss and accuracy, steps and
@@ -671,30 +694,35 @@ def train_gfs(model_cfg, data_cfg, train_cfg,
 
         t0 = time.time()
         steps = 0
-        for i, batch in enumerate(train_batches(
-                setup.train_data, train_cfg.batch_size, seed=train_cfg.seed,
-                epoch=epoch)):
-            if max_steps_per_epoch and i >= max_steps_per_epoch:
-                break
-            # every rank draws the same global batch and keeps its rows
-            gen.manual_seed(step_seed(train_cfg.seed, step))
-            pending.append(gfs_train_step(
-                model, opt,
-                _to(device, shard_batch(np.asarray(batch[0], np.float32),
-                                        mesh)),
-                _to(device, shard_batch(np.asarray(batch[1], np.int64),
-                                        mesh)), setup.gp, gen, sched))
-            step += 1
-            steps += 1
-            if steps % train_cfg.print_freq == 0:
-                drain(0)
-                logger.cprint(
-                    f"Epoch: [{epoch + 1}/{train_cfg.epochs}][{steps}/"
-                    f"{steps_per_epoch}] Loss {loss_m.val:.4f} "
-                    f"({loss_m.avg:.4f}) Accuracy {acc_m.val:.4f} "
-                    f"({acc_m.avg:.4f}).")
-            else:
-                drain(LOSS_LAG)
+        with contextlib.ExitStack() as traced:
+            for i, batch in enumerate(train_batches(
+                    setup.train_data, train_cfg.batch_size,
+                    seed=train_cfg.seed, epoch=epoch)):
+                if max_steps_per_epoch and i >= max_steps_per_epoch:
+                    break
+                if epoch == train_cfg.start_epoch and i == LOSS_LAG:
+                    traced.enter_context(trace(train_cfg.trace_dir))
+                elif i == LOSS_LAG + TRACE_STEPS:
+                    traced.close()
+                # every rank draws the same global batch and keeps its rows
+                gen.manual_seed(step_seed(train_cfg.seed, step))
+                pending.append(gfs_train_step(
+                    model, opt,
+                    _to(device, shard_batch(np.asarray(batch[0], np.float32),
+                                            mesh)),
+                    _to(device, shard_batch(np.asarray(batch[1], np.int64),
+                                            mesh)), setup.gp, gen, sched))
+                step += 1
+                steps += 1
+                if steps % train_cfg.print_freq == 0:
+                    drain(0)
+                    logger.cprint(
+                        f"Epoch: [{epoch + 1}/{train_cfg.epochs}][{steps}/"
+                        f"{steps_per_epoch}] Loss {loss_m.val:.4f} "
+                        f"({loss_m.avg:.4f}) Accuracy {acc_m.val:.4f} "
+                        f"({acc_m.avg:.4f}).")
+                else:
+                    drain(LOSS_LAG)
         drain(0)
         seconds = time.time() - t0
         logger.cprint(f"Train result at epoch [{epoch}/{train_cfg.epochs}]: "

@@ -102,6 +102,8 @@ class TrainConfig:
     model_checkpoint_path: str = ""
     basis_path: str = ""
     device: str = "cuda"           # torch device the pipelines run on
+    trace_dir: str = ""            # a profiler trace of the first steps or
+                                   # of the evaluation sweep goes here
 
 
 @dataclass(frozen=True)

@@ -35,6 +35,7 @@ from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (
     gather_conv_plain)
 from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices, knn_indices_plain
 from gfs3dseg_gws_tpu_torch.ops.linalg import svd_energy_reconstruct
+from gfs3dseg_gws_tpu_torch.utils.observability import calls
 from torch_port_util import TINY, jax_capl, one_thread, set_fp32, t, torch_capl
 
 pytestmark = pytest.mark.usefixtures("one_thread")
@@ -69,12 +70,12 @@ def test_knn_indices_twin_equals_jax(c, k):
     x = np.random.default_rng(c + k).standard_normal((B, N, c)).astype(
         np.float32)
     ref = np.asarray(jax_knn_indices(jnp.asarray(x), k, use_pallas=False))
-    before = knn_indices.launches
+    before = calls("op.k6")
     for fn in (knn_indices_plain, knn_indices):
         got = fn(t(x), k)
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), ref)
-    assert knn_indices.launches == before
+    assert calls("op.k6") == before
 
 
 def _gather_inputs(seed, c=W, dtype=np.float32):
@@ -94,14 +95,14 @@ def test_gather_function_matches_jax_vjp():
     ref, vjp = jax.vjp(lambda a: jax_edgeconv.gather_neighbors(
         a, jnp.asarray(idx)), jnp.asarray(x))
     (ref_dx,) = vjp(jnp.asarray(g))
-    before = scatter_bwd.launches
+    before = calls("op.k7")
     for fn in (gather_neighbors, gather_neighbors_plain):
         xt = t(x).requires_grad_()
         out = fn(xt, t(idx))
         np.testing.assert_array_equal(out.detach().numpy(), np.asarray(ref))
         (dx,) = torch.autograd.grad(out, xt, t(g))
         assert _rel(dx.numpy(), ref_dx) <= 1e-6, fn.__name__
-    assert scatter_bwd.launches == before
+    assert calls("op.k7") == before
     np.testing.assert_array_equal(
         scatter_bwd(t(idx), t(g)).numpy(), scatter_bwd_plain(t(idx),
                                                              t(g)).numpy())
@@ -136,7 +137,7 @@ def test_gather_conv_and_split_match_xla(c, w1):
                                                  k=K, neg_slope=0.2))
     idx = t(np.asarray(jax_knn_indices(jnp.asarray(args[0]), K,
                                        use_pallas=False)))
-    before = gather_conv.launches
+    before = calls("op.k9")
     got = gather_conv_plain(idx, *map(t, args[1:])).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(gather_conv(idx, *map(t, args[1:])).numpy(),
@@ -146,7 +147,7 @@ def test_gather_conv_and_split_match_xla(c, w1):
     np.testing.assert_array_equal(split,
                                   fused_edgeconv_plain(*map(t, args),
                                                        K).numpy())
-    assert gather_conv.launches == before
+    assert calls("op.k9") == before
 
 
 def test_twins_never_reach_the_kernels(monkeypatch):

@@ -5,9 +5,8 @@ input at the default widths (the same keys, dtypes, bits, metadata and
 final line), the port's round trips to the identity at encoder depths the
 JAX script's torch-tar writer cannot take (the DGCNN semantic-segmentation
 widths, whose third block is one layer deep, and the classification
-encoder's four one-layer blocks), and `StepTimer`, `trace`,
-`MetricsWriter`, `colorize` and `labeled_pointcloud` against JAX's
-utils."""
+encoder's four one-layer blocks), and `trace`, `MetricsWriter`,
+`colorize` and `labeled_pointcloud` against JAX's utils."""
 import ast
 import glob
 import json
@@ -239,45 +238,8 @@ def test_coding_round_trip(tmp_path):
 
 
 # --------------------------------------------------------------------------- #
-# utils: StepTimer, trace, MetricsWriter, visual
+# utils: trace, MetricsWriter, visual
 # --------------------------------------------------------------------------- #
-
-@pytest.mark.parametrize("warmup,steps", [(2, 5), (0, 3), (3, 2)])
-def test_step_timer_arithmetic_equals_jax(warmup, steps, monkeypatch):
-    """The same warm-up exclusion and mean as JAX's StepTimer, on a fake
-    clock whose step k lasts k + 1 seconds."""
-    results = []
-    for mod, timer in ((jax_obs, jax_obs.StepTimer(warmup)),
-                       (port_obs, port_obs.StepTimer(warmup, device="cpu"))):
-        ticks = iter(float(t) for t in np.cumsum(
-            [0] + [v for k in range(steps) for v in (k + 1, 0)]))
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(ticks))
-        for _ in range(steps):
-            with timer:
-                pass
-        results.append((timer.count, timer.total, timer.mean))
-    assert results[0] == results[1]
-    kept = list(range(warmup + 1, steps + 1))
-    assert results[1][1] == sum(kept)
-    assert results[1][2] == (sum(kept) / len(kept) if kept else 0.0)
-
-
-def test_step_timer_waits_for_the_device(monkeypatch):
-    """On a CUDA device the timer synchronizes it before each clock read
-    (two a step); on the CPU it does not."""
-    calls = []
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        lambda device=None: calls.append(device))
-    timer = port_obs.StepTimer(1, device="cuda")
-    for _ in range(3):
-        with timer:
-            pass
-    assert len(calls) == 6 and all(d == torch.device("cuda")
-                                   for d in calls)
-    with port_obs.StepTimer(1, device="cpu"):
-        pass
-    assert len(calls) == 6
-
 
 def test_trace_writes_chrome_json(tmp_path):
     log_dir = str(tmp_path / "trace")

@@ -35,6 +35,7 @@ from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices, knn_indices_fold,
                                             knn_with_stats_plain,
                                             neighbor_stats_plain,
                                             pairwise_sq_dists)
+from gfs3dseg_gws_tpu_torch.utils.observability import calls
 
 pytestmark = pytest.mark.cuda
 
@@ -98,10 +99,10 @@ def test_fused_edgeconv_kernel_matches_plain(dev, b, n, c, w0, w1, k):
         # own, bit for bit)
         dargs = [a.to(dev) for a in args]
         ref = gather_conv_plain(knn_indices(dargs[0], k), *dargs[1:])
-    before = fused_edgeconv_infer.launches
+    before = calls("op.k1")
     got = fused_edgeconv_infer(*[a.to(dev) for a in args], k)
     torch.cuda.synchronize()
-    assert fused_edgeconv_infer.launches == before + 1
+    assert calls("op.k1") == before + 1
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
@@ -112,10 +113,10 @@ def test_fused_edgeconv_kernel_matches_plain(dev, b, n, c, w0, w1, k):
 def test_fused_attention_kernel_matches_plain(dev, b, n, d):
     r = np.random.default_rng(n + d)
     q, k, v = (_randn(r, b, n, d).to(dev) for _ in range(3))
-    before = fused_attention.launches
+    before = calls("op.k2")
     got = fused_attention(q, k, v, d ** 0.5)
     torch.cuda.synchronize()
-    assert fused_attention.launches == before + 1
+    assert calls("op.k2") == before + 1
     torch.testing.assert_close(got, attention_plain(q, k, v, d ** 0.5),
                                rtol=1e-4, atol=1e-5)
 
@@ -147,12 +148,12 @@ def test_local_queries_equal_rows_of_the_full_call(dev, b, n, c, w0, w1, k,
     full1 = fused_edgeconv_infer(x, a, bt, w2, bias2, k)
     full6 = knn_indices(x, k)
     for q0, nq in _parts(n, sp):
-        before = (fused_edgeconv_infer.launches, knn_indices.launches)
+        before = (calls("op.k1"), calls("op.k6"))
         got1 = fused_edgeconv_infer(x, a, bt[:, q0:q0 + nq].contiguous(), w2,
                                     bias2, k, q_offset=q0)
         got6 = knn_indices(x, k, q0, nq)
         torch.cuda.synchronize()
-        assert (fused_edgeconv_infer.launches, knn_indices.launches) == (
+        assert (calls("op.k1"), calls("op.k6")) == (
             before[0] + 1, before[1] + 1)
         assert torch.equal(got1, full1[:, q0:q0 + nq]), (q0, nq)
         assert torch.equal(got6, full6[:, q0:q0 + nq]), (q0, nq)
@@ -215,10 +216,10 @@ def test_knn_with_stats_kernel_matches_plain(dev, b, n, c, k):
     kernel's idx; scb within 1e-5 of the largest entry (float atomics)."""
     r = np.random.default_rng(n + c)
     x, btab = _randn(r, b, n, c).to(dev), _randn(r, b, n, 64).to(dev)
-    before = knn_with_stats.launches
+    before = calls("op.k3")
     idx, cnt, scb = knn_with_stats(x, btab, k)
     torch.cuda.synchronize()
-    assert knn_with_stats.launches == before + 1
+    assert calls("op.k3") == before + 1
     ref_idx = knn_with_stats_plain(x, btab, k)[0]
     if _fast_path(c, k):
         assert torch.equal(idx, ref_idx)
@@ -300,10 +301,10 @@ def test_fused_edgeconv_train_kernels_match_plain(dev, b, n, c, w1, k):
         outs = fn(*ins, idx, **kw)
         return outs, torch.autograd.grad((outs[0] * cot).sum(), ins)
 
-    before = (fet._gsf.launches, fet._bwd.launches)
+    before = (calls("op.k4a"), calls("op.k4b"))
     f_outs, f_grads = run(fet.fused_edgeconv_train, cnt=cnt, scb=scb)
-    assert (fet._gsf.launches, fet._bwd.launches) == (before[0] + 1,
-                                                      before[1] + 1)
+    assert (calls("op.k4a"), calls("op.k4b")) == (before[0] + 1,
+                                                  before[1] + 1)
     p_outs, p_grads = run(fet.fused_edgeconv_train_plain)
     for g, w in zip(f_outs, p_outs):
         assert (g - w).abs().max() <= 1e-4 * w.abs().max()
@@ -386,7 +387,7 @@ def test_dgcnnseg_train_step_on_card_agrees_with_cpu(dev, monkeypatch,
     x = _randn(r, 2, 512, 9)
     y = torch.from_numpy(r.integers(0, 8, (2, 512)))
     losses = []
-    before = (knn_indices.launches, scatter_bwd.launches)
+    before = (calls("op.k6"), calls("op.k7"))
     for model, device, knn, knn_idx in ((gpu, dev, record, record_idx),
                                         (cpu, "cpu", replay, replay_idx)):
         monkeypatch.setattr(dgcnn, "knn_with_stats", knn)
@@ -396,7 +397,7 @@ def test_dgcnnseg_train_step_on_card_agrees_with_cpu(dev, monkeypatch,
         losses.append(loss.item())
     assert not graphs
     one_deep = sum(len(w) != 2 for w in widths)
-    assert (knn_indices.launches, scatter_bwd.launches) == (
+    assert (calls("op.k6"), calls("op.k7")) == (
         before[0] + one_deep, before[1] + one_deep)
     assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[1])
     grads = [(name, pc.grad.double().flatten(),
@@ -430,10 +431,10 @@ def test_knn_indices_kernel_matches_plain(dev, b, n, c, k):
     """K6: int32 indices equal to the twin's, order included."""
     r = np.random.default_rng(n + c + 1)
     x = _randn(r, b, n, c).to(dev)
-    before = knn_indices.launches
+    before = calls("op.k6")
     idx = knn_indices(x, k)
     torch.cuda.synchronize()
-    assert knn_indices.launches == before + 1
+    assert calls("op.k6") == before + 1
     assert idx.dtype == torch.int32
     if _fast_path(c, k):
         assert torch.equal(idx, knn_indices_plain(x, k))
@@ -483,10 +484,10 @@ def test_scatter_kernel_and_gather_function_match_plain(dev, b, n, k, c):
     x = _randn(r, b, n, min(c, 64)).to(dev)
     idx = knn_indices(x, k)
     g = _randn(r, b, n, k, c).to(dev)
-    before = scatter_bwd.launches
+    before = calls("op.k7")
     got = scatter_bwd(idx, g)
     torch.cuda.synchronize()
-    assert scatter_bwd.launches == before + 1
+    assert calls("op.k7") == before + 1
     ref = scatter_bwd_plain(idx, g)
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
     table = _randn(r, b, n, c).to(dev)
@@ -496,7 +497,7 @@ def test_scatter_kernel_and_gather_function_match_plain(dev, b, n, k, c):
         out = fn(leaf, idx)
         assert torch.equal(out, gather_neighbors_plain(table, idx))
         grads.append(torch.autograd.grad(out, leaf, g)[0])
-    assert scatter_bwd.launches == before + 2
+    assert calls("op.k7") == before + 2
     assert (grads[0] - grads[1]).abs().max() <= 1e-5 * grads[1].abs().max()
 
 
@@ -534,11 +535,11 @@ def test_split_edgeconv_equals_fused_bit_for_bit(dev, b, n, c, w0, w1, k):
     args = [_randn(r, b, n, c).to(dev), _randn(r, b, n, w0).to(dev),
             _randn(r, b, n, w0).to(dev), _randn(r, w0, w1, scale=0.3).to(dev),
             _randn(r, w1, scale=0.1).to(dev)]
-    before = (knn_indices.launches, gather_conv.launches)
+    before = (calls("op.k6"), calls("op.k9"))
     split = fused_edgeconv_infer_split(*args, k)
     torch.cuda.synchronize()
-    assert (knn_indices.launches, gather_conv.launches) == (before[0] + 1,
-                                                             before[1] + 1)
+    assert (calls("op.k6"), calls("op.k9")) == (before[0] + 1,
+                                                before[1] + 1)
     assert torch.equal(split, fused_edgeconv_infer(*args, k))
     idx = knn_indices(args[0], k)
     torch.testing.assert_close(gather_conv(idx, *args[1:]),
@@ -585,10 +586,10 @@ def test_knn_fold_kernel_equals_k6_and_its_twin(dev, b, n, c, k, folds):
         k = _ext.knn_stream_cap() + (k == "cap+1")
     r = np.random.default_rng(n + c + k + folds)
     x = _randn(r, b, n, c).to(dev)
-    before = knn_indices_fold.launches
+    before = calls("op.k8")
     idx = knn_indices_fold(x, k, folds)
     torch.cuda.synchronize()
-    assert knn_indices_fold.launches == before + 1
+    assert calls("op.k8") == before + 1
     assert idx.dtype == torch.int32 and idx.shape == (b, n, k)
     assert torch.equal(idx, knn_indices(x, k))
     _assert_same_graph(x, idx, knn_indices_fold_plain(x, k, folds))
@@ -682,7 +683,7 @@ def test_attention_train_kernels_match_plain(dev, b, n, d, rate):
     q, k, v, dy = (_randn(r, b, n, d).to(dev) for _ in range(4))
     seed = torch.tensor([1234], dtype=torch.int32, device=dev)
     temp = d ** 0.5
-    before = (atr._fwd.launches, atr._bwd.launches)
+    before = (calls("op.k5a"), calls("op.k5b"))
     got = atr._fwd(q, k, v, seed, temp, rate)
     ref = atr._fwd_plain(q, k, v, seed, temp, rate)
     torch.cuda.synchronize()
@@ -693,8 +694,8 @@ def test_attention_train_kernels_match_plain(dev, b, n, d, rate):
     ref_b = atr._bwd_plain(q, k, v, seed, ref[1], ref[2], delta, dy, temp,
                            rate)
     torch.cuda.synchronize()
-    assert (atr._fwd.launches, atr._bwd.launches) == (before[0] + 1,
-                                                      before[1] + 1)
+    assert (calls("op.k5a"), calls("op.k5b")) == (before[0] + 1,
+                                                  before[1] + 1)
     for g, w in zip(got_b, ref_b):
         assert _rel(g, w) <= 1e-4
 

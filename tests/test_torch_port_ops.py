@@ -20,6 +20,7 @@ from gfs3dseg_gws_tpu_torch.ops.fused_edgeconv import (fused_edgeconv_infer,
                                                        fused_edgeconv_plain)
 from gfs3dseg_gws_tpu_torch.ops.knn import knn_indices
 from gfs3dseg_gws_tpu_torch.ops.metrics import confusion_matrix, gfs_miou
+from gfs3dseg_gws_tpu_torch.utils.observability import calls
 from torch_port_util import one_thread, set_fp32, t
 
 pytestmark = pytest.mark.usefixtures("one_thread")
@@ -127,14 +128,14 @@ def test_confusion_and_gfs_miou_match_jax():
 def test_cpu_tensors_take_the_plain_path_without_launches():
     ec = _edgeconv_inputs(9, seed=7)
     q, k, v = _qkv(8)
-    before = (fused_edgeconv_infer.launches, fused_attention.launches)
+    before = (calls("op.k1"), calls("op.k2"))
     np.testing.assert_array_equal(
         fused_edgeconv_infer(*map(t, ec), k=K).numpy(),
         fused_edgeconv_plain(*map(t, ec), k=K).numpy())
     np.testing.assert_array_equal(
         fused_attention(t(q), t(k), t(v), 4.0).numpy(),
         attention_plain(t(q), t(k), t(v), 4.0).numpy())
-    assert (fused_edgeconv_infer.launches, fused_attention.launches) == before
+    assert (calls("op.k1"), calls("op.k2")) == before
 
 
 def test_non_cpu_non_cuda_tensors_raise():

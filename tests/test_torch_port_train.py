@@ -579,7 +579,8 @@ def test_cli_flags_match_jax(cli):
     """Every flag of the JAX CLI (and of each of its subcommands) parses in
     the port's with the same action, default, type, choices and
     destination; the port adds `--device` only (and `-h`), on the parser
-    that does the device work (preprocess_cli: room2blocks)."""
+    that does the device work (preprocess_cli: room2blocks), and train_cli
+    `--trace_dir` (a profiler trace of its first steps or its sweep)."""
     import importlib
 
     ours = _parsers(importlib.import_module(
@@ -590,6 +591,8 @@ def test_cli_flags_match_jax(cli):
     for name, parser in refs.items():
         ref, mine = _flags(parser), _flags(ours[name])
         added = {"--device"} if name == DEVICE_AT[cli] else set()
+        if cli == "train_cli":
+            added.add("--trace_dir")
         assert set(mine) - set(ref) == added, name
         assert set(ref) <= set(mine)
         for opt, spec in ref.items():

@@ -39,6 +39,7 @@ from gfs3dseg_gws_tpu_torch.ops.knn import (knn_indices, knn_indices_fold,
                                             knn_indices_plain,
                                             knn_with_stats,
                                             pairwise_sq_dists)
+from gfs3dseg_gws_tpu_torch.utils.observability import calls
 from torch_port_util import jax_capl, one_thread, set_fp32, t, torch_capl
 
 pytestmark = pytest.mark.usefixtures("one_thread")
@@ -106,12 +107,12 @@ def test_knn_fold_twin_equals_knn_indices_plain(b, n, c, k, folds):
     included; the dispatcher takes the twin on a CPU tensor, no launch."""
     x = t(_normal(n + k + folds, b, n, c))
     ref = knn_indices_plain(x, k)
-    before = knn_indices_fold.launches
+    before = calls("op.k8")
     for got in (knn_indices_fold_plain(x, k, folds),
                 knn_indices_fold(x, k, folds)):
         assert got.dtype == torch.int32 and got.shape == (b, n, k)
         assert torch.equal(got, ref)
-    assert knn_indices_fold.launches == before
+    assert calls("op.k8") == before
 
 
 def test_knn_fold_refuses_what_jax_would_not_run():
