@@ -1240,6 +1240,20 @@ def reset_launches():
     return lambda: {k: n - before[k] for k, n in launches().items()}
 
 
+def reset_replays():
+    """A reader of the GFS train steps replayed as a CUDA graph from now on
+    (parallel/steps.py's counter `graph_replays`)."""
+    from gfs3dseg_gws_tpu_torch.utils.observability import snapshot
+
+    def replays():
+        return sum(n for book in snapshot().values()
+                   for path, n in book["counters"].items()
+                   if path.endswith("graph_replays"))
+
+    before = replays()
+    return lambda: replays() - before
+
+
 def expected_launches(widths: str, steps: int = 0, forwards: int = 0,
                       attention: bool = False):
     """Every kernel's launches for `steps` training steps and `forwards`
@@ -2231,8 +2245,9 @@ def check_gfs_train(dev, root: str, test_dir: str, basis_path: str,
     batch 16, Adam 0.01 with the encoder at 0.1x, StepLR(50, 0.5),
     attention dropout 0.1, --pc_augm), EdgeConv `widths` and k, from
     `pretrain_ckpt` and the basis at `basis_path`, GFS_EPOCHS epochs with
-    validation on support seed 0 after each; launches checked per step and
-    per forward. Then the newest checkpoint through `train_cli
+    validation on support seed 0 after each; launches checked per step
+    (a replayed step adds its graph's launches to the op spans) and per
+    forward. Then the newest checkpoint through `train_cli
     --only_evaluate` (the 5 support seeds), its launches checked too.
     Returns the training run's launches, the setup, and the checkpoint
     with its evaluation ({"checkpoint", "evaluated", "eval_launches",
@@ -2259,12 +2274,12 @@ def check_gfs_train(dev, root: str, test_dir: str, basis_path: str,
         "--phase", "train", "--save_path", save, "--epochs",
         str(GFS_EPOCHS), "--base_lr", "0.01", "--pc_augm",
         "--use_pretrain_weight", "--pretrain_checkpoint_path", pretrain_ckpt]
-    read = reset_launches()
+    read, replayed = reset_launches(), reset_replays()
     t1 = time.perf_counter()
     res = train_cli.main(argv, eval_interval=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    launches = read()
+    launches, replays = read(), replayed()
     hist, steps = res["history"], res["step"]
     setup = gfs_setup(train_dir, test_dir)
     n_valid = sum(1 for h in hist if "mean_iou" in h)
@@ -2278,6 +2293,7 @@ def check_gfs_train(dev, root: str, test_dir: str, basis_path: str,
           steps_per_s=[h["steps"] / h["seconds"] for h in hist],
           mean_iou=[h.get("mean_iou") for h in hist],
           hm_iou=[h.get("hm_iou") for h in hist], eval_forwards=forwards,
+          replayed_steps=replays,
           **{f"{k}_launches": v for k, v in launches.items()})
     if (len(hist) != GFS_EPOCHS or n_valid != GFS_EPOCHS
             or not all(math.isfinite(h["loss"]) and math.isfinite(
@@ -2339,8 +2355,10 @@ def check_gfs_learning(dev, setup, gp: torch.Tensor):
 
 def profile_groups(fn, steps: int):
     """ms per step of each KERNEL_GROUPS group (and the rest) from
-    torch.profiler's device times over `steps` calls of `fn`; None where
-    the profiler sees no device time."""
+    torch.profiler's device times over `steps` calls of `fn`, and the
+    launches a step; None where the profiler sees no device time. The
+    device ranges of user annotations (the port's spans, the optimizer's
+    `Optimizer.step#...`) enclose kernels and are not counted."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2354,7 +2372,8 @@ def profile_groups(fn, steps: int):
     groups["other"] = 0.0
     launches = 0
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                evt, "is_user_annotation", False):
             continue
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0.0))
@@ -2386,9 +2405,11 @@ def gfs_step_fn(dev, setup, gp: torch.Tensor):
 
 
 def check_gfs_step(dev, setup, gp: torch.Tensor):
-    """gfs_train_step alone on device tensors: the CUDA-event median, the
-    host-clock wall of PROFILE_STEPS steps, and the kernel time by group
-    from torch.profiler (device idle share = 1 - kernels / wall)."""
+    """gfs_train_step alone on device tensors: the CUDA-event median and
+    the host-clock wall of PROFILE_STEPS steps, replayed as a CUDA graph;
+    then the kernel time by group and the launches of the eager step, the
+    one that runs under torch.profiler (parallel/steps.py), which launches
+    the kernels that a replay does."""
     step = gfs_step_fn(dev, setup, gp)
     step_ms = cuda_ms(step)
     torch.cuda.synchronize()
@@ -2398,16 +2419,15 @@ def check_gfs_step(dev, setup, gp: torch.Tensor):
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / PROFILE_STEPS
     groups, launches = profile_groups(step, PROFILE_STEPS)
-    phase("device step gfs_train_step", batch=B, ms=step_ms,
+    phase("device step gfs_train_step (replayed)", batch=B, ms=step_ms,
           steps_per_s=1000.0 / step_ms, wall_ms=wall_ms)
     if groups is None:
-        phase("profile gfs_train_step", note="torch.profiler saw no device "
-              "time; CUDA-event times above stand")
+        phase("profile gfs_train_step (eager)", note="torch.profiler saw "
+              "no device time; CUDA-event times above stand")
         return
-    kernels = sum(groups.values())
-    phase("profile gfs_train_step", steps=PROFILE_STEPS,
-          kernel_ms_per_step=kernels, wall_ms_per_step=wall_ms,
-          idle_share=1.0 - kernels / wall_ms, launches_per_step=launches,
+    phase("profile gfs_train_step (eager)", steps=PROFILE_STEPS,
+          kernel_ms_per_step=sum(groups.values()),
+          launches_per_step=launches,
           groups_ms=json.dumps({k: round(v, 4) for k, v in groups.items()}))
 
 

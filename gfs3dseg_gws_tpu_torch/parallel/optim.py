@@ -53,16 +53,43 @@ def make_gfs_optimizer(model: torch.nn.Module, base_lr: float,
     """Adam in two parameter groups, `encoder.*` at encoder_lr_scale x
     base_lr and everything else at base_lr, with optional L2 weight decay
     and StepLR on the step count for both (JAX: make_gfs_optimizer, an
-    optax.multi_transform over the same two groups)."""
+    optax.multi_transform over the same two groups).
+
+    On CUDA parameters Adam is `capturable` (its step count and bias
+    corrections stay on the device, in float32) and each group's LR is a
+    device tensor that the scheduler writes (`hold_lr_in_tensors`), so
+    that parallel/steps.py::gfs_train_step can replay the update as part
+    of a CUDA graph; on the CPU the LR stays a float."""
     encoder, rest = [], []
     for name, p in model.named_parameters():
         (encoder if name.startswith("encoder.") else rest).append(p)
+    device = (encoder + rest)[0].device
+    cuda = device.type == "cuda"
     opt = torch.optim.Adam(
         [{"params": encoder, "lr": base_lr * encoder_lr_scale},
-         {"params": rest, "lr": base_lr}], weight_decay=weight_decay)
+         {"params": rest, "lr": base_lr}], weight_decay=weight_decay,
+        capturable=cuda)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, step_lr(step_size, gamma, steps_per_epoch))
+    if cuda:
+        hold_lr_in_tensors(opt, device)
     return opt, sched
+
+
+def hold_lr_in_tensors(opt: torch.optim.Optimizer,
+                       device: torch.device) -> None:
+    """Give each parameter group its LR as a one-element tensor on `device`
+    (after the scheduler took its float base LRs): the scheduler then
+    writes each new value into that tensor (`fill_`), so that a CUDA graph
+    that captured `opt.step()` reads the schedule's LR at every replay.
+    The tensor has the precision of the arithmetic that reads it: float32
+    on CUDA, Adam's `capturable` update; float64 elsewhere, where Adam
+    reads it as a Python float, so that the update is the float LR's bit
+    for bit."""
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    for group in opt.param_groups:
+        group["lr"] = torch.tensor(float(group["lr"]), dtype=dtype,
+                                   device=device)
 
 
 def make_fewshot_optimizer(model: torch.nn.Module, lr: float,

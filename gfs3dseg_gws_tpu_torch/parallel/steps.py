@@ -9,6 +9,19 @@ loop can queue steps back to back and read the results later. The JAX
 package's multi-step `lax.scan` dispatch and packed host-to-device batches
 are TPU workarounds and have no counterpart here.
 
+`gfs_train_step` on one card replays a CUDA graph of the step: the host
+would take longer to issue its ~1,100 launches than the card to run them.
+Its first WARM_CALLS calls at a key (device, the shapes and dtypes of
+points and labels, gp, the generator, whether fake_row is given, per
+model and optimizer) run eagerly, the next captures the forward, the
+backward and Adam's update, and every later call copies its inputs into
+the graph's and replays it; the LR schedule steps on the host after it,
+into the LR tensors the graph reads (parallel/optim.py). CPU tensors, a
+model with a mesh and a running torch profiler keep the eager step; eager
+calls and replays update the same parameters and optimizer state, so they
+can alternate. A replay adds to the kernels' op spans (`op.k3` ...) the
+calls its capture made, so that their calls stay the launches of the run.
+
 Data parallelism (parallel/mesh.py): the train steps run over the model's
 mesh, the one models/layers.py::use_mesh set on it and on every module
 that reduces over the batch, so that the model and the step cannot
@@ -24,6 +37,7 @@ first.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -33,7 +47,15 @@ from gfs3dseg_gws_tpu_torch.ops.metrics import confusion_matrix
 from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_reduce_points,
                                                   all_reduce_sum,
                                                   allreduce_grads)
-from gfs3dseg_gws_tpu_torch.utils.observability import span
+from gfs3dseg_gws_tpu_torch.utils.observability import (add_calls, count,
+                                                       profiler_running,
+                                                       snapshot, span)
+
+# eager calls at a key before the one that captures the train step: the
+# warm-up PyTorch asks for before a capture, by which time what is built
+# lazily (Adam's moments, cuBLAS workspaces, the kernel library) exists
+WARM_CALLS = 3
+_graphs = weakref.WeakKeyDictionary()    # optimizer -> {key: _StepGraph}
 
 
 def _update(model, opt, loss: torch.Tensor, sched,
@@ -67,22 +89,132 @@ def gfs_train_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
     """One GFS base-stage step (reference train.py:616-631): train-mode
     GWCAPL forward (fake-novel prototypes, 0.5 CE2 + 0.5 CE1), backward,
     optimizer step, then the per-step LR schedule. `generator` (on the
-    device) draws the fake classes and the attention's dropout seed.
-    Returns (loss, accuracy = mean(pred == labels)) as device tensors; with
-    a mesh (the model's), this rank's rows in, the global batch's loss and
-    accuracy out. Spans: `train_step` around it, `forward` around the
-    model call."""
+    device) draws the fake classes and the attention's dropout seed; a
+    replay draws what an eager call would from the generator's seed and
+    offset. Returns (loss, accuracy = mean(pred == labels)) as device
+    tensors; with a mesh (the model's), this rank's rows in, the global
+    batch's loss and accuracy out. On one card the step is replayed as a
+    CUDA graph from the call after WARM_CALLS eager ones at its key (module
+    docstring). Spans: `train_step` around it, `forward` around the model
+    call of an eager step; counters `graph_captures` and `graph_replays`
+    in `train_step`."""
     with span("train_step"):
-        mesh = getattr(model, "mesh", None)
-        model.train()
-        with span("forward"):
-            pred, loss = model(points, labels, gp, generator, fake_row)
-        _update(model, opt, loss, sched, mesh)
-        accuracy = torch.mean((pred == labels).to(torch.float32))
-        if mesh is not None:
-            accuracy = accuracy / mesh.size  # every rank holds as many rows
-        loss, accuracy = _global(mesh, loss.detach(), accuracy)
-        return loss, accuracy
+        key = _graph_key(model, points, labels, gp, generator, fake_row)
+        if key is None:
+            return _gfs_step(model, opt, points, labels, gp, generator,
+                             sched, fake_row, getattr(model, "mesh", None))
+        graphs = _graphs.setdefault(opt, {})
+        if key not in graphs:
+            graphs[key] = _StepGraph(model, gp, generator, points.device)
+        out = graphs[key](opt, points, labels, fake_row)
+        if sched is not None:
+            sched.step()
+        return out
+
+
+def _gfs_step(model, opt, points, labels, gp, generator, sched, fake_row,
+              mesh):
+    """The eager step (spans `forward`, `backward`, `optimizer`)."""
+    model.train()
+    with span("forward"):
+        pred, loss = model(points, labels, gp, generator, fake_row)
+    _update(model, opt, loss, sched, mesh)
+    accuracy = torch.mean((pred == labels).to(torch.float32))
+    if mesh is not None:
+        accuracy = accuracy / mesh.size      # every rank holds as many rows
+    return _global(mesh, loss.detach(), accuracy)
+
+
+def _graph_key(model, points, labels, gp, generator, fake_row):
+    """The key of the step's graph, or None where the step stays eager:
+    CPU tensors; a model with a mesh (its collectives are not captured);
+    a running profiler (a replay has no per-operation host events to
+    attribute its kernels by)."""
+    if points.device.type != "cuda" or profiler_running() or \
+            getattr(model, "mesh", None) is not None:
+        return None
+    return (id(model), points.device, points.shape, points.dtype,
+            labels.shape, labels.dtype, id(gp), id(generator),
+            fake_row is None)
+
+
+class _StepGraph:
+    """The train step at one key: WARM_CALLS eager calls on a side stream,
+    then one that captures the step without its schedule (forward,
+    backward, Adam) on that stream and replays it, then a replay a call.
+    The graph reads the model's parameters and buffers, Adam's state and
+    LR tensors, gp and the generator's state where they lay at capture
+    (the object holds the model, gp and generator, so that none is freed
+    and no other object takes its key; not the optimizer, the weak key of
+    its cache), and its own copies of the inputs, which each replay
+    refills; a replay returns copies of its loss and accuracy, which the
+    next replay overwrites. `launches` holds the op spans' calls of the
+    capture, which every later replay adds again (the capture's own replay
+    runs the kernels that its op spans counted)."""
+
+    def __init__(self, model, gp, generator, device):
+        self.model, self.gp, self.generator = model, gp, generator
+        self.stream = torch.cuda.Stream(device)
+        self.calls = 0
+        self.graph = None
+        self.inputs = self.outputs = None
+        self.launches = {}
+
+    def __call__(self, opt, points, labels, fake_row):
+        if self.graph is not None:
+            count("graph_replays")
+            add_calls(self.launches)
+            if not self.model.training:
+                self.model.train()         # the mode an eager step leaves
+            for static, given in zip(self.inputs,
+                                     (points, labels, fake_row)):
+                if static is not None:
+                    static.copy_(given)
+            return self._replay()
+        current = torch.cuda.current_stream(points.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            if self.calls < WARM_CALLS:
+                self.calls += 1
+                out = self._step(opt, points, labels, fake_row)
+            else:
+                count("graph_captures")
+                out = None
+                self._capture(opt, points, labels, fake_row)
+        current.wait_stream(self.stream)
+        return self._replay() if out is None else out
+
+    def _step(self, opt, points, labels, fake_row):
+        return _gfs_step(self.model, opt, points, labels, self.gp,
+                         self.generator, None, fake_row, None)
+
+    def _capture(self, opt, points, labels, fake_row):
+        self.inputs = [points.clone(), labels.clone(), None if fake_row is
+                       None else fake_row.to(points.device, torch.float32,
+                                             copy=True)]
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        before = _op_calls()
+        with torch.cuda.graph(graph, stream=self.stream):
+            self.outputs = self._step(opt, *self.inputs)
+        after = _op_calls()
+        self.launches = {path: n - before.get(path, 0)
+                         for path, n in after.items()
+                         if n != before.get(path, 0)}
+        self.graph = graph
+
+    def _replay(self):
+        self.graph.replay()
+        return tuple(t.clone() for t in self.outputs)
+
+
+def _op_calls():
+    """{path: calls} of the op spans (`.../op.k3` ...) in the plain book,
+    where a capture counts (it never runs under a profiler)."""
+    return {path: entry["calls"]
+            for path, entry in snapshot()["plain"]["spans"].items()
+            if path.rsplit("/", 1)[-1].startswith("op.")}
 
 
 def pretrain_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,

@@ -552,9 +552,21 @@ def save_train_state(npz_path: str, opt: torch.optim.Optimizer, sched,
 def load_train_state(npz_path: str, opt: torch.optim.Optimizer,
                      sched) -> int:
     """Restore what `save_train_state` wrote beside `npz_path` into `opt`
-    and `sched`; returns the step count."""
+    and `sched`; returns the step count. What depends on the device stays
+    `opt`'s own: whether Adam is `capturable`, and an LR held in a device
+    tensor (parallel/optim.py::hold_lr_in_tensors), which takes the saved
+    value, so that a state saved on one device resumes on another."""
     state = torch.load(train_state_path(npz_path), map_location="cpu",
                        weights_only=True)
+    saved = state["optimizer"]["param_groups"]
+    lrs = [group["lr"] for group in opt.param_groups]
+    for group, mine in zip(saved, opt.param_groups):
+        if "capturable" in mine:
+            group["capturable"] = mine["capturable"]
     opt.load_state_dict(state["optimizer"])
+    for group, lr in zip(opt.param_groups, lrs):
+        if isinstance(lr, torch.Tensor):
+            lr.fill_(float(group["lr"]))
+            group["lr"] = lr
     sched.load_state_dict(state["scheduler"])
     return int(state["step"])

@@ -25,7 +25,13 @@ The spans of the port (see README, "Tracing"):
                         copies (counter h2d_bytes), parallel/steps.py::
                         gfs_eval_multi_step, models/capl.py::evaluate_multi
   train_step, forward, backward, optimizer
-                        parallel/steps.py::gfs_train_step and _update
+                        parallel/steps.py::gfs_train_step and _update;
+                        counters train_step/graph_captures and
+                        train_step/graph_replays: the calls that captured
+                        the step as a CUDA graph, and those that replayed
+                        it (a replay opens no forward, backward or
+                        optimizer span; it adds its graph's launches to
+                        the op spans' calls, `add_calls`)
   pool.get              data/native_loader.py: the wait on the C++ pool
   op.k1 ... op.k9, op.gather
                         ops/: the kernels' launch paths; a CPU tensor takes
@@ -126,6 +132,12 @@ class span:
         return False
 
 
+def profiler_running() -> bool:
+    """Whether a torch profiler records now (autograd's own flag, the one
+    `span` reads)."""
+    return bool(_profiler._is_profiler_enabled)
+
+
 def count(name: str, n: int = 1) -> None:
     """Add `n` to the counter `name` under the current path, in the book of
     the moment (profiled while a profiler records)."""
@@ -134,6 +146,16 @@ def count(name: str, n: int = 1) -> None:
     key = stack[-1] + "/" + name if stack else name
     book = books.counters[bool(_profiler._is_profiler_enabled)]
     book[key] = book.get(key, 0) + n
+
+
+def add_calls(paths: Dict[str, int]) -> None:
+    """Add calls, and no host time, to the spans at these full paths in the
+    book of the moment: the launches of work that ran without opening its
+    spans, as the kernels of a replayed CUDA graph."""
+    book = _books().spans[bool(_profiler._is_profiler_enabled)]
+    for path, n in paths.items():
+        calls, total = book.get(path, (0, 0))
+        book[path] = (calls + n, total)
 
 
 def snapshot() -> Dict[str, dict]:

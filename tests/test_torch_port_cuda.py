@@ -7,6 +7,8 @@ Marked `cuda`: without a CUDA device every test skips. On the GPU host
     python -m pytest -p no:cacheprovider --noconftest -m cuda \
         tests/test_torch_port_cuda.py
 """
+import statistics
+
 import numpy as np
 import pytest
 import torch
@@ -829,3 +831,359 @@ def test_gwcapl_train_step_on_card_agrees_with_cpu(dev, monkeypatch):
         if name.endswith(("running_mean", "running_var")):
             assert ((bc - bg.cpu()).abs() <= 1e-4 * bc.abs().clamp_min(
                 1.0)).all(), name
+
+
+# --------------------------------------------------------------------------- #
+# the train step replayed as a CUDA graph (parallel/steps.py)
+# --------------------------------------------------------------------------- #
+
+GRAPH_WIDTHS = {"default": [[64, 64], [64, 64], [64, 64]],
+                "semseg": [[64, 64], [64, 64], [64]]}
+GRAPH_STEPS = 8
+# gaps after one step from one state. A parameter's gap is that of its
+# update: |p_graph - p_eager| / |p_eager - p_before| (2-norms over the
+# leaf), so that an update off by a factor reads as that factor less one
+# (an LR that missed the schedule's halving reads 1). A moment's gap is
+# over its largest value. Two eager runs part by up to 8.7e-5 in a leaf's
+# update and 2.7e-6 in Adam's moments (K4b's, K5b's and K7's atomics move
+# a gradient's last bits); the losses and BatchNorm statistics, which no
+# atomic touches, agree bit for bit
+GRAPH_TOL = 1e-3
+GRAPH_MOMENTS_TOL = 1e-5
+# biases whose shift a BatchNorm removes (a 1x1 conv's before its own
+# BatchNorm; the base learner's last BatchNorm's before the fusion conv and
+# its BatchNorm): their gradient is zero but for rounding, and Adam turns
+# that noise into steps of about +-lr whose signs the atomics' order
+# decides. Their Adam moments go with them.
+BN_CANCELLED = ("base_learner.convs.0.0.bias", "base_learner.convs.1.0.bias",
+                "base_learner.convs.1.1.bias", "fusion.0.bias")
+
+
+def _exact_stats(idx, btab):
+    """neighbor_stats_plain without float atomics: the adjacency counts
+    (small integers, exact in any order), then one product."""
+    b, n, _ = idx.shape
+    cells = (idx.long() * n + torch.arange(n, device=idx.device)[
+        None, :, None]).reshape(b, -1)
+    adj = torch.zeros((b, n * n), device=idx.device).scatter_add_(
+        1, cells, torch.ones_like(cells, dtype=torch.float32)).view(b, n, n)
+    return adj.sum(-1)[:, None, :], adj @ btab
+
+
+class _PinnedGraphs:
+    """The kNN graphs of the steps, held fixed across runs. Without this
+    two eager runs part within a few steps: the atomics' order moves the
+    gradients' last bits, and a feature kNN (blocks 2 and 3) flips a
+    neighbour at a near-tie, which moves the loss by ~1e-3. Each EdgeConv's
+    K3 (K6) still runs; a recording run keeps its indices, and a pinning
+    run copies the recorded ones of its step into them from one device
+    buffer a block and batch size, refilled before each step (so that a
+    replay reads them); K3's neighbour statistics are recomputed without
+    atomics from the indices used. The atomics of K4b, K5b and K7 still
+    add in no fixed order."""
+
+    def __init__(self, monkeypatch, blocks):
+        from gfs3dseg_gws_tpu_torch.models import dgcnn
+
+        self.blocks, self.recorded, self.buffers = blocks, [], {}
+        self.pinning, self.step, self.block = False, 0, 0
+        stats, indices = dgcnn.knn_with_stats, dgcnn.knn_indices
+
+        def with_stats(x, btab, k):
+            idx = self._take(stats(x, btab, k)[0])
+            return (idx,) + _exact_stats(idx, btab)
+
+        def plain(*args, **kwargs):
+            return self._take(indices(*args, **kwargs))
+
+        monkeypatch.setattr(dgcnn, "knn_with_stats", with_stats)
+        monkeypatch.setattr(dgcnn, "knn_indices", plain)
+
+    def start(self, step):
+        """Before step `step`: its recorded graphs into the buffers."""
+        self.step, self.block = step, 0
+        if not self.pinning:
+            self.recorded.append([])
+            return
+        for block, idx in enumerate(self.recorded[step]):
+            key = (block, idx.shape[0])
+            if key in self.buffers:
+                self.buffers[key].copy_(idx)
+            else:
+                self.buffers[key] = idx.clone()
+
+    def _take(self, idx):
+        block, self.block = self.block, (self.block + 1) % self.blocks
+        if not self.pinning:
+            self.recorded[self.step].append(idx.clone())
+            return idx
+        return idx.copy_(self.buffers[(block, idx.shape[0])])
+
+
+def _graph_inputs(dev, widths, batch=16, n=2048, steps=GRAPH_STEPS):
+    """Weights, batches and basis of the graph tests (seeded, on `dev`)."""
+    init = GWCAPL(num_gw=150, edgeconv_widths=widths).train_init(
+        torch.Generator().manual_seed(2)).state_dict()
+    r = np.random.default_rng(3)
+    xs = [_randn(r, batch, n, 9).to(dev) for _ in range(steps)]
+    ys = [torch.from_numpy(r.integers(0, 8, (batch, n))).to(dev)
+          for _ in range(steps)]
+    gp = _randn(r, 150, sum(w[-1] for w in widths)).to(dev)
+    return init, xs, ys, gp
+
+
+class _Missed:
+    """A schedule that steps `sched`, then puts the first LR back into the
+    LR tensors of the groups `missed`: a graph whose LR in those groups
+    misses the schedule."""
+
+    def __init__(self, sched, opt, missed):
+        self.sched = sched
+        self.kept = [(opt.param_groups[i]["lr"],
+                      opt.param_groups[i]["lr"].item()) for i in missed]
+
+    def step(self):
+        self.sched.step()
+        for lr, first in self.kept:
+            lr.fill_(first)
+
+
+class _Run:
+    """One model, its optimizer, schedule and generator, stepped by `step`
+    (gfs_train_step, or the eager `_gfs_step`); the LR of the groups
+    `missed` (0: the encoder's, 1: the rest's) misses the schedule."""
+
+    def __init__(self, dev, widths, init, step, step_size, missed=()):
+        from gfs3dseg_gws_tpu_torch.parallel.optim import make_gfs_optimizer
+
+        self.model = GWCAPL(num_gw=150, edgeconv_widths=widths, device=dev)
+        self.model.load_state_dict(init)
+        self.opt, self.sched = make_gfs_optimizer(self.model, 0.01, 1,
+                                                  step_size, 0.5)
+        if missed:
+            self.sched = _Missed(self.sched, self.opt, missed)
+        self.gen = torch.Generator(device=dev)
+        self.step = step
+
+    def __call__(self, i, x, y, gp):
+        from gfs3dseg_gws_tpu_torch.pipelines.gfs import step_seed
+
+        self.gen.manual_seed(step_seed(7, i))
+        return self.step(self.model, self.opt, x, y, gp, self.gen,
+                         self.sched)[0]
+
+    def state(self):
+        """Parameters, buffers and Adam's moments and step counts."""
+        out = dict(self.model.state_dict())
+        for n, p in self.model.named_parameters():
+            for key, t in self.opt.state.get(p, {}).items():
+                out[f"{n}.{key}"] = t
+        return out
+
+    @torch.no_grad()
+    def load(self, state):
+        """`state` into this run's tensors, in place (a graph reads them
+        where they lie)."""
+        for name, t in self.state().items():
+            t.copy_(state[name])
+
+
+def _eager(model, opt, x, y, gp, gen, sched):
+    from gfs3dseg_gws_tpu_torch.parallel.steps import _gfs_step
+
+    return _gfs_step(model, opt, x, y, gp, gen, sched, None, None)
+
+
+def _replayed(model, opt, x, y, gp, gen, sched):
+    from gfs3dseg_gws_tpu_torch.parallel.steps import gfs_train_step
+
+    return gfs_train_step(model, opt, x, y, gp, gen, sched)
+
+
+def _gaps(got, ref, before):
+    """The gaps (GRAPH_TOL's comment) of a state `got` from `ref` after a
+    step from `before`, over the floating entries but the buffers,
+    BN_CANCELLED's (and their moments) and Adam's step counts; and whether
+    every buffer is bit-equal."""
+    def gap(name, t):
+        diff = got[name].double() - t.double()
+        if name.endswith(("exp_avg", "exp_avg_sq")):
+            return (diff.abs().max()
+                    / t.double().abs().max().clamp_min(1e-30)).item()
+        change = t.double() - before[name].double()
+        return (diff.norm() / change.norm().clamp_min(1e-30)).item()
+
+    gaps = {name: gap(name, t) for name, t in ref.items()
+            if t.is_floating_point() and t.dim() > 0
+            and not name.startswith(BN_CANCELLED) and "running" not in name}
+    same = all(torch.equal(got[name], t) for name, t in ref.items()
+               if "running" in name or "num_batches" in name)
+    return gaps, same
+
+
+def _lockstep(dev, widths, inputs, monkeypatch, step_size=5, missed=(),
+              between=None):
+    """An eager run E steps through `inputs`, and before each of its steps
+    a second eager run E2 and a graph run G (gfs_train_step: three eager
+    calls, a capture, replays) are set to E's state and take the same step
+    on E's kNN graphs, so that each step is compared from one state: the
+    atomics' order moves a gradient's last bits, which Adam and the
+    feature kNN amplify over a run until two eager runs differ by ~1e-3 in
+    their losses. `between(i, do)` may wrap G's i-th call; G's LR misses
+    the schedule in the groups `missed` (_Run). Returns per
+    step, for G and for E2: (loss bit-equal to E's, buffers bit-equal to
+    E's, gaps of the rest of the state after the step)."""
+    init, xs, ys, gp = inputs
+    pins = _PinnedGraphs(monkeypatch, len(widths))
+    ref = _Run(dev, widths, init, _eager, step_size)
+    gauge = _Run(dev, widths, init, _eager, step_size)
+    graph = _Run(dev, widths, init, _replayed, step_size, missed)
+    out = []
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        before = {n: t.clone() for n, t in ref.state().items()}
+        pins.pinning = False
+        pins.start(i)
+        loss = ref(i, x, y, gp)
+        after = ref.state()
+        pins.pinning = True
+        step = []
+        for run in (graph, gauge):
+            run.load(before)
+            pins.start(i)
+            do = lambda run=run: run(i, x, y, gp)   # noqa: E731
+            got = between(i, do) if between and run is graph else do()
+            step.append((torch.equal(got, loss),)
+                        + _gaps(run.state(), after, before)[::-1])
+        out.append(step)
+    torch.cuda.synchronize()
+    return out, graph
+
+
+def _largest(steps, run, kind):
+    """(gap, name, step) of the largest gap of `run` (0: G, 1: E2) over
+    the steps, among the moments or the other entries (`kind`)."""
+    return max((gap, name, i) for i, s in enumerate(steps)
+               for name, gap in s[run][2].items()
+               if name.endswith(("exp_avg", "exp_avg_sq")) == (
+                   kind == "moments"))
+
+
+def _graph_counts():
+    from gfs3dseg_gws_tpu_torch.utils.observability import snapshot
+
+    counters = snapshot()["plain"]["counters"]
+    return (counters.get("train_step/graph_captures", 0),
+            counters.get("train_step/graph_replays", 0))
+
+
+def _assert_as_eager(steps, label):
+    """Every step's loss and BatchNorm statistics bit for bit E's, its
+    Adam moments within GRAPH_MOMENTS_TOL of E's and its parameters within
+    GRAPH_TOL. Prints the largest gaps, G's and E2's (pytest -s)."""
+    print(f"{label}: losses and BN statistics bit-equal in "
+          f"{sum(s[0][0] and s[0][1] for s in steps)} of {len(steps)} steps "
+          f"(eager vs eager {sum(s[1][0] and s[1][1] for s in steps)}); "
+          + "; ".join(f"largest {kind} gap {g:.3e} ({n}, step {i}), eager "
+                      f"vs eager {e:.3e} ({m}, step {j})"
+                      for kind in ("parameter", "moments")
+                      for (g, n, i), (e, m, j) in [(_largest(steps, 0, kind),
+                                                    _largest(steps, 1, kind))]))
+    assert all(s[0][0] and s[0][1] for s in steps)
+    assert _largest(steps, 0, "moments")[0] <= GRAPH_MOMENTS_TOL
+    assert _largest(steps, 0, "parameter")[0] <= GRAPH_TOL
+
+
+@pytest.mark.parametrize("config", sorted(GRAPH_WIDTHS))
+def test_replayed_steps_follow_the_eager_trajectory(dev, config,
+                                                    monkeypatch):
+    """GRAPH_STEPS steps from the same weights, batches, per-step seeds and
+    kNN graphs, eager and through gfs_train_step (three eager calls, a
+    capture, replays), each from the eager run's state: the same losses,
+    parameters, Adam moments and BatchNorm statistics, with StepLR halving
+    the LR between two replays (before step 6); one capture and
+    GRAPH_STEPS - 4 replays counted; the LR tensors hold the halved LR."""
+    widths = GRAPH_WIDTHS[config]
+    inputs = _graph_inputs(dev, widths)
+    before = _graph_counts()
+    steps, graph = _lockstep(dev, widths, inputs, monkeypatch)
+    after = _graph_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (
+        1, GRAPH_STEPS - 4)
+    _assert_as_eager(steps, f"{config} replayed")
+    assert [g["lr"].item() for g in graph.opt.param_groups] == \
+        pytest.approx([0.01 * 0.1 * 0.5, 0.01 * 0.5], rel=1e-7)
+
+
+@pytest.mark.parametrize("missed", [(0,), (1,), (0, 1)],
+                         ids=["encoder", "rest", "both"])
+def test_a_graph_whose_lr_misses_the_schedule_fails_the_check(dev, missed,
+                                                              monkeypatch):
+    """As the test above, with G's LR tensors of the groups `missed` held
+    at the first LR (0: the encoder's, 1: the rest's): the steps before the
+    halving pass the check; after it, each missed group's parameters take
+    updates twice the eager ones (gaps 1 within GRAPH_TOL, the median over
+    the group's leaves), the other group's stay within GRAPH_TOL, and the
+    check fails."""
+    widths = GRAPH_WIDTHS["default"]
+    steps, _ = _lockstep(dev, widths, _graph_inputs(dev, widths),
+                         monkeypatch, missed=missed)
+    _assert_as_eager(steps[:5], f"missed {missed}, before the halving")
+
+    def group(name):
+        return 0 if name.startswith("encoder.") else 1
+
+    for i, s in enumerate(steps[5:], 5):
+        updates = {g: [gap for name, gap in s[0][2].items()
+                       if group(name) == g
+                       and not name.endswith(("exp_avg", "exp_avg_sq"))]
+                   for g in (0, 1)}
+        medians = {g: statistics.median(v) for g, v in updates.items()}
+        print(f"missed {missed}, step {i}: median update gap by group "
+              f"{medians}, largest {({g: max(v) for g, v in updates.items()})}")
+        for g, gaps in updates.items():
+            if g in missed:
+                assert abs(medians[g] - 1.0) <= GRAPH_TOL, (i, g, medians)
+            else:
+                assert max(gaps) <= GRAPH_TOL, (i, g, max(gaps))
+    with pytest.raises(AssertionError):
+        _assert_as_eager(steps, f"missed {missed}")
+
+
+def test_a_profiled_step_between_replays_keeps_the_trajectory(dev,
+                                                             monkeypatch):
+    """Step 6 of 8 under torch.profiler runs eagerly between replays (no
+    replay counted for it), and every step still agrees with the eager
+    run's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(i, do):
+        if i != 5:
+            return do()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            out = do()
+            torch.cuda.synchronize()
+        return out
+
+    widths = GRAPH_WIDTHS["default"]
+    before = _graph_counts()
+    steps, _ = _lockstep(dev, widths, _graph_inputs(dev, widths),
+                         monkeypatch, between=profiled)
+    after = _graph_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (
+        1, GRAPH_STEPS - 5)
+    _assert_as_eager(steps, "profiled step 6")
+
+
+def test_a_second_shape_captures_its_own_graph(dev, monkeypatch):
+    """Five steps at batch 16, then five at batch 8 (a final short batch):
+    each shape warms up, captures once and replays (2 captures, 1 + 1
+    replays), and every step agrees with the eager run's."""
+    widths = GRAPH_WIDTHS["default"]
+    init, xs, ys, gp = _graph_inputs(dev, widths, steps=5)
+    inputs = (init, xs + [x[:8] for x in xs], ys + [y[:8] for y in ys], gp)
+    before = _graph_counts()
+    steps, _ = _lockstep(dev, widths, inputs, monkeypatch)
+    after = _graph_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 2)
+    _assert_as_eager(steps, "two shapes")

@@ -323,6 +323,122 @@ def test_gfs_optimizer_steps_match_jax(weight_decay):
     assert sched.get_last_lr() == [lr * 0.1 * 0.5, lr * 0.5]
 
 
+def _tiny_capl(seed=0):
+    from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
+
+    return GWCAPL(classes=13, base_num=7, num_gw=NUM_GW, **TINY).train_init(
+        torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-4])
+def test_gfs_optimizer_lr_in_tensors_matches_the_float_lr(weight_decay):
+    """make_gfs_optimizer with each group's LR held in a tensor that the
+    scheduler writes (hold_lr_in_tensors, as on the card, where a CUDA
+    graph of the step reads it; float64 on the CPU, the float LR's own
+    precision), over three steps with StepLR halving the LR before the
+    third: the parameters of the float-LR Adam bit for bit, and the
+    groups keep their tensors, which hold the halved LR."""
+    from gfs3dseg_gws_tpu_torch.parallel.optim import (hold_lr_in_tensors,
+                                                       make_gfs_optimizer)
+
+    lr = 0.01
+    runs = []
+    for held in (False, True):
+        port = _tiny_capl()
+        opt, sched = make_gfs_optimizer(port, lr, 1, step_size=2, gamma=0.5,
+                                        weight_decay=weight_decay)
+        if held:
+            hold_lr_in_tensors(opt, torch.device("cpu"))
+        tensors = [g["lr"] for g in opt.param_groups]
+        r = np.random.default_rng(10)
+        for _ in range(3):
+            for p in port.parameters():
+                p.grad = t(r.standard_normal(p.shape).astype(np.float32))
+            opt.step()
+            sched.step()
+        assert [g["lr"] for g in opt.param_groups] == [lr * 0.1 * 0.5,
+                                                       lr * 0.5]
+        if held:
+            assert all(g["lr"] is lr_t for g, lr_t in zip(opt.param_groups,
+                                                          tensors))
+        runs.append(dict(port.named_parameters()))
+    for name, p in runs[0].items():
+        assert torch.equal(p, runs[1][name]), name
+
+
+def test_train_state_keeps_the_optimizers_lr_tensors(tmp_path):
+    """A train state saved with float LRs, restored into an optimizer that
+    holds its LRs in tensors (a resume on the card of a run saved on the
+    CPU): the tensors stay the groups' own and take the saved LRs, and
+    Adam stays as the optimizer was built (`capturable`)."""
+    from gfs3dseg_gws_tpu_torch.parallel.optim import (hold_lr_in_tensors,
+                                                       make_gfs_optimizer)
+    from gfs3dseg_gws_tpu_torch.utils.checkpoint import (load_train_state,
+                                                         save_train_state)
+
+    port = _tiny_capl()
+    opt, sched = make_gfs_optimizer(port, 0.01, 1, step_size=1, gamma=0.5)
+    for p in port.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    sched.step()
+    path = str(tmp_path / "ckpt.npz")
+    save_train_state(path, opt, sched, 1)
+    new_opt, new_sched = make_gfs_optimizer(_tiny_capl(), 0.01, 1,
+                                            step_size=1, gamma=0.5)
+    hold_lr_in_tensors(new_opt, torch.device("cpu"))
+    tensors = [g["lr"] for g in new_opt.param_groups]
+    assert load_train_state(path, new_opt, new_sched) == 1
+    assert [g["lr"] for g in new_opt.param_groups] == [0.001 * 0.5,
+                                                       0.01 * 0.5]
+    assert all(g["lr"] is lr_t and not g["capturable"]
+               for g, lr_t in zip(new_opt.param_groups, tensors))
+
+
+def _graph_book(calls, counters, steps):
+    """Every call an eager step: `steps` calls of train_step and of its
+    forward, backward and optimizer spans, and no graph captured or
+    replayed."""
+    for path in ("train_step", "train_step/forward", "train_step/backward",
+                 "train_step/optimizer"):
+        assert calls.get(path) == steps, (path, calls.get(path))
+    assert not {p: n for p, n in counters.items() if "graph" in p and n}
+
+
+def test_gfs_train_step_stays_eager_on_the_cpu():
+    """Six calls at one key on CPU tensors: six eager steps."""
+    from gfs3dseg_gws_tpu_torch.parallel.optim import make_gfs_optimizer
+    from gfs3dseg_gws_tpu_torch.parallel.steps import gfs_train_step
+    from gfs3dseg_gws_tpu_torch.utils.observability import snapshot
+
+    port = _tiny_capl()
+    opt, sched = make_gfs_optimizer(port, 0.01, 10)
+    x, y, gp, _ = _train_batch(7)
+    gen = torch.Generator()
+    before = snapshot()["plain"]
+    for step in range(6):
+        gen.manual_seed(step)
+        gfs_train_step(port, opt, t(x), t(y), t(gp), gen, sched)
+    after = snapshot()["plain"]
+    calls = {p: e["calls"] - before["spans"].get(p, {"calls": 0})["calls"]
+             for p, e in after["spans"].items()}
+    _graph_book(calls, after["counters"], 6)
+
+
+def test_gfs_train_step_stays_eager_under_a_mesh():
+    """Six calls at one key on each of two gloo ranks (a model with a
+    mesh): six eager steps on each rank."""
+    import torch_port_dp_ranks as ranks
+    from gfs3dseg_gws_tpu_torch.parallel.dryrun import run_ranks
+
+    x, y, gp, _ = _train_batch(8)
+    state = _tiny_capl().state_dict()
+    kwargs = dict(classes=13, base_num=7, num_gw=NUM_GW, **TINY)
+    for book in run_ranks(ranks.train_steps_book, 2, "cpu", threads=1,
+                          args=(kwargs, state, t(x), t(y), t(gp), 6)):
+        _graph_book(book["calls"], book["counters"], 6)
+
+
 # --------------------------------------------------------------------------- #
 # (d) the attention segmentor
 # --------------------------------------------------------------------------- #

@@ -133,6 +133,23 @@ def test_counters_take_the_current_path_and_book():
                           for b in obs.BOOKS}
 
 
+def test_add_calls_counts_at_full_paths_without_host_time():
+    """add_calls (a replayed CUDA graph's launches) adds calls and no
+    nanoseconds at the full paths it is given, whatever span is open, to
+    the spans that ran and to paths no span opened yet."""
+    with span("train_step"):
+        with span("op.k3"):
+            pass
+    ns = _spans()["train_step/op.k3"]["ns"]
+    with span("train_step"):
+        obs.add_calls({"train_step/op.k3": 2, "op.k4b": 3})
+    spans = _spans()
+    assert spans["train_step/op.k3"] == {"calls": 3, "ns": ns}
+    assert spans["op.k4b"] == {"calls": 3, "ns": 0}
+    assert spans["train_step"]["calls"] == 2
+    assert calls("op.k3") == 3 and calls("op.k4b") == 3
+
+
 def test_threads_keep_their_own_stacks_and_lose_no_call():
     """More threads than cores, switching every few microseconds: each
     keeps its own stack (no span parents another thread's), and the merged

@@ -167,3 +167,27 @@ def run_all(mesh, tasks):
     """[fn(mesh, *args) for each (name of a function here, args)]: several
     cases in one spawn of the ranks."""
     return [globals()[name](mesh, *args) for name, args in tasks]
+
+
+def train_steps_book(mesh, kwargs, state, x, y, gp, steps):
+    """`steps` gfs_train_steps at one key (the same rows, generator and
+    shapes) on this rank's rows; returns the span calls and counters they
+    added to the plain book."""
+    from gfs3dseg_gws_tpu_torch.utils.observability import snapshot
+
+    model = GWCAPL(**kwargs)
+    model.load_state_dict(state)
+    replicate(layers.use_mesh(model, mesh), mesh)
+    opt, sched = make_gfs_optimizer(model, 1e-3, 10)
+    gen = torch.Generator()
+    before = snapshot()["plain"]
+    for step in range(steps):
+        gen.manual_seed(step)
+        gfs_train_step(model, opt, shard_batch(x, mesh), shard_batch(y, mesh),
+                       gp, gen, sched)
+    after = snapshot()["plain"]
+    return {"calls": {p: e["calls"] - before["spans"].get(
+                          p, {"calls": 0})["calls"]
+                      for p, e in after["spans"].items()},
+            "counters": {p: n - before["counters"].get(p, 0)
+                         for p, n in after["counters"].items()}}
