@@ -1241,8 +1241,9 @@ def reset_launches():
 
 
 def reset_replays():
-    """A reader of the GFS train steps replayed as a CUDA graph from now on
-    (parallel/steps.py's counter `graph_replays`)."""
+    """A reader of the train steps replayed as a CUDA graph from now on
+    (parallel/steps.py's counters `graph_replays`, of `gfs_train_step`
+    and `pretrain_step`)."""
     from gfs3dseg_gws_tpu_torch.utils.observability import snapshot
 
     def replays():
@@ -1288,7 +1289,8 @@ def check_pretrain(dev, root: str, widths: str = DEFAULT_WIDTHS,
     epochs with a validation sweep after each: launches per step and per
     forward, finite losses that fall; then the written checkpoint.tar in
     the port's eval DGCNN and the train step's device time (median of
-    `reps`). Returns the checkpoint.tar's path."""
+    `reps`; from the fourth call at its key the step replays its CUDA
+    graph). Returns the checkpoint.tar's path."""
     import ast
 
     from gfs3dseg_gws_tpu_torch.cli import pretrain_cli

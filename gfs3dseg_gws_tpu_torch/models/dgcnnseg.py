@@ -2,9 +2,10 @@
 models/dgcnnseg.py).
 
 `DGCNNSeg` is the pre-training segmentor (reference
-pretrain/runs/pre_train.py:22-48): the DGCNN encoder, a global max feature
-broadcast to every point, and the segmenter MLP 448 -> 256 -> 128 ->
-classes with Dropout(0.3). `DGCNNSegAtt` is its attention variant
+pretrain/runs/pre_train.py:22-48): the DGCNN encoder, then its head
+(`seg_head`): a global max feature broadcast to every point, and the
+segmenter MLP 448 -> 256 -> 128 -> classes with Dropout(0.3).
+`DGCNNSegAtt` is its attention variant
 (reference model/dgcnn.py:155-202): EdgeConv 1's feature, the
 self-attention (K2 in eval, K5 in training) and the base learner over the
 point feature, then the same segmenter.
@@ -27,6 +28,7 @@ from gfs3dseg_gws_tpu_torch.models.dgcnn import DGCNN, BaseLearner
 from gfs3dseg_gws_tpu_torch.models.layers import (BatchNorm, Conv1x1,
                                                   Dropout, LeakyReLU,
                                                   train_init_)
+from gfs3dseg_gws_tpu_torch.utils.observability import span
 
 
 def global_max(point_feat: torch.Tensor) -> torch.Tensor:
@@ -34,6 +36,21 @@ def global_max(point_feat: torch.Tensor) -> torch.Tensor:
     (B, 1, C). A function of its own so that a check can swap it, as it
     swaps the kNN (chip_smoke.py::compare_train_step)."""
     return torch.amax(point_feat, dim=1, keepdim=True)
+
+
+def seg_head(edge_feats: Sequence[torch.Tensor], point_feat: torch.Tensor,
+             segmenter: "Segmenter",
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """DGCNNSeg's head: the global max of the point feature (B, N, C),
+    broadcast to every point after the EdgeConv features, through the
+    segmenter; logits (B, N, classes). A module-level function that
+    `DGCNNSeg.forward` calls through its global name, so that a trace can
+    place it; span `seg_head`."""
+    with span("seg_head"):
+        global_feat = global_max(point_feat)
+        feats = list(edge_feats) + [
+            global_feat.expand(-1, point_feat.shape[1], -1)]
+        return segmenter(torch.cat(feats, dim=-1), generator)
 
 
 class Segmenter(nn.Sequential):
@@ -92,9 +109,7 @@ class DGCNNSeg(nn.Module):
         reference's three blocks); past three blocks its basis would not
         match its own GWCAPL's feature, so the port takes them all."""
         edge_feats, point_feat = self.encoder(pc)
-        global_feat = global_max(point_feat)
-        feats = edge_feats + [global_feat.expand(-1, pc.shape[1], -1)]
-        logits = self.segmenter(torch.cat(feats, dim=-1), generator)
+        logits = seg_head(edge_feats, point_feat, self.segmenter, generator)
         if return_feat:
             return logits, torch.cat(edge_feats, dim=-1)
         return logits

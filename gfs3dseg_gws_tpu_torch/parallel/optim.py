@@ -37,10 +37,21 @@ def make_pretrain_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                                        torch.optim.lr_scheduler.LambdaLR]:
     """Adam with L2 weight decay and a StepLR schedule stepped once per
     optimizer step (JAX: make_pretrain_optimizer). Step t uses
-    lr * factor(t), as optax's schedule does."""
-    opt = torch.optim.Adam(params, lr=lr, weight_decay=weight_decay)
+    lr * factor(t), as optax's schedule does.
+
+    On CUDA parameters Adam is `capturable` and its LR a device tensor
+    (`hold_lr_in_tensors`), as in `make_gfs_optimizer`, so that
+    parallel/steps.py::pretrain_step can replay the update as part of a
+    CUDA graph; on the CPU the LR stays a float."""
+    params = list(params)
+    device = params[0].device
+    cuda = device.type == "cuda"
+    opt = torch.optim.Adam(params, lr=lr, weight_decay=weight_decay,
+                           capturable=cuda)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, step_lr(step_size, gamma, steps_per_epoch))
+    if cuda:
+        hold_lr_in_tensors(opt, device)
     return opt, sched
 
 

@@ -9,18 +9,22 @@ loop can queue steps back to back and read the results later. The JAX
 package's multi-step `lax.scan` dispatch and packed host-to-device batches
 are TPU workarounds and have no counterpart here.
 
-`gfs_train_step` on one card replays a CUDA graph of the step: the host
-would take longer to issue its ~1,100 launches than the card to run them.
-Its first WARM_CALLS calls at a key (device, the shapes and dtypes of
-points and labels, gp, the generator, whether fake_row is given, per
-model and optimizer) run eagerly, the next captures the forward, the
-backward and Adam's update, and every later call copies its inputs into
-the graph's and replays it; the LR schedule steps on the host after it,
-into the LR tensors the graph reads (parallel/optim.py). CPU tensors, a
-model with a mesh and a running torch profiler keep the eager step; eager
-calls and replays update the same parameters and optimizer state, so they
-can alternate. A replay adds to the kernels' op spans (`op.k3` ...) the
-calls its capture made, so that their calls stay the launches of the run.
+The train steps `gfs_train_step` and `pretrain_step` on one card replay a
+CUDA graph of the step: the host would take longer to issue its ~1,000
+launches than the card to run them. Each keeps a `_StepGraph` a key (per
+model and optimizer: the device, the shapes and dtypes of points and
+labels, the generator; `gfs_train_step` also gp and whether fake_row is
+given). Its first WARM_CALLS calls at a key run eagerly, the next
+captures the forward, the backward and Adam's update, and every later
+call copies its inputs into the graph's and replays it; the LR schedule
+steps on the host after it, into the LR tensors the graph reads
+(parallel/optim.py). A replay draws from the generator what an eager call
+would draw from its seed and offset, and moves the offset on as that call
+would. CPU tensors, a model with a mesh and a running torch profiler keep
+the eager step; eager calls and replays update the same parameters and
+optimizer state, so they can alternate. A replay adds to the kernels' op
+spans (`op.k3` ...) the calls its capture made, so that their calls stay
+the launches of the run.
 
 Data parallelism (parallel/mesh.py): the train steps run over the model's
 mesh, the one models/layers.py::use_mesh set on it and on every module
@@ -99,14 +103,16 @@ def gfs_train_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
     call of an eager step; counters `graph_captures` and `graph_replays`
     in `train_step`."""
     with span("train_step"):
-        key = _graph_key(model, points, labels, gp, generator, fake_row)
+        key = _graph_key(model, points, labels, id(gp), id(generator),
+                         fake_row is None)
         if key is None:
             return _gfs_step(model, opt, points, labels, gp, generator,
                              sched, fake_row, getattr(model, "mesh", None))
-        graphs = _graphs.setdefault(opt, {})
-        if key not in graphs:
-            graphs[key] = _StepGraph(model, gp, generator, points.device)
-        out = graphs[key](opt, points, labels, fake_row)
+        graph = _graph_at(opt, key, lambda: _StepGraph(
+            lambda o, x, y, row: _gfs_step(model, o, x, y, gp, generator,
+                                           None, row, None),
+            model, generator, points.device))
+        out = graph(opt, points, labels, fake_row)
         if sched is not None:
             sched.step()
         return out
@@ -125,8 +131,48 @@ def _gfs_step(model, opt, points, labels, gp, generator, sched, fake_row,
     return _global(mesh, loss.detach(), accuracy)
 
 
-def _graph_key(model, points, labels, gp, generator, fake_row):
-    """The key of the step's graph, or None where the step stays eager:
+def pretrain_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
+                  labels: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  sched=None) -> torch.Tensor:
+    """One supervised segmentation step (reference pre_train.py:144-159):
+    train-mode forward, mean cross-entropy, backward, optimizer step, then
+    the per-step LR schedule. `generator` draws the dropout masks; a
+    replay draws what an eager call would from the generator's seed and
+    offset. Returns the loss as a device tensor (the caller reads it when
+    it likes); with a mesh (the model's), the global batch's. On one card
+    the step is replayed as a CUDA graph from the call after WARM_CALLS
+    eager ones at its key (module docstring). Spans: `pretrain_step`
+    around it, `forward` around the model call and the loss of an eager
+    step; counters `graph_captures` and `graph_replays` in
+    `pretrain_step`."""
+    with span("pretrain_step"):
+        key = _graph_key(model, points, labels, id(generator))
+        if key is None:
+            return _pretrain_step(model, opt, points, labels, generator,
+                                  sched, getattr(model, "mesh", None))
+        graph = _graph_at(opt, key, lambda: _StepGraph(
+            lambda o, x, y: (_pretrain_step(model, o, x, y, generator, None,
+                                            None),),
+            model, generator, points.device))
+        out = graph(opt, points, labels)[0]
+        if sched is not None:
+            sched.step()
+        return out
+
+
+def _pretrain_step(model, opt, points, labels, generator, sched, mesh):
+    """The eager step (spans `forward`, `backward`, `optimizer`)."""
+    model.train()
+    with span("forward"):
+        loss = cross_entropy(model(points, generator), labels, mesh=mesh)
+    _update(model, opt, loss, sched, mesh)
+    return _global(mesh, loss.detach())[0]
+
+
+def _graph_key(model, points, labels, *parts):
+    """The key of a train step's graph, `parts` after the model, the device
+    and the inputs' shapes and dtypes, or None where the step stays eager:
     CPU tensors; a model with a mesh (its collectives are not captured);
     a running profiler (a replay has no per-operation host events to
     attribute its kernels by)."""
@@ -134,70 +180,76 @@ def _graph_key(model, points, labels, gp, generator, fake_row):
             getattr(model, "mesh", None) is not None:
         return None
     return (id(model), points.device, points.shape, points.dtype,
-            labels.shape, labels.dtype, id(gp), id(generator),
-            fake_row is None)
+            labels.shape, labels.dtype) + parts
+
+
+def _graph_at(opt, key, make) -> "_StepGraph":
+    """The step graph of `opt` at `key`, made by `make()` at its first
+    call."""
+    graphs = _graphs.setdefault(opt, {})
+    if key not in graphs:
+        graphs[key] = make()
+    return graphs[key]
 
 
 class _StepGraph:
-    """The train step at one key: WARM_CALLS eager calls on a side stream,
+    """A train step at one key: WARM_CALLS eager calls on a side stream,
     then one that captures the step without its schedule (forward,
     backward, Adam) on that stream and replays it, then a replay a call.
-    The graph reads the model's parameters and buffers, Adam's state and
-    LR tensors, gp and the generator's state where they lay at capture
-    (the object holds the model, gp and generator, so that none is freed
-    and no other object takes its key; not the optimizer, the weak key of
-    its cache), and its own copies of the inputs, which each replay
-    refills; a replay returns copies of its loss and accuracy, which the
-    next replay overwrites. `launches` holds the op spans' calls of the
-    capture, which every later replay adds again (the capture's own replay
-    runs the kernels that its op spans counted)."""
+    `step(opt, *inputs)` is the eager step; it returns a tuple of device
+    tensors. The graph reads the model's parameters and buffers, Adam's
+    state and LR tensors, what `step` holds (gp) and the generator's state
+    where they lay at capture (the object holds the model, the generator
+    and `step`, so that none is freed and no other object takes its key;
+    not the optimizer, the weak key of its cache), and its own copies of
+    the inputs (None stays None), which each replay refills; a replay
+    returns copies of the step's outputs, which the next replay
+    overwrites. `launches` holds the op spans' calls of the capture, which
+    every later replay adds again (the capture's own replay runs the
+    kernels that its op spans counted). Counters `graph_captures` and
+    `graph_replays` under the caller's span."""
 
-    def __init__(self, model, gp, generator, device):
-        self.model, self.gp, self.generator = model, gp, generator
+    def __init__(self, step, model, generator, device):
+        self.step, self.model, self.generator = step, model, generator
         self.stream = torch.cuda.Stream(device)
         self.calls = 0
         self.graph = None
         self.inputs = self.outputs = None
         self.launches = {}
 
-    def __call__(self, opt, points, labels, fake_row):
+    def __call__(self, opt, *inputs):
         if self.graph is not None:
             count("graph_replays")
             add_calls(self.launches)
             if not self.model.training:
                 self.model.train()         # the mode an eager step leaves
-            for static, given in zip(self.inputs,
-                                     (points, labels, fake_row)):
+            for static, given in zip(self.inputs, inputs):
                 if static is not None:
                     static.copy_(given)
             return self._replay()
-        current = torch.cuda.current_stream(points.device)
+        current = torch.cuda.current_stream(inputs[0].device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
             if self.calls < WARM_CALLS:
                 self.calls += 1
-                out = self._step(opt, points, labels, fake_row)
+                out = self.step(opt, *inputs)
             else:
                 count("graph_captures")
                 out = None
-                self._capture(opt, points, labels, fake_row)
+                self._capture(opt, inputs)
         current.wait_stream(self.stream)
         return self._replay() if out is None else out
 
-    def _step(self, opt, points, labels, fake_row):
-        return _gfs_step(self.model, opt, points, labels, self.gp,
-                         self.generator, None, fake_row, None)
-
-    def _capture(self, opt, points, labels, fake_row):
-        self.inputs = [points.clone(), labels.clone(), None if fake_row is
-                       None else fake_row.to(points.device, torch.float32,
-                                             copy=True)]
+    def _capture(self, opt, inputs):
+        device = inputs[0].device
+        self.inputs = [None if t is None else t.to(device, copy=True)
+                       for t in inputs]
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         before = _op_calls()
         with torch.cuda.graph(graph, stream=self.stream):
-            self.outputs = self._step(opt, *self.inputs)
+            self.outputs = self.step(opt, *self.inputs)
         after = _op_calls()
         self.launches = {path: n - before.get(path, 0)
                          for path, n in after.items()
@@ -215,22 +267,6 @@ def _op_calls():
     return {path: entry["calls"]
             for path, entry in snapshot()["plain"]["spans"].items()
             if path.rsplit("/", 1)[-1].startswith("op.")}
-
-
-def pretrain_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
-                  labels: torch.Tensor,
-                  generator: Optional[torch.Generator] = None,
-                  sched=None) -> torch.Tensor:
-    """One supervised segmentation step (reference pre_train.py:144-159):
-    train-mode forward, mean cross-entropy, backward, optimizer step, then
-    the per-step LR schedule. `generator` draws the dropout masks. Returns
-    the loss as a device tensor (the caller reads it when it likes); with a
-    mesh (the model's), the global batch's."""
-    mesh = getattr(model, "mesh", None)
-    model.train()
-    loss = cross_entropy(model(points, generator), labels, mesh=mesh)
-    _update(model, opt, loss, sched, mesh)
-    return _global(mesh, loss.detach())[0]
 
 
 def fewshot_train_step(model, opt: torch.optim.Optimizer, support_x,

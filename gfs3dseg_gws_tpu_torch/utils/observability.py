@@ -32,6 +32,11 @@ The spans of the port (see README, "Tracing"):
                         it (a replay opens no forward, backward or
                         optimizer span; it adds its graph's launches to
                         the op spans' calls, `add_calls`)
+  pretrain_step, forward, seg_head, backward, optimizer
+                        parallel/steps.py::pretrain_step and _update,
+                        models/dgcnnseg.py::seg_head (DGCNNSeg's head);
+                        counters pretrain_step/graph_captures and
+                        pretrain_step/graph_replays, as train_step's
   pool.get              data/native_loader.py: the wait on the C++ pool
   op.k1 ... op.k9, op.gather
                         ops/: the kernels' launch paths; a CPU tensor takes

@@ -1000,11 +1000,11 @@ def _replayed(model, opt, x, y, gp, gen, sched):
     return gfs_train_step(model, opt, x, y, gp, gen, sched)
 
 
-def _gaps(got, ref, before):
+def _gaps(got, ref, before, cancelled=BN_CANCELLED):
     """The gaps (GRAPH_TOL's comment) of a state `got` from `ref` after a
-    step from `before`, over the floating entries but the buffers,
-    BN_CANCELLED's (and their moments) and Adam's step counts; and whether
-    every buffer is bit-equal."""
+    step from `before`, over the floating entries but the buffers, the
+    `cancelled` biases' (and their moments) and Adam's step counts; and
+    whether every buffer is bit-equal."""
     def gap(name, t):
         diff = got[name].double() - t.double()
         if name.endswith(("exp_avg", "exp_avg_sq")):
@@ -1015,7 +1015,7 @@ def _gaps(got, ref, before):
 
     gaps = {name: gap(name, t) for name, t in ref.items()
             if t.is_floating_point() and t.dim() > 0
-            and not name.startswith(BN_CANCELLED) and "running" not in name}
+            and not name.startswith(cancelled) and "running" not in name}
     same = all(torch.equal(got[name], t) for name, t in ref.items()
                if "running" in name or "num_batches" in name)
     return gaps, same
@@ -1068,12 +1068,12 @@ def _largest(steps, run, kind):
                    kind == "moments"))
 
 
-def _graph_counts():
+def _graph_counts(step="train_step"):
     from gfs3dseg_gws_tpu_torch.utils.observability import snapshot
 
     counters = snapshot()["plain"]["counters"]
-    return (counters.get("train_step/graph_captures", 0),
-            counters.get("train_step/graph_replays", 0))
+    return (counters.get(f"{step}/graph_captures", 0),
+            counters.get(f"{step}/graph_replays", 0))
 
 
 def _assert_as_eager(steps, label):
@@ -1187,3 +1187,162 @@ def test_a_second_shape_captures_its_own_graph(dev, monkeypatch):
     after = _graph_counts()
     assert (after[0] - before[0], after[1] - before[1]) == (2, 2)
     _assert_as_eager(steps, "two shapes")
+
+
+# the pre-training step replayed as a CUDA graph: the same measures and
+# limits. The segmenter's second conv bias is the one whose shift a
+# BatchNorm removes (BN_CANCELLED's comment)
+PRETRAIN_BN_CANCELLED = ("segmenter.3.bias",)
+
+
+def _pretrain_inputs(dev, widths, batch=16, n=2048, steps=GRAPH_STEPS):
+    """Weights and batches of the pre-training graph tests (seeded)."""
+    init = DGCNNSeg(8, edgeconv_widths=widths,
+                    generator=torch.Generator().manual_seed(2)).state_dict()
+    r = np.random.default_rng(3)
+    xs = [_randn(r, batch, n, 9).to(dev) for _ in range(steps)]
+    ys = [torch.from_numpy(r.integers(0, 8, (batch, n))).to(dev)
+          for _ in range(steps)]
+    return init, xs, ys
+
+
+class _PretrainRun:
+    """A DGCNNSeg, Adam with L2 weight decay 1e-4 and its StepLR, and a
+    device generator for the dropout masks, stepped by `step`
+    (pretrain_step, or the eager `_pretrain_step`); with `missed` the LR
+    misses the schedule (_Missed)."""
+
+    def __init__(self, dev, widths, init, step, step_size, missed=False):
+        from gfs3dseg_gws_tpu_torch.parallel.optim import (
+            make_pretrain_optimizer)
+
+        self.model = DGCNNSeg(8, edgeconv_widths=widths, device=dev)
+        self.model.load_state_dict(init)
+        self.opt, self.sched = make_pretrain_optimizer(
+            self.model.parameters(), 1e-3, 1, 1e-4, step_size, 0.5)
+        if missed:
+            self.sched = _Missed(self.sched, self.opt, (0,))
+        self.gen = torch.Generator(device=dev).manual_seed(7)
+        self.step = step
+
+    def __call__(self, x, y):
+        return self.step(self.model, self.opt, x, y, self.gen, self.sched)
+
+    state = _Run.state
+    load = _Run.load
+
+
+def _pretrain_eager(model, opt, x, y, gen, sched):
+    from gfs3dseg_gws_tpu_torch.parallel.steps import _pretrain_step
+
+    return _pretrain_step(model, opt, x, y, gen, sched, None)
+
+
+def _pretrain_replayed(model, opt, x, y, gen, sched):
+    from gfs3dseg_gws_tpu_torch.parallel.steps import pretrain_step
+
+    return pretrain_step(model, opt, x, y, gen, sched)
+
+
+def _pretrain_lockstep(dev, widths, inputs, monkeypatch, step_size=5,
+                       missed=False, between=None):
+    """As _lockstep, for pretrain_step: an eager run E steps through
+    `inputs`, its generator seeded once and moving on; before each of its
+    steps a second eager run E2 and a graph run G take E's state, the
+    generator's seed and offset included, and the same step on E's kNN
+    graphs. Returns per step, for G and for E2: (loss bit-equal to E's,
+    buffers bit-equal to E's, gaps of the rest of the state)."""
+    init, xs, ys = inputs
+    pins = _PinnedGraphs(monkeypatch, len(widths))
+    ref = _PretrainRun(dev, widths, init, _pretrain_eager, step_size)
+    gauge = _PretrainRun(dev, widths, init, _pretrain_eager, step_size)
+    graph = _PretrainRun(dev, widths, init, _pretrain_replayed, step_size,
+                         missed)
+    out = []
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        before = {n: t.clone() for n, t in ref.state().items()}
+        drawn = ref.gen.get_state()
+        pins.pinning = False
+        pins.start(i)
+        loss = ref(x, y)
+        after = ref.state()
+        pins.pinning = True
+        step = []
+        for run in (graph, gauge):
+            run.load(before)
+            run.gen.set_state(drawn)
+            pins.start(i)
+            do = lambda run=run: run(x, y)          # noqa: E731
+            got = between(i, run, do) if between and run is graph else do()
+            step.append((torch.equal(got, loss),)
+                        + _gaps(run.state(), after, before,
+                                PRETRAIN_BN_CANCELLED)[::-1])
+        out.append(step)
+    torch.cuda.synchronize()
+    return out, graph
+
+
+@pytest.mark.parametrize("config", sorted(GRAPH_WIDTHS))
+def test_replayed_pretrain_steps_follow_the_eager_trajectory(dev, config,
+                                                             monkeypatch):
+    """GRAPH_STEPS pre-training steps from the same weights, batches,
+    generator states and kNN graphs, eager and through pretrain_step
+    (three eager calls, a capture, replays), each from the eager run's
+    state: the same losses (so the same dropout masks), parameters, Adam
+    moments and BatchNorm statistics, with StepLR halving the LR between
+    two replays (before step 6); one capture and GRAPH_STEPS - 4 replays
+    counted; the LR tensor holds the halved LR."""
+    widths = GRAPH_WIDTHS[config]
+    before = _graph_counts("pretrain_step")
+    steps, graph = _pretrain_lockstep(
+        dev, widths, _pretrain_inputs(dev, widths), monkeypatch)
+    after = _graph_counts("pretrain_step")
+    assert (after[0] - before[0], after[1] - before[1]) == (
+        1, GRAPH_STEPS - 4)
+    _assert_as_eager(steps, f"pretrain {config} replayed")
+    assert graph.opt.param_groups[0]["lr"].item() == pytest.approx(
+        1e-3 * 0.5, rel=1e-7)
+
+
+def test_a_pretrain_graph_whose_lr_misses_the_schedule_fails_the_check(
+        dev, monkeypatch):
+    """As the test above, with G's LR tensor held at the first LR: the
+    steps before the halving pass the check; after it every leaf takes an
+    update twice the eager one (median gap 1 within GRAPH_TOL), and the
+    check fails."""
+    widths = GRAPH_WIDTHS["default"]
+    steps, _ = _pretrain_lockstep(dev, widths,
+                                  _pretrain_inputs(dev, widths), monkeypatch,
+                                  missed=True)
+    _assert_as_eager(steps[:5], "pretrain missed LR, before the halving")
+    for i, s in enumerate(steps[5:], 5):
+        gaps = [gap for name, gap in s[0][2].items()
+                if not name.endswith(("exp_avg", "exp_avg_sq"))]
+        median = statistics.median(gaps)
+        print(f"pretrain missed LR, step {i}: median update gap {median}")
+        assert abs(median - 1.0) <= GRAPH_TOL, (i, median)
+    with pytest.raises(AssertionError):
+        _assert_as_eager(steps, "pretrain missed LR")
+
+
+def test_a_pretrain_graph_without_weight_decay_fails_the_check(dev,
+                                                               monkeypatch):
+    """As the first test, with G's weight decay set to 0 just before the
+    call that captures its graph: the three eager steps pass the check,
+    the captured and replayed ones, which leave the decay out, fail it."""
+    def undecayed(i, run, do):
+        if i == 3:
+            for group in run.opt.param_groups:
+                group["weight_decay"] = 0.0
+        return do()
+
+    widths = GRAPH_WIDTHS["default"]
+    steps, _ = _pretrain_lockstep(dev, widths,
+                                  _pretrain_inputs(dev, widths), monkeypatch,
+                                  between=undecayed)
+    _assert_as_eager(steps[:3], "pretrain, eager steps before the capture")
+    for i, s in enumerate(steps[3:], 3):
+        print(f"pretrain without decay, step {i}: largest gaps "
+              f"{sorted(s[0][2].values())[-3:]}")
+    with pytest.raises(AssertionError):
+        _assert_as_eager(steps[3:], "pretrain graph without weight decay")
