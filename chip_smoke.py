@@ -1249,7 +1249,8 @@ def reset_replays():
     def replays():
         return sum(n for book in snapshot().values()
                    for path, n in book["counters"].items()
-                   if path.endswith("graph_replays"))
+                   if path.endswith(("train_step/graph_replays",
+                                     "pretrain_step/graph_replays")))
 
     before = replays()
     return lambda: replays() - before

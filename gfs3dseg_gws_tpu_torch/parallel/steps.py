@@ -10,9 +10,8 @@ package's multi-step `lax.scan` dispatch and packed host-to-device batches
 are TPU workarounds and have no counterpart here.
 
 The train steps `gfs_train_step` and `pretrain_step` on one card replay a
-CUDA graph of the step: the host would take longer to issue its ~1,000
-launches than the card to run them. Each keeps a `_StepGraph` a key (per
-model and optimizer: the device, the shapes and dtypes of points and
+CUDA graph of the step (parallel/graph.py). Each keeps a `StepGraph` a key
+(per model and optimizer: the device, the shapes and dtypes of points and
 labels, the generator; `gfs_train_step` also gp and whether fake_row is
 given). Its first WARM_CALLS calls at a key run eagerly, the next
 captures the forward, the backward and Adam's update, and every later
@@ -22,9 +21,7 @@ steps on the host after it, into the LR tensors the graph reads
 would draw from its seed and offset, and moves the offset on as that call
 would. CPU tensors, a model with a mesh and a running torch profiler keep
 the eager step; eager calls and replays update the same parameters and
-optimizer state, so they can alternate. A replay adds to the kernels' op
-spans (`op.k3` ...) the calls its capture made, so that their calls stay
-the launches of the run.
+optimizer state, so they can alternate.
 
 Data parallelism (parallel/mesh.py): the train steps run over the model's
 mesh, the one models/layers.py::use_mesh set on it and on every module
@@ -41,25 +38,18 @@ first.
 """
 from __future__ import annotations
 
-import weakref
 from typing import Optional, Tuple
 
 import torch
 
 from gfs3dseg_gws_tpu_torch.models.layers import cross_entropy
 from gfs3dseg_gws_tpu_torch.ops.metrics import confusion_matrix
+from gfs3dseg_gws_tpu_torch.parallel.graph import (StepGraph, graph_at,
+                                                   graph_key, stays_eager)
 from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_reduce_points,
                                                   all_reduce_sum,
                                                   allreduce_grads)
-from gfs3dseg_gws_tpu_torch.utils.observability import (add_calls, count,
-                                                       profiler_running,
-                                                       snapshot, span)
-
-# eager calls at a key before the one that captures the train step: the
-# warm-up PyTorch asks for before a capture, by which time what is built
-# lazily (Adam's moments, cuBLAS workspaces, the kernel library) exists
-WARM_CALLS = 3
-_graphs = weakref.WeakKeyDictionary()    # optimizer -> {key: _StepGraph}
+from gfs3dseg_gws_tpu_torch.utils.observability import span
 
 
 def _update(model, opt, loss: torch.Tensor, sched,
@@ -108,10 +98,10 @@ def gfs_train_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
         if key is None:
             return _gfs_step(model, opt, points, labels, gp, generator,
                              sched, fake_row, getattr(model, "mesh", None))
-        graph = _graph_at(opt, key, lambda: _StepGraph(
+        graph = graph_at(opt, key, lambda: StepGraph(
             lambda o, x, y, row: _gfs_step(model, o, x, y, gp, generator,
                                            None, row, None),
-            model, generator, points.device))
+            model, points.device, train=True, generator=generator))
         out = graph(opt, points, labels, fake_row)
         if sched is not None:
             sched.step()
@@ -151,10 +141,10 @@ def pretrain_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
         if key is None:
             return _pretrain_step(model, opt, points, labels, generator,
                                   sched, getattr(model, "mesh", None))
-        graph = _graph_at(opt, key, lambda: _StepGraph(
+        graph = graph_at(opt, key, lambda: StepGraph(
             lambda o, x, y: (_pretrain_step(model, o, x, y, generator, None,
                                             None),),
-            model, generator, points.device))
+            model, points.device, train=True, generator=generator))
         out = graph(opt, points, labels)[0]
         if sched is not None:
             sched.step()
@@ -172,101 +162,11 @@ def _pretrain_step(model, opt, points, labels, generator, sched, mesh):
 
 def _graph_key(model, points, labels, *parts):
     """The key of a train step's graph, `parts` after the model, the device
-    and the inputs' shapes and dtypes, or None where the step stays eager:
-    CPU tensors; a model with a mesh (its collectives are not captured);
-    a running profiler (a replay has no per-operation host events to
-    attribute its kernels by)."""
-    if points.device.type != "cuda" or profiler_running() or \
-            getattr(model, "mesh", None) is not None:
+    and the inputs' shapes and dtypes, or None where the step stays eager
+    (parallel/graph.py::stays_eager)."""
+    if stays_eager(model, points):
         return None
-    return (id(model), points.device, points.shape, points.dtype,
-            labels.shape, labels.dtype) + parts
-
-
-def _graph_at(opt, key, make) -> "_StepGraph":
-    """The step graph of `opt` at `key`, made by `make()` at its first
-    call."""
-    graphs = _graphs.setdefault(opt, {})
-    if key not in graphs:
-        graphs[key] = make()
-    return graphs[key]
-
-
-class _StepGraph:
-    """A train step at one key: WARM_CALLS eager calls on a side stream,
-    then one that captures the step without its schedule (forward,
-    backward, Adam) on that stream and replays it, then a replay a call.
-    `step(opt, *inputs)` is the eager step; it returns a tuple of device
-    tensors. The graph reads the model's parameters and buffers, Adam's
-    state and LR tensors, what `step` holds (gp) and the generator's state
-    where they lay at capture (the object holds the model, the generator
-    and `step`, so that none is freed and no other object takes its key;
-    not the optimizer, the weak key of its cache), and its own copies of
-    the inputs (None stays None), which each replay refills; a replay
-    returns copies of the step's outputs, which the next replay
-    overwrites. `launches` holds the op spans' calls of the capture, which
-    every later replay adds again (the capture's own replay runs the
-    kernels that its op spans counted). Counters `graph_captures` and
-    `graph_replays` under the caller's span."""
-
-    def __init__(self, step, model, generator, device):
-        self.step, self.model, self.generator = step, model, generator
-        self.stream = torch.cuda.Stream(device)
-        self.calls = 0
-        self.graph = None
-        self.inputs = self.outputs = None
-        self.launches = {}
-
-    def __call__(self, opt, *inputs):
-        if self.graph is not None:
-            count("graph_replays")
-            add_calls(self.launches)
-            if not self.model.training:
-                self.model.train()         # the mode an eager step leaves
-            for static, given in zip(self.inputs, inputs):
-                if static is not None:
-                    static.copy_(given)
-            return self._replay()
-        current = torch.cuda.current_stream(inputs[0].device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            if self.calls < WARM_CALLS:
-                self.calls += 1
-                out = self.step(opt, *inputs)
-            else:
-                count("graph_captures")
-                out = None
-                self._capture(opt, inputs)
-        current.wait_stream(self.stream)
-        return self._replay() if out is None else out
-
-    def _capture(self, opt, inputs):
-        device = inputs[0].device
-        self.inputs = [None if t is None else t.to(device, copy=True)
-                       for t in inputs]
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
-        before = _op_calls()
-        with torch.cuda.graph(graph, stream=self.stream):
-            self.outputs = self.step(opt, *self.inputs)
-        after = _op_calls()
-        self.launches = {path: n - before.get(path, 0)
-                         for path, n in after.items()
-                         if n != before.get(path, 0)}
-        self.graph = graph
-
-    def _replay(self):
-        self.graph.replay()
-        return tuple(t.clone() for t in self.outputs)
-
-
-def _op_calls():
-    """{path: calls} of the op spans (`.../op.k3` ...) in the plain book,
-    where a capture counts (it never runs under a profiler)."""
-    return {path: entry["calls"]
-            for path, entry in snapshot()["plain"]["spans"].items()
-            if path.rsplit("/", 1)[-1].startswith("op.")}
+    return graph_key(model, (points, labels), *parts)
 
 
 def fewshot_train_step(model, opt: torch.optim.Optimizer, support_x,
@@ -324,7 +224,10 @@ def gfs_eval_multi_step(model, points: torch.Tensor, labels: torch.Tensor,
     final short batch) stay out of the confusion counts and gp_acc.
 
     Returns (cm (S, C, C), gp_acc (S,), gp_novel_acc (S,)). Spans:
-    `eval_step` around it, `counts` around the argmax and the counts.
+    `eval_step` around it, `counts` around the argmax and the counts; on
+    one card the model call replays a CUDA graph of the forward and the
+    heads (counters `eval_step/graph_captures` and
+    `eval_step/graph_replays`), and the counts stay eager.
     """
     with span("eval_step"):
         model.eval()

@@ -23,7 +23,12 @@ The spans of the port (see README, "Tracing"):
   sweep, sweep.load, h2d, eval_step, features, heads, counts, sweep.tail
                         pipelines/gfs.py::validate_multi, its loader, its
                         copies (counter h2d_bytes), parallel/steps.py::
-                        gfs_eval_multi_step, models/capl.py::evaluate_multi
+                        gfs_eval_multi_step, models/capl.py::evaluate_multi;
+                        counters eval_step/graph_captures and
+                        eval_step/graph_replays: the calls of
+                        evaluate_multi that captured its forward as a
+                        CUDA graph, and those that replayed it (a replay
+                        opens no features or heads span)
   train_step, forward, backward, optimizer
                         parallel/steps.py::gfs_train_step and _update;
                         counters train_step/graph_captures and

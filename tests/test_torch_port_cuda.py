@@ -1346,3 +1346,211 @@ def test_a_pretrain_graph_without_weight_decay_fails_the_check(dev,
               f"{sorted(s[0][2].values())[-3:]}")
     with pytest.raises(AssertionError):
         _assert_as_eager(steps[3:], "pretrain graph without weight decay")
+
+
+# the evaluation forward (GWCAPL.evaluate_multi) replayed as a CUDA graph
+EVAL_SEEDS = 5
+
+
+def _eval_model(dev, widths):
+    """A GWCAPL on `dev` with seeded weights and BatchNorm statistics, in
+    eval mode."""
+    cpu = GWCAPL(num_gw=150, edgeconv_widths=widths,
+                 generator=torch.Generator().manual_seed(4))
+    model = GWCAPL(num_gw=150, edgeconv_widths=widths, device=dev)
+    model.load_state_dict(cpu.state_dict())
+    return model
+
+
+def _eval_args(dev, widths, seed, b=16, n=2048):
+    """New tensors (x, gp, gened_protos, base_coding, novel_codings, y) of
+    evaluate_multi, drawn from `seed`."""
+    r = np.random.default_rng(seed)
+    x = _randn(r, b, n, 9)
+    gp = _randn(r, 150, sum(w[-1] for w in widths))
+    gened = _randn(r, EVAL_SEEDS, 13, 128)
+    base = torch.from_numpy((r.random((7, 150)) < 0.3).astype(np.float32))
+    novel = torch.from_numpy(
+        (r.random((EVAL_SEEDS, 6, 150)) < 0.3).astype(np.float32))
+    y = torch.from_numpy(r.integers(0, 13, (b, n)))
+    return tuple(t.to(dev) for t in (x, gp, gened, base, novel, y))
+
+
+def _both_books_counts(path):
+    """(captures, replays) counted under `path`, plain and profiled books
+    together."""
+    from gfs3dseg_gws_tpu_torch.utils.observability import snapshot
+
+    books = snapshot().values()
+    return tuple(sum(b["counters"].get(f"{path}/{name}", 0) for b in books)
+                 for name in ("graph_captures", "graph_replays"))
+
+
+def _assert_same_outputs(got, ref, label):
+    for name, a, b in zip(("logits", "gp_acc", "gp_novel_acc"), got, ref):
+        assert torch.equal(a, b), (label, name,
+                                   (a - b).abs().max().item())
+
+
+@pytest.mark.parametrize("config", sorted(GRAPH_WIDTHS))
+def test_replayed_evaluate_multi_equals_the_eager_pass(dev, config):
+    """WARM_CALLS + 4 calls of evaluate_multi at (16, 2048) with 5 seeds:
+    three eager calls, a capture, two replays on new tensors of new values
+    and a last replay on the fifth call's points, basis and labels with
+    new prototypes and codings. One capture and three replays are counted
+    under the caller's span. Read after every call has run, each call's
+    logits, gp_acc and gp_novel_acc equal bit for bit the eager pass's
+    from its inputs: a replay reads the tensors it is given, prototypes
+    and codings included, and a later replay overwrites none of what an
+    earlier call returned."""
+    from gfs3dseg_gws_tpu_torch.parallel.graph import WARM_CALLS
+    from gfs3dseg_gws_tpu_torch.utils.observability import span
+
+    widths = GRAPH_WIDTHS[config]
+    model = _eval_model(dev, widths)
+    inputs = [_eval_args(dev, widths, 10 + i) for i in range(WARM_CALLS + 3)]
+    heads = _eval_args(dev, widths, 99)[2:5]
+    inputs.append(inputs[-1][:2] + heads + inputs[-1][5:])
+    before = _both_books_counts("eval_step")
+    with torch.inference_mode():
+        with span("eval_step"):
+            got = [model.evaluate_multi(*a, valid=16) for a in inputs]
+        ref = [model._evaluate_multi(*a, 16) for a in inputs]
+    torch.cuda.synchronize()
+    after = _both_books_counts("eval_step")
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 3)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        _assert_same_outputs(g, r, f"{config} call {i}")
+    assert not torch.equal(ref[-1][0], ref[-2][0])   # the heads matter
+    assert not any(torch.equal(a[0], b[0]) for a, b in zip(got, got[1:]))
+
+
+class _Blocks:
+    """A static test set in the packed form `eval_batches` reads."""
+
+    def __init__(self, points, labels):
+        self.arrays = (points, labels, np.arange(13))
+
+    def packed_arrays(self):
+        return self.arrays
+
+
+@pytest.mark.parametrize("config", sorted(GRAPH_WIDTHS))
+def test_a_sweep_with_a_short_last_batch_counts_as_the_eager_sweep(
+        dev, config, monkeypatch):
+    """validate_multi over 40 blocks at batch 16 (two full batches, then
+    8 blocks and padding), five sweeps: the full batches' graph and the
+    short batch's (another `valid`) are captured once each, and every
+    sweep's confusion counts and mIoUs equal bit for bit those of an
+    all-eager sweep."""
+    from gfs3dseg_gws_tpu_torch.models import capl
+    from gfs3dseg_gws_tpu_torch.pipelines import gfs
+
+    widths = GRAPH_WIDTHS[config]
+    model = _eval_model(dev, widths)
+    r = np.random.default_rng(5)
+    blocks = _Blocks(r.standard_normal((40, 2048, 9)).astype(np.float32),
+                     r.integers(0, 13, (40, 2048)))
+    _, gp, gened, base, novel, _ = _eval_args(dev, widths, 6)
+    args = (model, gp, blocks, gened.cpu().numpy(), base.cpu().numpy(),
+            novel.cpu().numpy(), list(range(13)), list(range(7, 13)), 13, 16)
+    cms, step = [], gfs.gfs_eval_multi_step
+
+    def recording(*a, **kw):
+        out = step(*a, **kw)
+        cms.append(out[0])
+        return out
+
+    monkeypatch.setattr(gfs, "gfs_eval_multi_step", recording)
+    before = _both_books_counts("sweep/eval_step")
+    swept = [gfs.validate_multi(*args) for _ in range(5)]
+    after = _both_books_counts("sweep/eval_step")
+    monkeypatch.setattr(capl, "stays_eager", lambda model, x: True)
+    eager = gfs.validate_multi(*args)
+    # 10 full batches: 3 eager, a capture, 6 replays; 5 short: 3, 1, 1
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 7)
+    assert len(cms) == 18
+    for i, cm in enumerate(cms[:15]):
+        assert torch.equal(cm, cms[15 + i % 3]), i
+    for s, result in enumerate(swept):
+        for seed, (a, b) in enumerate(zip(result, eager)):
+            assert a[:4] == b[:4], (s, seed)
+            np.testing.assert_array_equal(a[4], b[4])
+
+
+@pytest.mark.parametrize("config", sorted(GRAPH_WIDTHS))
+def test_an_eval_replay_after_a_train_replay_reads_the_new_weights(dev,
+                                                                  config):
+    """Five gfs_train_step calls (three eager, a capture, a replay), four
+    evaluate_multi calls (three eager, a capture), a sixth train step (a
+    replay: Adam and BatchNorm update the weights in place), then an eval
+    replay: it equals bit for bit the eager pass from the same inputs on
+    the new weights, and its logits differ from the capture's."""
+    from gfs3dseg_gws_tpu_torch.parallel.graph import WARM_CALLS
+    from gfs3dseg_gws_tpu_torch.utils.observability import span
+
+    widths = GRAPH_WIDTHS[config]
+    init, xs, ys, gp = _graph_inputs(dev, widths, steps=6)
+    run = _Run(dev, widths, init, _replayed, 5)
+    args = _eval_args(dev, widths, 20)
+    train_before = _graph_counts()
+    eval_before = _both_books_counts("eval_step")
+
+    def evaluate():
+        with torch.inference_mode():
+            run.model.eval()
+            with span("eval_step"):
+                return run.model.evaluate_multi(*args, valid=16)
+
+    for i in range(5):
+        run(i, xs[i], ys[i], gp)
+    for _ in range(WARM_CALLS + 1):
+        first = evaluate()
+    run(5, xs[5], ys[5], gp)
+    got = evaluate()
+    with torch.inference_mode():
+        ref = run.model._evaluate_multi(*args, 16)
+    torch.cuda.synchronize()
+    train_after = _graph_counts()
+    eval_after = _both_books_counts("eval_step")
+    assert (train_after[0] - train_before[0],
+            train_after[1] - train_before[1]) == (1, 2)
+    assert (eval_after[0] - eval_before[0],
+            eval_after[1] - eval_before[1]) == (1, 1)
+    _assert_same_outputs(got, ref, f"{config} after a train replay")
+    assert not torch.equal(got[0], first[0])
+
+
+def test_a_profiled_or_meshed_evaluate_multi_captures_nothing(dev):
+    """evaluate_multi WARM_CALLS + 2 times under a running profiler, then
+    as many times with a one-rank data mesh and with a one-rank `data x
+    points` mesh on the model: every call eager (no capture or replay in
+    either book), each equal to the eager pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gfs3dseg_gws_tpu_torch.parallel.graph import WARM_CALLS
+    from gfs3dseg_gws_tpu_torch.parallel.mesh import Mesh
+    from gfs3dseg_gws_tpu_torch.utils.observability import span
+
+    widths = GRAPH_WIDTHS["default"]
+    args = _eval_args(dev, widths, 30)
+
+    def calls(model):
+        with torch.inference_mode():
+            with span("eval_step"):
+                got = [model.evaluate_multi(*args, valid=16)
+                       for _ in range(WARM_CALLS + 2)]
+            ref = model._evaluate_multi(*args, 16)
+        for i, g in enumerate(got):
+            _assert_same_outputs(g, ref, f"eager call {i}")
+
+    before = _both_books_counts("eval_step")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        calls(_eval_model(dev, widths))
+        torch.cuda.synchronize()
+    one = Mesh(None, 0, 1, dev, "nccl")
+    for attr in ("mesh", "points_mesh"):
+        model = _eval_model(dev, widths)
+        setattr(model, attr, one)
+        calls(model)
+    assert _both_books_counts("eval_step") == before

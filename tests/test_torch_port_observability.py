@@ -293,6 +293,87 @@ def test_gfs_train_step_spans():
     assert spans["train_step"]["ns"] > inner
 
 
+def _tiny_gwcapl(**kw):
+    from gfs3dseg_gws_tpu_torch.models.capl import GWCAPL
+
+    return GWCAPL(classes=13, base_num=7, num_gw=NUM_GW, main_dim=16,
+                  edgeconv_widths=TINY["edgeconv_widths"],
+                  mlp_widths=TINY["dgcnn_mlp_widths"],
+                  base_widths=TINY["base_widths"], output_dim=8, k=5, **kw)
+
+
+def _eval_args(seed, b=4, n=64, seeds=2):
+    """New tensors (x, gp, gened_protos, base_coding, novel_codings, y) of
+    the tiny model's evaluate_multi, drawn from `seed`."""
+    r = np.random.default_rng(seed)
+
+    def randn(*shape):
+        return torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+
+    def multihot(*shape):
+        return torch.from_numpy((r.random(shape) < 0.3).astype(np.float32))
+
+    return (randn(b, n, 9), randn(NUM_GW, 24), randn(seeds, 13, 16),
+            multihot(7, NUM_GW), multihot(seeds, 6, NUM_GW),
+            torch.from_numpy(r.integers(0, 13, (b, n))))
+
+
+def test_evaluate_multi_on_cpu_tensors_captures_nothing():
+    """Past the warm-up's count of calls, evaluate_multi on CPU tensors
+    stays eager: no graph counter, the `features` and `heads` spans a
+    call, and each result equal to the eager pass's."""
+    from gfs3dseg_gws_tpu_torch.parallel.graph import WARM_CALLS
+
+    model = _tiny_gwcapl(generator=torch.Generator().manual_seed(0))
+    inputs = [_eval_args(i) for i in range(WARM_CALLS + 3)]
+    with torch.inference_mode():
+        with span("eval_step"):
+            got = [model.evaluate_multi(*a, valid=3) for a in inputs]
+        ref = [model._evaluate_multi(*a, 3) for a in inputs]
+    assert not any("graph" in path
+                   for book in snapshot().values()
+                   for path in book["counters"])
+    spans = {p: e["calls"] for p, e in _spans().items()}
+    assert spans["eval_step/features"] == spans["eval_step/heads"] == \
+        len(inputs)
+    for g, r in zip(got, ref):
+        assert all(torch.equal(a, b) for a, b in zip(g, r))
+
+
+@pytest.mark.parametrize("change", ["valid", "y_none", "shape", "dtype",
+                                    "inference_mode"])
+def test_eval_graph_key_tells_calls_apart(change):
+    """evaluate_multi's graph key changes with `valid`, with whether y is
+    None, with an input's shape or dtype and with inference mode."""
+    model = _tiny_gwcapl()
+    args = _eval_args(0)
+    with torch.inference_mode():
+        key = model._graph_key(*args, 4)
+        if change == "valid":
+            other = model._graph_key(*args, 3)
+        elif change == "y_none":
+            other = model._graph_key(*args[:5], None, 4)
+        elif change == "shape":
+            other = model._graph_key(*_eval_args(0, b=2), 4)
+        elif change == "dtype":
+            other = model._graph_key(args[0].double(), *args[1:], 4)
+    if change == "inference_mode":
+        other = model._graph_key(*args, 4)
+    assert key != other
+
+
+def test_eval_graph_key_holds_no_tensor_id():
+    """New tensors of the same shapes and dtypes (a sweep's prototypes and
+    codings, made anew each sweep) give the same key, and the key holds
+    the id of no argument."""
+    model = _tiny_gwcapl()
+    args, fresh = _eval_args(0), _eval_args(1)
+    key = model._graph_key(*args, 4)
+    assert key == model._graph_key(*fresh, 4)
+    ids = {id(t) for t in args + fresh}
+    assert not ids & {part for part in key if isinstance(part, int)}
+
+
 def test_native_pool_records_one_wait_a_batch(gfs_data):
     from gfs3dseg_gws_tpu_torch.data import native_loader
 
@@ -377,7 +458,9 @@ HAND_MADE = {
         "train_step/backward": _entry(10, 80.0),
         "train_step/optimizer": _entry(10, 20.0),
         "pool.get": _entry(12, 6.0), "train_step/forward": _entry(10, 1.0)},
-        "counters": {"sweep/h2d_bytes": 32 * 2_000_000}},
+        "counters": {"sweep/h2d_bytes": 32 * 2_000_000,
+                     "sweep/eval_step/graph_replays": 30,
+                     "train_step/graph_replays": 9}},
     "profiled": {"spans": {"sweep/eval_step": _entry(8, 1000.0),
                            "train_step": _entry(24, 5000.0)},
                  "counters": {"sweep/h2d_bytes": 1}}}
@@ -387,7 +470,8 @@ HAND_MADE = {
     ("eval.dispatch_ms", 3.0), ("eval.h2d_ms", 1.4), ("eval.h2d_mb", 2.0),
     ("eval.tail_ms", 15.0), ("train.dispatch_ms", 25.0),
     ("train.backward_ms", 8.0), ("train.optimizer_ms", 2.0),
-    ("train.pool_wait_ms", 0.5)])
+    ("train.pool_wait_ms", 0.5), ("eval.replay_share", 30 / 32),
+    ("train.replay_share", 0.9)])
 def test_program_span_readers(name, value, monkeypatch):
     """Each reader, fed a hand-made snapshot, gives its definition's value
     from the plain book alone; with no books (a program without
