@@ -26,6 +26,7 @@ replicated at full N.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -37,8 +38,7 @@ from gfs3dseg_gws_tpu_torch.models.layers import (BatchNorm, Conv1x1,
                                                   LeakyReLU, cross_entropy,
                                                   l2norm, random_init_,
                                                   train_init_)
-from gfs3dseg_gws_tpu_torch.parallel.graph import (StepGraph, graph_at,
-                                                   graph_key, stays_eager)
+from gfs3dseg_gws_tpu_torch.parallel.graph import run_step
 from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_gather_points,
                                                   all_reduce_points,
                                                   all_reduce_sum, reduce_sum)
@@ -406,38 +406,24 @@ class GWCAPL(nn.Module):
 
         On one card, in eval mode with autograd off, the pass replays a
         CUDA graph from the call after WARM_CALLS eager ones at its key
-        (`_graph_key`; parallel/graph.py): each call copies every tensor
-        argument into the graph's inputs, replays it and returns copies of
-        its outputs. The graph reads the parameters and BatchNorm buffers
-        where they lie, so a replay after a train step reads the new
-        weights. CPU tensors, a mesh, a running profiler, train mode and
-        autograd keep the eager pass. Spans of an eager pass: `features`
-        (the encoder), `heads` (the rest); counters `graph_captures` and
-        `graph_replays` under the caller's span.
+        (parallel/graph.py::run_step; `valid` is part of the key, so a
+        sweep's short last batch takes a graph of its own): each call
+        copies every tensor argument into the graph's inputs, replays it
+        and returns copies of its outputs. The graph reads the parameters
+        and BatchNorm buffers where they lie, so a replay after a train
+        step reads the new weights. CPU tensors, a mesh, a running
+        profiler, train mode and autograd keep the eager pass. Spans of an
+        eager pass: `features` (the encoder), `heads` (the rest); counters
+        `graph_captures` and `graph_replays` under the caller's span.
         """
-        args = (x, gp, gened_protos, base_coding, novel_codings, y)
-        if self.training or torch.is_grad_enabled() or stays_eager(self, x):
-            return self._evaluate_multi(*args, valid)
-        graph = graph_at(self, self._graph_key(*args, valid),
-                         lambda: StepGraph(
-                             lambda *a: self._evaluate_multi(*a, valid),
-                             self, x.device, train=False))
-        return graph(*args)
-
-    def _graph_key(self, x, gp, gened_protos, base_coding, novel_codings,
-                   y, valid) -> tuple:
-        """The key of `evaluate_multi`'s graph: the model, the device, the
-        shapes and dtypes of the tensor arguments, whether y is None,
-        `valid` (a sweep's short last batch takes a graph of its own) and
-        whether inference mode is on (the graph's inputs are made in it).
-        No tensor's id: a sweep makes its prototypes and codings anew."""
-        return graph_key(self, (x, gp, gened_protos, base_coding,
-                                novel_codings, y),
-                         y is None, valid, torch.is_inference_mode_enabled())
+        return run_step(self, self, partial(self._evaluate_multi,
+                                            valid=valid),
+                        (x, gp, gened_protos, base_coding, novel_codings, y),
+                        train=False, parts=(valid,))
 
     def _evaluate_multi(self, x, gp, gened_protos, base_coding,
                         novel_codings, y, valid):
-        """The eager pass of `evaluate_multi`."""
+        """The pass of `evaluate_multi`, eager or captured."""
         with span("features"):
             point_feat, _, gw_onehot = self.get_features(x, gp)
         with span("heads"):

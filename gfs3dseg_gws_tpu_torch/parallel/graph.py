@@ -3,21 +3,22 @@
 forward (models/capl.py::GWCAPL.evaluate_multi). The host would take
 longer to issue a step's hundreds of launches than the card to run them.
 
-A `StepGraph` holds one step at one key. Its first WARM_CALLS calls run
-the eager step on a side stream, the next captures it there and replays
-it, and every later call copies its tensor inputs into the graph's own
-and replays it. The caller builds the key with `graph_key` (the model,
-the device, each tensor input's shape and dtype, and the caller's
-`parts`) and looks the graph up with `graph_at`. Where `stays_eager` holds
-the caller runs the eager step instead: CPU tensors; a model with a mesh
-or a `data x points` mesh (its collectives are not captured); a running
-torch profiler (a replay has no per-operation host events to attribute
-its kernels by). A replay adds to the kernels' op spans (`op.k1` ...) the
-calls its capture made, so that their calls stay the launches of the run.
+Every step goes through `run_step`, which decides whether the step runs
+eagerly (`stays_eager`), builds its key (`_graph_key`) and replays the
+owner's `StepGraph` at that key. A `StepGraph` holds one step at one key.
+Its first WARM_CALLS calls run the eager step on a side stream, the next
+captures it there and replays it, and every later call copies its tensor
+inputs into the graph's own and replays it. The step stays eager on CPU
+tensors; on a model with a mesh or a `data x points` mesh (its
+collectives are not captured); under a running torch profiler (a replay
+has no per-operation host events to attribute its kernels by); and, for
+an evaluation step, in train mode or with autograd on. A replay adds to
+the kernels' op spans (`op.k1` ...) the calls its capture made, so that
+their calls stay the launches of the run.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -31,33 +32,52 @@ from gfs3dseg_gws_tpu_torch.utils.observability import (add_calls, count,
 WARM_CALLS = 3
 
 
-def stays_eager(model, first: torch.Tensor) -> bool:
-    """Whether a step of `model` on `first`'s device runs eagerly (module
+def run_step(owner, model, step, inputs: Sequence, *, train: bool,
+             generator: Optional[torch.Generator] = None, parts=()):
+    """`step(*inputs)`: eagerly where `stays_eager` holds, else through the
+    graph of `owner` (the optimizer of a train step, the model of an
+    evaluation) at the key of `model`, `inputs`, `generator` and `parts`,
+    made at its first call. `step` returns a tuple of device tensors; it
+    reads no tensor but its inputs, the model's, the owner's and the
+    generator's, and nothing that the key does not fix: a graph keeps the
+    `step` of the call that made it. The graphs live on the owner and go
+    with it."""
+    if stays_eager(model, inputs, train):
+        return step(*inputs)
+    key = _graph_key(model, inputs, generator, parts)
+    graphs = owner.__dict__.setdefault("_step_graphs", {})
+    if key not in graphs:                     # key[1]: the device
+        graphs[key] = StepGraph(step, model, key[1], train, generator)
+    return graphs[key](*inputs)
+
+
+def stays_eager(model, inputs: Sequence, train: bool) -> bool:
+    """Whether a step of `model` on `inputs` runs eagerly (module
     docstring)."""
-    return (first.device.type != "cuda" or profiler_running()
+    return (any(torch.is_tensor(t) and t.device.type != "cuda"
+                for t in inputs)
+            or profiler_running()
             or getattr(model, "mesh", None) is not None
-            or getattr(model, "points_mesh", None) is not None)
+            or getattr(model, "points_mesh", None) is not None
+            or not train and (model.training or torch.is_grad_enabled()))
 
 
-def graph_key(model, tensors, *parts) -> tuple:
-    """The key of a step's graph: the model, the device of `tensors[0]`,
-    each tensor's shape and dtype (None for a None), then `parts`. It holds
+def _graph_key(model, inputs: Sequence, generator, parts) -> tuple:
+    """The key of a step's graph: the model, the device of the first tensor
+    input, each tensor input's shape and dtype (None for a None input; an
+    input of another kind, the optimizer, is the owner), the generator
+    where one is given (the graph registers its state), whether inference
+    mode is on (the graph's inputs are made in it), then `parts`. It holds
     no tensor's id: a caller that makes its inputs anew each time (and
     CPython reuses ids) finds its graph, whose replay copies them in."""
-    key = (id(model), tensors[0].device)
-    for t in tensors:
-        key += (None,) if t is None else (t.shape, t.dtype)
-    return key + parts
-
-
-def graph_at(owner, key, make) -> "StepGraph":
-    """The graph of `owner` (the optimizer of a train step, the model of an
-    evaluation) at `key`, made by `make()` at its first call. The graphs
-    live on the owner and go with it."""
-    graphs = owner.__dict__.setdefault("_step_graphs", {})
-    if key not in graphs:
-        graphs[key] = make()
-    return graphs[key]
+    key = (id(model), next(t for t in inputs if torch.is_tensor(t)).device)
+    for t in inputs:
+        if t is None:
+            key += (None,)
+        elif torch.is_tensor(t):
+            key += (t.shape, t.dtype)
+    return key + (None if generator is None else id(generator),
+                  torch.is_inference_mode_enabled(), *parts)
 
 
 class StepGraph:

@@ -37,22 +37,12 @@ def make_pretrain_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                                        torch.optim.lr_scheduler.LambdaLR]:
     """Adam with L2 weight decay and a StepLR schedule stepped once per
     optimizer step (JAX: make_pretrain_optimizer). Step t uses
-    lr * factor(t), as optax's schedule does.
-
-    On CUDA parameters Adam is `capturable` and its LR a device tensor
-    (`hold_lr_in_tensors`), as in `make_gfs_optimizer`, so that
-    parallel/steps.py::pretrain_step can replay the update as part of a
-    CUDA graph; on the CPU the LR stays a float."""
+    lr * factor(t), as optax's schedule does. On CUDA parameters the
+    update can be captured in a CUDA graph (`_step_adam`)."""
     params = list(params)
-    device = params[0].device
-    cuda = device.type == "cuda"
-    opt = torch.optim.Adam(params, lr=lr, weight_decay=weight_decay,
-                           capturable=cuda)
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, step_lr(step_size, gamma, steps_per_epoch))
-    if cuda:
-        hold_lr_in_tensors(opt, device)
-    return opt, sched
+    return _step_adam(params, params[0].device,
+                      step_lr(step_size, gamma, steps_per_epoch), lr=lr,
+                      weight_decay=weight_decay)
 
 
 def make_gfs_optimizer(model: torch.nn.Module, base_lr: float,
@@ -64,24 +54,30 @@ def make_gfs_optimizer(model: torch.nn.Module, base_lr: float,
     """Adam in two parameter groups, `encoder.*` at encoder_lr_scale x
     base_lr and everything else at base_lr, with optional L2 weight decay
     and StepLR on the step count for both (JAX: make_gfs_optimizer, an
-    optax.multi_transform over the same two groups).
-
-    On CUDA parameters Adam is `capturable` (its step count and bias
-    corrections stay on the device, in float32) and each group's LR is a
-    device tensor that the scheduler writes (`hold_lr_in_tensors`), so
-    that parallel/steps.py::gfs_train_step can replay the update as part
-    of a CUDA graph; on the CPU the LR stays a float."""
+    optax.multi_transform over the same two groups). On CUDA parameters
+    the update can be captured in a CUDA graph (`_step_adam`)."""
     encoder, rest = [], []
     for name, p in model.named_parameters():
         (encoder if name.startswith("encoder.") else rest).append(p)
-    device = (encoder + rest)[0].device
-    cuda = device.type == "cuda"
-    opt = torch.optim.Adam(
+    return _step_adam(
         [{"params": encoder, "lr": base_lr * encoder_lr_scale},
-         {"params": rest, "lr": base_lr}], weight_decay=weight_decay,
-        capturable=cuda)
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, step_lr(step_size, gamma, steps_per_epoch))
+         {"params": rest, "lr": base_lr}], (encoder + rest)[0].device,
+        step_lr(step_size, gamma, steps_per_epoch), weight_decay=weight_decay)
+
+
+def _step_adam(params, device: torch.device, factor: Callable[[int], float],
+               **adam) -> Tuple[torch.optim.Adam,
+                                torch.optim.lr_scheduler.LambdaLR]:
+    """Adam over `params` (`adam` its settings) and the LambdaLR of
+    `factor` on the step count. On CUDA parameters Adam is `capturable`
+    (its step count and bias corrections stay on the device, in float32)
+    and each group's LR is a device tensor that the scheduler writes
+    (`hold_lr_in_tensors`), so that the train steps of parallel/steps.py
+    can replay the update as part of a CUDA graph; on the CPU the LR stays
+    a float."""
+    cuda = device.type == "cuda"
+    opt = torch.optim.Adam(params, capturable=cuda, **adam)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, factor)
     if cuda:
         hold_lr_in_tensors(opt, device)
     return opt, sched

@@ -10,18 +10,18 @@ package's multi-step `lax.scan` dispatch and packed host-to-device batches
 are TPU workarounds and have no counterpart here.
 
 The train steps `gfs_train_step` and `pretrain_step` on one card replay a
-CUDA graph of the step (parallel/graph.py). Each keeps a `StepGraph` a key
-(per model and optimizer: the device, the shapes and dtypes of points and
-labels, the generator; `gfs_train_step` also gp and whether fake_row is
-given). Its first WARM_CALLS calls at a key run eagerly, the next
-captures the forward, the backward and Adam's update, and every later
-call copies its inputs into the graph's and replays it; the LR schedule
-steps on the host after it, into the LR tensors the graph reads
-(parallel/optim.py). A replay draws from the generator what an eager call
-would draw from its seed and offset, and moves the offset on as that call
-would. CPU tensors, a model with a mesh and a running torch profiler keep
-the eager step; eager calls and replays update the same parameters and
-optimizer state, so they can alternate.
+CUDA graph of the step through parallel/graph.py::run_step, one graph per
+optimizer and key (the model, the device, the shapes and dtypes of the
+tensor inputs, the generator). Its first WARM_CALLS calls at a key run
+eagerly, the next captures the forward, the backward and Adam's update,
+and every later call copies its inputs into the graph's and replays it;
+the LR schedule steps on the host after each step, eager or replayed,
+into the LR tensors the graph reads (parallel/optim.py). A replay draws
+from the generator what an eager call would draw from its seed and
+offset, and moves the offset on as that call would. CPU tensors, a model
+with a mesh and a running torch profiler keep the eager step; eager calls
+and replays update the same parameters and optimizer state, so they can
+alternate.
 
 Data parallelism (parallel/mesh.py): the train steps run over the model's
 mesh, the one models/layers.py::use_mesh set on it and on every module
@@ -38,33 +38,30 @@ first.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
 
 from gfs3dseg_gws_tpu_torch.models.layers import cross_entropy
 from gfs3dseg_gws_tpu_torch.ops.metrics import confusion_matrix
-from gfs3dseg_gws_tpu_torch.parallel.graph import (StepGraph, graph_at,
-                                                   graph_key, stays_eager)
+from gfs3dseg_gws_tpu_torch.parallel.graph import run_step
 from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_reduce_points,
                                                   all_reduce_sum,
                                                   allreduce_grads)
 from gfs3dseg_gws_tpu_torch.utils.observability import span
 
 
-def _update(model, opt, loss: torch.Tensor, sched,
-            mesh: Optional[Mesh]) -> None:
+def _update(model, opt, loss: torch.Tensor, mesh: Optional[Mesh]) -> None:
     """Backward (this rank's share of the loss under a mesh; span
-    `backward`), the gradient all-reduce, the optimizer step and the
-    per-step LR schedule (span `optimizer`)."""
+    `backward`), the gradient all-reduce and the optimizer step (span
+    `optimizer`)."""
     opt.zero_grad(set_to_none=True)
     with span("backward"):
         loss.backward()
     allreduce_grads(model.parameters(), mesh)
     with span("optimizer"):
         opt.step()
-        if sched is not None:
-            sched.step()
 
 
 def _global(mesh: Optional[Mesh], *values: torch.Tensor):
@@ -93,28 +90,22 @@ def gfs_train_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
     call of an eager step; counters `graph_captures` and `graph_replays`
     in `train_step`."""
     with span("train_step"):
-        key = _graph_key(model, points, labels, id(gp), id(generator),
-                         fake_row is None)
-        if key is None:
-            return _gfs_step(model, opt, points, labels, gp, generator,
-                             sched, fake_row, getattr(model, "mesh", None))
-        graph = graph_at(opt, key, lambda: StepGraph(
-            lambda o, x, y, row: _gfs_step(model, o, x, y, gp, generator,
-                                           None, row, None),
-            model, points.device, train=True, generator=generator))
-        out = graph(opt, points, labels, fake_row)
+        out = run_step(opt, model, partial(_gfs_step, model, generator),
+                       (opt, points, labels, gp, fake_row), train=True,
+                       generator=generator)
         if sched is not None:
             sched.step()
         return out
 
 
-def _gfs_step(model, opt, points, labels, gp, generator, sched, fake_row,
-              mesh):
-    """The eager step (spans `forward`, `backward`, `optimizer`)."""
+def _gfs_step(model, generator, opt, points, labels, gp, fake_row):
+    """The step, eager or captured (spans `forward`, `backward`,
+    `optimizer` of an eager step); with the model's mesh, if it has one."""
+    mesh = getattr(model, "mesh", None)
     model.train()
     with span("forward"):
         pred, loss = model(points, labels, gp, generator, fake_row)
-    _update(model, opt, loss, sched, mesh)
+    _update(model, opt, loss, mesh)
     accuracy = torch.mean((pred == labels).to(torch.float32))
     if mesh is not None:
         accuracy = accuracy / mesh.size      # every rank holds as many rows
@@ -137,36 +128,24 @@ def pretrain_step(model, opt: torch.optim.Optimizer, points: torch.Tensor,
     step; counters `graph_captures` and `graph_replays` in
     `pretrain_step`."""
     with span("pretrain_step"):
-        key = _graph_key(model, points, labels, id(generator))
-        if key is None:
-            return _pretrain_step(model, opt, points, labels, generator,
-                                  sched, getattr(model, "mesh", None))
-        graph = graph_at(opt, key, lambda: StepGraph(
-            lambda o, x, y: (_pretrain_step(model, o, x, y, generator, None,
-                                            None),),
-            model, points.device, train=True, generator=generator))
-        out = graph(opt, points, labels)[0]
+        out = run_step(opt, model, partial(_pretrain_step, model, generator),
+                       (opt, points, labels), train=True,
+                       generator=generator)[0]
         if sched is not None:
             sched.step()
         return out
 
 
-def _pretrain_step(model, opt, points, labels, generator, sched, mesh):
-    """The eager step (spans `forward`, `backward`, `optimizer`)."""
+def _pretrain_step(model, generator, opt, points, labels):
+    """The step, eager or captured (spans `forward`, `backward`,
+    `optimizer` of an eager step); with the model's mesh, if it has one.
+    Returns (loss,)."""
+    mesh = getattr(model, "mesh", None)
     model.train()
     with span("forward"):
         loss = cross_entropy(model(points, generator), labels, mesh=mesh)
-    _update(model, opt, loss, sched, mesh)
-    return _global(mesh, loss.detach())[0]
-
-
-def _graph_key(model, points, labels, *parts):
-    """The key of a train step's graph, `parts` after the model, the device
-    and the inputs' shapes and dtypes, or None where the step stays eager
-    (parallel/graph.py::stays_eager)."""
-    if stays_eager(model, points):
-        return None
-    return graph_key(model, (points, labels), *parts)
+    _update(model, opt, loss, mesh)
+    return _global(mesh, loss.detach())
 
 
 def fewshot_train_step(model, opt: torch.optim.Optimizer, support_x,
@@ -180,7 +159,9 @@ def fewshot_train_step(model, opt: torch.optim.Optimizer, support_x,
     (loss, accuracy of the query argmax) as device tensors."""
     model.train()
     logits, loss = model(support_x, support_y, query_x, query_y, generator)
-    _update(model, opt, loss, sched, None)
+    _update(model, opt, loss, None)
+    if sched is not None:
+        sched.step()
     pred = torch.argmax(logits.detach(), dim=-1)
     return loss.detach(), torch.mean((pred == query_y).to(torch.float32))
 

@@ -50,7 +50,8 @@ from gfs3dseg_gws_tpu_torch.ops.metrics import (confusion_matrix,
 from gfs3dseg_gws_tpu_torch.parallel.optim import make_fewshot_optimizer
 from gfs3dseg_gws_tpu_torch.parallel.steps import (fewshot_test_step,
                                                    fewshot_train_step)
-from gfs3dseg_gws_tpu_torch.pipelines.gfs import LOSS_LAG, resolve_device
+from gfs3dseg_gws_tpu_torch.pipelines.gfs import (LOSS_LAG, _to,
+                                                  resolve_device)
 from gfs3dseg_gws_tpu_torch.utils.checkpoint import (
     fewshot_state_dict_from_jax, load_checkpoint, load_pretrained_encoder,
     load_torch_fewshot_checkpoint, save_fewshot_npz,
@@ -115,10 +116,6 @@ def _bank(data_cfg, fs_cfg: FewShotConfig, mode: str,
 def _log_bank(logger: IOStream, bank: StaticEpisodeBank) -> None:
     logger.cprint(f"episode bank {bank.bank_path}: {len(bank)} episodes, "
                   f"format {bank.format}")
-
-
-def _to(device: torch.device, array, dtype) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(array, dtype)).to(device)
 
 
 class FewShotLearner:
@@ -414,7 +411,7 @@ def mpti_gfs_core(feat_fn: Callable[[np.ndarray], torch.Tensor],
     per_class: Dict[int, list] = {i: [] for i in range(len(base_classes))}
     for pc, lbl in base_blocks:
         feat = feat_fn(pc)
-        lbl = torch.from_numpy(np.asarray(lbl)).to(feat.device)
+        lbl = _to(feat.device, lbl)
         for i in range(len(base_classes)):
             rows = feat[lbl == i + 1]
             if rows.shape[0] > 0:
@@ -434,7 +431,7 @@ def mpti_gfs_core(feat_fn: Callable[[np.ndarray], torch.Tensor],
         if feat.shape[0] > max_pts:
             keep = rng.choice(np.arange(feat.shape[0]), max_pts,
                               replace=False)
-            feat = feat[torch.from_numpy(keep).to(feat.device)]
+            feat = feat[_to(feat.device, keep)]
         protos = multi_prototypes(feat, torch.ones_like(feat[:, 0]), kp)
         base_proto_dict[cls] = protos.cpu().numpy()
         add(protos, cls)
@@ -444,7 +441,7 @@ def mpti_gfs_core(feat_fn: Callable[[np.ndarray], torch.Tensor],
     for pcd, mask, cls in supp_items:
         feat = feat_fn(pcd)
         novel_feats[int(cls)].append(
-            feat[torch.from_numpy(np.asarray(mask) == 1).to(feat.device)])
+            feat[_to(feat.device, np.asarray(mask) == 1)])
     for cls in novel_classes:
         feat = torch.cat(novel_feats[cls], dim=0)
         add(multi_prototypes(feat, torch.ones_like(feat[:, 0]), kp), cls)

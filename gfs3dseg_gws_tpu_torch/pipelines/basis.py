@@ -23,7 +23,7 @@ from gfs3dseg_gws_tpu_torch.data import (PretrainBlockDataset, batch_iterator,
 from gfs3dseg_gws_tpu_torch.models.dgcnnseg import DGCNNSeg
 from gfs3dseg_gws_tpu_torch.ops.kmeans import cluster_means, kmeans
 from gfs3dseg_gws_tpu_torch.ops.linalg import svd_energy_reconstruct
-from gfs3dseg_gws_tpu_torch.pipelines.gfs import resolve_device
+from gfs3dseg_gws_tpu_torch.pipelines.gfs import _to, resolve_device
 from gfs3dseg_gws_tpu_torch.utils.checkpoint import (load_pretrained_encoder,
                                                      save_basis)
 
@@ -68,8 +68,8 @@ def extract_basis(model_cfg, data_cfg, num_cnt: int,
                                 pad_final=True):
         points, labels, valid = batch[0], batch[1], int(batch[-1])
         with torch.inference_mode():
-            feats = model(torch.from_numpy(np.asarray(points, np.float32))
-                          .to(dev), return_feat=True)[1].cpu().numpy()
+            feats = model(_to(dev, points, np.float32),
+                          return_feat=True)[1].cpu().numpy()
         for b in range(valid):
             lb = labels[b]
             for c in np.unique(lb):

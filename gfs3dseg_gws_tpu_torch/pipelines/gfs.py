@@ -104,11 +104,13 @@ def _env_flag(name: str) -> bool:
         "", "0", "false", "no", "off")
 
 
-def _to(device: torch.device, array) -> torch.Tensor:
-    """A host array copied to `device` (span `h2d`, its bytes counted as
-    `h2d_bytes`)."""
+def _to(device: torch.device, array, dtype=None) -> torch.Tensor:
+    """A host array copied to `device`, as `dtype` if one is given: one
+    host copy (`np.array`), then a pageable `.to` (span `h2d`, its bytes
+    counted as `h2d_bytes`). Every pipeline's copies of its batches and
+    arrays to the device come through here."""
     with span("h2d"):
-        host = np.array(array)
+        host = np.array(array, dtype)
         out = torch.from_numpy(host).to(device)
     count("h2d_bytes", host.nbytes)
     return out
@@ -708,10 +710,9 @@ def train_gfs(model_cfg, data_cfg, train_cfg,
                 gen.manual_seed(step_seed(train_cfg.seed, step))
                 pending.append(gfs_train_step(
                     model, opt,
-                    _to(device, shard_batch(np.asarray(batch[0], np.float32),
-                                            mesh)),
-                    _to(device, shard_batch(np.asarray(batch[1], np.int64),
-                                            mesh)), setup.gp, gen, sched))
+                    _to(device, shard_batch(batch[0], mesh), np.float32),
+                    _to(device, shard_batch(batch[1], mesh), np.int64),
+                    setup.gp, gen, sched))
                 step += 1
                 steps += 1
                 if steps % train_cfg.print_freq == 0:

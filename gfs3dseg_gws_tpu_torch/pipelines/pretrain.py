@@ -38,15 +38,12 @@ from gfs3dseg_gws_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
 from gfs3dseg_gws_tpu_torch.parallel.optim import make_pretrain_optimizer
 from gfs3dseg_gws_tpu_torch.parallel.steps import (eval_logits_step,
                                                    pretrain_step)
-from gfs3dseg_gws_tpu_torch.pipelines.gfs import (LOSS_LAG, resolve_device,
-                                                  run_logs, train_batches)
+from gfs3dseg_gws_tpu_torch.pipelines.gfs import (LOSS_LAG, _to,
+                                                  resolve_device, run_logs,
+                                                  train_batches)
 from gfs3dseg_gws_tpu_torch.utils.checkpoint import (
     save_pretrain_npz, save_torch_pretrain_checkpoint)
 from gfs3dseg_gws_tpu_torch.utils.logging import AverageMeter, IOStream
-
-
-def _to(device, array, dtype) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(array, dtype)).to(device)
 
 
 def validate(model, dataset, batch_size: int, num_classes: int,

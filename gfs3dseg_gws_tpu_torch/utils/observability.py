@@ -22,7 +22,9 @@ The spans of the port (see README, "Tracing"):
 
   sweep, sweep.load, h2d, eval_step, features, heads, counts, sweep.tail
                         pipelines/gfs.py::validate_multi, its loader, its
-                        copies (counter h2d_bytes), parallel/steps.py::
+                        copies (_to, counter h2d_bytes; the other
+                        pipelines' copies open h2d at the top level of
+                        their paths), parallel/steps.py::
                         gfs_eval_multi_step, models/capl.py::evaluate_multi;
                         counters eval_step/graph_captures and
                         eval_step/graph_replays: the calls of

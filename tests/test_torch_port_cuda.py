@@ -991,7 +991,9 @@ class _Run:
 def _eager(model, opt, x, y, gp, gen, sched):
     from gfs3dseg_gws_tpu_torch.parallel.steps import _gfs_step
 
-    return _gfs_step(model, opt, x, y, gp, gen, sched, None, None)
+    out = _gfs_step(model, gen, opt, x, y, gp, None)
+    sched.step()
+    return out
 
 
 def _replayed(model, opt, x, y, gp, gen, sched):
@@ -1093,62 +1095,6 @@ def _assert_as_eager(steps, label):
     assert _largest(steps, 0, "parameter")[0] <= GRAPH_TOL
 
 
-@pytest.mark.parametrize("config", sorted(GRAPH_WIDTHS))
-def test_replayed_steps_follow_the_eager_trajectory(dev, config,
-                                                    monkeypatch):
-    """GRAPH_STEPS steps from the same weights, batches, per-step seeds and
-    kNN graphs, eager and through gfs_train_step (three eager calls, a
-    capture, replays), each from the eager run's state: the same losses,
-    parameters, Adam moments and BatchNorm statistics, with StepLR halving
-    the LR between two replays (before step 6); one capture and
-    GRAPH_STEPS - 4 replays counted; the LR tensors hold the halved LR."""
-    widths = GRAPH_WIDTHS[config]
-    inputs = _graph_inputs(dev, widths)
-    before = _graph_counts()
-    steps, graph = _lockstep(dev, widths, inputs, monkeypatch)
-    after = _graph_counts()
-    assert (after[0] - before[0], after[1] - before[1]) == (
-        1, GRAPH_STEPS - 4)
-    _assert_as_eager(steps, f"{config} replayed")
-    assert [g["lr"].item() for g in graph.opt.param_groups] == \
-        pytest.approx([0.01 * 0.1 * 0.5, 0.01 * 0.5], rel=1e-7)
-
-
-@pytest.mark.parametrize("missed", [(0,), (1,), (0, 1)],
-                         ids=["encoder", "rest", "both"])
-def test_a_graph_whose_lr_misses_the_schedule_fails_the_check(dev, missed,
-                                                              monkeypatch):
-    """As the test above, with G's LR tensors of the groups `missed` held
-    at the first LR (0: the encoder's, 1: the rest's): the steps before the
-    halving pass the check; after it, each missed group's parameters take
-    updates twice the eager ones (gaps 1 within GRAPH_TOL, the median over
-    the group's leaves), the other group's stay within GRAPH_TOL, and the
-    check fails."""
-    widths = GRAPH_WIDTHS["default"]
-    steps, _ = _lockstep(dev, widths, _graph_inputs(dev, widths),
-                         monkeypatch, missed=missed)
-    _assert_as_eager(steps[:5], f"missed {missed}, before the halving")
-
-    def group(name):
-        return 0 if name.startswith("encoder.") else 1
-
-    for i, s in enumerate(steps[5:], 5):
-        updates = {g: [gap for name, gap in s[0][2].items()
-                       if group(name) == g
-                       and not name.endswith(("exp_avg", "exp_avg_sq"))]
-                   for g in (0, 1)}
-        medians = {g: statistics.median(v) for g, v in updates.items()}
-        print(f"missed {missed}, step {i}: median update gap by group "
-              f"{medians}, largest {({g: max(v) for g, v in updates.items()})}")
-        for g, gaps in updates.items():
-            if g in missed:
-                assert abs(medians[g] - 1.0) <= GRAPH_TOL, (i, g, medians)
-            else:
-                assert max(gaps) <= GRAPH_TOL, (i, g, max(gaps))
-    with pytest.raises(AssertionError):
-        _assert_as_eager(steps, f"missed {missed}")
-
-
 def test_a_profiled_step_between_replays_keeps_the_trajectory(dev,
                                                              monkeypatch):
     """Step 6 of 8 under torch.profiler runs eagerly between replays (no
@@ -1209,10 +1155,10 @@ def _pretrain_inputs(dev, widths, batch=16, n=2048, steps=GRAPH_STEPS):
 class _PretrainRun:
     """A DGCNNSeg, Adam with L2 weight decay 1e-4 and its StepLR, and a
     device generator for the dropout masks, stepped by `step`
-    (pretrain_step, or the eager `_pretrain_step`); with `missed` the LR
-    misses the schedule (_Missed)."""
+    (pretrain_step, or the eager `_pretrain_step`); the LR of the groups
+    `missed` (0: its one group) misses the schedule (_Missed)."""
 
-    def __init__(self, dev, widths, init, step, step_size, missed=False):
+    def __init__(self, dev, widths, init, step, step_size, missed=()):
         from gfs3dseg_gws_tpu_torch.parallel.optim import (
             make_pretrain_optimizer)
 
@@ -1221,7 +1167,7 @@ class _PretrainRun:
         self.opt, self.sched = make_pretrain_optimizer(
             self.model.parameters(), 1e-3, 1, 1e-4, step_size, 0.5)
         if missed:
-            self.sched = _Missed(self.sched, self.opt, (0,))
+            self.sched = _Missed(self.sched, self.opt, missed)
         self.gen = torch.Generator(device=dev).manual_seed(7)
         self.step = step
 
@@ -1235,7 +1181,9 @@ class _PretrainRun:
 def _pretrain_eager(model, opt, x, y, gen, sched):
     from gfs3dseg_gws_tpu_torch.parallel.steps import _pretrain_step
 
-    return _pretrain_step(model, opt, x, y, gen, sched, None)
+    out = _pretrain_step(model, gen, opt, x, y)[0]
+    sched.step()
+    return out
 
 
 def _pretrain_replayed(model, opt, x, y, gen, sched):
@@ -1245,7 +1193,7 @@ def _pretrain_replayed(model, opt, x, y, gen, sched):
 
 
 def _pretrain_lockstep(dev, widths, inputs, monkeypatch, step_size=5,
-                       missed=False, between=None):
+                       missed=(), between=None):
     """As _lockstep, for pretrain_step: an eager run E steps through
     `inputs`, its generator seeded once and moving on; before each of its
     steps a second eager run E2 and a graph run G take E's state, the
@@ -1282,47 +1230,74 @@ def _pretrain_lockstep(dev, widths, inputs, monkeypatch, step_size=5,
     return out, graph
 
 
+# per train step: its inputs, its lockstep, the span of its graph
+# counters and its LR tensors after StepLR's halving
+TRAIN_STEPS = {
+    "gfs": (_graph_inputs, _lockstep, "train_step",
+            [0.01 * 0.1 * 0.5, 0.01 * 0.5]),
+    "pretrain": (_pretrain_inputs, _pretrain_lockstep, "pretrain_step",
+                 [1e-3 * 0.5]),
+}
+
+
 @pytest.mark.parametrize("config", sorted(GRAPH_WIDTHS))
-def test_replayed_pretrain_steps_follow_the_eager_trajectory(dev, config,
-                                                             monkeypatch):
-    """GRAPH_STEPS pre-training steps from the same weights, batches,
-    generator states and kNN graphs, eager and through pretrain_step
+@pytest.mark.parametrize("step", sorted(TRAIN_STEPS))
+def test_replayed_train_steps_follow_the_eager_trajectory(dev, step, config,
+                                                          monkeypatch):
+    """GRAPH_STEPS steps from the same weights, batches, generator states
+    and kNN graphs, eager and through gfs_train_step or pretrain_step
     (three eager calls, a capture, replays), each from the eager run's
-    state: the same losses (so the same dropout masks), parameters, Adam
-    moments and BatchNorm statistics, with StepLR halving the LR between
-    two replays (before step 6); one capture and GRAPH_STEPS - 4 replays
-    counted; the LR tensor holds the halved LR."""
+    state: the same losses (so the same fake classes and dropout masks),
+    parameters, Adam moments and BatchNorm statistics, with StepLR halving
+    the LR between two replays (before step 6); one capture and
+    GRAPH_STEPS - 4 replays counted; the LR tensors hold the halved LR."""
     widths = GRAPH_WIDTHS[config]
-    before = _graph_counts("pretrain_step")
-    steps, graph = _pretrain_lockstep(
-        dev, widths, _pretrain_inputs(dev, widths), monkeypatch)
-    after = _graph_counts("pretrain_step")
+    inputs, lockstep, path, halved = TRAIN_STEPS[step]
+    before = _graph_counts(path)
+    steps, graph = lockstep(dev, widths, inputs(dev, widths), monkeypatch)
+    after = _graph_counts(path)
     assert (after[0] - before[0], after[1] - before[1]) == (
         1, GRAPH_STEPS - 4)
-    _assert_as_eager(steps, f"pretrain {config} replayed")
-    assert graph.opt.param_groups[0]["lr"].item() == pytest.approx(
-        1e-3 * 0.5, rel=1e-7)
+    _assert_as_eager(steps, f"{step} {config} replayed")
+    assert [g["lr"].item() for g in graph.opt.param_groups] == \
+        pytest.approx(halved, rel=1e-7)
 
 
-def test_a_pretrain_graph_whose_lr_misses_the_schedule_fails_the_check(
-        dev, monkeypatch):
-    """As the test above, with G's LR tensor held at the first LR: the
-    steps before the halving pass the check; after it every leaf takes an
-    update twice the eager one (median gap 1 within GRAPH_TOL), and the
-    check fails."""
+@pytest.mark.parametrize("step, missed", [
+    ("gfs", (0,)), ("gfs", (1,)), ("gfs", (0, 1)), ("pretrain", (0,))],
+    ids=["encoder", "rest", "both", "pretrain"])
+def test_a_graph_whose_lr_misses_the_schedule_fails_the_check(
+        dev, step, missed, monkeypatch):
+    """As the test above, with G's LR tensors of the groups `missed` held
+    at the first LR (gfs_train_step's 0: the encoder's, 1: the rest's;
+    pretrain_step's one group 0): the steps before the halving pass the
+    check; after it, each missed group's parameters take updates twice
+    the eager ones (gaps 1 within GRAPH_TOL, the median over the group's
+    leaves), the other group's stay within GRAPH_TOL, and the check
+    fails."""
     widths = GRAPH_WIDTHS["default"]
-    steps, _ = _pretrain_lockstep(dev, widths,
-                                  _pretrain_inputs(dev, widths), monkeypatch,
-                                  missed=True)
-    _assert_as_eager(steps[:5], "pretrain missed LR, before the halving")
+    inputs, lockstep, _, _ = TRAIN_STEPS[step]
+    steps, graph = lockstep(dev, widths, inputs(dev, widths), monkeypatch,
+                            missed=missed)
+    _assert_as_eager(steps[:5], f"{step} missed {missed}, before the halving")
+    names = {id(p): n for n, p in graph.model.named_parameters()}
+    group = {names[id(p)]: g for g, pg in enumerate(graph.opt.param_groups)
+             for p in pg["params"]}
     for i, s in enumerate(steps[5:], 5):
-        gaps = [gap for name, gap in s[0][2].items()
-                if not name.endswith(("exp_avg", "exp_avg_sq"))]
-        median = statistics.median(gaps)
-        print(f"pretrain missed LR, step {i}: median update gap {median}")
-        assert abs(median - 1.0) <= GRAPH_TOL, (i, median)
+        updates = {g: [gap for name, gap in s[0][2].items()
+                       if group.get(name) == g]
+                   for g in range(len(graph.opt.param_groups))}
+        medians = {g: statistics.median(v) for g, v in updates.items()}
+        print(f"{step} missed {missed}, step {i}: median update gap by "
+              f"group {medians}, largest "
+              f"{({g: max(v) for g, v in updates.items()})}")
+        for g, gaps in updates.items():
+            if g in missed:
+                assert abs(medians[g] - 1.0) <= GRAPH_TOL, (i, g, medians)
+            else:
+                assert max(gaps) <= GRAPH_TOL, (i, g, max(gaps))
     with pytest.raises(AssertionError):
-        _assert_as_eager(steps, "pretrain missed LR")
+        _assert_as_eager(steps, f"{step} missed {missed}")
 
 
 def test_a_pretrain_graph_without_weight_decay_fails_the_check(dev,
@@ -1443,7 +1418,7 @@ def test_a_sweep_with_a_short_last_batch_counts_as_the_eager_sweep(
     short batch's (another `valid`) are captured once each, and every
     sweep's confusion counts and mIoUs equal bit for bit those of an
     all-eager sweep."""
-    from gfs3dseg_gws_tpu_torch.models import capl
+    from gfs3dseg_gws_tpu_torch.parallel import graph
     from gfs3dseg_gws_tpu_torch.pipelines import gfs
 
     widths = GRAPH_WIDTHS[config]
@@ -1465,7 +1440,7 @@ def test_a_sweep_with_a_short_last_batch_counts_as_the_eager_sweep(
     before = _both_books_counts("sweep/eval_step")
     swept = [gfs.validate_multi(*args) for _ in range(5)]
     after = _both_books_counts("sweep/eval_step")
-    monkeypatch.setattr(capl, "stays_eager", lambda model, x: True)
+    monkeypatch.setattr(graph, "stays_eager", lambda *args: True)
     eager = gfs.validate_multi(*args)
     # 10 full batches: 3 eager, a capture, 6 replays; 5 short: 3, 1, 1
     assert (after[0] - before[0], after[1] - before[1]) == (2, 7)

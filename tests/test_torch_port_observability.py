@@ -340,6 +340,13 @@ def test_evaluate_multi_on_cpu_tensors_captures_nothing():
         assert all(torch.equal(a, b) for a, b in zip(g, r))
 
 
+def _eval_key(model, args, valid):
+    """parallel/graph.py's key of an evaluate_multi call on `args`."""
+    from gfs3dseg_gws_tpu_torch.parallel.graph import _graph_key
+
+    return _graph_key(model, args, None, (valid,))
+
+
 @pytest.mark.parametrize("change", ["valid", "y_none", "shape", "dtype",
                                     "inference_mode"])
 def test_eval_graph_key_tells_calls_apart(change):
@@ -348,17 +355,43 @@ def test_eval_graph_key_tells_calls_apart(change):
     model = _tiny_gwcapl()
     args = _eval_args(0)
     with torch.inference_mode():
-        key = model._graph_key(*args, 4)
+        key = _eval_key(model, args, 4)
         if change == "valid":
-            other = model._graph_key(*args, 3)
+            other = _eval_key(model, args, 3)
         elif change == "y_none":
-            other = model._graph_key(*args[:5], None, 4)
+            other = _eval_key(model, args[:5] + (None,), 4)
         elif change == "shape":
-            other = model._graph_key(*_eval_args(0, b=2), 4)
+            other = _eval_key(model, _eval_args(0, b=2), 4)
         elif change == "dtype":
-            other = model._graph_key(args[0].double(), *args[1:], 4)
+            other = _eval_key(model, (args[0].double(),) + args[1:], 4)
     if change == "inference_mode":
-        other = model._graph_key(*args, 4)
+        other = _eval_key(model, args, 4)
+    assert key != other
+
+
+@pytest.mark.parametrize("change", ["generator", "gp_shape", "fake_row",
+                                    "points_shape"])
+def test_train_graph_key_tells_calls_apart(change):
+    """gfs_train_step's graph key, on its inputs (the optimizer, points,
+    labels, gp, fake_row) and generator, changes with the generator, with
+    gp's shape, with whether fake_row is given and with the batch's
+    shape."""
+    from gfs3dseg_gws_tpu_torch.parallel.graph import _graph_key
+
+    model = _tiny_gwcapl()
+    opt = torch.optim.Adam(model.parameters())
+    x, gp, _, _, _, y = _eval_args(0)
+    gen = torch.Generator()
+    key = _graph_key(model, (opt, x, y, gp, None), gen, ())
+    if change == "generator":
+        other = _graph_key(model, (opt, x, y, gp, None), torch.Generator(),
+                           ())
+    elif change == "gp_shape":
+        other = _graph_key(model, (opt, x, y, gp[:-1], None), gen, ())
+    elif change == "fake_row":
+        other = _graph_key(model, (opt, x, y, gp, torch.ones(13)), gen, ())
+    elif change == "points_shape":
+        other = _graph_key(model, (opt, x[:2], y[:2], gp, None), gen, ())
     assert key != other
 
 
@@ -368,8 +401,8 @@ def test_eval_graph_key_holds_no_tensor_id():
     the id of no argument."""
     model = _tiny_gwcapl()
     args, fresh = _eval_args(0), _eval_args(1)
-    key = model._graph_key(*args, 4)
-    assert key == model._graph_key(*fresh, 4)
+    key = _eval_key(model, args, 4)
+    assert key == _eval_key(model, fresh, 4)
     ids = {id(t) for t in args + fresh}
     assert not ids & {part for part in key if isinstance(part, int)}
 
